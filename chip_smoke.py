@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of gpytorch_tpu_torch on one NVIDIA GPU: exact-GP serving at N=100k.
+"""Smoke test of gpytorch_tpu_torch on one NVIDIA GPU: exact-GP training and serving at
+N=100k.
 
     python3 chip_smoke.py
 
@@ -7,19 +8,38 @@ Phases, in order; any failed check exits non-zero before the result line is prin
 
 1. device   — a CUDA device must be present (no CPU fallback); prints the card's name and
               power limit (nvidia-smi) and turns TF32 off for matmuls and cuDNN.
-2. build    — builds csrc/kernel_matvec.cu for sm_90a with nvcc (or reuses the build).
+2. build    — builds csrc/kernel_matvec.cu and csrc/kernel_bwd_fused.cu for sm_90a with
+              nvcc, one process per source, into one library (or reuses the build).
 3. kernel   — the CUDA K·V kernel against its plain PyTorch version on the card, for the
-              four kernel types at ragged shapes, and both timed at the serving shapes.
+              four kernel types at ragged shapes, and both timed at the serving shapes and
+              at the training CG shape (t=64).
+3b. bwd     — the CUDA fused backward kernel against its plain version on the card, for
+              the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 64}, with and without dv;
+              at the training shape (N=100k, d=3, t=64, dos, no dv) checked against the
+              plain version in float64, and both timed.
 4. slice    — serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel
               path), from the same data, parameters and Lanczos start.
 5. serve    — the flagship exact GP of bench.py (ConstantMean + Scale(RBF-ARD) +
               GaussianLikelihood) on its synthetic 3droad-shaped task, N=100,000 train,
-              2,048 test, d=3, under bench.py's eval settings: one model refresh (mean
-              cache by preconditioned CG, LOVE cache by block Lanczos), then 8 requests of
-              256 test points and one of all 2,048.  Checks RMSE, variances and that the
-              path launched the CUDA kernel.
+              2,048 test, d=3, under bench.py's eval settings, from fixed parameters: one
+              model refresh (mean cache by preconditioned CG, LOVE cache by block Lanczos),
+              then 8 requests of 256 test points and one of all 2,048.  Checks RMSE,
+              variances and that the path launched the CUDA kernel.
+6. train    — training at N=2000 on CPU tensors against CUDA tensors under bench.py's
+              training recipe: the same data, initial parameters and injected probe base
+              samples; 3 Adam steps, compared at step 1 (loss, gradients) and after step 3.
+              The gradient gate is shown to sit above float32 rounding (CPU float32
+              against float64) and below a planted fault in the plain backward.
+7. flagship — the initial parameters served on all 2,048 test points; then bench.py's
+              training recipe at full width (N=100,000, d=3, 63 probes, rank-50
+              preconditioner, rhs-warm lagged mBCG with the variance-reduced log-det
+              gradient, 120 steps of cosine Adam), then the trained model refreshed and
+              asked for all 2,048 test points under the eval settings.  Checks finite
+              losses and gradients, RMSE, that training lowered the loss and the
+              marginal NLPD, and the launches of both kernels.
 
-The last two lines are the kernel report and {"ok": true, "device": {...}}.
+The last three lines are the card's name and power limit, the kernel report and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -51,6 +71,26 @@ REQUEST_ROWS, N_REQUESTS = 256, 8
 RMSE_LIMIT = 0.21           # noise floor of the task is ≈ 0.18 (JAX package on this task: 0.1792)
 KERNEL_REL_TOL = 1e-5       # float32: max |kernel − plain| / max K|v| (K ≥ 0, so K|v| is the
                             # sum of absolute terms that bounds float32 summation error)
+BWD_REL_TOL = 1e-5          # float32 backward kernel against the plain version in float64, each
+                            # output relative to its sum of absolute terms (dx: 2Σ|k′|(|g_i·v_j| +
+                            # |v_i·g_j|)|x_i − x_j|; dv: K|g|; dos: Σ|k||g_i·v_j|)
+BWD_TRAIN_TOL = 1e-4        # float32 backward kernel at the training shape (N=100k, t=64) against
+                            # the plain version in float64: max |Δdx| / max |dx| and |Δdos| / |dos|
+                            # (the n² sums of absolute terms are not formed at this size)
+TRAIN_STEPS, TRAIN_TIMED = 120, 8   # bench.py: 1 warm-up step, 8 synchronised steps, the rest
+PROBE_SEED = 2                      # bench.py:344
+SLICE_TRAIN_N, SLICE_TRAIN_STEPS = 2000, 3
+SLICE_LOSS_TOL = 1e-3       # N=2000 CPU vs CUDA, float32: |Δloss| / max(|loss|, 1) at step 1 (the
+                            # loss is −MLL per datum, a difference of O(1) terms)
+SLICE_GRAD_TOL = 1e-3       # … max |Δgrad| over all parameters / max |grad| over all parameters at
+                            # step 1 (one scale for the whole gradient: the constant mean's own,
+                            # −Σα/N, cancels to ≈ 3e-3 of the others and would amplify round-off)
+SLICE_PARAM_TOL = 1e-3      # … max |Δraw| after 3 steps (Adam moves each raw by ≈ lr = 0.1 a step)
+TRAIN_LOSS_DROP = 0.1       # N=100k: mean loss of the last 10 steps at least this far below step 0's
+TRAIN_NLPD_DROP = 0.1       # N=100k: marginal NLPD of the trained model at least this far below that
+                            # of the initial parameters
+H100_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores, at 700 W
+H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SLICE_CG_TOL = 1e-4         # N=2000 slice: tighter than eval's 1e-3, so that where the two
                             # float32 runs stop CG does not dominate their difference
 SLICE_MEAN_TOL = 1e-3       # N=2000 CPU vs CUDA: max |Δmean| / max |mean|
@@ -78,7 +118,10 @@ def make_task(n_train: int, n_test: int, seed: int = 0):
     return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
 
 
-def build_model(train_x, train_y, device, dtype):
+def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS):
+    """The flagship model on ``device``: from the raw parameters ``params`` in eval mode, or
+    with ``params=None`` at bench.py's initial values (noise 0.1, lengthscale 0.5) in
+    train mode."""
     import torch
 
     import gpytorch_tpu_torch as gt
@@ -96,8 +139,76 @@ def build_model(train_x, train_y, device, dtype):
     ty = torch.as_tensor(train_y, dtype=dtype, device=device)
     likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
     model = FlagshipGP(tx, ty, likelihood).to(device=device, dtype=dtype)
-    gt.load_jax_params(model, {k: np.asarray(v) for k, v in JAX_PARAMS.items()})
+    if params is None:
+        model.likelihood.noise = 0.1
+        model.covar_module.base_kernel.lengthscale = 0.5
+        return model.train()
+    gt.load_jax_params(model, {k: np.asarray(v) for k, v in params.items()})
     return model.eval()
+
+
+def train_settings():
+    """bench.py's default training recipe (bench.py:103-209, no BENCH_* variable set)."""
+    from gpytorch_tpu_torch import settings
+
+    stack = contextlib.ExitStack()
+    for ctx in (
+        settings.max_cholesky_size(0),
+        settings.max_cg_iterations(100),
+        settings.cg_tolerance(0.3),
+        settings.num_trace_samples(63),
+        settings.max_lanczos_quadrature_iterations(6),
+        settings.max_preconditioner_size(50),
+        settings.cg_stall_window(15),
+        settings.cg_lagged_rhs(True),
+        settings.precond_logdet_vr(True),
+        settings.preconditioner_noise_budget(1e-3),
+        settings.fast_precond_grad(True),
+        settings.skip_logdet_forward(False),
+    ):
+        stack.enter_context(ctx)
+    return stack
+
+
+def make_optimizer(model):
+    """Adam with cosine decay 0.1 → 0.01 over the run (bench.py:276-293)."""
+    import torch
+
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.1)
+    return optimizer, torch.optim.lr_scheduler.CosineAnnealingLR(optimizer, T_max=TRAIN_STEPS, eta_min=0.01)
+
+
+def train_step(model, optimizer, scheduler, base_samples, state):
+    """One step of −MLL by mBCG with the rhs-only warm state; returns (loss, state)."""
+    import gpytorch_tpu_torch as gt
+
+    tx, ty = model.train_inputs[0], model.train_targets
+    optimizer.zero_grad()
+    with train_settings():
+        mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
+        value, state = mll(model(tx), ty, base_samples=base_samples, solver_state=state, return_state=True)
+    loss = -value
+    loss.backward()
+    optimizer.step()
+    scheduler.step()
+    return loss.detach(), state
+
+
+class InjectedProbes:
+    """Probe base samples made with numpy from (seed, step, shape), the same on any device."""
+
+    def __init__(self, step: int):
+        self.step = step
+
+    def __call__(self, shape):
+        return np.random.default_rng([PROBE_SEED, self.step, *shape]).normal(size=shape)
+
+
+def finite_step(loss, model) -> bool:
+    import torch
+
+    flags = [torch.isfinite(loss).all()] + [torch.isfinite(p.grad).all() for p in model.parameters()]
+    return bool(torch.stack(flags).all())
 
 
 def eval_settings(min_preconditioning_size=None):
@@ -166,6 +277,27 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take: the larger of the FP32 operations over the FP32
+    peak and the bytes over the memory rate; and which of the two it is."""
+    t_ops, t_bytes = flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def matvec_bound(n: int, m: int, d: int, t: int):
+    """K·V: 2t FLOP for the product and 3d for the distance per (i, j) pair (one exp per
+    pair besides); x1, x2 and v read once, the output written once."""
+    return bound_ms(n * m * (2 * t + 3 * d), 4 * (n * d + m * d + m * t + n * t))
+
+
+def bwd_bound(n: int, d: int, t: int, need_dv: bool):
+    """Fused backward: per (i, j) pair 4t FLOP for g_i·v_j and v_i·g_j, 5d for the distance
+    and the dx update, about 9 for k, k′, the weight and dos, and 2t more for dv (one exp
+    per pair besides); x, g and v read once, dx (and dv) written once."""
+    flops = n * n * (4 * t + 5 * d + 9 + (2 * t if need_dv else 0))
+    return bound_ms(flops, 4 * (2 * n * d + 2 * n * t + (n * t if need_dv else 0)))
+
+
 def phase_device():
     import torch
 
@@ -199,7 +331,7 @@ def _rel_err(got, want, x1, x2, v, kt):
 
 
 def phase_kernel():
-    """Kernel against plain on the card; returns (max_abs_err, ms, plain_ms) at the CG shape."""
+    """Kernel against plain on the card; returns (max_abs_err, {(n, m, t): (ms, plain_ms)})."""
     import torch
 
     from gpytorch_tpu_torch.ops import fused_kernels as fk
@@ -220,9 +352,10 @@ def phase_kernel():
         print(f"[kernel] type {kt}: n=1000 m=1537 d∈{{3,11}} t∈{{1,20,100}} within {KERNEL_REL_TOL} "
               f"(worst so far {worst_rel:.3e})", flush=True)
 
-    # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100)
+    # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100);
+    # training shape: mBCG over [y, 63 probes] (t=64)
     timed = {}
-    for n, m, t in ((N_TRAIN, N_TRAIN, 1), (N_TRAIN, N_TRAIN, 20), (N_TEST, N_TRAIN, 100)):
+    for n, m, t in ((N_TRAIN, N_TRAIN, 1), (N_TRAIN, N_TRAIN, 20), (N_TEST, N_TRAIN, 100), (N_TRAIN, N_TRAIN, 64)):
         x2 = torch.as_tensor(rng.uniform(size=(m, D)) / 0.3, dtype=torch.float32, device=dev)
         x1 = x2 if n == m else torch.as_tensor(rng.uniform(size=(n, D)) / 0.3, dtype=torch.float32, device=dev)
         v = torch.as_tensor(rng.normal(size=(m, t)), dtype=torch.float32, device=dev)
@@ -239,9 +372,80 @@ def phase_kernel():
         ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), 10)
         plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, fk.RBF), 3)
         timed[(n, m, t)] = (ms, plain_ms)
-        print(f"[kernel] {n}x{m} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max abs err {err:.3e} "
-              f"(rel {rel:.3e})", flush=True)
-    ms, plain_ms = timed[(N_TRAIN, N_TRAIN, 1)]
+        bms, by = matvec_bound(n, m, D, t)
+        print(f"[kernel] {n}x{m} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
+              f"({by}; {n * m:.3e} exp), max abs err {err:.3e} (rel {rel:.3e})", flush=True)
+    return max_abs, timed
+
+
+def _bwd_abs_terms(x, g, v, kt):
+    """Sums of absolute terms of the fused backward's outputs (dx, dv, dos), dense, float64."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    diff = (x[:, None, :] - x[None, :, :]).abs()
+    k, kp = fk._kernel_fn_and_prime((diff * diff).sum(-1), kt)
+    kp.fill_diagonal_(0.0)
+    gv = (g @ v.mT).abs()
+    w = kp.abs() * (gv + (v @ g.mT).abs())
+    return 2.0 * torch.einsum("ij,ijk->ik", w, diff), k.abs() @ g.abs(), (k.abs() * gv).sum()
+
+
+def phase_bwd():
+    """Backward kernel against plain on the card; returns (max_abs_err, ms, plain_ms) at the
+    training shape."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    rng = np.random.default_rng(4)
+    dev = "cuda"
+    max_abs, worst_rel = 0.0, 0.0
+    for kt in fk.KERNEL_TYPES:
+        for d in (3, 11):
+            for t in (1, 20, 64):
+                x, g, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
+                           for s in ((1537, d), (1537, t), (1537, t)))
+                x64, g64, v64 = x.double(), g.double(), v.double()
+                bx, bdv, bdos = _bwd_abs_terms(x64, g64, v64, kt)
+                for need_dv in (True, False):
+                    dv, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=need_dv, need_dos=True)
+                    torch.cuda.synchronize()
+                    rdv, rdx, rdos = fk._bwd_fused_reference(x64, g64, v64, kt, need_dv=need_dv, need_dos=True)
+                    errs = [((dx.double() - rdx).abs().max(), bx.max()), ((dos.double() - rdos).abs(), bdos)]
+                    if need_dv:
+                        errs.append(((dv.double() - rdv).abs().max(), bdv.max()))
+                    for err, scale in errs:
+                        max_abs, rel = max(max_abs, err.item()), (err / scale).item()
+                        worst_rel = max(worst_rel, rel)
+                        check(rel <= BWD_REL_TOL, f"backward kernel type {kt}, d={d}, t={t}, need_dv={need_dv}: "
+                                                  f"relative error {rel:.3e} > {BWD_REL_TOL}")
+        print(f"[bwd] type {kt}: n=1537 d∈{{3,11}} t∈{{1,20,64}} dv on/off, dos, within {BWD_REL_TOL} "
+              f"(worst so far {worst_rel:.3e})", flush=True)
+
+    # the training shape: every mBCG backward (N=100k, d=3, t = 1 rhs + 63 probes, dos, no dv)
+    t = 64
+    x = torch.as_tensor(rng.uniform(size=(N_TRAIN, D)) / 0.3, dtype=torch.float32, device=dev)
+    g, v = (torch.as_tensor(rng.normal(size=(N_TRAIN, t)), dtype=torch.float32, device=dev) for _ in range(2))
+    _, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True)
+    _, pdx, pdos = fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True)
+    _, edx, edos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, need_dv=False, need_dos=True)
+    rel = {}  # (dx, dos) of the kernel and of the float32 plain version, against float64
+    for name, (ddx, ddos) in (("kernel", (dx, dos)), ("plain float32", (pdx, pdos))):
+        err_dx, err_dos = (ddx.double() - edx).abs().max().item(), abs(ddos.double() - edos).item()
+        rel[name] = (err_dx / edx.abs().max().item(), err_dos / abs(edos.item()))
+        if name == "kernel":
+            max_abs = max(max_abs, err_dx, err_dos)
+    ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True), 5)
+    plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True), 2)
+    bms, by = bwd_bound(N_TRAIN, D, t, need_dv=False)
+    print(f"[bwd] {N_TRAIN}x{N_TRAIN} d={D} t={t} (dos, no dv): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bms:.3f} ms ({by}; {N_TRAIN**2:.3e} exp); against float64, max |Δdx| / max |dx| and "
+          f"|Δdos| / |dos|: kernel {rel['kernel'][0]:.3e}, {rel['kernel'][1]:.3e}; plain float32 "
+          f"{rel['plain float32'][0]:.3e}, {rel['plain float32'][1]:.3e} (tol {BWD_TRAIN_TOL})", flush=True)
+    check(max(rel["kernel"]) <= BWD_TRAIN_TOL, f"backward kernel at the training shape: relative error "
+                                               f"{max(rel['kernel']):.3e} > {BWD_TRAIN_TOL}")
     return max_abs, ms, plain_ms
 
 
@@ -299,8 +503,7 @@ def phase_serve():
     pred, mean, var, _ = answers[-1]
     rmse = gt.metrics.mean_squared_error(pred, ty, squared=False).item()
     noise = model.likelihood.noise.reshape(-1)[0]
-    var_f = torch.maximum(var, noise)
-    nlpd = (0.5 * (torch.log(2 * math.pi * var_f) + (mean - ty) ** 2 / var_f)).mean().item()
+    nlpd = marginal_nlpd(mean, var, ty, noise)
     # what the main path should have launched: one K·V per CG iteration, one per Lanczos
     # block (5 blocks of 20), and per request one for the mean and one for the LOVE root
     expected = cg.num_iters + 5 + 2 * len(batches)
@@ -326,6 +529,168 @@ def phase_serve():
     return launches
 
 
+def marginal_nlpd(mean, var, y, noise) -> float:
+    import torch
+
+    var_f = torch.maximum(var, noise)
+    return (0.5 * (torch.log(2 * math.pi * var_f) + (mean - y) ** 2 / var_f)).mean().item()
+
+
+def _slice_run(device, dtype, steps):
+    """Training at N=2000 from bench.py's initial values with injected probes: (step-1
+    loss, step-1 gradients, raw parameters after ``steps`` steps, CG iterations per step)."""
+    import torch
+
+    n = SLICE_TRAIN_N
+    train_x, train_y, _, _ = make_task(n, 0, seed=3)
+    model = build_model(train_x, train_y, device, dtype, params=None)
+    optimizer, scheduler = make_optimizer(model)
+    state = torch.zeros(n, 1, dtype=dtype, device=device)
+    iters = []
+    for step in range(steps):
+        loss, state = train_step(model, optimizer, scheduler, InjectedProbes(step), state)
+        check(finite_step(loss, model), f"slice training on {device}, step {step}: non-finite loss or gradient")
+        iters.append(state.num_iters)
+        if step == 0:
+            loss0 = loss.item()
+            grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
+    raw = {k: p.detach().cpu().double() for k, p in model.named_parameters()}
+    return loss0, grads, raw, iters
+
+
+def _grad_gap(g_ref, g):
+    """max |Δgrad| over all parameters / max |grad| over all parameters, and per parameter."""
+    scale = max(t.abs().max().item() for t in g_ref.values())
+    gaps = {k: (g_ref[k] - g[k]).abs().max().item() for k in g_ref}
+    return max(gaps.values()) / scale, gaps
+
+
+def phase_train_slice():
+    """Training at N=2000, CPU tensors (plain path) against CUDA tensors (kernel path); on
+    the CPU besides, float32 against float64 (the rounding floor of the gradient gate) and
+    against a planted fault (the plain backward's dos short by one block of 16), which the
+    gate must see."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    l_cpu, g_cpu, r_cpu, it_cpu = _slice_run("cpu", torch.float32, SLICE_TRAIN_STEPS)
+    l_gpu, g_gpu, r_gpu, it_gpu = _slice_run("cuda", torch.float32, SLICE_TRAIN_STEPS)
+    d_loss = abs(l_cpu - l_gpu) / max(abs(l_cpu), 1.0)
+    d_grad, gaps = _grad_gap(g_cpu, g_gpu)
+    d_raw = max((r_cpu[k] - r_gpu[k]).abs().max().item() for k in r_cpu)
+    floor = _grad_gap(_slice_run("cpu", torch.float64, 1)[1], g_cpu)[0]
+    sound = fk._bwd_fused_reference
+
+    def planted(*args, **kwargs):
+        dv, dx, dos = sound(*args, **kwargs)
+        return dv, dx, None if dos is None else dos * (15 / 16)
+
+    fk._bwd_fused_reference = planted
+    try:
+        fault = _grad_gap(g_cpu, _slice_run("cpu", torch.float32, 1)[1])[0]
+    finally:
+        fk._bwd_fused_reference = sound
+    print(f"[train-slice] N={SLICE_TRAIN_N}: CG iters cpu {it_cpu} cuda {it_gpu}; step-1 loss cpu {l_cpu:.6f} cuda "
+          f"{l_gpu:.6f} (rel diff {d_loss:.3e}, tol {SLICE_LOSS_TOL}); step-1 grads max diff {d_grad:.3e} of the "
+          f"largest (tol {SLICE_GRAD_TOL}; cpu float32 against float64 {floor:.3e}, against a planted fault "
+          f"{fault:.3e}); raw parameters after {SLICE_TRAIN_STEPS} steps max diff {d_raw:.3e} (tol {SLICE_PARAM_TOL})",
+          flush=True)
+    for k in g_cpu:
+        print(f"[train-slice]   {k}: grad cpu {g_cpu[k].reshape(-1).numpy().round(6).tolist()}, max diff "
+              f"{gaps[k]:.3e} ({gaps[k] / g_cpu[k].abs().max().item():.3e} of its own largest)", flush=True)
+    check(d_loss <= SLICE_LOSS_TOL, f"slice training loss differs: {d_loss:.3e}")
+    check(d_grad <= SLICE_GRAD_TOL, f"slice training gradients differ: {d_grad:.3e}")
+    check(fault > SLICE_GRAD_TOL, f"the gradient gate does not see a planted fault: {fault:.3e}")
+    check(d_raw <= SLICE_PARAM_TOL, f"slice training parameters differ: {d_raw:.3e}")
+
+
+def phase_flagship():
+    """bench.py's training at full width, then serving from the trained model; returns the
+    launches of (kernel_matvec, kernel_bwd_fused) over the whole path."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST, seed=0)
+    dev = "cuda"
+    model = build_model(train_x, train_y, dev, torch.float32, params=None)
+    tx = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
+
+    def quality():
+        """(rmse, marginal nlpd, the refresh's CG result, refresh s, request s) of the model
+        in eval mode on all 2,048 test points."""
+        model.eval()
+        with eval_settings():
+            cg, refresh_s, answers = serve(model, tx, dev, [slice(0, N_TEST)])
+        pred, mean_, var, secs = answers[0]
+        check(bool(torch.isfinite(mean_).all()) and bool((var > 0).all()), "flagship predictions not finite or variance ≤ 0")
+        rmse = gt.metrics.mean_squared_error(pred, ty, squared=False).item()
+        return rmse, marginal_nlpd(mean_, var, ty, model.likelihood.noise.reshape(-1)[0]), cg, refresh_s, secs
+
+    # the initial parameters, served before the launch counts are set to 0: the reading
+    # that training has to improve on
+    rmse0, nlpd0, _, _, _ = quality()
+    print(f"[flagship] serving the initial parameters: rmse {rmse0:.4f}, marginal nlpd {nlpd0:.4f}", flush=True)
+    model.train()
+    optimizer, scheduler = make_optimizer(model)
+    generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    state = torch.zeros(N_TRAIN, 1, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    times, iters, losses = [], [], []
+    fk.kernel_matvec_cuda.launches = 0
+    fk.kernel_bwd_fused_cuda.launches = 0
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, state = train_step(model, optimizer, scheduler, generator, state)
+        ok = finite_step(loss, model)  # reads the device, so the step has ended
+        times.append(time.perf_counter() - t0)
+        iters.append(state.num_iters)
+        losses.append(loss.item())
+        check(ok, f"flagship training step {step}: non-finite loss or gradient")
+        if step % 10 == 0 or step == TRAIN_STEPS - 1:
+            print(f"[flagship] step {step}: loss {losses[-1]:.5f}, CG iterations {state.num_iters}, "
+                  f"{times[-1]:.3f} s", flush=True)
+    train_launches = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
+    train_peak = torch.cuda.max_memory_allocated()
+    median = sorted(times[1 : 1 + TRAIN_TIMED])[TRAIN_TIMED // 2]
+    mean = sum(times[1:]) / (TRAIN_STEPS - 1)
+    kern = model.covar_module
+    print(f"[flagship] {TRAIN_STEPS} steps: median {median:.4f} s/step over steps 1-{TRAIN_TIMED} (synchronised), "
+          f"mean {mean:.4f} s/step over steps 1-{TRAIN_STEPS - 1}, first step {times[0]:.3f} s", flush=True)
+    print(f"[flagship] CG iterations per step: {iters}", flush=True)
+    print(f"[flagship] loss per step: {[round(x, 6) for x in losses]}", flush=True)
+    print(f"[flagship] lengthscale {kern.base_kernel.lengthscale.detach().cpu().numpy().round(5).tolist()}, "
+          f"outputscale {kern.outputscale.item():.5f}, noise {model.likelihood.noise.item():.5f}, "
+          f"mean {model.mean_module.constant.item():.5f}", flush=True)
+    print(f"[flagship] training launches: kernel_matvec {train_launches[0]}, kernel_bwd_fused {train_launches[1]}; "
+          f"peak device memory {train_peak / 2**20:.1f} MiB", flush=True)
+
+    rmse, nlpd, cg, refresh_s, secs = quality()
+    launches = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
+    # one K·V per CG iteration of training; then one per CG iteration of the mean cache,
+    # one per Lanczos block (5 blocks of 20), and two for the request (mean and LOVE)
+    expected_mv = sum(iters) + cg.num_iters + 5 + 2
+    loss_end = sum(losses[-10:]) / 10
+    print(f"[flagship] serving the trained model: refresh {refresh_s:.3f} s (CG {cg.num_iters} iterations, relative "
+          f"residual {cg.residual_norm.max().item():.3e}), {N_TEST} points in {secs * 1e3:.2f} ms; rmse {rmse:.4f} "
+          f"(limit {RMSE_LIMIT}; initial {rmse0:.4f}), marginal nlpd {nlpd:.4f} (initial {nlpd0:.4f}, limit "
+          f"{nlpd0 - TRAIN_NLPD_DROP:.4f})", flush=True)
+    print(f"[flagship] loss at step 0 {losses[0]:.5f}, mean of the last 10 steps {loss_end:.5f} (limit "
+          f"{losses[0] - TRAIN_LOSS_DROP:.5f})", flush=True)
+    print(f"[flagship] launches: kernel_matvec {launches[0]} (expected {expected_mv}), kernel_bwd_fused {launches[1]} "
+          f"(expected {TRAIN_STEPS})", flush=True)
+    check(launches[1] == TRAIN_STEPS, f"kernel_bwd_fused launched {launches[1]} times, expected {TRAIN_STEPS}")
+    check(launches[0] == expected_mv, f"kernel_matvec launched {launches[0]} times, expected {expected_mv}")
+    check(rmse <= RMSE_LIMIT, f"flagship rmse {rmse:.4f} > {RMSE_LIMIT}")
+    check(loss_end <= losses[0] - TRAIN_LOSS_DROP, f"training loss fell from {losses[0]:.5f} only to {loss_end:.5f}")
+    check(nlpd <= nlpd0 - TRAIN_NLPD_DROP, f"training took the marginal nlpd from {nlpd0:.4f} only to {nlpd:.4f}")
+    return launches, median
+
+
 def main() -> int:
     try:
         import torch
@@ -334,12 +699,20 @@ def main() -> int:
 
         phase_device()
         phase_build()
-        max_abs, ms, plain_ms = phase_kernel()
+        mv_err, mv_timed = phase_kernel()
+        bwd_err, bwd_ms, bwd_plain_ms = phase_bwd()
         phase_slice()
-        launches = phase_serve()
+        serve_launches = phase_serve()
+        phase_train_slice()
+        (mv_launches, bwd_launches), _ = phase_flagship()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
+    print(f"[report] kernel_matvec launches: serving from fixed parameters {serve_launches}, "
+          f"training and serving {mv_launches}", flush=True)
+    mv_ms, mv_plain_ms = mv_timed[(N_TRAIN, N_TRAIN, 64)]
+    mv_bound, mv_by = matvec_bound(N_TRAIN, N_TRAIN, D, 64)
+    bwd_bound_ms, bwd_by = bwd_bound(N_TRAIN, D, 64, need_dv=False)
     report = {
         "kernels": [
             {
@@ -347,13 +720,33 @@ def main() -> int:
                 "route": "cuda",
                 "source": "gpytorch_tpu_torch/csrc/kernel_matvec.cu",
                 "replaces": "gpytorch_tpu/ops/pallas_kernels.py:230",
-                "launches": launches,
-                "max_abs_err": max_abs,
-                "ms": ms,
-                "plain_ms": plain_ms,
-            }
+                "launches": mv_launches,
+                "max_abs_err": mv_err,
+                "ms": mv_ms,
+                "plain_ms": mv_plain_ms,
+                "bound_ms": mv_bound,
+                "bound_by": mv_by,
+                "library_ms": None,
+            },
+            {
+                "name": "kernel_bwd_fused",
+                "route": "cuda",
+                "source": "gpytorch_tpu_torch/csrc/kernel_bwd_fused.cu",
+                "replaces": "gpytorch_tpu/ops/pallas_kernels.py:404",
+                "launches": bwd_launches,
+                "max_abs_err": bwd_err,
+                "ms": bwd_ms,
+                "plain_ms": bwd_plain_ms,
+                "bound_ms": bwd_bound_ms,
+                "bound_by": bwd_by,
+                "library_ms": None,
+            },
         ]
     }
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
+    )
+    print(smi.stdout.strip(), flush=True)
     print(json.dumps(report), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)

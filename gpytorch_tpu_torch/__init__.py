@@ -1,15 +1,17 @@
 """gpytorch_tpu_torch — the PyTorch and CUDA port of gpytorch_tpu.
 
 Module paths mirror ``gpytorch_tpu/`` so that each counterpart is easy to find.  This
-package imports ``torch`` and never ``jax``.  What is ported so far is exact-GP serving:
-the posterior mean from a CG-solved cache and LOVE variances from a block-Lanczos inverse
-root, with every product with the kernel matrix going through the fused kernel matvec
-(``ops/fused_kernels.py``), a hand-written CUDA kernel on the GPU.
+package imports ``torch`` and never ``jax``.  What is ported so far is exact-GP serving
+and training.  Serving: the posterior mean from a CG-solved cache and LOVE variances from
+a block-Lanczos inverse root.  Training: the exact marginal log likelihood by mBCG with
+stochastic Lanczos quadrature, differentiated by the BBMM backward.  Every product with
+the kernel matrix, and its gradient, goes through the fused kernel products
+(``ops/fused_kernels.py``): hand-written CUDA kernels on the GPU.
 """
 
 from __future__ import annotations
 
-from . import constraints, distributions, kernels, likelihoods, linop, means, metrics, models, ops, settings, solvers
+from . import constraints, distributions, kernels, likelihoods, linop, means, metrics, mlls, models, ops, settings, solvers
 from .core.module import Module
 from .utils import load_jax_params
 
@@ -23,6 +25,7 @@ __all__ = [
     "load_jax_params",
     "means",
     "metrics",
+    "mlls",
     "models",
     "ops",
     "settings",

@@ -1,14 +1,19 @@
-"""Parameter constraints: raw → constrained maps.
+"""Parameter constraints: raw → constrained maps and back.
 
 Counterpart of ``gpytorch_tpu/constraints/constraints.py``.  A module stores each
 constrained parameter raw (``raw_lengthscale``, ``raw_noise`` …) and reads it through the
-constraint's ``transform``.
+constraint's ``transform``; setting a constrained value goes through ``inverse_transform``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def inv_softplus(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of softplus: softplus(y) = x ⇔ y = x + log(1 − e⁻ˣ)."""
+    return x + torch.log(-torch.expm1(-x))
 
 
 class GreaterThan:
@@ -19,6 +24,12 @@ class GreaterThan:
 
     def transform(self, raw: torch.Tensor) -> torch.Tensor:
         return self.lower_bound + F.softplus(raw)
+
+    def inverse_transform(self, value: torch.Tensor) -> torch.Tensor:
+        return inv_softplus(value - self.lower_bound)
+
+    def check(self, value: torch.Tensor) -> bool:
+        return bool((value > self.lower_bound).all())
 
     def __repr__(self):
         return f"{type(self).__name__}({self.lower_bound:.3E})"
@@ -32,3 +43,6 @@ class Positive(GreaterThan):
 
     def transform(self, raw: torch.Tensor) -> torch.Tensor:
         return F.softplus(raw)
+
+    def inverse_transform(self, value: torch.Tensor) -> torch.Tensor:
+        return inv_softplus(value)

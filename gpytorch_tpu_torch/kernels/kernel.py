@@ -3,11 +3,16 @@
 Counterpart of ``gpytorch_tpu/kernels/kernel.py``.  ``__call__`` returns a
 ``LazyEvaluatedKernelOperator``, so K is never formed until a solver asks for it; the
 operator records explicitly whether it is symmetric (``__call__`` was given one input).
+
+A kernel is evaluated from explicit hyperparameter tensors (``evaluate(hypers, ...)``),
+which ``hypers()`` reads from the module's constrained parameters.  The lazy operator
+holds those tensors, so a solver's backward can rebuild it from copies of them and
+differentiate (the counterpart of the JAX package's pytree ``tree_map``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -34,11 +39,13 @@ class Kernel(Module):
             return None
         return self._constrained("raw_lengthscale")
 
-    def _scale_inputs(self, x1, x2):
-        if self.has_lengthscale:
-            ls = self.lengthscale
-            return x1 / ls, x2 / ls
-        return x1, x2
+    @lengthscale.setter
+    def lengthscale(self, value) -> None:
+        self._set_constrained("raw_lengthscale", value)
+
+    def hypers(self) -> Dict[str, torch.Tensor]:
+        """The constrained hyperparameters ``evaluate`` reads, by (dotted) name."""
+        return {"lengthscale": self.lengthscale} if self.has_lengthscale else {}
 
     def covar_dist(self, x1, x2, diag: bool = False):
         """Pairwise squared distances, or the elementwise ones with ``diag``."""
@@ -46,8 +53,12 @@ class Kernel(Module):
             return ((x1 - x2) ** 2).sum(-1)
         return sq_dist(x1, x2)
 
-    def forward(self, x1, x2, diag: bool = False):
+    def evaluate(self, hypers: Dict[str, torch.Tensor], x1, x2, diag: bool = False):
+        """The kernel matrix (or its diagonal) from the hyperparameter tensors ``hypers``."""
         raise NotImplementedError
+
+    def forward(self, x1, x2, diag: bool = False):
+        return self.evaluate(self.hypers(), x1, x2, diag=diag)
 
     def __call__(self, x1, x2=None, diag: bool = False):
         x1 = x1.unsqueeze(-1) if x1.ndim == 1 else x1

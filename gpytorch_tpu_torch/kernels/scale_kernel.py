@@ -1,7 +1,8 @@
 """ScaleKernel: outputscale · base kernel.
 
 Counterpart of ``gpytorch_tpu/kernels/scale_kernel.py``.  In the fused matvec the
-outputscale is folded into the right-hand side (``fused_scaled_kernel_matvec``).
+outputscale is an operand of its own (``fused_scaled_kernel_matvec``), so that its
+gradient comes out of the fused backward and not through the right-hand side.
 """
 
 from __future__ import annotations
@@ -23,8 +24,17 @@ class ScaleKernel(Kernel):
     def outputscale(self) -> torch.Tensor:
         return self._constrained("raw_outputscale")
 
-    def forward(self, x1, x2, diag: bool = False):
-        return self.outputscale * self.base_kernel.forward(x1, x2, diag=diag)
+    @outputscale.setter
+    def outputscale(self, value) -> None:
+        self._set_constrained("raw_outputscale", value)
+
+    def hypers(self):
+        base = {f"base_kernel.{k}": v for k, v in self.base_kernel.hypers().items()}
+        return {"outputscale": self.outputscale, **base}
+
+    def evaluate(self, hypers, x1, x2, diag: bool = False):
+        base = {k[len("base_kernel."):]: v for k, v in hypers.items() if k.startswith("base_kernel.")}
+        return hypers["outputscale"] * self.base_kernel.evaluate(base, x1, x2, diag=diag)
 
     def prediction_strategy(self, *args, **kwargs):
         return self.base_kernel.prediction_strategy(*args, **kwargs)

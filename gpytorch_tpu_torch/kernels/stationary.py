@@ -16,6 +16,6 @@ class RBFKernel(Kernel):
 
     has_lengthscale = True
 
-    def forward(self, x1, x2, diag: bool = False):
-        x1_, x2_ = self._scale_inputs(x1, x2)
-        return torch.exp(-0.5 * self.covar_dist(x1_, x2_, diag=diag))
+    def evaluate(self, hypers, x1, x2, diag: bool = False):
+        ls = hypers["lengthscale"]
+        return torch.exp(-0.5 * self.covar_dist(x1 / ls, x2 / ls, diag=diag))

@@ -19,6 +19,10 @@ class GaussianLikelihood(Likelihood):
     def noise(self) -> torch.Tensor:
         return self.noise_covar.noise
 
+    @noise.setter
+    def noise(self, value) -> None:
+        self.noise_covar.noise = value
+
     def marginal(self, function_dist: MultivariateNormal) -> MultivariateNormal:
         """p(y | x) = N(μ, K + σ²I)."""
         mean = function_dist.loc

@@ -20,6 +20,10 @@ class HomoskedasticNoise(Module):
     def noise(self) -> torch.Tensor:
         return self._constrained("raw_noise")
 
+    @noise.setter
+    def noise(self, value) -> None:
+        self._set_constrained("raw_noise", value)
+
     def forward(self, shape: torch.Size) -> ConstantDiagLinearOperator:
         """The noise covariance over ``shape[-1]`` points."""
         return ConstantDiagLinearOperator(self.noise, shape[-1])

@@ -1,9 +1,9 @@
-from .base import DenseLinearOperator, LinearOperator, to_linear_operator
+from .base import DenseLinearOperator, LinearOperator, probe_base_samples, to_linear_operator
 from .diag import ConstantDiagLinearOperator, DiagLinearOperator
 from .added_diag import AddedDiagLinearOperator
 from .composition import ConstantMulLinearOperator, SumLinearOperator
 from .lazy_kernel import LazyEvaluatedKernelOperator
-from .root import RootLinearOperator
+from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
 
 __all__ = [
     "AddedDiagLinearOperator",
@@ -13,7 +13,9 @@ __all__ = [
     "DiagLinearOperator",
     "LazyEvaluatedKernelOperator",
     "LinearOperator",
+    "LowRankRootAddedDiagLinearOperator",
     "RootLinearOperator",
     "SumLinearOperator",
+    "probe_base_samples",
     "to_linear_operator",
 ]

@@ -2,7 +2,8 @@
 
 Counterpart of ``gpytorch_tpu/linop/added_diag.py``.  The preconditioner is the pivoted
 Cholesky factor L (P = LLᵀ + D), τ-regularised under ``preconditioner_noise_budget`` and
-applied in the whitened eigenbasis.  Only its apply is ported: serving needs no log|P|.
+applied in the whitened eigenbasis; log|P| comes from a Cholesky factor and is
+differentiable, for the variance-reduced log-determinant gradient of training.
 """
 
 from __future__ import annotations
@@ -12,6 +13,43 @@ import torch
 from .. import settings
 from .base import LinearOperator
 from .diag import DiagLinearOperator
+
+
+class _PCFastGrad(torch.autograd.Function):
+    """The pivoted-Cholesky root with the gradient of its fixed-pivot Nyström form
+    (``settings.fast_precond_grad``; ``gpytorch_tpu/linop/added_diag.py::_pc_fast_grad``).
+
+    Its value is the pivoted-Cholesky factor, so callers that only read it (CG
+    preconditioning, probe draws) pay nothing extra.  Its gradient is that of
+    K[:, p] K[p, p]⁻¹ K[p, :]'s root on the same pivots p — the same function of the
+    hyperparameters for a fixed pivot order — which costs one k×k Cholesky and one
+    triangular solve instead of a backward through the k-step loop.  The operator comes
+    in as its flattened tensors (``LinearOperator._flatten``)."""
+
+    @staticmethod
+    def forward(ctx, rebuild, rank, rel_tol, *tensors):
+        from ..solvers.pivoted_cholesky import pivoted_cholesky
+
+        L, piv = pivoted_cholesky(rebuild(tensors), rank=rank, rel_tol=rel_tol, return_pivots=True)
+        # columns the loop zeroed (exhausted residual) carry no value and no gradient
+        col_live = ((L * L).sum(-2, keepdim=True) > 0.0).to(L.dtype)
+        ctx.rebuild = rebuild
+        ctx.save_for_backward(piv, col_live, *tensors)
+        ctx.mark_non_differentiable(piv)
+        return L, piv
+
+    @staticmethod
+    def backward(ctx, g, _):
+        from ..solvers.pivoted_cholesky import nystrom_factor_from_pivots
+
+        piv, col_live, *tensors = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(tensors, needs)]
+            L = nystrom_factor_from_pivots(ctx.rebuild(leaves), piv) * col_live
+            wrt = [leaf for leaf in leaves if leaf.requires_grad]
+            grads = iter(torch.autograd.grad(L, wrt, g, allow_unused=True) if wrt else ())
+        return (None, None, None, *[next(grads) if need else None for need in needs])
 
 
 class AddedDiagLinearOperator(LinearOperator):
@@ -32,6 +70,15 @@ class AddedDiagLinearOperator(LinearOperator):
 
     def _matmul(self, rhs):
         return self.base._matmul(rhs) + self.diag_op._matmul(rhs)
+
+    def _matmul_grad_only(self, rhs):
+        return self.base._matmul_grad_only(rhs) + self.diag_op._matmul(rhs)
+
+    def _flatten(self):
+        tb, rb = self.base._flatten()
+        td, rd = self.diag_op._flatten()
+        nb = len(tb)
+        return tb + td, lambda ts: AddedDiagLinearOperator(rb(ts[:nb]), rd(ts[nb:]))
 
     def _diagonal(self):
         return self.base._diagonal() + self.diag_op._diagonal()
@@ -62,40 +109,57 @@ class AddedDiagLinearOperator(LinearOperator):
         return AddedDiagLinearOperator(self.base, self.diag_op.add_diagonal(diag))
 
     def _preconditioner(self):
-        """Apply function v ↦ P⁻¹v of the pivoted-Cholesky preconditioner P = LLᵀ + D, or
-        None when it is disabled or the operator is below ``min_preconditioning_size``."""
+        """The pivoted-Cholesky preconditioner P = LLᵀ + D as (apply_inv, precond_op,
+        logdet_P): v ↦ P⁻¹v, P as a ``LowRankRootAddedDiagLinearOperator`` (for probe
+        draws z ~ N(0, P)) and log|P|, differentiable; (None, None, None) when it is
+        disabled or the operator is below ``min_preconditioning_size``."""
         k = settings.max_preconditioner_size.value()
         n = self.shape[-1]
         if k == 0 or n < settings.min_preconditioning_size.value():
-            return None
+            return None, None, None
         from ..solvers.pivoted_cholesky import pivoted_cholesky
+        from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
 
-        L = pivoted_cholesky(self.base, rank=k, rel_tol=float(settings.preconditioner_tolerance.value()))
+        rel_tol = float(settings.preconditioner_tolerance.value())
+        if settings.fast_precond_grad.on():
+            tensors, rebuild = self.base._flatten()
+            L, _ = _PCFastGrad.apply(rebuild, k, rel_tol, *tensors)
+        else:
+            L = pivoted_cholesky(self.base, rank=k, rel_tol=rel_tol)
         diag = self.diag_op._diag_values()
         # τ-regularisation: P = LLᵀ + max(D, τ)I with τ = λ_max(LLᵀ)·eps/budget bounds
         # cond(P) by budget/eps, so the float32 apply noise (≈ eps·cond(P), amplified
         # λ_max-fold inside CG) stays below the budget instead of stalling CG.
         budget = float(settings.preconditioner_noise_budget.value())
         if budget > 0.0:
-            mu = torch.linalg.eigvalsh(L.mT @ L)[-1]  # λ_max(LLᵀ)
+            mu = torch.linalg.eigvalsh((L.mT @ L).detach())[-1]  # λ_max(LLᵀ)
             tau = mu * (torch.finfo(L.dtype).eps / budget)
             diag = torch.maximum(diag, tau)
         dinv = 1.0 / diag
         dsqrt_inv = torch.sqrt(dinv)
+        Lt = L * dsqrt_inv.unsqueeze(-1)
+        B = Lt.mT @ Lt
+        # log|P| = log|I + B| + log|D|, by Cholesky: differentiable, where an eigh
+        # gradient would be NaN on a degenerate spectrum
+        Lc = torch.linalg.cholesky(torch.eye(B.shape[-1], dtype=B.dtype, device=B.device) + B)
+        logdet_p = 2.0 * torch.log(torch.diagonal(Lc)).sum() + torch.log(diag).sum()
         # Whitened-eigenspace apply: with Ũ = D^{-1/2}L = U S Wᵀ,
         #   P⁻¹v = D⁻¹v − Ud diag(s²/(1+s²)) Udᵀ v,   Ud = D^{-1/2}U,
         # every coefficient in [0, 1) — unlike the textbook Woodbury form, no
         # ill-conditioned k×k solve and no cancellation of two O(1/σ²) terms in float32.
-        Lt = L * dsqrt_inv.unsqueeze(-1)
-        s2, W = torch.linalg.eigh(Lt.mT @ Lt)
+        # The apply is never differentiated: it is built from detached factors.
+        s2, W = torch.linalg.eigh(B.detach())
         s2 = s2.clamp_min(0.0)
         active = s2 > 1e-12 * s2.max().clamp_min(1e-30)
         inv_s = torch.where(active, 1.0 / torch.sqrt(s2.clamp_min(1e-30)), torch.zeros_like(s2))
         coef = torch.where(active, s2 / (1.0 + s2), torch.zeros_like(s2)).unsqueeze(-1)
-        Ud = (Lt @ (W * inv_s)) * dsqrt_inv.unsqueeze(-1)
-        dinv = dinv.unsqueeze(-1)
+        dsqrt_inv_d = dsqrt_inv.detach().unsqueeze(-1)
+        Ud = (Lt.detach() @ (W * inv_s)) * dsqrt_inv_d
+        dinv_d = dinv.detach().unsqueeze(-1)
 
         def apply_inv(v):
-            return v * dinv - Ud @ (coef * (Ud.mT @ v))
+            return v * dinv_d - Ud @ (coef * (Ud.mT @ v))
 
-        return apply_inv
+        diag_op = DiagLinearOperator(diag) if budget > 0.0 else self.diag_op
+        precond_op = LowRankRootAddedDiagLinearOperator(RootLinearOperator(L), diag_op)
+        return apply_inv, precond_op, logdet_p

@@ -1,21 +1,47 @@
 """LinearOperator — lazy matrices whose inference goes through matrix products.
 
-Counterpart of ``gpytorch_tpu/linop/base.py``, ported as far as exact-GP serving needs:
-``matmul``, ``solve`` by preconditioned CG, ``root_inv_decomposition`` by block Lanczos,
-diagonal and row access (for the pivoted-Cholesky preconditioner), and the structure
-hooks ``evaluate_kernel``, ``_eig_lower_bound`` and ``_is_known_psd``.
+Counterpart of ``gpytorch_tpu/linop/base.py``, ported as far as exact-GP serving and
+training need: ``matmul``, ``solve`` by preconditioned CG, ``inv_quad_logdet`` by mBCG
+with stochastic Lanczos quadrature, ``root_inv_decomposition`` by block Lanczos, diagonal
+and row access (for the pivoted-Cholesky preconditioner), and the structure hooks
+``evaluate_kernel``, ``_eig_lower_bound`` and ``_is_known_psd``.
+
+``_flatten`` hands an operator's tensors to a ``torch.autograd.Function`` together with a
+function that rebuilds the operator from them (the counterpart of the JAX package's pytree
+``tree_map``): a backward rebuilds the operator from copies that require grad and
+differentiates through its products.
 
 The dense-Cholesky branch that the JAX package takes for N ≤ ``max_cholesky_size`` is not
-ported yet: those calls raise, so serve with ``settings.max_cholesky_size(0)``.
+ported yet: those calls raise, so use ``settings.max_cholesky_size(0)``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import settings
+
+# Where the standard-normal base samples of probe vectors come from: a torch.Generator,
+# or a callable that returns an array of the shape it is given (injected samples, so that
+# two runs or two packages see the same probes), or None for torch's default generator.
+ProbeSource = Union[None, torch.Generator, Callable[[Tuple[int, ...]], Any]]
+
+
+def probe_base_samples(shape, dtype: torch.dtype, device, source: ProbeSource = None) -> torch.Tensor:
+    """Standard-normal base samples for probe vectors, of ``shape``, from ``source``.
+
+    Counterpart of ``gpytorch_tpu/linop/base.py::probe_base_samples``; an injected source
+    is called with the same shapes as the JAX package draws."""
+    shape = tuple(int(s) for s in shape)
+    if source is None or isinstance(source, torch.Generator):
+        return torch.randn(shape, generator=source, dtype=dtype, device=device)
+    out = torch.as_tensor(np.asarray(source(shape)), dtype=dtype, device=device)
+    if tuple(out.shape) != shape:
+        raise ValueError(f"injected base samples have shape {tuple(out.shape)}, expected {shape}")
+    return out
 
 
 class LinearOperator:
@@ -27,6 +53,17 @@ class LinearOperator:
 
     def _matmul(self, rhs: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def _matmul_grad_only(self, rhs: torch.Tensor) -> torch.Tensor:
+        """self·rhs for a caller that uses the product only for its gradient (its result
+        enters linearly and its value is never read): a lazy kernel operator returns
+        zeros with the full backward, and launches no forward product."""
+        return self._matmul(rhs)
+
+    def _flatten(self) -> Tuple[Tuple[torch.Tensor, ...], Callable[[Tuple[torch.Tensor, ...]], "LinearOperator"]]:
+        """(tensors, rebuild): the tensors the operator is a function of, and a function
+        that builds the same operator from other tensors of the same shapes."""
+        raise NotImplementedError(f"{type(self).__name__} cannot be flattened")
 
     def _shape(self):
         raise NotImplementedError
@@ -94,8 +131,8 @@ class LinearOperator:
         return self
 
     def _preconditioner(self):
-        """The preconditioner apply function P⁻¹(·), or None."""
-        return None
+        """The preconditioner as (apply_inv, precond_op, logdet_P), or (None, None, None)."""
+        return None, None, None
 
     def _is_known_psd(self) -> bool:
         """True when the operator is positive semi-definite by construction."""
@@ -126,6 +163,21 @@ class LinearOperator:
         self._check_iterative("root_inv_decomposition")
         max_rank = min(self.shape[-1], settings.max_root_decomposition_size.value())
         return RootLinearOperator(lanczos_inv_root(self, max_rank, initial_vectors))
+
+    def inv_quad_logdet(self, inv_quad_rhs: Optional[torch.Tensor] = None, logdet: bool = False,
+                        reduce_inv_quad: bool = True, base_samples: ProbeSource = None,
+                        solver_state: Optional[torch.Tensor] = None, return_state: bool = False):
+        """(rhsᵀ self⁻¹ rhs, log|self|) in one mBCG pass, differentiable by the BBMM
+        backward (``solvers/inv_quad.py``).  ``base_samples`` is where the probe vectors'
+        base samples come from; ``solver_state``/``return_state`` carry the warm start of
+        the rhs solve across training steps."""
+        from ..solvers.inv_quad import inv_quad_logdet_mbcg
+
+        self._check_iterative("inv_quad_logdet")
+        return inv_quad_logdet_mbcg(
+            self.evaluate_kernel(), inv_quad_rhs, logdet=logdet, reduce_inv_quad=reduce_inv_quad,
+            base_samples=base_samples, solver_state=solver_state, return_state=return_state,
+        )
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """self⁻¹ rhs by preconditioned CG; the CGResult is kept in ``last_cg_result``."""
@@ -165,6 +217,9 @@ class DenseLinearOperator(LinearOperator):
 
     def _get_rows(self, idx):
         return self.tensor[idx]
+
+    def _flatten(self):
+        return (self.tensor,), lambda ts: DenseLinearOperator(ts[0])
 
 
 def to_linear_operator(obj) -> LinearOperator:

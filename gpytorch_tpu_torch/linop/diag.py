@@ -48,6 +48,9 @@ class DiagLinearOperator(LinearOperator):
     def add_diagonal(self, diag):
         return DiagLinearOperator(self.diag + diag)
 
+    def _flatten(self):
+        return (self.diag,), lambda ts: DiagLinearOperator(ts[0])
+
     def __add__(self, other):
         if isinstance(other, DiagLinearOperator):
             return DiagLinearOperator(self.diag + other._diag_values())
@@ -72,3 +75,7 @@ class ConstantDiagLinearOperator(DiagLinearOperator):
 
     def _matmul(self, rhs):
         return self.value * rhs
+
+    def _flatten(self):
+        n = self._diag_shape
+        return (self.value,), lambda ts: ConstantDiagLinearOperator(ts[0], n)

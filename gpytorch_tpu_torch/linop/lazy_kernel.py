@@ -1,14 +1,16 @@
 """LazyEvaluatedKernelOperator — defers kernel evaluation until a solver asks for it.
 
-Counterpart of ``gpytorch_tpu/linop/lazy_kernel.py``.  Holds (kernel, x1, x2) and an
-explicit ``symmetric`` flag (the JAX package keys symmetry on ``x1 is x2``).  Slicing slices
-the inputs, so the joint train/test covariance never rebuilds K(train, train) at test
-time.  Products with a kernel too large to evaluate densely go to the fused kernel matvec
-(``ops/fused_kernels.py``): the plain streamed version for CPU tensors, the CUDA kernel
-for CUDA tensors.
+Counterpart of ``gpytorch_tpu/linop/lazy_kernel.py``.  Holds (kernel, x1, x2), the kernel's
+hyperparameter tensors and an explicit ``symmetric`` flag (the JAX package keys symmetry
+on ``x1 is x2``).  Slicing slices the inputs, so the joint train/test covariance never
+rebuilds K(train, train) at test time.  Products with a kernel too large to evaluate
+densely go to the fused kernel products (``ops/fused_kernels.py``): the plain streamed
+versions for CPU tensors, the CUDA kernels for CUDA tensors.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 
@@ -17,11 +19,15 @@ from .base import DenseLinearOperator, LinearOperator
 
 
 class LazyEvaluatedKernelOperator(LinearOperator):
-    def __init__(self, kernel, x1: torch.Tensor, x2: torch.Tensor, symmetric: bool = False):
+    def __init__(self, kernel, x1: torch.Tensor, x2: torch.Tensor, symmetric: bool = False,
+                 hypers: Optional[Dict[str, torch.Tensor]] = None):
         self.kernel = kernel
         self.x1 = x1
         self.x2 = x2
         self.symmetric = bool(symmetric)
+        # the kernel's hyperparameters as tensors, read once: every evaluation and product
+        # goes through them, so an operator rebuilt from copies differentiates (_flatten)
+        self.hypers = kernel.hypers() if hypers is None else dict(hypers)
 
     def _is_known_psd(self) -> bool:
         # K(X, X) of a valid kernel is PSD; a cross-covariance K(X, Z) is not
@@ -38,6 +44,20 @@ class LazyEvaluatedKernelOperator(LinearOperator):
     def device(self):
         return self.x1.device
 
+    def _flatten(self):
+        names = list(self.hypers)
+        xs = (self.x1,) if self.symmetric else (self.x1, self.x2)
+        kernel, symmetric, nx = self.kernel, self.symmetric, len(xs)
+
+        def rebuild(tensors):
+            x1, x2 = (tensors[0], tensors[0]) if symmetric else tensors[:2]
+            return LazyEvaluatedKernelOperator(kernel, x1, x2, symmetric, dict(zip(names, tensors[nx:])))
+
+        return xs + tuple(self.hypers.values()), rebuild
+
+    def _evaluate(self, x1, x2, diag: bool = False):
+        return self.kernel.evaluate(self.hypers, x1, x2, diag=diag)
+
     def _is_big(self) -> bool:
         n, m = self.shape
         return n * m > settings.max_eager_kernel_size.value() ** 2 or settings.memory_efficient.on()
@@ -46,43 +66,53 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         """The dense kernel matrix if it is small enough, else this lazy operator."""
         if self._is_big():
             return self
-        return DenseLinearOperator(self.kernel.forward(self.x1, self.x2))
+        return DenseLinearOperator(self._evaluate(self.x1, self.x2))
 
     def to_dense(self):
-        return self.kernel.forward(self.x1, self.x2)
+        return self._evaluate(self.x1, self.x2)
 
     def _diagonal(self):
         if self.x1.shape == self.x2.shape:
-            return self.kernel.forward(self.x1, self.x2, diag=True)
+            return self._evaluate(self.x1, self.x2, diag=True)
         return self.evaluate_kernel()._diagonal()
 
     def _get_rows(self, idx):
-        return self.kernel.forward(self.x1[idx], self.x2)
+        return self._evaluate(self.x1[idx], self.x2)
 
     def _matmul(self, rhs):
         if not self._is_big():
             return self.evaluate_kernel()._matmul(rhs)
         return self._fused_matmul(rhs)
 
-    def _fused_matmul(self, rhs):
-        """K·rhs through the fused kernel matvec, for (Scale)(RBF | Matérn) kernels."""
+    def _matmul_grad_only(self, rhs):
+        if not self._is_big():
+            return self.evaluate_kernel()._matmul(rhs)
+        return self._fused_matmul(rhs, grad_only=True)
+
+    def _fused_matmul(self, rhs, grad_only: bool = False):
+        """K·rhs through the fused kernel product, for (Scale)(RBF | Matérn) kernels.
+
+        The centre is detached, as the JAX package stop-gradients it: it only conditions
+        the distances, and K does not depend on it."""
         from ..kernels.scale_kernel import ScaleKernel
         from ..ops import fused_kernels as fk
 
-        kernel, outputscale = self.kernel, None
+        kernel, outputscale = self.kernel, self.hypers.get("outputscale")
+        prefix = ""
         if isinstance(kernel, ScaleKernel):
-            kernel, outputscale = kernel.base_kernel, kernel.outputscale
+            kernel, prefix = kernel.base_kernel, "base_kernel."
         ktype = fk.kernel_type_for(kernel)
         if ktype is None:
             raise NotImplementedError(f"no fused matvec for {type(kernel).__name__}")
-        ls = kernel.lengthscale
-        center = self.x1.mean(-2, keepdim=True)
+        ls = self.hypers[prefix + "lengthscale"]
+        center = self.x1.mean(-2, keepdim=True).detach()
         xs1 = ((self.x1 - center) / ls).contiguous()
         # symmetric: scale once and pass the same tensor twice
         xs2 = xs1 if self.symmetric else ((self.x2 - center) / ls).contiguous()
+        rhs = rhs.contiguous()
         if outputscale is not None:
-            return fk.fused_scaled_kernel_matvec(xs1, xs2, rhs, outputscale, ktype)
-        return fk.fused_kernel_matvec(xs1, xs2, rhs.contiguous(), ktype)
+            return fk.fused_scaled_kernel_matvec(xs1, xs2, rhs, outputscale, ktype, self.symmetric, grad_only)
+        return fk.fused_kernel_matvec(xs1, xs2, rhs, ktype, self.symmetric, grad_only)
 
     def __getitem__(self, index):
         """Slice the inputs, not the kernel matrix: ``op[rows, cols]`` with two slices."""
@@ -90,4 +120,6 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         if not (isinstance(row_ix, slice) and isinstance(col_ix, slice)):
             raise NotImplementedError("only (slice, slice) indexing is ported")
         symmetric = self.symmetric and row_ix == col_ix
-        return LazyEvaluatedKernelOperator(self.kernel, self.x1[row_ix], self.x2[col_ix], symmetric)
+        x1 = self.x1[row_ix]
+        x2 = x1 if symmetric else self.x2[col_ix]
+        return LazyEvaluatedKernelOperator(self.kernel, x1, x2, symmetric, self.hypers)

@@ -1,11 +1,13 @@
-"""Root operator A = R Rᵀ.  Counterpart of ``gpytorch_tpu/linop/root.py``
-(``RootLinearOperator``, used here for the LOVE caches)."""
+"""Root operators.  Counterpart of ``gpytorch_tpu/linop/root.py``: ``RootLinearOperator``
+A = R Rᵀ (the LOVE caches) and ``LowRankRootAddedDiagLinearOperator`` R Rᵀ + D (the
+pivoted-Cholesky preconditioner P, from which training draws its probe vectors)."""
 
 from __future__ import annotations
 
 import torch
 
-from .base import LinearOperator
+from .base import LinearOperator, ProbeSource, probe_base_samples
+from .diag import DiagLinearOperator
 
 
 class RootLinearOperator(LinearOperator):
@@ -37,3 +39,35 @@ class RootLinearOperator(LinearOperator):
 
     def to_dense(self):
         return self.root @ self.root.mT
+
+
+class LowRankRootAddedDiagLinearOperator(LinearOperator):
+    """R Rᵀ + D for a low-rank root R (n, k) and a diagonal D."""
+
+    def __init__(self, low_rank: RootLinearOperator, diag_op: DiagLinearOperator):
+        self.low_rank = low_rank
+        self.diag_op = diag_op
+
+    def _shape(self):
+        return self.low_rank.shape
+
+    @property
+    def dtype(self):
+        return self.low_rank.dtype
+
+    @property
+    def device(self):
+        return self.low_rank.device
+
+    def _matmul(self, rhs):
+        return self.low_rank._matmul(rhs) + self.diag_op._matmul(rhs)
+
+    def zero_mean_mvn_samples(self, num_samples: int, base_samples: ProbeSource = None) -> torch.Tensor:
+        """(num_samples, n) draws of N(0, R Rᵀ + D): x = R u₁ + D^{1/2} u₂ with u ~ N(0, I),
+        u₁ of shape (num_samples, k, 1) drawn first and u₂ of shape (num_samples, n), as the
+        JAX package draws them."""
+        R = self.low_rank.root
+        n, k = R.shape
+        u1 = probe_base_samples((num_samples, k, 1), R.dtype, R.device, base_samples)
+        u2 = probe_base_samples((num_samples, n), R.dtype, R.device, base_samples)
+        return (R @ u1)[..., 0] + torch.sqrt(self.diag_op._diag_values()) * u2

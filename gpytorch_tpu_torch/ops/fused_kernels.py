@@ -1,14 +1,19 @@
-"""Streaming kernel matvec out = K(x1, x2)·V — the hot operation of exact-GP serving.
+"""Streaming products with a stationary kernel matrix K(x1, x2), and their gradients — the
+hot operations of exact-GP serving and training.
 
-Counterpart of ``gpytorch_tpu/ops/pallas_kernels.py`` (forward only: this port serves,
-it does not train yet).  Three things live here:
+Counterpart of ``gpytorch_tpu/ops/pallas_kernels.py``.  What lives here:
 
-* the stationary kernel functions of squared distance (``_kernel_fn``);
-* the plain PyTorch version of the matvec (``_matvec_reference``), streamed in blocks of
-  rows so that K is never held whole, even at N=100k;
-* the dispatch ``fused_kernel_matvec`` / ``fused_scaled_kernel_matvec``.  A CPU tensor
-  takes the plain version; a CUDA tensor launches the hand-written CUDA kernel
-  ``csrc/kernel_matvec.cu`` and raises if it cannot — there is no fallback.
+* the kernel functions of squared distance (``_kernel_fn``, ``_kernel_prime`` and
+  ``_kernel_fn_and_prime``, which shares one exp between k and k′);
+* the plain PyTorch versions, streamed in blocks of rows so that K is never held whole,
+  even at N=100k: the product ``_matvec_reference``, the general backward
+  ``_backward_reference`` and the fused symmetric backward ``_bwd_fused_reference``;
+* the hand-written CUDA kernels ``csrc/kernel_matvec.cu`` (K·V) and
+  ``csrc/kernel_bwd_fused.cu`` (the symmetric backward), built with nvcc at first use and
+  bound by ctypes;
+* the differentiable products ``fused_kernel_matvec`` and ``fused_scaled_kernel_matvec``
+  (``torch.autograd.Function``s).  CPU tensors take the plain versions; CUDA tensors
+  launch the CUDA kernels or raise — there is no fallback.
 
 All inputs are pre-scaled: the caller centres x and divides it by the lengthscale.
 """
@@ -34,10 +39,10 @@ MATERN15 = 2
 MATERN25 = 3
 KERNEL_TYPES = (RBF, MATERN05, MATERN15, MATERN25)
 
-# rows per block of the plain streamed matvec (gpytorch_tpu/linop/lazy_kernel.py:24)
+# rows per block of the plain streamed versions (gpytorch_tpu/linop/lazy_kernel.py:24)
 _CHUNK = 4096
 
-# the widest input the CUDA kernel takes (its distance tile is padded to 64 dims)
+# the widest input the CUDA kernels take (their distance tiles are padded to 64 dims)
 MAX_D = 64
 
 
@@ -52,6 +57,37 @@ def _kernel_fn(d2: torch.Tensor, kernel_type: int) -> torch.Tensor:
         return (1.0 + s) * torch.exp(-s)
     s = _SQRT5 * r
     return (1.0 + s + s * s / 3.0) * torch.exp(-s)
+
+
+def _kernel_prime(d2: torch.Tensor, kernel_type: int) -> torch.Tensor:
+    """dk/d(d2)."""
+    if kernel_type == RBF:
+        return -0.5 * torch.exp(-0.5 * d2)
+    r = torch.sqrt(torch.clamp_min(d2, 1e-30))
+    if kernel_type == MATERN05:
+        return -torch.exp(-r) * (0.5 / r)
+    if kernel_type == MATERN15:
+        return -1.5 * torch.exp(-_SQRT3 * r)
+    return -(5.0 / 6.0) * (1.0 + _SQRT5 * r) * torch.exp(-_SQRT5 * r)
+
+
+def _kernel_fn_and_prime(d2: torch.Tensor, kernel_type: int):
+    """(k(d2), dk/d(d2)) sharing one exp: every supported k′ is a rational factor times
+    the same exponential as k."""
+    if kernel_type == RBF:
+        k = torch.exp(-0.5 * d2)
+        return k, -0.5 * k
+    r = torch.sqrt(torch.clamp_min(d2, 1e-30))
+    if kernel_type == MATERN05:
+        k = torch.exp(-r)
+        return k, -k * (0.5 / r)
+    if kernel_type == MATERN15:
+        s = _SQRT3 * r
+        e = torch.exp(-s)
+        return (1.0 + s) * e, -1.5 * e
+    s = _SQRT5 * r
+    e = torch.exp(-s)
+    return (1.0 + s + s * s / 3.0) * e, -(5.0 / 6.0) * (1.0 + s) * e
 
 
 def _check_shapes(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, kernel_type: int) -> None:
@@ -81,14 +117,82 @@ def _matvec_reference(x1, x2, v, kernel_type: int, chunk: int = _CHUNK) -> torch
     return out
 
 
+def _backward_reference(x1, x2, g, v, kernel_type: int, need_dv: bool = True, need_dos: bool = False,
+                        chunk: int = _CHUNK):
+    """Plain backward of Σ g ⊙ (K(x1, x2) v): (dv, dx1, dx2, dos), by blocks of rows of x1.
+
+    The non-Pallas branches of ``gpytorch_tpu/ops/pallas_kernels.py::_fkm_bwd`` and
+    ``_fskm_bwd``: with W = k′(d2) ⊙ (g vᵀ), dx1 = 2(rowsum(W) x1 − W x2) and
+    dx2 = 2(colsum(W) x2 − Wᵀ x1); dv = Kᵀ g and dos = Σ g ⊙ (K v) where asked for
+    (``None`` otherwise)."""
+    from .sq_dist import sq_dist_centered
+
+    _check_shapes(x1, x2, v, kernel_type)
+    center = x1.mean(-2, keepdim=True)
+    x1c, x2c = x1 - center, x2 - center
+    dx1 = torch.empty_like(x1c)
+    dx2 = torch.zeros_like(x2c)
+    dv = torch.zeros_like(v) if need_dv else None
+    dos = torch.zeros((), dtype=v.dtype, device=v.device) if need_dos else None
+    for i in range(0, x1.shape[0], chunk):
+        a, gb = x1c[i : i + chunk], g[i : i + chunk]
+        d2 = sq_dist_centered(a, x2c)
+        k, kp = _kernel_fn_and_prime(d2, kernel_type)
+        W = kp * (gb @ v.mT)
+        dx1[i : i + chunk] = 2.0 * (W.sum(-1, keepdim=True) * a - W @ x2c)
+        dx2 += 2.0 * (W.sum(-2).unsqueeze(-1) * x2c - W.mT @ a)
+        if need_dv:
+            dv += k.mT @ gb
+        if need_dos:
+            dos = dos + (gb * (k @ v)).sum()
+    return dv, dx1, dx2, dos
+
+
+def _bwd_fused_reference(x, g, v, kernel_type: int, need_dv: bool = True, need_dos: bool = False,
+                         chunk: int = _CHUNK):
+    """Plain version of the fused symmetric backward (the CUDA kernel's twin): for
+    out = K(x, x) v and the cotangent g, (dv, dx, dos) with
+    dv = K g, dx = 2 Σ_j k′(d2_ij)(g_i·v_j + v_i·g_j)(x_i − x_j) (k′ zeroed on the exact
+    diagonal) and dos = Σ_ij k(d2_ij)(g_i·v_j); dv and dos are ``None`` unless asked for.
+    Streamed by blocks of rows, as ``gpytorch_tpu/ops/pallas_kernels.py::_bwd_fused_pallas``
+    computes it by tiles."""
+    from .sq_dist import sq_dist_centered
+
+    _check_shapes(x, x, v, kernel_type)
+    if g.shape != v.shape:
+        raise ValueError(f"g {tuple(g.shape)} and v {tuple(v.shape)} differ")
+    xc = x - x.mean(-2, keepdim=True)
+    n = x.shape[0]
+    dx = torch.empty_like(xc)
+    dv = torch.empty_like(v) if need_dv else None
+    dos = torch.zeros((), dtype=v.dtype, device=v.device) if need_dos else None
+    for i in range(0, n, chunk):
+        a, gb, vb = xc[i : i + chunk], g[i : i + chunk], v[i : i + chunk]
+        # the exact diagonal: d2 = 0 (the expansion leaves round-off there, which the
+        # Matérn kernels' square root amplifies) and k′ = 0
+        d2 = sq_dist_centered(a, xc)
+        rows = torch.arange(a.shape[0], device=x.device)
+        d2[rows, rows + i] = 0.0
+        k, kp = _kernel_fn_and_prime(d2, kernel_type)
+        kp[rows, rows + i] = 0.0
+        gv = gb @ v.mT
+        W = kp * (gv + vb @ g.mT)
+        dx[i : i + chunk] = 2.0 * (W.sum(-1, keepdim=True) * a - W @ xc)
+        if need_dv:
+            dv[i : i + chunk] = k @ g
+        if need_dos:
+            dos = dos + (k * gv).sum()
+    return dv, dx, dos
+
+
 # ----------------------------------------------------------------------------------------
-# the CUDA kernel: built from csrc/kernel_matvec.cu with nvcc at first use, bound by ctypes
+# the CUDA kernels: built from csrc/*.cu with nvcc at first use, bound by ctypes
 # ----------------------------------------------------------------------------------------
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "kernel_matvec.cu"
+_SOURCES = (_PKG / "csrc" / "kernel_matvec.cu", _PKG / "csrc" / "kernel_bwd_fused.cu")
 _BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -102,26 +206,42 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the built kernel library lives: named by a hash of its source and flags,
-    so an edited source is rebuilt and an unchanged one is reused."""
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"libkernel_matvec_{digest}.so"
+    """Where the built kernel library lives: named by a hash of its sources and flags, so
+    an edited source is rebuilt and an unchanged one is reused."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in _SOURCES:
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"libgp_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile ``csrc/kernel_matvec.cu`` for sm_90a unless the library already exists.
+    """Compile the CUDA sources for sm_90a into one shared library unless it exists.
 
-    Raises ``RuntimeError`` with nvcc's output if the build fails."""
+    Each source is compiled by its own nvcc process, all started together, and the
+    objects are then linked.  Raises ``RuntimeError`` with nvcc's output on failure."""
     so = library_path()
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [_BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
+    cmds = [[_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(_SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = _BUILD_DIR / f"{tag}.tmp"
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, so)
+    for obj in objs:
+        obj.unlink()
     return so
 
 
@@ -132,12 +252,28 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.gp_kernel_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gp_kernel_matvec_f32.restype = ctypes.c_int
+        lib.gp_kernel_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.gp_kernel_bwd_fused_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def _check_cuda_f32(**tensors) -> None:
+    devices = set()
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 for the CUDA kernel, got {t.dtype}")
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        devices.add(t.device)
+    if len(devices) > 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
+
+
 class KernelMatvecCUDA:
-    """Wrapper of the CUDA kernel: checks its inputs, allocates the output, launches on
+    """Wrapper of the K·V kernel: checks its inputs, allocates the output, launches on
     the current stream and counts its launches in ``launches``."""
 
     def __init__(self):
@@ -145,15 +281,7 @@ class KernelMatvecCUDA:
 
     def __call__(self, x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, kernel_type: int) -> torch.Tensor:
         _check_shapes(x1, x2, v, kernel_type)
-        for name, t in (("x1", x1), ("x2", x2), ("v", v)):
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32 for the CUDA kernel, got {t.dtype}")
-            if not t.is_cuda:
-                raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-        if not (x1.device == x2.device == v.device):
-            raise ValueError(f"inputs on different devices: {x1.device}, {x2.device}, {v.device}")
+        _check_cuda_f32(x1=x1, x2=x2, v=v)
         n, d = x1.shape
         m, t = v.shape
         if d > MAX_D:
@@ -175,12 +303,61 @@ class KernelMatvecCUDA:
 
 kernel_matvec_cuda = KernelMatvecCUDA()
 
+# work split of csrc/kernel_bwd_fused.cu: rows per block, and columns per chunk for t > 1
+_BWD_ROWS = 128
+_BWD_COLS = 32
 
-def fused_kernel_matvec(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, kernel_type: int) -> torch.Tensor:
-    """out = K(x1, x2) @ v for pre-scaled inputs, never materialising K.
 
-    x1: (n, d); x2: (m, d); v: (m, t) → (n, t).  CPU tensors take the plain version;
-    CUDA tensors launch the CUDA kernel (float32, contiguous) or raise."""
+class KernelBwdFusedCUDA:
+    """Wrapper of the fused symmetric backward kernel: returns (dv, dx, dos) as
+    ``_bwd_fused_reference`` does.  Allocates the outputs and the per-chunk dx and
+    per-block dos partials, launches on the current stream, folds the partials with
+    ``torch.sum`` and counts its launches in ``launches``."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x, g, v, kernel_type: int, need_dv: bool = True, need_dos: bool = False):
+        _check_shapes(x, x, v, kernel_type)
+        if g.shape != v.shape:
+            raise ValueError(f"g {tuple(g.shape)} and v {tuple(v.shape)} differ")
+        _check_cuda_f32(x=x, g=g, v=v)
+        n, d = x.shape
+        t = v.shape[1]
+        if d > MAX_D:
+            raise ValueError(f"the CUDA kernel takes at most {MAX_D} input dims, got {d}")
+        dev = x.device
+        if n == 0 or t == 0:
+            dos = torch.zeros((), dtype=torch.float32, device=dev) if need_dos else None
+            return (torch.zeros_like(v) if need_dv else None), torch.zeros_like(x), dos
+        chunks = 1 if t == 1 else -(-t // _BWD_COLS)
+        blocks = -(-n // _BWD_ROWS)
+        dv = torch.empty((n, t), dtype=torch.float32, device=dev) if need_dv else None
+        dx_part = torch.empty((chunks, n, d), dtype=torch.float32, device=dev)
+        dos_part = torch.empty((chunks, blocks), dtype=torch.float32, device=dev) if need_dos else None
+        lib = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.gp_kernel_bwd_fused_f32(
+                x.data_ptr(), g.data_ptr(), v.data_ptr(), dv.data_ptr() if need_dv else None, dx_part.data_ptr(),
+                dos_part.data_ptr() if need_dos else None, n, d, t, int(kernel_type), int(need_dv), int(need_dos),
+                chunks, blocks, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"kernel_bwd_fused launch failed: CUDA error {rc}")
+        self.launches += 1
+        dx = dx_part[0] if chunks == 1 else dx_part.sum(0)
+        return dv, dx, (dos_part.sum() if need_dos else None)
+
+
+kernel_bwd_fused_cuda = KernelBwdFusedCUDA()
+
+
+# ----------------------------------------------------------------------------------------
+# dispatch and the differentiable products
+# ----------------------------------------------------------------------------------------
+
+def _product(x1, x2, v, kernel_type: int) -> torch.Tensor:
     if x1.is_cuda:
         return kernel_matvec_cuda(x1, x2, v, kernel_type)
     if x1.device.type != "cpu":
@@ -188,10 +365,103 @@ def fused_kernel_matvec(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, ker
     return _matvec_reference(x1, x2, v, kernel_type)
 
 
-def fused_scaled_kernel_matvec(x1, x2, v, outputscale, kernel_type: int) -> torch.Tensor:
-    """out = outputscale · K(x1, x2) @ v; the outputscale is folded into v (the product
-    keeps v's memory layout, so it is made contiguous for the kernel)."""
-    return fused_kernel_matvec(x1, x2, (outputscale * v).contiguous(), kernel_type)
+def _backward(x1, x2, g, v, kernel_type: int, symmetric: bool, need_dv: bool, need_dos: bool):
+    """(dv, dx1, dx2, dos) of Σ g ⊙ (K(x1, x2) v); dv and dos are ``None`` where not needed.
+
+    Symmetric (x1 and x2 one tensor): one fused pass, and the whole cotangent of that
+    tensor comes back in dx1 — the CUDA kernel on the card, its plain twin on the CPU.
+    Asymmetric: the plain general backward on the CPU; on the card it needs the
+    asymmetric backward kernel, which is not ported, and raises."""
+    g = g.contiguous()
+    if x1.is_cuda:
+        if not symmetric:
+            raise NotImplementedError(
+                "the asymmetric kernel-product backward on CUDA needs the port of "
+                "gpytorch_tpu/ops/pallas_kernels.py::_grad_x_pallas, which is still to be done"
+            )
+        dv, dx, dos = kernel_bwd_fused_cuda(x1, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
+        return dv, dx, None, dos
+    if x1.device.type != "cpu":
+        raise ValueError(f"unsupported device {x1.device}")
+    if symmetric:
+        dv, dx, dos = _bwd_fused_reference(x1, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
+        return dv, dx, None, dos
+    return _backward_reference(x1, x2, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
+
+
+def _zeros_out(x1, v) -> torch.Tensor:
+    return torch.zeros((x1.shape[0], v.shape[1]), dtype=torch.result_type(x1, v), device=v.device)
+
+
+class _KernelMatvec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x1, x2, v, kernel_type, symmetric, grad_only):
+        ctx.save_for_backward(x1, x2, v)
+        ctx.kernel_type, ctx.symmetric = kernel_type, symmetric
+        return _zeros_out(x1, v) if grad_only else _product(x1, x2, v, kernel_type)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, v = ctx.saved_tensors
+        dv, dx1, dx2, _ = _backward(x1, x2, g, v, ctx.kernel_type, ctx.symmetric, ctx.needs_input_grad[2], False)
+        return dx1, dx2, dv, None, None, None
+
+
+class _ScaledKernelMatvec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x1, x2, v, outputscale, kernel_type, symmetric, grad_only):
+        ctx.save_for_backward(x1, x2, v, outputscale)
+        ctx.kernel_type, ctx.symmetric = kernel_type, symmetric
+        if grad_only:
+            return _zeros_out(x1, v)
+        # the product keeps v's memory layout, so it is made contiguous for the kernel; it
+        # goes through the public entry, where the serving tests count every product
+        return fused_kernel_matvec(x1, x2, (outputscale * v).contiguous(), kernel_type)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, v, os_ = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dv, dx1, dx2, dos = _backward(x1, x2, g, v, ctx.kernel_type, ctx.symmetric, need[2], need[3])
+        scale = lambda t: None if t is None else os_ * t  # noqa: E731
+        dos = None if dos is None else dos.reshape(os_.shape).to(os_.dtype)
+        return scale(dx1), scale(dx2), scale(dv), dos, None, None, None
+
+
+def _check_symmetric(x1, x2, symmetric: bool) -> None:
+    if symmetric and x2 is not x1:
+        raise ValueError("symmetric=True needs x1 and x2 to be one tensor")
+
+
+def fused_kernel_matvec(x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, kernel_type: int,
+                        symmetric: bool = False, grad_only: bool = False) -> torch.Tensor:
+    """out = K(x1, x2) @ v for pre-scaled inputs, never materialising K; differentiable.
+
+    x1: (n, d); x2: (m, d); v: (m, t) → (n, t).  CPU tensors take the plain versions; CUDA
+    tensors launch the CUDA kernels (float32, contiguous) or raise.
+
+    ``symmetric``: x1 and x2 are one tensor, so the backward is the one fused pass
+    (``csrc/kernel_bwd_fused.cu``) that returns the whole cotangent of that tensor.
+    ``grad_only``: the caller uses the product only for its gradient (it is linear in
+    it); the forward returns zeros and launches nothing — the counterpart of the JAX
+    package's grad-only twins."""
+    _check_shapes(x1, x2, v, kernel_type)
+    _check_symmetric(x1, x2, symmetric)
+    return _KernelMatvec.apply(x1, x2, v, kernel_type, bool(symmetric), bool(grad_only))
+
+
+def fused_scaled_kernel_matvec(x1, x2, v, outputscale, kernel_type: int, symmetric: bool = False,
+                               grad_only: bool = False) -> torch.Tensor:
+    """out = outputscale · K(x1, x2) @ v, with the outputscale an operand of its own.
+
+    Its value is ``fused_kernel_matvec(x1, x2, outputscale · v)``.  Its gradient reads
+    the outputscale's cotangent Σ k(d2_ij)(g_i·v_j) out of the fused backward, and not
+    through dv, which the training backward never needs (the JAX package's reason for
+    the same operand, ``gpytorch_tpu/linop/lazy_kernel.py:212-216``)."""
+    _check_shapes(x1, x2, v, kernel_type)
+    _check_symmetric(x1, x2, symmetric)
+    outputscale = torch.as_tensor(outputscale, dtype=v.dtype, device=v.device)
+    return _ScaledKernelMatvec.apply(x1, x2, v, outputscale, kernel_type, bool(symmetric), bool(grad_only))
 
 
 def kernel_type_for(kernel):

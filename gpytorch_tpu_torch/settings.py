@@ -1,4 +1,4 @@
-"""Global configuration context managers — the knobs the exact-GP serving path reads.
+"""Global configuration context managers — the knobs exact-GP serving and training read.
 
 Counterpart of ``gpytorch_tpu/settings.py`` (same class names, same defaults).  Each knob
 is a class whose value is read at call time and set for a block with ``with``::
@@ -6,8 +6,10 @@ is a class whose value is read at call time and set for a block with ``with``::
     with settings.max_cholesky_size(0), settings.fast_pred_var():
         pred = likelihood(model(test_x))
 
-PyTorch runs eagerly, so unlike the JAX package a value read inside a solver is the value
-in force when that solver runs — there is no trace-time snapshot to worry about.
+PyTorch runs eagerly, so a value read inside a solver is the value in force when that
+solver runs.  The one exception is a backward pass, which runs after the caller's ``with``
+block has exited: the training objective (``solvers/inv_quad.py``) snapshots the knobs it
+needs when it is called, as the JAX package's ``_IQConfig`` does.
 """
 
 from __future__ import annotations
@@ -136,6 +138,52 @@ class max_root_decomposition_size(_value_context):
     """Rank of the LOVE (Lanczos) root decomposition."""
 
     _global_value = 100
+
+
+class num_trace_samples(_value_context):
+    """Probe vectors of the stochastic log-determinant estimate (SLQ)."""
+
+    _global_value = 10
+
+
+class max_lanczos_quadrature_iterations(_value_context):
+    """Lanczos iterations of SLQ: the CG iteration floor of the training solve."""
+
+    _global_value = 20
+
+
+class tridiagonal_jitter(_value_context):
+    """Floor of the Lanczos-tridiagonal Ritz values before their logarithm."""
+
+    _global_value = 1e-6
+
+
+class skip_logdet_forward(_feature_flag):
+    """Skip the SLQ value of log|K̂| (the gradient still comes from the probe solves).
+    The port keeps the forward log-determinant: only the default ``False`` is taken."""
+
+    _default = False
+
+
+class precond_logdet_vr(_feature_flag):
+    """Variance-reduced log-determinant gradient (arXiv 2107.00243): with a preconditioner
+    P, d log|K̂| = d log|P| + E_z[(K̂⁻¹z)ᵀ dK̂ (P⁻¹z) − (P⁻¹z)ᵀ dP (P⁻¹z)], z ~ N(0, P)."""
+
+    _default = False
+
+
+class fast_precond_grad(_feature_flag):
+    """Gradient of the pivoted-Cholesky root through the Nyström factor on its fixed
+    pivots; its value stays the pivoted-Cholesky factor."""
+
+    _default = True
+
+
+class cg_lagged_rhs(_feature_flag):
+    """rhs-warm training solves: fold the warm start's residual product into CG's first
+    iteration (x = 0, r = b, p = x₀ and a forced α = 1, β = 0 on the warm columns)."""
+
+    _default = False
 
 
 class max_eager_kernel_size(_value_context):

@@ -1,8 +1,10 @@
-"""Pivoted (partial) Cholesky — the low-rank CG preconditioner.
+"""Pivoted (partial) Cholesky — the low-rank CG preconditioner — and its Nyström form.
 
 Counterpart of ``gpytorch_tpu/solvers/pivoted_cholesky.py``.  Reads only the operator's
 diagonal and ``rank`` of its rows (``_get_rows``), never the whole matrix.  The loop runs
-on the device without host synchronisation: pivots stay tensors.
+on the device without host synchronisation: pivots stay tensors.  Columns are kept out of
+place, so autograd can differentiate the loop; ``nystrom_factor_from_pivots`` is the
+cheaper differentiable form on a fixed pivot set.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ _JITTER = 1e-8
 
 
 def pivoted_cholesky(linop, rank: int, rel_tol: float = 0.0, return_pivots: bool = False):
-    """L of shape (n, rank) with L Lᵀ ≈ linop (greedy pivoting on the residual diagonal).
+    """L of shape (n, rank) with L Lᵀ ≈ linop (greedy pivoting on the residual diagonal),
+    and with ``return_pivots`` the pivot of each column.
 
     Columns past the point where the residual diagonal reaches the round-off floor of the
     original diagonal — or, with ``rel_tol`` > 0, where the residual trace falls below
@@ -29,6 +32,7 @@ def pivoted_cholesky(linop, rank: int, rel_tol: float = 0.0, return_pivots: bool
 
     d = diag
     L = torch.zeros(n, rank, dtype=diag.dtype, device=diag.device)
+    columns = torch.arange(rank, device=diag.device)
     pivots = torch.empty(rank, dtype=torch.long, device=diag.device)
     for m in range(rank):
         pivot = torch.argmax(d)
@@ -41,6 +45,26 @@ def pivoted_cholesky(linop, rank: int, rel_tol: float = 0.0, return_pivots: bool
             live = live & (d.sum() > rel_tol * orig_trace)
         col = torch.where(live & torch.isfinite(col), col, torch.zeros_like(col))
         d = torch.where(positions == pivot, torch.zeros_like(d), torch.clamp_min(d - col * col, 0.0))
-        L[:, m] = col
+        # out of place, so that autograd can differentiate the loop
+        L = torch.where(columns == m, col.unsqueeze(-1), L)
         pivots[m] = pivot
     return (L, pivots) if return_pivots else L
+
+
+def nystrom_factor_from_pivots(linop, pivots: torch.Tensor, jitter_rel: float = 1e-6) -> torch.Tensor:
+    """Differentiable rank-k root on a fixed pivot set: L = K[:, piv] R⁻ᵀ with
+    R = chol(K[piv, piv]), so L Lᵀ = K[:, piv] K[piv, piv]⁻¹ K[piv, :] — in exact
+    arithmetic the factor pivoted Cholesky builds on those pivots.  One k×k Cholesky and
+    one (k, n) triangular solve, with only the k kernel rows feeding the gradient."""
+    from .cholesky import psd_safe_cholesky
+
+    k = pivots.shape[-1]
+    rows = linop._get_rows(pivots)  # (k, n)
+    C = rows[:, pivots]
+    C = 0.5 * (C + C.mT)
+    # relative jitter: C carries the kernel's scale; it guards truncated or repeated pivots
+    tr = torch.diagonal(C).sum() / k
+    eye = torch.eye(k, dtype=C.dtype, device=C.device)
+    R = psd_safe_cholesky(C + (jitter_rel * tr) * eye)
+    Y = torch.linalg.solve_triangular(R, rows, upper=False)  # (k, n) = R⁻¹ K[piv, :]
+    return Y.mT

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernel (gpytorch_tpu_torch/csrc/kernel_matvec.cu) against its plain
-PyTorch version, on a GPU.  Every test here is marked ``cuda`` and skips where there is no
-CUDA device: the kernel has no CPU mode.  This file imports neither JAX nor the JAX
+"""The hand-written CUDA kernels (gpytorch_tpu_torch/csrc/kernel_matvec.cu and
+kernel_bwd_fused.cu) against their plain PyTorch versions, on a GPU.  Every test here is
+marked ``cuda`` and skips where there is no CUDA device: the kernels have no CPU mode.  This file imports neither JAX nor the JAX
 package, so it also runs on a machine without them:
 
     python -m pytest tests/test_torch_cuda_kernel.py -m cuda -q --noconftest
@@ -49,3 +49,61 @@ def test_cuda_wrapper_rejects_non_contiguous_and_mixed_devices(cuda_device):
         fk.kernel_matvec_cuda(x1, x2, v.t().contiguous().t(), fk.RBF)
     with pytest.raises(ValueError):
         fk.kernel_matvec_cuda(x1, x2, v.cpu(), fk.RBF)
+
+
+def _abs_terms(x, g, v, ktype):
+    """Sums of absolute terms of the fused backward's dx, dv and dos (dense, float64)."""
+    diff = (x[:, None, :] - x[None, :, :]).abs()
+    k, kp = fk._kernel_fn_and_prime((diff * diff).sum(-1), ktype)
+    kp.fill_diagonal_(0.0)
+    gv = (g @ v.mT).abs()
+    w = kp.abs() * (gv + (v @ g.mT).abs())
+    return 2.0 * torch.einsum("ij,ijk->ik", w, diff), k.abs() @ g.abs(), (k.abs() * gv).sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dv", [True, False])
+@pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
+@pytest.mark.parametrize("n,d,t", [(1537, 3, 64), (1537, 11, 20), (129, 3, 1), (1, 1, 1)])
+def test_cuda_backward_kernel_matches_plain(cuda_device, ktype, need_dv, n, d, t):
+    rng = np.random.default_rng(ktype)
+    x, g, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((n, d), (n, t), (n, t)))
+    before = fk.kernel_bwd_fused_cuda.launches
+    dv, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, ktype, need_dv=need_dv, need_dos=True)
+    torch.cuda.synchronize()
+    assert fk.kernel_bwd_fused_cuda.launches == before + 1
+    x64, g64, v64 = x.double(), g.double(), v.double()
+    want_dv, want_dx, want_dos = fk._bwd_fused_reference(x64, g64, v64, ktype, need_dv=need_dv, need_dos=True)
+    bx, bdv, bdos = _abs_terms(x64, g64, v64, ktype)
+    # float32 kernel against the float64 plain version, relative to the sums of absolute
+    # terms, which bound the float32 summation error (dx of a single point is exactly 0)
+    assert (dx.double() - want_dx).abs().max().item() <= 1e-5 * bx.max().item()
+    assert abs(dos.double() - want_dos).item() <= 1e-5 * bdos.item()
+    if need_dv:
+        assert (dv.double() - want_dv).abs().max().item() <= 1e-5 * bdv.max().item()
+    else:
+        assert dv is None
+
+
+@pytest.mark.cuda
+def test_symmetric_gradient_runs_the_backward_kernel(cuda_device):
+    rng = np.random.default_rng(5)
+    x, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((300, 3), (300, 4), (300, 4)))
+    xs, os_ = x.clone().requires_grad_(True), torch.tensor(1.5, device=cuda_device, requires_grad=True)
+    before = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
+    out = fk.fused_scaled_kernel_matvec(xs, xs, v, os_, fk.RBF, symmetric=True, grad_only=True)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches) == (before[0], before[1] + 1)
+    _, want_dx, want_dos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, need_dv=False, need_dos=True)
+    torch.testing.assert_close(xs.grad.double(), 1.5 * want_dx, rtol=1e-4, atol=1e-4 * want_dx.abs().max().item())
+    torch.testing.assert_close(os_.grad.double(), want_dos, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_asymmetric_gradient_on_cuda_raises(cuda_device):
+    x1, x2, v = _data(64, 32, 3, 4, seed=0, device=cuda_device)
+    x1.requires_grad_(True)
+    out = fk.fused_kernel_matvec(x1, x2, v, fk.RBF)
+    with pytest.raises(NotImplementedError, match="_grad_x_pallas"):
+        out.sum().backward()

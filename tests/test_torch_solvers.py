@@ -4,6 +4,7 @@ Lanczos inverse root."""
 
 import contextlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,7 +66,7 @@ def test_preconditioned_cg(budget, t):
         op_j = gp.linop.DenseLinearOperator(jnp.asarray(K)).add_diagonal(jnp.asarray(noise))
         res_j = jax_linear_cg(op_j._matmul, jnp.asarray(rhs), precond_fn=op_j._preconditioner()[0], tolerance=tol)
         op_t = gt.linop.DenseLinearOperator(torch.from_numpy(K)).add_diagonal(torch.tensor(noise, dtype=torch.float64))
-        res_t = linear_cg(op_t._matmul, torch.from_numpy(rhs), precond_fn=op_t._preconditioner(), tolerance=tol)
+        res_t = linear_cg(op_t._matmul, torch.from_numpy(rhs), precond_fn=op_t._preconditioner()[0], tolerance=tol)
     assert res_t.num_iters == int(res_j.num_iters)
     np.testing.assert_allclose(res_t.solution.numpy(), np.asarray(res_j.solution), rtol=1e-8, atol=1e-8)
     np.testing.assert_allclose(res_t.residual_norm.numpy(), np.asarray(res_j.residual_norm), rtol=1e-6)
@@ -109,3 +110,84 @@ def test_default_lanczos_start_is_the_same_in_every_precision():
     blocks = [_block_init(gt.linop.DenseLinearOperator(K.to(dt)), None, 6) for dt in (torch.float64, torch.float32)]
     assert blocks[1].dtype == torch.float32
     torch.testing.assert_close(blocks[1].double(), blocks[0], rtol=1e-7, atol=0)
+
+
+# ---------------------------------------------------------------------------------------
+# the training solve: mBCG options, tridiagonals, the Nyström factor and log|P|
+# ---------------------------------------------------------------------------------------
+
+def _training_system(n=300, noise=0.1, t_probes=4, seed=8):
+    K = _kernel_matrix(n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    rhs = rng.normal(size=(n, 1 + t_probes))
+    x0 = np.linalg.solve(K + noise * np.eye(n), rhs[:, :1]) + 0.01 * rng.normal(size=(n, 1))
+    return K, noise, rhs, x0
+
+
+@pytest.mark.parametrize("mode", ["cold", "warm", "lagged", "lagged_from_zero"])
+def test_linear_cg_training_options(mode):
+    # n_tridiag_iter with its α/β, and the warm rhs column gating the stop (conv_cols),
+    # plain or lagged; "lagged_from_zero" is the first training step, whose warm state is
+    # zeros: its forced α = 1 is a no-op and costs one iteration, as in the JAX package
+    K, noise, rhs, x0 = _training_system()
+    x0 = {"cold": None, "warm": x0, "lagged": x0, "lagged_from_zero": np.zeros_like(x0)}[mode]
+    kw = dict(n_tridiag_iter=6, tolerance=0.01)
+    if x0 is not None:
+        x0 = np.concatenate([x0, np.zeros((K.shape[0], rhs.shape[1] - 1))], axis=1)
+        kw.update(conv_cols=1, lagged_rhs_init=mode.startswith("lagged"))
+    settings_kw = dict(min_preconditioning_size=0, max_preconditioner_size=20, cg_stall_window=15)
+    with _both(settings_kw):
+        op_j = gp.linop.DenseLinearOperator(jnp.asarray(K)).add_diagonal(jnp.asarray(noise))
+        op_t = gt.linop.DenseLinearOperator(torch.from_numpy(K)).add_diagonal(torch.tensor(noise, dtype=torch.float64))
+        pc_j, pc_t = op_j._preconditioner()[0], op_t._preconditioner()[0]
+        res_j = jax_linear_cg(op_j._matmul, jnp.asarray(rhs), precond_fn=pc_j,
+                              x0=None if x0 is None else jnp.asarray(x0), **kw)
+        res_t = linear_cg(op_t._matmul, torch.from_numpy(rhs), precond_fn=pc_t,
+                          x0=None if x0 is None else torch.from_numpy(x0), **kw)
+    assert res_t.num_iters == int(res_j.num_iters) >= 6
+    np.testing.assert_allclose(res_t.solution.numpy(), np.asarray(res_j.solution), rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(res_t.alphas.numpy(), np.asarray(res_j.alphas), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(res_t.betas.numpy(), np.asarray(res_j.betas), rtol=1e-8, atol=1e-12)
+
+
+def test_tridiag_from_coeffs():
+    from gpytorch_tpu.solvers.cg import tridiag_from_coeffs as jax_tridiag
+
+    rng = np.random.default_rng(9)
+    alphas, betas = rng.uniform(0.2, 2.0, size=(6, 5)), rng.uniform(0.0, 1.0, size=(6, 5))
+    betas[2, 1] = -1e-3  # a negative β (a dead column) gives a zero off-diagonal in both
+    T = gt.solvers.tridiag_from_coeffs(torch.from_numpy(alphas), torch.from_numpy(betas))
+    assert T.shape == (5, 6, 6)
+    np.testing.assert_allclose(T.numpy(), np.asarray(jax_tridiag(jnp.asarray(alphas), jnp.asarray(betas))), rtol=1e-14, atol=0)
+
+
+def test_nystrom_factor_from_pivots():
+    from gpytorch_tpu.solvers.pivoted_cholesky import nystrom_factor_from_pivots as jax_nystrom
+
+    K = _kernel_matrix(150, seed=10)
+    _, piv = pivoted_cholesky(gt.linop.DenseLinearOperator(torch.from_numpy(K)), 12, return_pivots=True)
+    L_j = np.asarray(jax_nystrom(gp.linop.DenseLinearOperator(jnp.asarray(K)), jnp.asarray(piv.numpy())))
+    L_t = gt.solvers.nystrom_factor_from_pivots(gt.linop.DenseLinearOperator(torch.from_numpy(K)), piv)
+    np.testing.assert_allclose(L_t.numpy(), L_j, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_preconditioner_logdet_and_gradient(fast):
+    # log|P| of the τ-regularised rank-20 preconditioner of θ·K₀ + s·I, and its gradient
+    # w.r.t. (θ, s): through the fixed-pivot Nyström factor (fast_precond_grad), or
+    # through the pivoted-Cholesky loop itself
+    K0 = _kernel_matrix(200, seed=11)
+    theta, s = 1.3, 0.05
+    settings_kw = dict(min_preconditioning_size=0, max_preconditioner_size=20, preconditioner_noise_budget=1e-3,
+                       fast_precond_grad=fast)
+
+    def jax_logdet(p):
+        return gp.linop.DenseLinearOperator(p[0] * jnp.asarray(K0)).add_diagonal(p[1])._preconditioner()[2]
+
+    with _both(settings_kw):
+        val_j, grad_j = jax.value_and_grad(jax_logdet)(jnp.asarray([theta, s]))
+        p = torch.tensor([theta, s], dtype=torch.float64, requires_grad=True)
+        val_t = gt.linop.DenseLinearOperator(p[0] * torch.from_numpy(K0)).add_diagonal(p[1])._preconditioner()[2]
+        val_t.backward()
+    np.testing.assert_allclose(val_t.item(), float(val_j), rtol=1e-10)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(grad_j), rtol=1e-8)
