@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of gpytorch_tpu_torch on one NVIDIA GPU: exact-GP training and serving at
-N=100k.
+N=100k, for the flagship RBF model and for a periodic model.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,8 @@ Phases, in order; any failed check exits non-zero before the result line is prin
 
 1. device   — a CUDA device must be present (no CPU fallback); prints the card's name and
               power limit (nvidia-smi) and turns TF32 off for matmuls and cuDNN.
-2. build    — builds csrc/kernel_matvec.cu and csrc/kernel_bwd_fused.cu for sm_90a with
-              nvcc, one process per source, into one library (or reuses the build).
+2. build    — builds the four csrc/*.cu kernels for sm_90a with nvcc, one process per
+              source, into one library (or reuses the build).
 3. kernel   — the CUDA K·V kernel against its plain PyTorch version on the card, for the
               four kernel types at ragged shapes, and both timed at the serving shapes and
               at the training CG shape (t=64).
@@ -17,6 +17,12 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 64}, with and without dv;
               at the training shape (N=100k, d=3, t=64, dos, no dv) checked against the
               plain version in float64, and both timed.
+3c. periodic kernels — the CUDA periodic K·V and fused periodic backward kernels against
+              their float32 plain versions for d ∈ {1, 2, 3, 11}, t ∈ {1, 20, 64, 100}
+              (ragged n ≠ m for the product, symmetric n for the backward); at every shape
+              of the path on the periodic task (N=100k, a = t / period up to 355: the
+              product at t = 64, 1 and 20 and on the 2048-row strip at t = 100, the
+              backward at t = 64) against the plain versions in float64; both timed there.
 4. slice    — serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel
               path), from the same data, parameters and Lanczos start.
 5. serve    — the flagship exact GP of bench.py (ConstantMean + Scale(RBF-ARD) +
@@ -30,6 +36,11 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               samples; 3 Adam steps, compared at step 1 (loss, gradients) and after step 3.
               The gradient gate is shown to sit above float32 rounding (CPU float32
               against float64) and below a planted fault in the plain backward.
+6b. periodic slice — phases 4 and 6 for the periodic model (ConstantMean +
+              Scale(Periodic-ARD, d=2) + GaussianLikelihood) on the seasonal task at N=2000;
+              its fault the plain periodic backward's dw short by one block of 16.  In both
+              training slices every run follows the pivots of the CPU float32 run
+              (``PinnedPivots``) and a float64 run takes the float32 runs' τ.
 7. flagship — the initial parameters served on all 2,048 test points; then bench.py's
               training recipe at full width (N=100,000, d=3, 63 probes, rank-50
               preconditioner, rhs-warm lagged mBCG with the variance-reduced log-det
@@ -37,9 +48,22 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               asked for all 2,048 test points under the eval settings.  Checks finite
               losses and gradients, RMSE, that training lowered the loss and the
               marginal NLPD, and the launches of both kernels.
+8. periodic — the periodic model on 347 days of 5-minute readings (N=100,000, x = [t, t],
+              periods starting at 1 and 7 days): the initial parameters served on the
+              forecast week (the next 2,048 readings); the sources of the period gradient's
+              noise there (``period_gradient_sources``: the float32 kernel path against the
+              float64 plain path, and the spread over probe seeds; the round-off must stay
+              under the probe noise); phase 7's recipe for 120 steps with
+              the periods at their own learning rate; the trained model refreshed and asked
+              for the week in 8 requests of 256 and one of 2,048.  Checks finite losses and
+              gradients, forecast RMSE, variances, that training lowered the loss and the
+              marginal NLPD, and the launches of both periodic kernels (none of the RBF ones).
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
+
+``period_witness`` is not part of the run: it shows what a drifted period costs the
+periodic forecast (see its docstring).
 """
 
 from __future__ import annotations
@@ -97,6 +121,31 @@ SLICE_MEAN_TOL = 1e-3       # N=2000 CPU vs CUDA: max |Δmean| / max |mean|
 SLICE_VAR_TOL = 1e-3        # N=2000 CPU vs CUDA: max |Δvar| / max var
 NOISE_FLOOR = 2e-2          # bench.py's noise constraint
 TRUE_RES_LIMIT = 2e-3       # N=100k mean cache: true residual within twice eval's CG tolerance 1e-3
+# the periodic model (phases 3c, 6b, 8): 5-minute readings of 347 days, x = [t, t] in days
+P_N_TRAIN, P_N_TEST, P_D = 100_000, 2048, 2
+P_PERIODS = (1.0, 7.0)      # initial periods: the daily and the weekly cycle
+P_PERIOD_LR = 1e-6          # Adam learning rate of raw_period_length.  An Adam step moves a raw value
+                            # by up to ≈ lr, the daily period by 0.63·lr (softplus′ at p = 1), and the
+                            # phase at t = 347 d by 347 · 0.63·lr: 2e-4 cycles a step.  Over a run the
+                            # steps add up as a random walk: at lr 1e-4 the period ended 2.24e-4 off,
+                            # 0.078 cycles (1.9 h) at the far end, and the forecast failed (PERF.md)
+P_TRAIN_STEPS = 120
+P_RMSE_LIMIT = 0.12         # the task's noise std is 0.1·std(f)/std(y) ≈ 0.0995 in standardised units,
+                            # the least RMSE a forecast can reach; 0.12 leaves a posterior-mean error
+                            # of up to 0.067 (7 % of the signal's std)
+P_KERNEL_REL_TOL = 1e-5     # periodic kernels against their float32 plain versions on the card, each
+                            # output relative to its sum of absolute terms (forward: K|v|; dv: K|g|;
+                            # dx: 4π w Σ K(|g_i·v_j| + |v_i·g_j|)|S C|; dw: 2 Σ K|g_i·v_j| S²)
+P_PATH_TOL = 1e-4           # periodic kernels at the path's shapes (N=100k, a up to 355) against the
+                            # plain version in float64: max |Δ| / max |·| of each output
+P_GRAD_SEEDS = 8            # probe seeds behind phase 8's reading of the period gradient's noise
+P_GRAD_ROUNDOFF_TOL = 1.0   # … the float32 path's raw period gradient within this many standard
+                            # deviations over probe seeds of the float64 plain path's: round-off must
+                            # not be what moves the periods (P_PERIOD_LR rests on probe noise)
+PC_NOISE_BUDGET = 1e-3      # bench.py's preconditioner noise budget: τ = λ_max(LLᵀ)·eps/budget
+# the budget under which a float64 run's τ is the float32 run's, so that a float32 and a
+# float64 run precondition alike and draw the same probes z ~ N(0, P)
+PC_NOISE_BUDGET_F64 = PC_NOISE_BUDGET * float(np.finfo(np.float64).eps / np.finfo(np.float32).eps)
 
 
 class SmokeFailure(Exception):
@@ -115,6 +164,21 @@ def make_task(n_train: int, n_test: int, seed: int = 0):
     f = np.sin(4 * x[:, 0]) * np.cos(3 * x[:, 1]) + 0.5 * np.sin(7 * x[:, 2] * x[:, 0]) + 0.1 * x[:, 2]
     y = f + 0.1 * rng.normal(size=n_train + n_test)
     y = (y - y.mean()) / y.std()
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
+def make_periodic_task(n_train: int, n_test: int, seed: int = 0):
+    """A sensor read every 5 minutes (t_i = i / 288 days): a daily profile with a morning
+    and an evening peak, damped to 0.4 on weekends, plus Gaussian noise of 0.1·std(f),
+    standardised.  x = [t, t]; the last ``n_test`` readings follow the training ones."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_train + n_test) / 288.0
+    h = 24.0 * (t - np.floor(t))
+    f = np.exp(-(((h - 8.0) / 1.5) ** 2)) + 0.8 * np.exp(-(((h - 17.5) / 2.0) ** 2))
+    f = np.where(np.floor(t) % 7 >= 5, 0.4 * f, f)
+    y = f + 0.1 * f.std() * rng.normal(size=t.shape)
+    y = (y - y.mean()) / y.std()
+    x = np.stack([t, t], axis=1)
     return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
 
 
@@ -147,8 +211,36 @@ def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS):
     return model.eval()
 
 
-def train_settings():
-    """bench.py's default training recipe (bench.py:103-209, no BENCH_* variable set)."""
+def build_periodic_model(train_x, train_y, device, dtype):
+    """The periodic exact GP (ConstantMean + ScaleKernel(PeriodicKernel(ard_num_dims=2)) +
+    GaussianLikelihood with noise ≥ 2e-2) on ``device`` at its initial values (noise 0.1,
+    lengthscale 0.5, periods of 1 and 7 days), in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    class PeriodicGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.PeriodicKernel(ard_num_dims=P_D))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    tx = torch.as_tensor(train_x, dtype=dtype, device=device)
+    ty = torch.as_tensor(train_y, dtype=dtype, device=device)
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    model = PeriodicGP(tx, ty, likelihood).to(device=device, dtype=dtype)
+    model.likelihood.noise = 0.1
+    model.covar_module.base_kernel.lengthscale = 0.5
+    model.covar_module.base_kernel.period_length = P_PERIODS
+    return model.train()
+
+
+def train_settings(budget: float = PC_NOISE_BUDGET):
+    """bench.py's default training recipe (bench.py:103-209, no BENCH_* variable set); a
+    float64 run that is to match a float32 one takes ``budget=PC_NOISE_BUDGET_F64``."""
     from gpytorch_tpu_torch import settings
 
     stack = contextlib.ExitStack()
@@ -162,7 +254,7 @@ def train_settings():
         settings.cg_stall_window(15),
         settings.cg_lagged_rhs(True),
         settings.precond_logdet_vr(True),
-        settings.preconditioner_noise_budget(1e-3),
+        settings.preconditioner_noise_budget(budget),
         settings.fast_precond_grad(True),
         settings.skip_logdet_forward(False),
     ):
@@ -178,16 +270,37 @@ def make_optimizer(model):
     return optimizer, torch.optim.lr_scheduler.CosineAnnealingLR(optimizer, T_max=TRAIN_STEPS, eta_min=0.01)
 
 
-def train_step(model, optimizer, scheduler, base_samples, state):
-    """One step of −MLL by mBCG with the rhs-only warm state; returns (loss, state)."""
+def make_periodic_optimizer(model):
+    """``make_optimizer``'s cosine Adam 0.1 → 0.01, with raw_period_length at its own
+    learning rate ``P_PERIOD_LR``, decayed alike."""
+    import torch
+
+    period = model.covar_module.base_kernel.raw_period_length
+    rest = [p for p in model.parameters() if p is not period]
+    optimizer = torch.optim.Adam([{"params": rest, "lr": 0.1}, {"params": [period], "lr": P_PERIOD_LR}])
+
+    def cosine(step):
+        return 0.1 + 0.9 * 0.5 * (1.0 + math.cos(math.pi * min(step, P_TRAIN_STEPS) / P_TRAIN_STEPS))
+
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, cosine)
+
+
+def mll_loss(model, base_samples, state, budget: float = PC_NOISE_BUDGET):
+    """−MLL per datum by mBCG with the rhs-only warm state, under the training recipe;
+    returns (loss, state)."""
     import gpytorch_tpu_torch as gt
 
     tx, ty = model.train_inputs[0], model.train_targets
-    optimizer.zero_grad()
-    with train_settings():
+    with train_settings(budget):
         mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
         value, state = mll(model(tx), ty, base_samples=base_samples, solver_state=state, return_state=True)
-    loss = -value
+    return -value, state
+
+
+def train_step(model, optimizer, scheduler, base_samples, state, budget: float = PC_NOISE_BUDGET):
+    """One step of −MLL by mBCG with the rhs-only warm state; returns (loss, state)."""
+    optimizer.zero_grad()
+    loss, state = mll_loss(model, base_samples, state, budget)
     loss.backward()
     optimizer.step()
     scheduler.step()
@@ -197,11 +310,66 @@ def train_step(model, optimizer, scheduler, base_samples, state):
 class InjectedProbes:
     """Probe base samples made with numpy from (seed, step, shape), the same on any device."""
 
-    def __init__(self, step: int):
-        self.step = step
+    def __init__(self, step: int, seed: int = PROBE_SEED):
+        self.step, self.seed = step, seed
 
     def __call__(self, shape):
-        return np.random.default_rng([PROBE_SEED, self.step, *shape]).normal(size=shape)
+        return np.random.default_rng([self.seed, self.step, *shape]).normal(size=shape)
+
+
+class PinnedPivots:
+    """The preconditioner's pivot order, recorded in one run (``record``) and followed in
+    others (``replay``: the n-th pivoted-Cholesky call of the run takes the n-th recorded
+    order).  On the periodic kernel the greedy order is set by round-off (after the first
+    pivot about half the points tie to within 1e-8 of the largest residual), so two
+    devices or dtypes would pick different pivots, hence different probes z ~ N(0, P), and
+    their gap would measure the stochastic estimator; pinned, they differ by round-off."""
+
+    def __init__(self):
+        self.orders = []
+
+    @contextlib.contextmanager
+    def _patched(self, replay: bool):
+        import importlib
+
+        pc = importlib.import_module("gpytorch_tpu_torch.solvers.pivoted_cholesky")
+        sound, orders = pc.pivoted_cholesky, iter(self.orders)
+
+        def pinned(linop, rank, rel_tol=0.0, return_pivots=False):
+            if replay:
+                order = next(orders, None)
+                check(order is not None, "a replayed run made more pivoted-Cholesky calls than the recorded one")
+                L, piv = sound(linop, rank, rel_tol, return_pivots=True, pivots=order)
+            else:
+                L, piv = sound(linop, rank, rel_tol, return_pivots=True)
+                self.orders.append(piv.cpu())
+            return (L, piv) if return_pivots else L
+
+        pc.pivoted_cholesky = pinned
+        try:
+            yield
+        finally:
+            pc.pivoted_cholesky = sound
+
+    def record(self):
+        return self._patched(replay=False)
+
+    def replay(self):
+        return self._patched(replay=True)
+
+
+@contextlib.contextmanager
+def plain_periodic_kernels():
+    """Routes the periodic path's CUDA tensors through the plain versions instead of the
+    CUDA kernels: a float64 reference run of the whole path on the card."""
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    kernels = ppk.periodic_matvec_cuda, ppk.periodic_bwd_fused_cuda
+    ppk.periodic_matvec_cuda, ppk.periodic_bwd_fused_cuda = ppk._periodic_matvec_reference, ppk._periodic_bwd_fused_reference
+    try:
+        yield
+    finally:
+        ppk.periodic_matvec_cuda, ppk.periodic_bwd_fused_cuda = kernels
 
 
 def finite_step(loss, model) -> bool:
@@ -222,7 +390,7 @@ def eval_settings(min_preconditioning_size=None):
         settings.max_preconditioner_size(50),
         settings.max_cg_iterations(1000),
         settings.cg_stall_window(50),
-        settings.preconditioner_noise_budget(1e-3),
+        settings.preconditioner_noise_budget(PC_NOISE_BUDGET),
         settings.fast_pred_var(True),
         settings.max_root_decomposition_size(100),
         settings.skip_posterior_variances(False),
@@ -296,6 +464,22 @@ def bwd_bound(n: int, d: int, t: int, need_dv: bool):
     per pair besides); x, g and v read once, dx (and dv) written once."""
     flops = n * n * (4 * t + 5 * d + 9 + (2 * t if need_dv else 0))
     return bound_ms(flops, 4 * (2 * n * d + 2 * n * t + (n * t if need_dv else 0)))
+
+
+def periodic_matvec_bound(n: int, m: int, d: int, t: int):
+    """Periodic K·V: per (i, j) pair 2t FLOP for the product, 6d for the weighted sin² from
+    the per-point half-angle tables (s_i c_j − c_i s_j, its square and weight) and 1 for
+    the exponent (one exp per pair besides; the tables' sines are O((n + m) d)); x1, x2, w
+    and v read once, the output written once."""
+    return bound_ms(n * m * (2 * t + 6 * d + 1), 4 * (n * d + m * d + d + m * t + n * t))
+
+
+def periodic_bwd_bound(n: int, d: int, t: int):
+    """Fused periodic backward: per (i, j) pair 6t FLOP for g_i·v_j, v_i·g_j and dv, 15d for
+    the sine and cosine of the difference from the tables, the weighted sin² and the dx and
+    dw updates, and 4 for the exponent and the two weights (one exp per pair besides); x,
+    w, g and v read once, dv, dx and dw written once."""
+    return bound_ms(n * n * (6 * t + 15 * d + 4), 4 * (2 * n * d + 2 * d + 3 * n * t))
 
 
 def phase_device():
@@ -449,18 +633,132 @@ def phase_bwd():
     return max_abs, ms, plain_ms
 
 
-def phase_slice():
+def _periodic_abs_terms(x1, x2, w, v, g=None):
+    """Sums of absolute terms, dense and float64: of the periodic product (K|v|) without
+    ``g``, else of the fused backward's (dv, dx, dw) with x1 = x2."""
     import torch
 
+    f1, f2 = x1 - torch.round(x1), x2 - torch.round(x2)
+    diff = f1[:, None, :] - f2[None, :, :]
+    S = torch.sin(torch.pi * diff)
+    K = torch.exp(-2.0 * (w * S * S).sum(-1))
+    if g is None:
+        return K @ v.abs()
+    gv = (g @ v.mT).abs()
+    gg = K * (gv + (v @ g.mT).abs())
+    dx = 4.0 * torch.pi * w * torch.einsum("ij,ijk->ik", gg, (S * torch.cos(torch.pi * diff)).abs())
+    return K @ g.abs(), dx, 2.0 * torch.einsum("ij,ijk->k", K * gv, S * S)
+
+
+def phase_periodic_kernels():
+    """Both periodic kernels against their plain versions on the card: float32 against
+    float32 over the grid (ragged n ≠ m for the product, symmetric n for the backward), and
+    at the path's shapes on the task (N=100k, a = t / period up to 355) against float64;
+    both timed at the path's shapes.  Returns (product max_abs_err, {(n, m, t): (ms,
+    plain_ms)}, backward max_abs_err, ms, plain_ms)."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    rng = np.random.default_rng(6)
+    dev = "cuda"
+
+    def data(*shapes):
+        return tuple(torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in shapes)
+
+    mv_abs = bwd_abs = worst_mv = worst_bwd = 0.0
+    for d in (1, 2, 3, 11):
+        w = torch.as_tensor(rng.uniform(0.5, 4.0, size=d), dtype=torch.float32, device=dev)
+        for t in (1, 20, 64, 100):
+            x1, x2 = (torch.as_tensor(rng.uniform(0.0, 355.0, size=(n, d)), dtype=torch.float32, device=dev)
+                      for n in (1000, 1537))
+            (v,) = data((1537, t))
+            got, plain = ppk.periodic_matvec_cuda(x1, x2, w, v), ppk._periodic_matvec_reference(x1, x2, w, v)
+            err = (got.double() - plain.double()).abs().max().item()
+            rel = err / _periodic_abs_terms(x1.double(), x2.double(), w.double(), v.double()).max().item()
+            mv_abs, worst_mv = max(mv_abs, err), max(worst_mv, rel)
+            check(rel <= P_KERNEL_REL_TOL, f"periodic product d={d}, t={t}: relative error {rel:.3e} > {P_KERNEL_REL_TOL}")
+
+            g, v = data((1537, t), (1537, t))
+            got = ppk.periodic_bwd_fused_cuda(x2, w, g, v)
+            plain = ppk._periodic_bwd_fused_reference(x2, w, g, v)
+            scales = _periodic_abs_terms(x2.double(), x2.double(), w.double(), v.double(), g.double())
+            for name, a, b, scale in zip(("dv", "dx", "dw"), got, plain, scales):
+                err = (a.double() - b.double()).abs().max().item()
+                rel = err / scale.max().item()
+                bwd_abs, worst_bwd = max(bwd_abs, err), max(worst_bwd, rel)
+                check(rel <= P_KERNEL_REL_TOL,
+                      f"periodic backward d={d}, t={t}, {name}: relative error {rel:.3e} > {P_KERNEL_REL_TOL}")
+        print(f"[periodic-kernel] d={d}: product n=1000 m=1537 and backward n=1537, t∈{{1,20,64,100}}, within "
+              f"{P_KERNEL_REL_TOL} of the float32 plain versions (worst so far: product {worst_mv:.3e}, backward "
+              f"{worst_bwd:.3e})", flush=True)
+
+    # the path's shapes on the task: training CG (t=64), serving CG (t=1), Lanczos (t=20),
+    # K(test, train)·R (t=100); one backward per training step (t=64)
+    train_x, _, test_x, _ = make_periodic_task(P_N_TRAIN, P_N_TEST)
+    per = torch.tensor(P_PERIODS, dtype=torch.float32, device=dev)
+    xp = torch.as_tensor(train_x, dtype=torch.float32, device=dev) / per
+    xq = torch.as_tensor(test_x, dtype=torch.float32, device=dev) / per
+    w = torch.full((P_D,), 4.0, dtype=torch.float32, device=dev)  # lengthscale 0.5
+    N = P_N_TRAIN
+    timed = {}
+    for x1, t in ((xp, 64), (xp, 1), (xp, 20), (xq, 100)):
+        n = x1.shape[0]
+        (v,) = data((N, t))
+        got = ppk.periodic_matvec_cuda(x1, xp, w, v)
+        exact = ppk._periodic_matvec_reference(x1.double(), xp.double(), w.double(), v.double())
+        err = (got.double() - exact).abs().max().item()
+        rel = err / exact.abs().max().item()
+        mv_abs = max(mv_abs, err)
+        check(rel <= P_PATH_TOL, f"periodic product {n}x{N} t={t} against float64: {rel:.3e} > {P_PATH_TOL}")
+        del exact
+        ms = cuda_time_ms(lambda: ppk.periodic_matvec_cuda(x1, xp, w, v), 10 if t < 64 else 5)
+        plain_ms = cuda_time_ms(lambda: ppk._periodic_matvec_reference(x1, xp, w, v), 2)
+        timed[(n, N, t)] = (ms, plain_ms)
+        bms, by = periodic_matvec_bound(n, N, P_D, t)
+        print(f"[periodic-kernel] product {n}x{N} d={P_D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bms:.3f} ms ({by}), against float64 max |Δ| / max |·| {rel:.3e} (tol {P_PATH_TOL})", flush=True)
+
+    t = 64
+    g, v = data((N, t), (N, t))
+    got = ppk.periodic_bwd_fused_cuda(xp, w, g, v)
+    exact = ppk._periodic_bwd_fused_reference(xp.double(), w.double(), g.double(), v.double())
+    rels = []
+    for name, a, b in zip(("dv", "dx", "dw"), got, exact):
+        err = (a.double() - b).abs().max().item()
+        bwd_abs = max(bwd_abs, err)
+        rels.append(err / b.abs().max().item())
+        check(rels[-1] <= P_PATH_TOL, f"periodic backward at the training shape, {name}, against float64: "
+                                      f"{rels[-1]:.3e} > {P_PATH_TOL}")
+    del exact
+    bwd_ms = cuda_time_ms(lambda: ppk.periodic_bwd_fused_cuda(xp, w, g, v), 3)
+    bwd_plain_ms = cuda_time_ms(lambda: ppk._periodic_bwd_fused_reference(xp, w, g, v), 1)
+    bms, by = periodic_bwd_bound(N, P_D, t)
+    print(f"[periodic-kernel] backward {N}x{N} d={P_D} t={t}: kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
+          f"bound {bms:.3f} ms ({by}); against float64, max |Δ| / max |·| of dv, dx, dw: "
+          f"{rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e} (tol {P_PATH_TOL})", flush=True)
+    return mv_abs, timed, bwd_abs, bwd_ms, bwd_plain_ms
+
+
+def phase_slice(periodic=False):
+    """Serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel path):
+    the flagship from JAX_PARAMS, or the periodic model at its initial values."""
+    import torch
+
+    tag = "periodic-slice" if periodic else "slice"
     n, n_test = 2000, 512
-    train_x, train_y, test_x, _ = make_task(n, n_test, seed=2)
+    task = make_periodic_task if periodic else make_task
+    train_x, train_y, test_x, _ = task(n, n_test, seed=2)
     batches = [slice(0, n_test)]
     out = {}
     from gpytorch_tpu_torch import settings
 
     with eval_settings(min_preconditioning_size=1000), settings.eval_cg_tolerance(SLICE_CG_TOL):
         for device in ("cpu", "cuda"):
-            model = build_model(train_x, train_y, device, torch.float32)
+            if periodic:
+                model = build_periodic_model(train_x, train_y, device, torch.float32).eval()
+            else:
+                model = build_model(train_x, train_y, device, torch.float32)
             tx = torch.as_tensor(test_x, dtype=torch.float32, device=device)
             cg, _, answers = serve(model, tx, device, batches)
             _, mean, var, _ = answers[0]
@@ -468,10 +766,10 @@ def phase_slice():
     (m_cpu, v_cpu, it_cpu), (m_gpu, v_gpu, it_gpu) = out["cpu"], out["cuda"]
     dm = ((m_cpu - m_gpu).abs().max() / m_cpu.abs().max()).item()
     dv = ((v_cpu - v_gpu).abs().max() / v_cpu.abs().max()).item()
-    print(f"[slice] N={n} test={n_test}: CG iters cpu {it_cpu} cuda {it_gpu}; mean rel diff {dm:.3e} "
+    print(f"[{tag}] N={n} test={n_test}: CG iters cpu {it_cpu} cuda {it_gpu}; mean rel diff {dm:.3e} "
           f"(tol {SLICE_MEAN_TOL}), var rel diff {dv:.3e} (tol {SLICE_VAR_TOL})", flush=True)
-    check(dm <= SLICE_MEAN_TOL, f"slice mean differs: {dm:.3e}")
-    check(dv <= SLICE_VAR_TOL, f"slice variance differs: {dv:.3e}")
+    check(dm <= SLICE_MEAN_TOL, f"{tag} mean differs: {dm:.3e}")
+    check(dv <= SLICE_VAR_TOL, f"{tag} variance differs: {dv:.3e}")
 
 
 def phase_serve():
@@ -536,19 +834,26 @@ def marginal_nlpd(mean, var, y, noise) -> float:
     return (0.5 * (torch.log(2 * math.pi * var_f) + (mean - y) ** 2 / var_f)).mean().item()
 
 
-def _slice_run(device, dtype, steps):
-    """Training at N=2000 from bench.py's initial values with injected probes: (step-1
-    loss, step-1 gradients, raw parameters after ``steps`` steps, CG iterations per step)."""
+def _slice_run(device, dtype, steps, periodic=False):
+    """Training at N=2000 from the initial values (bench.py's for the flagship) with
+    injected probes, a float64 run with the float32 runs' τ: (step-1 loss, step-1
+    gradients, raw parameters after ``steps`` steps, CG iterations per step)."""
     import torch
 
     n = SLICE_TRAIN_N
-    train_x, train_y, _, _ = make_task(n, 0, seed=3)
-    model = build_model(train_x, train_y, device, dtype, params=None)
-    optimizer, scheduler = make_optimizer(model)
+    budget = PC_NOISE_BUDGET_F64 if dtype == torch.float64 else PC_NOISE_BUDGET
+    if periodic:
+        train_x, train_y, _, _ = make_periodic_task(n, 0, seed=3)
+        model = build_periodic_model(train_x, train_y, device, dtype)
+        optimizer, scheduler = make_periodic_optimizer(model)
+    else:
+        train_x, train_y, _, _ = make_task(n, 0, seed=3)
+        model = build_model(train_x, train_y, device, dtype, params=None)
+        optimizer, scheduler = make_optimizer(model)
     state = torch.zeros(n, 1, dtype=dtype, device=device)
     iters = []
     for step in range(steps):
-        loss, state = train_step(model, optimizer, scheduler, InjectedProbes(step), state)
+        loss, state = train_step(model, optimizer, scheduler, InjectedProbes(step), state, budget)
         check(finite_step(loss, model), f"slice training on {device}, step {step}: non-finite loss or gradient")
         iters.append(state.num_iters)
         if step == 0:
@@ -565,44 +870,53 @@ def _grad_gap(g_ref, g):
     return max(gaps.values()) / scale, gaps
 
 
-def phase_train_slice():
+def phase_train_slice(periodic=False):
     """Training at N=2000, CPU tensors (plain path) against CUDA tensors (kernel path); on
     the CPU besides, float32 against float64 (the rounding floor of the gradient gate) and
-    against a planted fault (the plain backward's dos short by one block of 16), which the
-    gate must see."""
+    against a planted fault, which the gate must see: the plain backward's dos (flagship)
+    or dw (periodic) short by one block of 16.  Every run follows the CPU float32 run's
+    preconditioner pivots (``PinnedPivots``)."""
     import torch
 
     from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
 
-    l_cpu, g_cpu, r_cpu, it_cpu = _slice_run("cpu", torch.float32, SLICE_TRAIN_STEPS)
-    l_gpu, g_gpu, r_gpu, it_gpu = _slice_run("cuda", torch.float32, SLICE_TRAIN_STEPS)
+    tag = "periodic-train-slice" if periodic else "train-slice"
+    pins = PinnedPivots()
+    with pins.record():
+        l_cpu, g_cpu, r_cpu, it_cpu = _slice_run("cpu", torch.float32, SLICE_TRAIN_STEPS, periodic)
+    with pins.replay():
+        l_gpu, g_gpu, r_gpu, it_gpu = _slice_run("cuda", torch.float32, SLICE_TRAIN_STEPS, periodic)
     d_loss = abs(l_cpu - l_gpu) / max(abs(l_cpu), 1.0)
     d_grad, gaps = _grad_gap(g_cpu, g_gpu)
     d_raw = max((r_cpu[k] - r_gpu[k]).abs().max().item() for k in r_cpu)
-    floor = _grad_gap(_slice_run("cpu", torch.float64, 1)[1], g_cpu)[0]
-    sound = fk._bwd_fused_reference
+    with pins.replay():
+        floor = _grad_gap(_slice_run("cpu", torch.float64, 1, periodic)[1], g_cpu)[0]
+    module, name = (ppk, "_periodic_bwd_fused_reference") if periodic else (fk, "_bwd_fused_reference")
+    sound = getattr(module, name)
 
     def planted(*args, **kwargs):
-        dv, dx, dos = sound(*args, **kwargs)
-        return dv, dx, None if dos is None else dos * (15 / 16)
+        a, b, c = sound(*args, **kwargs)
+        return a, b, None if c is None else c * (15 / 16)
 
-    fk._bwd_fused_reference = planted
+    setattr(module, name, planted)
     try:
-        fault = _grad_gap(g_cpu, _slice_run("cpu", torch.float32, 1)[1])[0]
+        with pins.replay():
+            fault = _grad_gap(g_cpu, _slice_run("cpu", torch.float32, 1, periodic)[1])[0]
     finally:
-        fk._bwd_fused_reference = sound
-    print(f"[train-slice] N={SLICE_TRAIN_N}: CG iters cpu {it_cpu} cuda {it_gpu}; step-1 loss cpu {l_cpu:.6f} cuda "
+        setattr(module, name, sound)
+    print(f"[{tag}] N={SLICE_TRAIN_N}: CG iters cpu {it_cpu} cuda {it_gpu}; step-1 loss cpu {l_cpu:.6f} cuda "
           f"{l_gpu:.6f} (rel diff {d_loss:.3e}, tol {SLICE_LOSS_TOL}); step-1 grads max diff {d_grad:.3e} of the "
           f"largest (tol {SLICE_GRAD_TOL}; cpu float32 against float64 {floor:.3e}, against a planted fault "
           f"{fault:.3e}); raw parameters after {SLICE_TRAIN_STEPS} steps max diff {d_raw:.3e} (tol {SLICE_PARAM_TOL})",
           flush=True)
     for k in g_cpu:
-        print(f"[train-slice]   {k}: grad cpu {g_cpu[k].reshape(-1).numpy().round(6).tolist()}, max diff "
+        print(f"[{tag}]   {k}: grad cpu {g_cpu[k].reshape(-1).numpy().round(6).tolist()}, max diff "
               f"{gaps[k]:.3e} ({gaps[k] / g_cpu[k].abs().max().item():.3e} of its own largest)", flush=True)
-    check(d_loss <= SLICE_LOSS_TOL, f"slice training loss differs: {d_loss:.3e}")
-    check(d_grad <= SLICE_GRAD_TOL, f"slice training gradients differ: {d_grad:.3e}")
-    check(fault > SLICE_GRAD_TOL, f"the gradient gate does not see a planted fault: {fault:.3e}")
-    check(d_raw <= SLICE_PARAM_TOL, f"slice training parameters differ: {d_raw:.3e}")
+    check(d_loss <= SLICE_LOSS_TOL, f"{tag} training loss differs: {d_loss:.3e}")
+    check(d_grad <= SLICE_GRAD_TOL, f"{tag} training gradients differ: {d_grad:.3e}")
+    check(fault > SLICE_GRAD_TOL, f"the {tag} gradient gate does not see a planted fault: {fault:.3e}")
+    check(d_raw <= SLICE_PARAM_TOL, f"{tag} training parameters differ: {d_raw:.3e}")
 
 
 def phase_flagship():
@@ -691,7 +1005,199 @@ def phase_flagship():
     return launches, median
 
 
+def period_gradient_sources(model):
+    """Where the noise in the periods' gradient comes from, at ``model``'s parameters
+    (phase 8's initial ones): the raw gradients of one cold-started step by the float32
+    kernel path for each of ``P_GRAD_SEEDS`` probe seeds, and by the float64 plain path on
+    the first seed's probes, pivots and τ.  Their gap is the float32 round-off (kernels, CG,
+    preconditioner); the spread over seeds is the probe noise of the stochastic log-det
+    gradient.  Returns {name: (float64 grad, float32 grad, standard deviation over seeds)}
+    of the first seed."""
+    import torch
+
+    train_x = model.train_inputs[0].double().cpu().numpy()
+    train_y = model.train_targets.double().cpu().numpy()
+    dev = model.train_targets.device
+    n = train_y.shape[0]
+
+    def grads(m, seed, budget=PC_NOISE_BUDGET):
+        m.zero_grad()
+        state = torch.zeros(n, 1, dtype=m.train_targets.dtype, device=dev)
+        loss, state = mll_loss(m, InjectedProbes(0, seed), state, budget)
+        loss.backward()
+        check(finite_step(loss, m), f"period gradient reading, seed {seed}: non-finite loss or gradient")
+        return {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()}, state.num_iters
+
+    model.train()
+    pins = PinnedPivots()
+    t0 = time.perf_counter()
+    with pins.record():
+        g32, it32 = grads(model, 0)
+    draws = [g32] + [grads(model, seed)[0] for seed in range(1, P_GRAD_SEEDS)]
+    t32 = time.perf_counter() - t0
+    ref = build_periodic_model(train_x, train_y, dev, torch.float64)
+    ref.load_state_dict({k: v.double() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    with plain_periodic_kernels(), pins.replay():
+        g64, it64 = grads(ref, 0, PC_NOISE_BUDGET_F64)
+    t64 = time.perf_counter() - t0
+    out = {}
+    print(f"[periodic] gradient sources at the initial parameters: float32 kernel path, {P_GRAD_SEEDS} probe seeds "
+          f"(CG {it32} iterations on the first; {t32:.1f} s), float64 plain path on the first seed's probes and "
+          f"pivots (CG {it64}; {t64:.1f} s)", flush=True)
+    for k in g32:
+        spread = torch.stack([d[k] for d in draws]).std(0)
+        mean = torch.stack([d[k] for d in draws]).mean(0)
+        out[k] = (g64[k], g32[k], spread)
+        print(f"[periodic]   {k}: float64 {g64[k].reshape(-1).numpy().tolist()}, float32 "
+              f"{g32[k].reshape(-1).numpy().tolist()}, |Δ| / spread "
+              f"{((g32[k] - g64[k]).abs() / spread).reshape(-1).numpy().round(4).tolist()}; over seeds mean "
+              f"{mean.reshape(-1).numpy().tolist()}, spread {spread.reshape(-1).numpy().tolist()}", flush=True)
+    return out
+
+
+def period_witness():
+    """What a drifted period costs the periodic forecast: phase 8's model on one set of
+    trained parameters (those phase 8 reached with the periods trained at an Adam learning
+    rate of 1e-4: lengthscale [0.48801, 1.33398], outputscale 0.32223, noise 0.02377,
+    constant −0.26549), served on the forecast week under the eval settings twice: with the
+    periods that run ended at, [1.0002239, 6.9999375] days, and with the periods reset to
+    [1, 7].  A daily period off by 2.24e-4 puts the oldest readings 347 · 2.24e-4 ≈ 0.078
+    cycles (1.9 hours) out of phase with the newest.  Prints the forecast RMSE and marginal
+    NLPD of each; about 20 s on an H100 after the kernel build.  Not part of ``main``:
+
+        python3 -c 'import chip_smoke; chip_smoke.period_witness()'
+    """
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    phase_device()
+    train_x, train_y, test_x, test_y = make_periodic_task(P_N_TRAIN, P_N_TEST)
+    tx = torch.as_tensor(test_x, dtype=torch.float32, device="cuda")
+    ty = torch.as_tensor(test_y, dtype=torch.float32, device="cuda")
+    for label, period in (("drifted", (1.0002239, 6.9999375)), ("reset", P_PERIODS)):
+        model = build_periodic_model(train_x, train_y, "cuda", torch.float32)
+        kern = model.covar_module
+        kern.base_kernel.lengthscale = torch.tensor([[0.48801, 1.33398]])
+        kern.base_kernel.period_length = torch.tensor([period])
+        kern.outputscale = 0.32223
+        model.likelihood.noise = 0.02377
+        model.mean_module.initialize(constant=-0.26549)
+        model.eval()
+        with eval_settings():
+            cg, _, answers = serve(model, tx, "cuda", [slice(0, P_N_TEST)])
+        pred, mean, var, _ = answers[0]
+        rmse = gt.metrics.mean_squared_error(pred, ty, squared=False).item()
+        nlpd = marginal_nlpd(mean, var, ty, model.likelihood.noise.reshape(-1)[0])
+        print(f"[period-witness] {label} periods {list(period)}: forecast rmse {rmse:.4f}, marginal nlpd {nlpd:.4f}, "
+              f"refresh CG {cg.num_iters}", flush=True)
+
+
+def phase_periodic():
+    """The periodic model at N=100k: the initial parameters served on the forecast week; 120
+    steps of training under the flagship's recipe with the periods at their own learning
+    rate; the trained model refreshed and asked for the forecast week in 8 requests of 256
+    points and one of all 2,048.  Returns the launches of (periodic_matvec,
+    periodic_bwd_fused) over training and serving."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    train_x, train_y, test_x, test_y = make_periodic_task(P_N_TRAIN, P_N_TEST)
+    dev = "cuda"
+    model = build_periodic_model(train_x, train_y, dev, torch.float32)
+    tx = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
+    kern = model.covar_module
+
+    def forecast(batches):
+        """(rmse, marginal nlpd, the refresh's CG result, refresh s, request s) of the model in
+        eval mode; rmse and nlpd of the last request (all 2,048 points)."""
+        model.eval()
+        with eval_settings():
+            cg, refresh_s, answers = serve(model, tx, dev, batches)
+        for i, (_, mean_, var, _) in enumerate(answers):
+            check(bool(torch.isfinite(mean_).all()), f"periodic request {i}: non-finite mean")
+            check(bool(torch.isfinite(var).all()) and bool((var > 0).all()), f"periodic request {i}: variance not finite and > 0")
+        pred, mean_, var, _ = answers[-1]
+        rmse = gt.metrics.mean_squared_error(pred, ty, squared=False).item()
+        nlpd = marginal_nlpd(mean_, var, ty, model.likelihood.noise.reshape(-1)[0])
+        return rmse, nlpd, cg, refresh_s, [a[3] for a in answers]
+
+    rmse0, nlpd0, _, _, _ = forecast([slice(0, P_N_TEST)])
+    print(f"[periodic] serving the initial parameters: rmse {rmse0:.4f}, marginal nlpd {nlpd0:.4f}", flush=True)
+    sources = period_gradient_sources(model)
+    g64, g32, spread = sources["covar_module.base_kernel.raw_period_length"]
+    roundoff = ((g32 - g64).abs() / spread).max().item()
+    check(roundoff <= P_GRAD_ROUNDOFF_TOL, f"the float32 path's period gradient is {roundoff:.3f} probe-noise standard "
+                                           f"deviations from the float64 plain path's (tol {P_GRAD_ROUNDOFF_TOL})")
+    model.train()
+    optimizer, scheduler = make_periodic_optimizer(model)
+    generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    state = torch.zeros(P_N_TRAIN, 1, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    times, iters, losses = [], [], []
+    ppk.periodic_matvec_cuda.launches = 0
+    ppk.periodic_bwd_fused_cuda.launches = 0
+    rbf_before = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
+    for step in range(P_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, state = train_step(model, optimizer, scheduler, generator, state)
+        ok = finite_step(loss, model)  # reads the device, so the step has ended
+        times.append(time.perf_counter() - t0)
+        iters.append(state.num_iters)
+        losses.append(loss.item())
+        check(ok, f"periodic training step {step}: non-finite loss or gradient")
+        if step % 10 == 0 or step == P_TRAIN_STEPS - 1:
+            print(f"[periodic] step {step}: loss {losses[-1]:.5f}, CG iterations {state.num_iters}, "
+                  f"{times[-1]:.3f} s, period {kern.base_kernel.period_length.detach().cpu().numpy().round(7).tolist()}",
+                  flush=True)
+    train_launches = (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
+    train_peak = torch.cuda.max_memory_allocated()
+    median = sorted(times[1 : 1 + TRAIN_TIMED])[TRAIN_TIMED // 2]
+    mean = sum(times[1:]) / (P_TRAIN_STEPS - 1)
+    print(f"[periodic] {P_TRAIN_STEPS} steps: median {median:.4f} s/step over steps 1-{TRAIN_TIMED} (synchronised), "
+          f"mean {mean:.4f} s/step over steps 1-{P_TRAIN_STEPS - 1}, first step {times[0]:.3f} s", flush=True)
+    print(f"[periodic] CG iterations per step: {iters}", flush=True)
+    print(f"[periodic] loss per step: {[round(x, 6) for x in losses]}", flush=True)
+    print(f"[periodic] lengthscale {kern.base_kernel.lengthscale.detach().cpu().numpy().round(5).tolist()}, period "
+          f"{kern.base_kernel.period_length.detach().cpu().numpy().round(7).tolist()}, outputscale "
+          f"{kern.outputscale.item():.5f}, noise {model.likelihood.noise.item():.5f}, mean "
+          f"{model.mean_module.constant.item():.5f}", flush=True)
+    print(f"[periodic] training launches: periodic_matvec {train_launches[0]}, periodic_bwd_fused {train_launches[1]}; "
+          f"peak device memory {train_peak / 2**20:.1f} MiB", flush=True)
+
+    batches = [slice(i * REQUEST_ROWS, (i + 1) * REQUEST_ROWS) for i in range(N_REQUESTS)] + [slice(0, P_N_TEST)]
+    rmse, nlpd, cg, refresh_s, secs = forecast(batches)
+    launches = (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
+    rbf = (fk.kernel_matvec_cuda.launches - rbf_before[0], fk.kernel_bwd_fused_cuda.launches - rbf_before[1])
+    # one K·V per CG iteration of training; then one per CG iteration of the mean cache,
+    # one per Lanczos block (5 blocks of 20), and two per request (mean and LOVE)
+    expected_mv = sum(iters) + cg.num_iters + 5 + 2 * len(batches)
+    loss_end = sum(losses[-10:]) / 10
+    print(f"[periodic] serving the trained model: refresh {refresh_s:.3f} s (CG {cg.num_iters} iterations, relative "
+          f"residual {cg.residual_norm.max().item():.3e}); requests {[round(x * 1e3, 2) for x in secs]} ms; forecast "
+          f"rmse {rmse:.4f} (limit {P_RMSE_LIMIT}; initial {rmse0:.4f}), marginal nlpd {nlpd:.4f} (initial "
+          f"{nlpd0:.4f}, limit {nlpd0 - TRAIN_NLPD_DROP:.4f})", flush=True)
+    print(f"[periodic] loss at step 0 {losses[0]:.5f}, mean of the last 10 steps {loss_end:.5f} (limit "
+          f"{losses[0] - TRAIN_LOSS_DROP:.5f})", flush=True)
+    print(f"[periodic] launches: periodic_matvec {launches[0]} (expected {expected_mv}), periodic_bwd_fused "
+          f"{launches[1]} (expected {P_TRAIN_STEPS}); RBF kernels {rbf} (expected (0, 0))", flush=True)
+    check(launches[1] == P_TRAIN_STEPS, f"periodic_bwd_fused launched {launches[1]} times, expected {P_TRAIN_STEPS}")
+    check(launches[0] == expected_mv, f"periodic_matvec launched {launches[0]} times, expected {expected_mv}")
+    check(rbf == (0, 0), f"the periodic path launched the RBF kernels {rbf} times")
+    check(rmse <= P_RMSE_LIMIT, f"periodic forecast rmse {rmse:.4f} > {P_RMSE_LIMIT}")
+    check(loss_end <= losses[0] - TRAIN_LOSS_DROP, f"periodic training loss fell from {losses[0]:.5f} only to {loss_end:.5f}")
+    check(nlpd <= nlpd0 - TRAIN_NLPD_DROP, f"periodic training took the marginal nlpd from {nlpd0:.4f} only to {nlpd:.4f}")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
 
@@ -701,46 +1207,35 @@ def main() -> int:
         phase_build()
         mv_err, mv_timed = phase_kernel()
         bwd_err, bwd_ms, bwd_plain_ms = phase_bwd()
+        pmv_err, pmv_timed, pbwd_err, pbwd_ms, pbwd_plain_ms = phase_periodic_kernels()
         phase_slice()
         serve_launches = phase_serve()
         phase_train_slice()
+        phase_slice(periodic=True)
+        phase_train_slice(periodic=True)
         (mv_launches, bwd_launches), _ = phase_flagship()
+        pmv_launches, pbwd_launches = phase_periodic()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
     print(f"[report] kernel_matvec launches: serving from fixed parameters {serve_launches}, "
-          f"training and serving {mv_launches}", flush=True)
-    mv_ms, mv_plain_ms = mv_timed[(N_TRAIN, N_TRAIN, 64)]
-    mv_bound, mv_by = matvec_bound(N_TRAIN, N_TRAIN, D, 64)
-    bwd_bound_ms, bwd_by = bwd_bound(N_TRAIN, D, 64, need_dv=False)
+          f"training and serving {mv_launches}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda", "source": f"gpytorch_tpu_torch/csrc/{source}",
+                "replaces": f"gpytorch_tpu/ops/pallas_kernels.py:{replaces}", "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
     report = {
         "kernels": [
-            {
-                "name": "kernel_matvec",
-                "route": "cuda",
-                "source": "gpytorch_tpu_torch/csrc/kernel_matvec.cu",
-                "replaces": "gpytorch_tpu/ops/pallas_kernels.py:230",
-                "launches": mv_launches,
-                "max_abs_err": mv_err,
-                "ms": mv_ms,
-                "plain_ms": mv_plain_ms,
-                "bound_ms": mv_bound,
-                "bound_by": mv_by,
-                "library_ms": None,
-            },
-            {
-                "name": "kernel_bwd_fused",
-                "route": "cuda",
-                "source": "gpytorch_tpu_torch/csrc/kernel_bwd_fused.cu",
-                "replaces": "gpytorch_tpu/ops/pallas_kernels.py:404",
-                "launches": bwd_launches,
-                "max_abs_err": bwd_err,
-                "ms": bwd_ms,
-                "plain_ms": bwd_plain_ms,
-                "bound_ms": bwd_bound_ms,
-                "bound_by": bwd_by,
-                "library_ms": None,
-            },
+            entry("kernel_matvec", "kernel_matvec.cu", 230, mv_launches, mv_err, *mv_timed[(N_TRAIN, N_TRAIN, 64)],
+                  matvec_bound(N_TRAIN, N_TRAIN, D, 64)),
+            entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
+                  bwd_bound(N_TRAIN, D, 64, need_dv=False)),
+            entry("periodic_matvec", "kernel_periodic_matvec.cu", 806, pmv_launches, pmv_err,
+                  *pmv_timed[(P_N_TRAIN, P_N_TRAIN, 64)], periodic_matvec_bound(P_N_TRAIN, P_N_TRAIN, P_D, 64)),
+            entry("periodic_bwd_fused", "kernel_periodic_bwd_fused.cu", 872, pbwd_launches, pbwd_err, pbwd_ms,
+                  pbwd_plain_ms, periodic_bwd_bound(P_N_TRAIN, P_D, 64)),
         ]
     }
     smi = subprocess.run(

@@ -1,5 +1,5 @@
 from .kernel import Kernel
 from .scale_kernel import ScaleKernel
-from .stationary import RBFKernel
+from .stationary import PeriodicKernel, RBFKernel
 
-__all__ = ["Kernel", "RBFKernel", "ScaleKernel"]
+__all__ = ["Kernel", "PeriodicKernel", "RBFKernel", "ScaleKernel"]

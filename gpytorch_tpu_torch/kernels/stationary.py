@@ -1,13 +1,17 @@
-"""RBF kernel with (ARD) lengthscales.
+"""Stationary kernels with (ARD) lengthscales: RBF and periodic.
 
-Counterpart of ``RBFKernel`` in ``gpytorch_tpu/kernels/stationary.py``.  It maps onto the
-fused kernel matvec (``ops/fused_kernels.py``) whenever K is too large to evaluate densely.
+Counterpart of ``RBFKernel`` and ``PeriodicKernel`` in ``gpytorch_tpu/kernels/stationary.py``.
+Each maps onto its fused kernel product (``ops/fused_kernels.py``,
+``ops/periodic_kernels.py``) whenever K is too large to evaluate densely.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..constraints import Positive
 from .kernel import Kernel
 
 
@@ -19,3 +23,37 @@ class RBFKernel(Kernel):
     def evaluate(self, hypers, x1, x2, diag: bool = False):
         ls = hypers["lengthscale"]
         return torch.exp(-0.5 * self.covar_dist(x1 / ls, x2 / ls, diag=diag))
+
+
+class PeriodicKernel(Kernel):
+    """k(x, x') = exp(−2 Σ_d sin²(π (x_d − x'_d) / p_d) / ℓ_d²), with the period p in
+    ``raw_period_length`` of shape (1, d) (one shared period without ``ard_num_dims``)."""
+
+    has_lengthscale = True
+
+    def __init__(self, ard_num_dims=None):
+        super().__init__(ard_num_dims=ard_num_dims)
+        num_dims = 1 if ard_num_dims is None else ard_num_dims
+        self.register_parameter("raw_period_length", torch.nn.Parameter(torch.zeros(1, num_dims)))
+        self.register_constraint("raw_period_length", Positive())
+
+    @property
+    def period_length(self) -> torch.Tensor:
+        return self._constrained("raw_period_length")
+
+    @period_length.setter
+    def period_length(self, value) -> None:
+        self._set_constrained("raw_period_length", value)
+
+    def hypers(self):
+        return {**super().hypers(), "period_length": self.period_length}
+
+    def evaluate(self, hypers, x1, x2, diag: bool = False):
+        # each input is reduced to its fractional number of periods before the difference,
+        # which sin² does not see, so that far-apart points lose no precision
+        per, inv_l2 = hypers["period_length"], (1.0 / hypers["lengthscale"] ** 2).reshape(-1)
+        a1, a2 = x1 / per, x2 / per
+        f1, f2 = a1 - torch.round(a1), a2 - torch.round(a2)
+        diff = f1 - f2 if diag else f1[..., :, None, :] - f2[..., None, :, :]
+        sin2 = torch.sin(math.pi * diff) ** 2
+        return torch.exp(-2.0 * (sin2 * inv_l2).sum(-1))

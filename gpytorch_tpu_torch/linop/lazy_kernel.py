@@ -4,8 +4,9 @@ Counterpart of ``gpytorch_tpu/linop/lazy_kernel.py``.  Holds (kernel, x1, x2), t
 hyperparameter tensors and an explicit ``symmetric`` flag (the JAX package keys symmetry
 on ``x1 is x2``).  Slicing slices the inputs, so the joint train/test covariance never
 rebuilds K(train, train) at test time.  Products with a kernel too large to evaluate
-densely go to the fused kernel products (``ops/fused_kernels.py``): the plain streamed
-versions for CPU tensors, the CUDA kernels for CUDA tensors.
+densely go to the fused kernel products (``ops/fused_kernels.py``,
+``ops/periodic_kernels.py``): the plain streamed versions for CPU tensors, the CUDA
+kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -90,17 +91,21 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         return self._fused_matmul(rhs, grad_only=True)
 
     def _fused_matmul(self, rhs, grad_only: bool = False):
-        """K·rhs through the fused kernel product, for (Scale)(RBF | Matérn) kernels.
+        """K·rhs through the fused kernel products, for (Scale)(RBF | Periodic) kernels.
 
-        The centre is detached, as the JAX package stop-gradients it: it only conditions
-        the distances, and K does not depend on it."""
+        RBF: the centre is detached, as the JAX package stop-gradients it (it only
+        conditions the distances, and K does not depend on it), and the outputscale is an
+        operand of the scaled product."""
         from ..kernels.scale_kernel import ScaleKernel
+        from ..kernels.stationary import PeriodicKernel
         from ..ops import fused_kernels as fk
 
         kernel, outputscale = self.kernel, self.hypers.get("outputscale")
         prefix = ""
         if isinstance(kernel, ScaleKernel):
             kernel, prefix = kernel.base_kernel, "base_kernel."
+        if type(kernel) is PeriodicKernel:
+            return self._periodic_matmul(rhs, prefix, outputscale, grad_only)
         ktype = fk.kernel_type_for(kernel)
         if ktype is None:
             raise NotImplementedError(f"no fused matvec for {type(kernel).__name__}")
@@ -113,6 +118,23 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         if outputscale is not None:
             return fk.fused_scaled_kernel_matvec(xs1, xs2, rhs, outputscale, ktype, self.symmetric, grad_only)
         return fk.fused_kernel_matvec(xs1, xs2, rhs, ktype, self.symmetric, grad_only)
+
+    def _periodic_matmul(self, rhs, prefix: str, outputscale, grad_only: bool):
+        """The periodic branch (``gpytorch_tpu/linop/lazy_kernel.py:200-210``): inputs
+        divided by the period, no centring, w = 1/ℓ² per input dim.  The outputscale stays
+        folded into the right-hand side, as in the JAX package: the periodic backward always
+        returns dv, so σ²'s gradient is Σ rhs ⊙ dv.  The lengthscale's gradient flows through
+        w and the period's through x / period, outside the kernels."""
+        from ..ops import periodic_kernels as pk
+
+        per = self.hypers[prefix + "period_length"]
+        ls = self.hypers[prefix + "lengthscale"]
+        w = torch.broadcast_to((1.0 / ls**2).reshape(-1), self.x1.shape[-1:]).contiguous()
+        xs1 = (self.x1 / per).contiguous()
+        xs2 = xs1 if self.symmetric else (self.x2 / per).contiguous()
+        if outputscale is not None:
+            rhs = rhs * outputscale
+        return pk.fused_periodic_matvec(xs1, xs2, w, rhs.contiguous(), self.symmetric, grad_only)
 
     def __getitem__(self, index):
         """Slice the inputs, not the kernel matrix: ``op[rows, cols]`` with two slices."""

@@ -9,8 +9,9 @@ Counterpart of ``gpytorch_tpu/ops/pallas_kernels.py``.  What lives here:
   even at N=100k: the product ``_matvec_reference``, the general backward
   ``_backward_reference`` and the fused symmetric backward ``_bwd_fused_reference``;
 * the hand-written CUDA kernels ``csrc/kernel_matvec.cu`` (K·V) and
-  ``csrc/kernel_bwd_fused.cu`` (the symmetric backward), built with nvcc at first use and
-  bound by ctypes;
+  ``csrc/kernel_bwd_fused.cu`` (the symmetric backward), bound by ctypes;
+* the build of every CUDA source of the package (these two and the periodic pair of
+  ``ops/periodic_kernels.py``) with nvcc at first use into one library;
 * the differentiable products ``fused_kernel_matvec`` and ``fused_scaled_kernel_matvec``
   (``torch.autograd.Function``s).  CPU tensors take the plain versions; CUDA tensors
   launch the CUDA kernels or raise — there is no fallback.
@@ -190,7 +191,11 @@ def _bwd_fused_reference(x, g, v, kernel_type: int, need_dv: bool = True, need_d
 # ----------------------------------------------------------------------------------------
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "kernel_matvec.cu", _PKG / "csrc" / "kernel_bwd_fused.cu")
+_SOURCES = tuple(
+    _PKG / "csrc" / f"{name}.cu"
+    for name in ("kernel_matvec", "kernel_bwd_fused", "kernel_periodic_matvec", "kernel_periodic_bwd_fused")
+)
+_HEADERS = (_PKG / "csrc" / "periodic_common.cuh",)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -206,10 +211,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the built kernel library lives: named by a hash of its sources and flags, so
-    an edited source is rebuilt and an unchanged one is reused."""
+    """Where the built kernel library lives: named by a hash of its sources, headers and
+    flags, so an edited source is rebuilt and an unchanged one is reused."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libgp_kernels_{h.hexdigest()[:16]}.so"
 
@@ -254,6 +259,10 @@ def load_library() -> ctypes.CDLL:
         lib.gp_kernel_matvec_f32.restype = ctypes.c_int
         lib.gp_kernel_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.gp_kernel_bwd_fused_f32.restype = ctypes.c_int
+        lib.gp_periodic_matvec_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gp_periodic_matvec_f32.restype = ctypes.c_int
+        lib.gp_periodic_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gp_periodic_bwd_fused_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -15,9 +15,12 @@ import torch
 _JITTER = 1e-8
 
 
-def pivoted_cholesky(linop, rank: int, rel_tol: float = 0.0, return_pivots: bool = False):
+def pivoted_cholesky(linop, rank: int, rel_tol: float = 0.0, return_pivots: bool = False, pivots=None):
     """L of shape (n, rank) with L Lᵀ ≈ linop (greedy pivoting on the residual diagonal),
-    and with ``return_pivots`` the pivot of each column.
+    and with ``return_pivots`` the pivot of each column.  ``pivots`` (``rank`` indices)
+    replaces the greedy choice by a given order: where the residual diagonal ties to
+    round-off, as on a periodic kernel of low numerical rank, two devices or dtypes pick
+    different pivots, and a pinned order makes their factors comparable.
 
     Columns past the point where the residual diagonal reaches the round-off floor of the
     original diagonal — or, with ``rel_tol`` > 0, where the residual trace falls below
@@ -33,9 +36,10 @@ def pivoted_cholesky(linop, rank: int, rel_tol: float = 0.0, return_pivots: bool
     d = diag
     L = torch.zeros(n, rank, dtype=diag.dtype, device=diag.device)
     columns = torch.arange(rank, device=diag.device)
+    given = None if pivots is None else torch.as_tensor(pivots, device=diag.device)
     pivots = torch.empty(rank, dtype=torch.long, device=diag.device)
     for m in range(rank):
-        pivot = torch.argmax(d)
+        pivot = torch.argmax(d) if given is None else given[m]
         pivot_val = d[pivot]
         row = linop._get_rows(pivot.reshape(1))[0]
         correction = L @ L[pivot]

@@ -1,7 +1,9 @@
-"""The hand-written CUDA kernels (gpytorch_tpu_torch/csrc/kernel_matvec.cu and
-kernel_bwd_fused.cu) against their plain PyTorch versions, on a GPU.  Every test here is
+"""The hand-written CUDA kernels (gpytorch_tpu_torch/csrc/kernel_matvec.cu,
+kernel_bwd_fused.cu, kernel_periodic_matvec.cu and kernel_periodic_bwd_fused.cu) against
+their plain PyTorch versions, on a GPU.  Every test here is
 marked ``cuda`` and skips where there is no CUDA device: the kernels have no CPU mode.  This file imports neither JAX nor the JAX
-package, so it also runs on a machine without them:
+package, so it also runs on a machine without them (from the repository root, where it finds
+chip_smoke.py, whose sums of absolute terms scale the tolerances):
 
     python -m pytest tests/test_torch_cuda_kernel.py -m cuda -q --noconftest
 """
@@ -10,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from gpytorch_tpu_torch.ops import fused_kernels as fk
+from gpytorch_tpu_torch.ops import periodic_kernels as ppk
 
 
 @pytest.fixture
@@ -51,16 +55,6 @@ def test_cuda_wrapper_rejects_non_contiguous_and_mixed_devices(cuda_device):
         fk.kernel_matvec_cuda(x1, x2, v.cpu(), fk.RBF)
 
 
-def _abs_terms(x, g, v, ktype):
-    """Sums of absolute terms of the fused backward's dx, dv and dos (dense, float64)."""
-    diff = (x[:, None, :] - x[None, :, :]).abs()
-    k, kp = fk._kernel_fn_and_prime((diff * diff).sum(-1), ktype)
-    kp.fill_diagonal_(0.0)
-    gv = (g @ v.mT).abs()
-    w = kp.abs() * (gv + (v @ g.mT).abs())
-    return 2.0 * torch.einsum("ij,ijk->ik", w, diff), k.abs() @ g.abs(), (k.abs() * gv).sum()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("need_dv", [True, False])
 @pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
@@ -74,7 +68,7 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, ktype, need_dv, n, d, t
     assert fk.kernel_bwd_fused_cuda.launches == before + 1
     x64, g64, v64 = x.double(), g.double(), v.double()
     want_dv, want_dx, want_dos = fk._bwd_fused_reference(x64, g64, v64, ktype, need_dv=need_dv, need_dos=True)
-    bx, bdv, bdos = _abs_terms(x64, g64, v64, ktype)
+    bx, bdv, bdos = cs._bwd_abs_terms(x64, g64, v64, ktype)
     # float32 kernel against the float64 plain version, relative to the sums of absolute
     # terms, which bound the float32 summation error (dx of a single point is exactly 0)
     assert (dx.double() - want_dx).abs().max().item() <= 1e-5 * bx.max().item()
@@ -107,3 +101,64 @@ def test_asymmetric_gradient_on_cuda_raises(cuda_device):
     out = fk.fused_kernel_matvec(x1, x2, v, fk.RBF)
     with pytest.raises(NotImplementedError, match="_grad_x_pallas"):
         out.sum().backward()
+
+
+# ---------------------------------------------------------------------------------------
+# the periodic pair
+# ---------------------------------------------------------------------------------------
+
+def _periodic_data(n, m, d, t, seed, device):
+    """x1p, x2p over many periods, w, v (float32)."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(-50.0, 300.0, size=(n, d)), rng.uniform(-50.0, 300.0, size=(m, d)),
+              rng.uniform(0.5, 4.0, size=d), rng.normal(size=(m, t)))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 2, 1), (1000, 1537, 1, 64), (129, 65, 3, 100), (300, 200, 11, 20),
+                                     (1, 1, 1, 1)])
+def test_cuda_periodic_kernel_matches_plain(cuda_device, n, m, d, t):
+    x1, x2, w, v = _periodic_data(n, m, d, t, seed=d + t, device=cuda_device)
+    before = ppk.periodic_matvec_cuda.launches
+    got = ppk.fused_periodic_matvec(x1, x2, w, v)
+    torch.cuda.synchronize()
+    assert ppk.periodic_matvec_cuda.launches == before + 1
+    x1d, x2d, wd, vd = x1.double(), x2.double(), w.double(), v.double()
+    want = ppk._periodic_matvec_reference(x1d, x2d, wd, vd)
+    # relative to K|v| (K ≥ 0), the sum of absolute terms
+    scale = ppk._periodic_matvec_reference(x1d, x2d, wd, vd.abs()).abs().max()
+    assert ((got.double() - want).abs().max() / scale).item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,t", [(1537, 2, 64), (1537, 11, 20), (129, 3, 1), (300, 1, 33), (1, 1, 1)])
+def test_cuda_periodic_backward_kernel_matches_plain(cuda_device, n, d, t):
+    x, _, w, g = _periodic_data(n, 1, d, t, seed=10 + d, device=cuda_device)
+    g = g.new_tensor(np.random.default_rng(d).normal(size=(n, t)))
+    v = g.new_tensor(np.random.default_rng(d + 1).normal(size=(n, t)))
+    before = ppk.periodic_bwd_fused_cuda.launches
+    got = ppk.periodic_bwd_fused_cuda(x, w, g, v)
+    torch.cuda.synchronize()
+    assert ppk.periodic_bwd_fused_cuda.launches == before + 1
+    x64, w64, g64, v64 = x.double(), w.double(), g.double(), v.double()
+    want = ppk._periodic_bwd_fused_reference(x64, w64, g64, v64)
+    for a, b, scale, name in zip(got, want, cs._periodic_abs_terms(x64, x64, w64, v64, g64), ("dv", "dx", "dw")):
+        # float32 kernel against the float64 plain version, relative to the sums of absolute
+        # terms (dx and dw of a single point are exactly 0)
+        assert (a.double() - b).abs().max().item() <= 1e-5 * scale.max().item(), name
+
+
+@pytest.mark.cuda
+def test_symmetric_periodic_gradient_runs_the_backward_kernel(cuda_device):
+    x, _, w, v = _periodic_data(300, 300, 2, 4, seed=7, device=cuda_device)
+    g = torch.as_tensor(np.random.default_rng(8).normal(size=(300, 4)), dtype=torch.float32, device=cuda_device)
+    xs, ws, vs = (a.clone().requires_grad_(True) for a in (x, w, v))
+    before = (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
+    out = ppk.fused_periodic_matvec(xs, xs, ws, vs, symmetric=True, grad_only=True)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches) == (before[0], before[1] + 1)
+    want_dv, want_dx, want_dw = ppk._periodic_bwd_fused_reference(x.double(), w.double(), g.double(), v.double())
+    for got, want in ((xs.grad, want_dx), (ws.grad, want_dw), (vs.grad, want_dv)):
+        torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4 * want.abs().max().item())

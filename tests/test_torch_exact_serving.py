@@ -115,16 +115,20 @@ def _served(fast_pred_var, m):
         mp.setattr(sys.modules["gpytorch_tpu.ops.sq_dist"], "sq_dist", _exact_float64_sq_dist)
         mp.setattr(sys.modules["gpytorch_tpu.kernels.kernel"], "_sq_dist_op", _exact_float64_sq_dist)
 
-        jm = JaxModel(jnp.asarray(train_x), jnp.asarray(train_y), gp.likelihoods.GaussianLikelihood())
-        jm = jm.with_params({k: jnp.asarray(v) for k, v in PARAMS.items()}).eval()
-        with _serving_settings(gp.settings, fast_pred_var):
-            jpred = jm.likelihood(jm(jnp.asarray(test_x)))
-            ty = jnp.asarray(test_y)
-            out["jax"] = dict(
-                mean=np.asarray(jpred.mean), var=np.asarray(jpred.variance),
-                rmse=float(gp.metrics.mean_squared_error(jpred, ty, squared=False)),
-                nlpd=float(gp.metrics.negative_log_predictive_density(jpred, ty, eig_floor=jm.likelihood.noise)),
-            )
+
+        # jitted: eager JAX compiles op by op, which took most of this test's time
+        @jax.jit
+        def jax_serve(params, tx, ty):
+            jm = JaxModel(jnp.asarray(train_x), jnp.asarray(train_y), gp.likelihoods.GaussianLikelihood())
+            jm = jm.with_params(params).eval()
+            with _serving_settings(gp.settings, fast_pred_var):
+                jpred = jm.likelihood(jm(tx))
+                return (jpred.mean, jpred.variance, gp.metrics.mean_squared_error(jpred, ty, squared=False),
+                        gp.metrics.negative_log_predictive_density(jpred, ty, eig_floor=jm.likelihood.noise))
+
+        mean, var, rmse, nlpd = jax_serve({k: jnp.asarray(v) for k, v in PARAMS.items()}, jnp.asarray(test_x),
+                                          jnp.asarray(test_y))
+        out["jax"] = dict(mean=np.asarray(mean), var=np.asarray(var), rmse=float(rmse), nlpd=float(nlpd))
 
     tm = TorchModel(torch.from_numpy(train_x), torch.from_numpy(train_y), gt.likelihoods.GaussianLikelihood(),
                     lanczos_init=torch.from_numpy(block)).double()

@@ -51,6 +51,19 @@ def test_pivoted_cholesky(rank, rel_tol):
     np.testing.assert_allclose(L_t.numpy(), np.asarray(L_j), rtol=0, atol=1e-10)
 
 
+def test_pivoted_cholesky_on_given_pivots():
+    K = torch.from_numpy(_kernel_matrix(120, seed=0))
+    op = gt.linop.DenseLinearOperator(K)
+    L, piv = pivoted_cholesky(op, 15, return_pivots=True)
+    L_same, piv_same = pivoted_cholesky(op, 15, return_pivots=True, pivots=piv)
+    assert torch.equal(piv_same, piv) and torch.equal(L_same, L)
+    # another order: the factor still reproduces K on the rows and columns it pivoted on
+    order = torch.arange(0, 120, 8)
+    L_o, piv_o = pivoted_cholesky(op, 15, return_pivots=True, pivots=order)
+    assert torch.equal(piv_o, order)
+    torch.testing.assert_close((L_o @ L_o.mT)[order][:, order], K[order][:, order], rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize("budget", [0.0, 1e-3])
 @pytest.mark.parametrize("t", [1, 3])
 def test_preconditioned_cg(budget, t):
@@ -185,7 +198,7 @@ def test_preconditioner_logdet_and_gradient(fast):
         return gp.linop.DenseLinearOperator(p[0] * jnp.asarray(K0)).add_diagonal(p[1])._preconditioner()[2]
 
     with _both(settings_kw):
-        val_j, grad_j = jax.value_and_grad(jax_logdet)(jnp.asarray([theta, s]))
+        val_j, grad_j = jax.jit(jax.value_and_grad(jax_logdet))(jnp.asarray([theta, s]))
         p = torch.tensor([theta, s], dtype=torch.float64, requires_grad=True)
         val_t = gt.linop.DenseLinearOperator(p[0] * torch.from_numpy(K0)).add_diagonal(p[1])._preconditioner()[2]
         val_t.backward()
