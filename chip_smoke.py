@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of gpytorch_tpu_torch on one NVIDIA GPU: exact-GP training and serving at
-N=100k, for the flagship RBF model and for a periodic model.
+N=100k, for the flagship RBF model and for a periodic model, and gradients of the
+flagship's predictions with respect to the test inputs.
 
     python3 chip_smoke.py
 
@@ -8,15 +9,19 @@ Phases, in order; any failed check exits non-zero before the result line is prin
 
 1. device   — a CUDA device must be present (no CPU fallback); prints the card's name and
               power limit (nvidia-smi) and turns TF32 off for matmuls and cuDNN.
-2. build    — builds the four csrc/*.cu kernels for sm_90a with nvcc, one process per
+2. build    — builds the five csrc/*.cu kernels for sm_90a with nvcc, one process per
               source, into one library (or reuses the build).
 3. kernel   — the CUDA K·V kernel against its plain PyTorch version on the card, for the
-              four kernel types at ragged shapes, and both timed at the serving shapes and
-              at the training CG shape (t=64).
+              four kernel types at ragged shapes, and both timed at the serving shapes
+              (with the 2048-row strip at t=1 and 100) and at the training CG shape (t=64).
 3b. bwd     — the CUDA fused backward kernel against its plain version on the card, for
               the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 64}, with and without dv;
               at the training shape (N=100k, d=3, t=64, dos, no dv) checked against the
               plain version in float64, and both timed.
+3d. grad_x  — the CUDA grad_x kernel (the cotangent of one input of K·V) against its
+              float32 plain version for the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 100}
+              at ragged n ≪ m and n ≫ m; at the path's shapes (2,048 candidates against the
+              100k training points both ways, t = 1 and 100) against float64, timed there.
 3c. periodic kernels — the CUDA periodic K·V and fused periodic backward kernels against
               their float32 plain versions for d ∈ {1, 2, 3, 11}, t ∈ {1, 20, 64, 100}
               (ragged n ≠ m for the product, symmetric n for the backward); at every shape
@@ -25,6 +30,10 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               backward at t = 64) against the plain versions in float64; both timed there.
 4. slice    — serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel
               path), from the same data, parameters and Lanczos start.
+4c. grad-slice — the gradient of ΣUCB (UCB = μ + 2σ) with respect to 512 candidates at
+              N=2000, CPU tensors against CUDA tensors, with the parameters frozen and live;
+              the gate sits above a CPU float32-vs-float64 reading and below a planted fault
+              in the plain grad_x (the last sixteenth of the j range dropped).
 5. serve    — the flagship exact GP of bench.py (ConstantMean + Scale(RBF-ARD) +
               GaussianLikelihood) on its synthetic 3droad-shaped task, N=100,000 train,
               2,048 test, d=3, under bench.py's eval settings, from fixed parameters: one
@@ -58,6 +67,14 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               for the week in 8 requests of 256 and one of 2,048.  Checks finite losses and
               gradients, forecast RMSE, variances, that training lowered the loss and the
               marginal NLPD, and the launches of both periodic kernels (none of the RBF ones).
+
+9. acquisition — on phase 7's trained flagship, the 2,048 test points as candidates: the
+              kernel path's ∇ΣUCB against the float64 plain path from the same caches; central
+              differences of single candidates' UCB in float64; one gradient evaluation
+              launches 2 kernel_matvec + 2 kernel_grad_x with the parameters frozen, 4 + 4
+              with them live; 20 Adam steps of ascent on the candidates (the UCB must rise);
+              the float64 check and the launches again for Scale(Matérn-5/2 ARD) with the
+              fitted hyperparameters, and its RMSE (no gate).
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -142,6 +159,23 @@ P_GRAD_SEEDS = 8            # probe seeds behind phase 8's reading of the period
 P_GRAD_ROUNDOFF_TOL = 1.0   # … the float32 path's raw period gradient within this many standard
                             # deviations over probe seeds of the float64 plain path's: round-off must
                             # not be what moves the periods (P_PERIOD_LR rests on probe noise)
+# the prediction gradient (phases 3d, 4c, 9)
+GX_REL_TOL = 1e-5           # grad_x kernel against its float32 plain version, relative to the sum of
+                            # absolute terms 2 Σ_j |k′||g_i·v_j||x1_i − x2_j|, which bounds float32 summation
+GX_PATH_TOL = 1e-4          # grad_x kernel at the path's shapes (2048 × 100k both ways) against the plain
+                            # version in float64: max |Δ| / max |·|
+GX_SLICE_TOL = 3e-3         # N=2000 CPU vs CUDA: max |Δ∇| / max |∇| of the UCB gradient, for the candidates
+                            # and (parameters live) for the parameters, each over its own largest.  A float32
+                            # run is up to ~1e-3 off float64 (CPU float32 read 2.6e-4 frozen, 9.8e-4 live): the
+                            # LOVE variance σ² = K** − |K*x R|² is ≈ 5e-4 at its smallest against an outputscale
+                            # of 1.9, so its gradient keeps ~1e-3 of float32 rounding, and two float32 runs can
+                            # differ by the sum of theirs
+UCB_BETA = 2.0              # UCB(x) = μ(x) + 2σ(x) of the latent posterior, the acquisition of phases 4c, 9
+ACQ_F64_TOL = 1e-3          # N=100k: the float32 kernel path's ∇ΣUCB against the float64 plain path from the
+                            # same caches, max |Δ| / max |∇|
+ACQ_FD_H = 1e-4             # central differences of one candidate's UCB, float64 plain path
+ACQ_FD_TOL = 1e-6           # … against the float64 autograd gradient, max |Δ| / max |∇| over 6 coordinates
+ACQ_STEPS, ACQ_LR = 20, 0.02  # Adam ascent of ΣUCB over the candidates, clamped to the unit cube
 PC_NOISE_BUDGET = 1e-3      # bench.py's preconditioner noise budget: τ = λ_max(LLᵀ)·eps/budget
 # the budget under which a float64 run's τ is the float32 run's, so that a float32 and a
 # float64 run precondition alike and draw the same probes z ~ N(0, P)
@@ -182,19 +216,21 @@ def make_periodic_task(n_train: int, n_test: int, seed: int = 0):
     return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
 
 
-def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS):
+def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS, nu=None):
     """The flagship model on ``device``: from the raw parameters ``params`` in eval mode, or
     with ``params=None`` at bench.py's initial values (noise 0.1, lengthscale 0.5) in
-    train mode."""
+    train mode.  ``nu`` swaps the RBF kernel for a Matérn kernel of that smoothness."""
     import torch
 
     import gpytorch_tpu_torch as gt
+
+    base = gt.kernels.RBFKernel if nu is None else (lambda **kw: gt.kernels.MaternKernel(nu=nu, **kw))
 
     class FlagshipGP(gt.models.ExactGP):
         def __init__(self, x, y, likelihood):
             super().__init__(x, y, likelihood)
             self.mean_module = gt.means.ConstantMean()
-            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=D))
+            self.covar_module = gt.kernels.ScaleKernel(base(ard_num_dims=D))
 
         def forward(self, x):
             return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
@@ -359,17 +395,24 @@ class PinnedPivots:
 
 
 @contextlib.contextmanager
-def plain_periodic_kernels():
-    """Routes the periodic path's CUDA tensors through the plain versions instead of the
-    CUDA kernels: a float64 reference run of the whole path on the card."""
+def plain_kernels():
+    """Routes CUDA tensors through the plain versions instead of the five CUDA kernels: a
+    float64 reference run of a whole path on the card."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
     from gpytorch_tpu_torch.ops import periodic_kernels as ppk
 
-    kernels = ppk.periodic_matvec_cuda, ppk.periodic_bwd_fused_cuda
-    ppk.periodic_matvec_cuda, ppk.periodic_bwd_fused_cuda = ppk._periodic_matvec_reference, ppk._periodic_bwd_fused_reference
+    swaps = [(fk, "kernel_matvec_cuda", fk._matvec_reference), (fk, "kernel_grad_x_cuda", fk._grad_x_reference),
+             (fk, "kernel_bwd_fused_cuda", fk._bwd_fused_reference),
+             (ppk, "periodic_matvec_cuda", ppk._periodic_matvec_reference),
+             (ppk, "periodic_bwd_fused_cuda", ppk._periodic_bwd_fused_reference)]
+    kernels = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        ppk.periodic_matvec_cuda, ppk.periodic_bwd_fused_cuda = kernels
+        for (module, name, _), kernel in zip(swaps, kernels):
+            setattr(module, name, kernel)
 
 
 def finite_step(loss, model) -> bool:
@@ -431,6 +474,26 @@ def serve(model, test_x, device, batches):
     return strategy.lik_train_train_covar.last_cg_result, refresh_s, answers
 
 
+def ucb(model, x):
+    """(UCB, variance) of the latent posterior at each candidate row of ``x``:
+    UCB(x) = μ(x) + 2σ(x), the acquisition function of phases 4c and 9."""
+    latent = model(x)
+    var = latent.variance
+    return latent.mean + UCB_BETA * var.sqrt(), var
+
+
+def ucb_gradient(model, x, params=()):
+    """One gradient evaluation: ∇ΣUCB with respect to the candidates ``x`` (and to
+    ``params``, None for one that the prediction does not reach), the UCB and the
+    variances."""
+    import torch
+
+    xg = x.detach().requires_grad_(True)
+    u, var = ucb(model, xg)
+    grads = torch.autograd.grad(u.sum(), [xg, *params], allow_unused=True)
+    return grads[0], grads[1:], u.detach(), var.detach()
+
+
 def cuda_time_ms(fn, reps: int) -> float:
     import torch
 
@@ -456,6 +519,13 @@ def matvec_bound(n: int, m: int, d: int, t: int):
     """K·V: 2t FLOP for the product and 3d for the distance per (i, j) pair (one exp per
     pair besides); x1, x2 and v read once, the output written once."""
     return bound_ms(n * m * (2 * t + 3 * d), 4 * (n * d + m * d + m * t + n * t))
+
+
+def grad_x_bound(n: int, m: int, d: int, t: int):
+    """The cotangent of x1: per (i, j) pair 2t FLOP for g_i·v_j, 5d for the distance and the
+    moment, and 4 for k′ and the weight (one exp per pair besides); x1, x2, g and v read
+    once, dx1 written once."""
+    return bound_ms(n * m * (2 * t + 5 * d + 4), 4 * (2 * n * d + m * d + n * t + m * t))
 
 
 def bwd_bound(n: int, d: int, t: int, need_dv: bool):
@@ -536,10 +606,11 @@ def phase_kernel():
         print(f"[kernel] type {kt}: n=1000 m=1537 d∈{{3,11}} t∈{{1,20,100}} within {KERNEL_REL_TOL} "
               f"(worst so far {worst_rel:.3e})", flush=True)
 
-    # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100);
-    # training shape: mBCG over [y, 63 probes] (t=64)
+    # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100)
+    # and K(test, train)·α (t=1, the mean); training shape: mBCG over [y, 63 probes] (t=64)
     timed = {}
-    for n, m, t in ((N_TRAIN, N_TRAIN, 1), (N_TRAIN, N_TRAIN, 20), (N_TEST, N_TRAIN, 100), (N_TRAIN, N_TRAIN, 64)):
+    for n, m, t in ((N_TRAIN, N_TRAIN, 1), (N_TRAIN, N_TRAIN, 20), (N_TEST, N_TRAIN, 100), (N_TEST, N_TRAIN, 1),
+                    (N_TRAIN, N_TRAIN, 64)):
         x2 = torch.as_tensor(rng.uniform(size=(m, D)) / 0.3, dtype=torch.float32, device=dev)
         x1 = x2 if n == m else torch.as_tensor(rng.uniform(size=(n, D)) / 0.3, dtype=torch.float32, device=dev)
         v = torch.as_tensor(rng.normal(size=(m, t)), dtype=torch.float32, device=dev)
@@ -548,11 +619,11 @@ def phase_kernel():
         rel, err = _rel_err(got, plain, x1, x2, v, fk.RBF)
         check(rel <= KERNEL_REL_TOL, f"serving shape {n}x{m} t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
         max_abs = max(max_abs, err)
-        if t == 1:  # both float32 versions against float64, for the record
+        if t == 1 or n == N_TEST:  # both float32 versions against float64, for the record
             exact = fk._matvec_reference(x1.double(), x2.double(), v.double(), fk.RBF)
             rel64 = _rel_err(got, exact, x1, x2, v, fk.RBF)[0]
             plain64 = _rel_err(plain, exact, x1, x2, v, fk.RBF)[0]
-            print(f"[kernel] {n}x{m} t=1 against float64: kernel {rel64:.3e}, plain float32 {plain64:.3e}", flush=True)
+            print(f"[kernel] {n}x{m} t={t} against float64: kernel {rel64:.3e}, plain float32 {plain64:.3e}", flush=True)
         ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), 10)
         plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, fk.RBF), 3)
         timed[(n, m, t)] = (ms, plain_ms)
@@ -631,6 +702,78 @@ def phase_bwd():
     check(max(rel["kernel"]) <= BWD_TRAIN_TOL, f"backward kernel at the training shape: relative error "
                                                f"{max(rel['kernel']):.3e} > {BWD_TRAIN_TOL}")
     return max_abs, ms, plain_ms
+
+
+def _grad_x_abs_terms(x1, x2, g, v, kt):
+    """Sum of absolute terms of the grad_x kernel's output, 2 Σ_j |k′(d2_ij)||g_i·v_j||x1_i − x2_j|,
+    dense, float64."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    diff = x1[:, None, :] - x2[None, :, :]
+    w = fk._kernel_prime((diff * diff).sum(-1), kt).abs() * (g @ v.mT).abs()
+    return 2.0 * torch.einsum("ij,ijk->ik", w, diff.abs())
+
+
+def phase_grad_x():
+    """The grad_x kernel against its plain version on the card: float32 against float32 for
+    the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 100}, at ragged n ≪ m and n ≫ m; at the
+    path's shapes on the flagship task (2,048 candidates against the 100k training points,
+    scaled by the fitted lengthscales, both ways: dx1 and dx2, at t = 1 and 100) against
+    float64, and timed there.  Returns (max_abs_err, {(n, m, t): (ms, plain_ms)})."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    rng = np.random.default_rng(7)
+    dev = "cuda"
+
+    def data(*shapes):
+        return tuple(torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in shapes)
+
+    max_abs, worst = 0.0, 0.0
+    for kt in fk.KERNEL_TYPES:
+        for d in (3, 11):
+            for t in (1, 20, 100):
+                for n, m in ((300, 1537), (1537, 300)):
+                    x1, x2, g, v = data((n, d), (m, d), (n, t), (m, t))
+                    got = fk.kernel_grad_x_cuda(x1, x2, g, v, kt)
+                    err = (got.double() - fk._grad_x_reference(x1, x2, g, v, kt).double()).abs().max().item()
+                    rel = err / _grad_x_abs_terms(x1.double(), x2.double(), g.double(), v.double(), kt).max().item()
+                    max_abs, worst = max(max_abs, err), max(worst, rel)
+                    check(rel <= GX_REL_TOL, f"grad_x kernel type {kt}, d={d}, t={t}, {n}x{m}: relative error "
+                                             f"{rel:.3e} > {GX_REL_TOL}")
+        print(f"[grad-x] type {kt}: 300x1537 and 1537x300, d∈{{3,11}} t∈{{1,20,100}} within {GX_REL_TOL} of the "
+              f"float32 plain version (worst so far {worst:.3e})", flush=True)
+
+    # the path's shapes: dx1 of K(candidates, train)·v for v = the mean cache (t=1) and the
+    # LOVE root (t=100), and dx2 (the training side, with the parameters live)
+    train_x, _, test_x, _ = make_task(N_TRAIN, N_TEST, seed=0)
+    ls = np.log1p(np.exp(np.asarray(JAX_PARAMS["covar_module.base_kernel.raw_lengthscale"])))  # softplus
+    xt = torch.as_tensor(train_x / ls, dtype=torch.float32, device=dev)
+    xq = torch.as_tensor(test_x / ls, dtype=torch.float32, device=dev)
+    timed = {}
+    for x1, x2 in ((xq, xt), (xt, xq)):
+        n, m = x1.shape[0], x2.shape[0]
+        for t in (1, 100):
+            g, v = data((n, t), (m, t))
+            got = fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF)
+            exact = fk._grad_x_reference(x1.double(), x2.double(), g.double(), v.double(), fk.RBF)
+            err = (got.double() - exact).abs().max().item()
+            rel = err / exact.abs().max().item()
+            plain_rel = (fk._grad_x_reference(x1, x2, g, v, fk.RBF).double() - exact).abs().max().item() / exact.abs().max().item()
+            max_abs = max(max_abs, err)
+            del exact
+            check(rel <= GX_PATH_TOL, f"grad_x kernel {n}x{m} t={t} against float64: {rel:.3e} > {GX_PATH_TOL}")
+            ms = cuda_time_ms(lambda: fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF), 10)
+            plain_ms = cuda_time_ms(lambda: fk._grad_x_reference(x1, x2, g, v, fk.RBF), 3)
+            timed[(n, m, t)] = (ms, plain_ms)
+            bms, by = grad_x_bound(n, m, D, t)
+            print(f"[grad-x] {n}x{m} d={D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
+                  f"({by}; {n * m:.3e} pairs); against float64 max |Δ| / max |·|: kernel {rel:.3e}, plain float32 "
+                  f"{plain_rel:.3e} (tol {GX_PATH_TOL})", flush=True)
+    return max_abs, timed
 
 
 def _periodic_abs_terms(x1, x2, w, v, g=None):
@@ -770,6 +913,60 @@ def phase_slice(periodic=False):
           f"(tol {SLICE_MEAN_TOL}), var rel diff {dv:.3e} (tol {SLICE_VAR_TOL})", flush=True)
     check(dm <= SLICE_MEAN_TOL, f"{tag} mean differs: {dm:.3e}")
     check(dv <= SLICE_VAR_TOL, f"{tag} variance differs: {dv:.3e}")
+
+
+def _per_key_gap(ref, got):
+    """max over keys of max |Δ| / max |ref| (each gradient over its own largest)."""
+    return max((ref[k] - got[k]).abs().max().item() / ref[k].abs().max().item() for k in ref)
+
+
+def phase_grad_slice():
+    """The gradient of ΣUCB at N=2000 on CPU tensors (plain path) against CUDA tensors
+    (kernel path), from the same data, parameters and Lanczos start: with the parameters
+    frozen (dx1 of each product) and live (dx1, dx2 and dos).  The gate sits above a CPU
+    float32-against-float64 reading and below a planted fault in the plain
+    ``_grad_x_reference`` (the last sixteenth of the j range dropped), which it must see."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    n, n_test = 2000, 512
+    train_x, train_y, test_x, _ = make_task(n, n_test, seed=2)
+
+    def run(device, dtype, live):
+        model = build_model(train_x, train_y, device, dtype)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(live)
+        x = torch.as_tensor(test_x, dtype=dtype, device=device)
+        with eval_settings(min_preconditioning_size=1000), settings.eval_cg_tolerance(SLICE_CG_TOL):
+            model.refresh()
+            grad, pgrads, _, _ = ucb_gradient(model, x, params.values() if live else ())
+        out = {"candidates": grad}
+        out.update({k: g for k, g in zip(params, pgrads) if g is not None})
+        return {k: g.detach().cpu().double() for k, g in out.items()}
+
+    sound = fk._grad_x_reference
+
+    def planted(x1, x2, g, v, kernel_type, **kwargs):
+        keep = x2.shape[0] - x2.shape[0] // 16
+        return sound(x1, x2[:keep], g, v[:keep], kernel_type, **kwargs)
+
+    for live in (False, True):
+        cpu, gpu = run("cpu", torch.float32, live), run("cuda", torch.float32, live)
+        gap, floor = _per_key_gap(cpu, gpu), _per_key_gap(run("cpu", torch.float64, live), cpu)
+        fk._grad_x_reference = planted
+        try:
+            fault = _per_key_gap(cpu, run("cpu", torch.float32, live))
+        finally:
+            fk._grad_x_reference = sound
+        label = "parameters live" if live else "parameters frozen"
+        print(f"[grad-slice] N={n} candidates={n_test}, {label} ({', '.join(cpu)}): CPU against CUDA max |Δ∇| / max "
+              f"|∇| {gap:.3e} (tol {GX_SLICE_TOL}; cpu float32 against float64 {floor:.3e}, against a planted fault "
+              f"{fault:.3e})", flush=True)
+        check(gap <= GX_SLICE_TOL, f"grad-slice ({label}): CPU and CUDA gradients differ: {gap:.3e}")
+        check(fault > GX_SLICE_TOL, f"the grad-slice gate ({label}) does not see a planted fault: {fault:.3e}")
 
 
 def phase_serve():
@@ -921,7 +1118,7 @@ def phase_train_slice(periodic=False):
 
 def phase_flagship():
     """bench.py's training at full width, then serving from the trained model; returns the
-    launches of (kernel_matvec, kernel_bwd_fused) over the whole path."""
+    launches of (kernel_matvec, kernel_bwd_fused) over the whole path, and the model."""
     import torch
 
     import gpytorch_tpu_torch as gt
@@ -1002,7 +1199,7 @@ def phase_flagship():
     check(rmse <= RMSE_LIMIT, f"flagship rmse {rmse:.4f} > {RMSE_LIMIT}")
     check(loss_end <= losses[0] - TRAIN_LOSS_DROP, f"training loss fell from {losses[0]:.5f} only to {loss_end:.5f}")
     check(nlpd <= nlpd0 - TRAIN_NLPD_DROP, f"training took the marginal nlpd from {nlpd0:.4f} only to {nlpd:.4f}")
-    return launches, median
+    return launches, model
 
 
 def period_gradient_sources(model):
@@ -1038,7 +1235,7 @@ def period_gradient_sources(model):
     ref = build_periodic_model(train_x, train_y, dev, torch.float64)
     ref.load_state_dict({k: v.double() for k, v in model.state_dict().items()})
     t0 = time.perf_counter()
-    with plain_periodic_kernels(), pins.replay():
+    with plain_kernels(), pins.replay():
         g64, it64 = grads(ref, 0, PC_NOISE_BUDGET_F64)
     t64 = time.perf_counter() - t0
     out = {}
@@ -1196,6 +1393,174 @@ def phase_periodic():
     return launches
 
 
+def _float64_twin(model, train_x, train_y, nu=None):
+    """A float64 copy of the eval-mode ``model`` whose prediction caches are ``model``'s own,
+    cast to float64: the reference of a float32 prediction through the plain versions."""
+    import torch
+
+    ref = build_model(train_x, train_y, "cuda", torch.float64, params=None, nu=nu)
+    ref.load_state_dict({k: v.double() for k, v in model.state_dict().items()})
+    ref.eval()
+    for p in ref.parameters():
+        p.requires_grad_(False)
+    with torch.no_grad():
+        strategy, ref_strategy = model.prediction_strategy(), ref.prediction_strategy()
+        ref_strategy._mean_cache = strategy.mean_cache.double()
+        ref_strategy._covar_cache = strategy.covar_cache.double()
+    return ref
+
+
+def ucb_parts(model, x):
+    """(∇Σμ, ∇Σ2σ, variances) at the candidates ``x``: the two parts of ∇ΣUCB."""
+    import torch
+
+    xg = x.detach().requires_grad_(True)
+    latent = model(xg)
+    var = latent.variance
+    grad_mean = torch.autograd.grad(latent.mean.sum(), xg, retain_graph=True)[0]
+    grad_sd = torch.autograd.grad(UCB_BETA * var.sqrt().sum(), xg)[0]
+    return grad_mean.double(), grad_sd.double(), var.detach().double()
+
+
+def _gradient_against_float64(model, ref, cand, tag):
+    """One frozen-parameter gradient evaluation by the kernel path, with its launches, held
+    against the float64 plain path of ``ref`` from the same caches; beside it, the mean and
+    2σ parts of the gradient and the variances of the kernel path and of the float32 plain
+    path, each against float64.  Returns the float64 gradient."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    with eval_settings():
+        fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+        grad, _, u, var = ucb_gradient(model, cand)
+        torch.cuda.synchronize()
+        launches = (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
+        kernel = ucb_parts(model, cand)
+        with plain_kernels():
+            plain = ucb_parts(model, cand)
+            mean64, sd64, var64 = ucb_parts(ref, cand.double())
+    grad64 = mean64 + sd64
+    scale = grad64.abs().max().item()
+    err = (grad.double() - grad64).abs().max().item() / scale
+    finite = bool(torch.isfinite(grad).all()) and bool(torch.isfinite(u).all()) and bool((var > 0).all())
+    print(f"[acquisition] {tag}: one gradient evaluation launched kernel_matvec, kernel_grad_x, kernel_bwd_fused "
+          f"{launches} (expected (2, 2, 0)); ∇ΣUCB against the float64 plain path max |Δ| / max |∇| {err:.3e} (tol "
+          f"{ACQ_F64_TOL}); max |∇| {scale:.4e}; latent variances {var64.min().item():.3e} to "
+          f"{var64.max().item():.3e}", flush=True)
+    for name, (gm, gs, v) in (("kernel path", kernel), ("plain float32", plain)):
+        print(f"[acquisition] {tag}: {name} against float64, max |Δ| / max |∇| of the mean part "
+              f"{(gm - mean64).abs().max().item() / scale:.3e} and of the 2σ part {(gs - sd64).abs().max().item() / scale:.3e}; "
+              f"variances max |Δ| / σ² {((v - var64).abs() / var64).max().item():.3e}", flush=True)
+    check(launches == (2, 2, 0), f"{tag}: a frozen-parameter gradient launched {launches}, expected (2, 2, 0)")
+    check(finite, f"{tag}: non-finite gradient or UCB, or a variance ≤ 0")
+    check(err <= ACQ_F64_TOL, f"{tag}: the gradient differs from float64 by {err:.3e}")
+    return grad64
+
+
+def phase_acquisition(model):
+    """Gradients of the trained flagship's predictions with respect to 2,048 candidates
+    (the test points): ∇ΣUCB against the float64 plain path from the same caches; central
+    differences of single candidates' UCB in float64; the launches of one gradient
+    evaluation with the parameters frozen and live; 20 Adam steps of ascent on the
+    candidates; the same checks for Scale(Matérn-5/2 ARD) with the flagship's fitted
+    hyperparameters.  Returns the launches of (kernel_matvec, kernel_grad_x) over the
+    ascent."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST, seed=0)
+    dev = "cuda"
+    cand = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
+    model.eval()
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(False)
+    with eval_settings():
+        model.refresh()
+    ref = _float64_twin(model, train_x, train_y)
+    grad64 = _gradient_against_float64(model, ref, cand, "RBF")
+
+    # central differences of single candidates' UCB (which depends on that candidate alone)
+    coords = [(0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
+    x64 = cand.double()
+    fd = []
+    with eval_settings(), plain_kernels(), torch.no_grad():
+        for i, k in coords:
+            e = torch.zeros_like(x64)
+            e[i, k] = ACQ_FD_H
+            fd.append(((ucb(ref, x64 + e)[0][i] - ucb(ref, x64 - e)[0][i]) / (2 * ACQ_FD_H)).item())
+    ad = [grad64[i, k].item() for i, k in coords]
+    fd_err = max(abs(a - b) for a, b in zip(fd, ad)) / max(abs(a) for a in ad)
+    print(f"[acquisition] central differences (h={ACQ_FD_H}, float64 plain) at {coords}: {fd}; autograd {ad}; max |Δ| "
+          f"/ max |∇| {fd_err:.3e} (tol {ACQ_FD_TOL})", flush=True)
+    check(fd_err <= ACQ_FD_TOL, f"central differences differ from the autograd gradient by {fd_err:.3e}")
+
+    # the parameters live: dx2 over the training rows and dos, for each of the two products
+    for p in params:
+        p.requires_grad_(True)
+    with eval_settings():
+        fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = 0
+        grad, pgrads, _, _ = ucb_gradient(model, cand, params)
+        torch.cuda.synchronize()
+        live = (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches)
+    for p in params:
+        p.requires_grad_(False)
+    finite = all(bool(torch.isfinite(g).all()) for g in (grad, *(g for g in pgrads if g is not None)))
+    print(f"[acquisition] parameters live: kernel_matvec, kernel_grad_x launched {live} (expected (4, 4): the two "
+          f"products, their dos and their dx1 and dx2); gradients finite {finite}", flush=True)
+    check(live == (4, 4), f"a live-parameter gradient launched {live}, expected (4, 4)")
+    check(finite, "a live-parameter gradient is not finite")
+
+    # ascent: the main path of this slice
+    x = cand.clone().requires_grad_(True)
+    optimizer = torch.optim.Adam([x], lr=ACQ_LR)
+    times, means = [], []
+    fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+    with eval_settings():
+        for step in range(ACQ_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            optimizer.zero_grad()
+            u, var = ucb(model, x)
+            (-u.sum()).backward()
+            ok = bool(torch.isfinite(x.grad).all()) and bool((var > 0).all())  # reads the device
+            times.append(time.perf_counter() - t0)
+            means.append(u.mean().item())
+            check(ok, f"ascent step {step}: non-finite gradient or a variance ≤ 0")
+            optimizer.step()
+            with torch.no_grad():
+                x.clamp_(0.0, 1.0)
+        launches = (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
+        with torch.no_grad():
+            end = ucb(model, x)[0].mean().item()
+    median = sorted(times)[len(times) // 2]
+    print(f"[acquisition] ascent, {ACQ_STEPS} Adam steps (lr {ACQ_LR}) on {N_TEST} candidates: mean UCB "
+          f"{means[0]:.5f} → {end:.5f}; per step {[round(m_, 5) for m_ in means]}; median "
+          f"{median * 1e3:.3f} ms per gradient evaluation (first {times[0] * 1e3:.3f}); launches kernel_matvec, "
+          f"kernel_grad_x, kernel_bwd_fused {launches} (expected ({2 * ACQ_STEPS}, {2 * ACQ_STEPS}, 0))", flush=True)
+    check(launches == (2 * ACQ_STEPS, 2 * ACQ_STEPS, 0), f"the ascent launched {launches}")
+    check(end > means[0], f"the ascent did not raise the mean UCB: {means[0]:.5f} → {end:.5f}")
+
+    # Scale(Matérn-5/2 ARD) with the flagship's fitted hyperparameters
+    matern = build_model(train_x, train_y, dev, torch.float32, params=None, nu=2.5)
+    matern.load_state_dict(model.state_dict())
+    matern.eval()
+    for p in matern.parameters():
+        p.requires_grad_(False)
+    with eval_settings(), torch.no_grad():
+        strategy = matern.refresh()
+        rmse = gt.metrics.mean_squared_error(matern(cand), ty, squared=False).item()
+    cg = strategy.lik_train_train_covar.last_cg_result
+    print(f"[acquisition] Matérn-5/2 with the fitted hyperparameters: refresh CG {cg.num_iters} iterations (relative "
+          f"residual {cg.residual_norm.max().item():.3e}), rmse {rmse:.4f} (no gate)", flush=True)
+    _gradient_against_float64(matern, _float64_twin(matern, train_x, train_y, nu=2.5), cand, "Matérn-5/2")
+    return launches[:2]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1207,14 +1572,17 @@ def main() -> int:
         phase_build()
         mv_err, mv_timed = phase_kernel()
         bwd_err, bwd_ms, bwd_plain_ms = phase_bwd()
+        gx_err, gx_timed = phase_grad_x()
         pmv_err, pmv_timed, pbwd_err, pbwd_ms, pbwd_plain_ms = phase_periodic_kernels()
         phase_slice()
+        phase_grad_slice()
         serve_launches = phase_serve()
         phase_train_slice()
         phase_slice(periodic=True)
         phase_train_slice(periodic=True)
-        (mv_launches, bwd_launches), _ = phase_flagship()
+        (mv_launches, bwd_launches), flagship = phase_flagship()
         pmv_launches, pbwd_launches = phase_periodic()
+        _, gx_launches = phase_acquisition(flagship)
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -1230,6 +1598,8 @@ def main() -> int:
         "kernels": [
             entry("kernel_matvec", "kernel_matvec.cu", 230, mv_launches, mv_err, *mv_timed[(N_TRAIN, N_TRAIN, 64)],
                   matvec_bound(N_TRAIN, N_TRAIN, D, 64)),
+            entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
+                  grad_x_bound(N_TEST, N_TRAIN, D, 100)),
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
                   bwd_bound(N_TRAIN, D, 64, need_dv=False)),
             entry("periodic_matvec", "kernel_periodic_matvec.cu", 806, pmv_launches, pmv_err,

@@ -9,7 +9,8 @@
 // TF32 or BF16 would reintroduce the CG stalls the JAX package measured).
 //
 // Design: each thread owns one output row and TC output columns, accumulated in registers
-// (for t = 1 in two levels, one sum per staged tile, so CG's residual stays honest).
+// (for t = 1 and t > 64 in two levels, one sum per staged tile: CG's residual stays
+// honest, and so do the LOVE variances K** - |K*x R|^2, which cancel to 1e-5 of K**).
 // A block of 128 threads owns 128 rows and one tile of TC columns (blockIdx.y), and walks
 // over all of x2 and v in tiles of TJ rows staged in shared memory.  Every output element is
 // written once, by one thread, with no atomics, so the result is deterministic.  Ragged
@@ -22,11 +23,12 @@
 // the kernel is bound by instruction issue and the SFU, not by memory (x2 and v stream
 // through shared memory once per 128 rows).  For wide t the TC accumulating FMAs dominate.
 // Known gaps, left to later work: a cross-covariance strip of 2048 test rows fills only
-// 16 of the 132 SMs (no split over j, which would need a second reduction pass); column
-// tiles are 1, 32 or 64 wide (t = 20 runs 32 FMAs per element, t = 100 runs two tiles of
-// 64), and each column tile recomputes k; any d other than 3 runs padded to 64 dims.
-// The template tiers are the ones the serving path uses (d = 3; t = 1, 20, 100), so that
-// nvcc builds 4 x 2 x 3 instantiations; a finer tier waits for a measured shape that needs it.
+// 16 of the 132 SMs per column tile (no split over j, which would need a second reduction
+// pass); column tiles are 1, 32 or 64 wide (t = 20 runs 32 FMAs per element, t = 100 runs
+// four tiles of 32 summed per staged tile), and each column tile recomputes k; any d other
+// than 3 runs padded to 64 dims.  The template tiers are the ones the paths use (d = 3;
+// t = 1, 20, 64, 100), so that nvcc builds 4 x 2 x 4 instantiations; a finer tier waits
+// for a measured shape that needs it.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; loaded with ctypes.
 
@@ -61,7 +63,9 @@ __device__ __forceinline__ float kernel_fn(float d2) {
 // DP: distance dims held in registers (3, or 64 for any other d, with the extra dims zero
 // on both sides so they add nothing).  DS: the row stride of the staged x2 tile, DP rounded
 // up to a multiple of 4 for 16-byte shared loads.
-template <int KT, int DP, int TC>
+// TILED: sum each staged tile's kTJ terms apart before adding them to the running sum
+// (always so for TC = 1).
+template <int KT, int DP, int TC, bool TILED>
 __global__ void __launch_bounds__(kRows)
 kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ v,
                   float* __restrict__ out, int n, int m, int d, int t) {
@@ -99,10 +103,18 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
         // t = 1, the product of every CG iteration: each tile's kTJ terms are summed apart
         // and then added to the running sum, which cuts the float32 summation error about
         // tenfold.  CG needs it: with one running sum it took 10 more iterations at N=100k
-        // on an H100 and ended with its true residual 2.4 times over the tolerance.  Wider
-        // tiles keep one level, because a second set of TC accumulators made them 40-60 %
-        // slower there.
+        // on an H100 and ended with its true residual 2.4 times over the tolerance.  The
+        // t = 20 and t = 64 tiers keep one level, because a second set of TC accumulators
+        // made them 40-60 % slower there.  t > 64 (the LOVE root, t = 100) runs TILED tiles
+        // of 32: with one level over 100k terms the smallest LOVE variances of the trained
+        // flagship (N=100k, on an H100) were 90 % off float64 (5 % through cuBLAS), and their input gradients
+        // 2.3e-3 of the largest gradient (1.4e-4).
         float tile_sum = 0.0f;
+        float tile[TILED ? TC : 1];
+        if constexpr (TILED) {
+#pragma unroll
+            for (int c = 0; c < TC; ++c) tile[c] = 0.0f;
+        }
 #pragma unroll 4
         for (int jj = 0; jj < kTJ; ++jj) {
             float d2 = 0.0f;
@@ -121,6 +133,15 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
             const float kv = kernel_fn<KT>(d2);
             if constexpr (TC == 1) {
                 tile_sum = fmaf(kv, vs[jj], tile_sum);
+            } else if constexpr (TILED) {
+#pragma unroll
+                for (int c = 0; c < TC; c += 4) {
+                    const float4 w = *reinterpret_cast<const float4*>(&vs[jj * TC + c]);
+                    tile[c] = fmaf(kv, w.x, tile[c]);
+                    tile[c + 1] = fmaf(kv, w.y, tile[c + 1]);
+                    tile[c + 2] = fmaf(kv, w.z, tile[c + 2]);
+                    tile[c + 3] = fmaf(kv, w.w, tile[c + 3]);
+                }
             } else {
 #pragma unroll
                 for (int c = 0; c < TC; c += 4) {
@@ -135,6 +156,10 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
         if constexpr (TC == 1) {
             acc[0] += tile_sum;
         }
+        if constexpr (TILED) {
+#pragma unroll
+            for (int c = 0; c < TC; ++c) acc[c] += tile[c];
+        }
         __syncthreads();
     }
 
@@ -148,11 +173,11 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
     }
 }
 
-template <int KT, int DP, int TC>
+template <int KT, int DP, int TC, bool TILED = false>
 void launch(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
             cudaStream_t stream) {
     const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
-    kernel_matvec_f32<KT, DP, TC><<<grid, kRows, 0, stream>>>(x1, x2, v, out, n, m, d, t);
+    kernel_matvec_f32<KT, DP, TC, TILED><<<grid, kRows, 0, stream>>>(x1, x2, v, out, n, m, d, t);
 }
 
 template <int KT, int DP>
@@ -160,7 +185,8 @@ int dispatch_tc(const float* x1, const float* x2, const float* v, float* out, in
                 cudaStream_t s) {
     if (t == 1) launch<KT, DP, 1>(x1, x2, v, out, n, m, d, t, s);
     else if (t <= 32) launch<KT, DP, 32>(x1, x2, v, out, n, m, d, t, s);
-    else launch<KT, DP, 64>(x1, x2, v, out, n, m, d, t, s);
+    else if (t <= 64) launch<KT, DP, 64>(x1, x2, v, out, n, m, d, t, s);
+    else launch<KT, DP, 32, true>(x1, x2, v, out, n, m, d, t, s);
     return 0;
 }
 
@@ -178,7 +204,7 @@ int dispatch_d(const float* x1, const float* x2, const float* v, float* out, int
 // x1 (n, d), x2 (m, d), v (m, t), out (n, t): float32, row-major, contiguous, on one device.
 extern "C" int gp_kernel_matvec_f32(const void* x1, const void* x2, const void* v, void* out, int n, int m,
                                     int d, int t, int kernel_type, void* stream) {
-    if (n <= 0 || t <= 0 || m < 0 || d <= 0 || (t + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+    if (n <= 0 || t <= 0 || m < 0 || d <= 0 || (t + 31) / 32 > 65535) return (int)cudaErrorInvalidValue;
     const float* a = static_cast<const float*>(x1);
     const float* b = static_cast<const float*>(x2);
     const float* w = static_cast<const float*>(v);

@@ -1,5 +1,5 @@
 from .kernel import Kernel
 from .scale_kernel import ScaleKernel
-from .stationary import PeriodicKernel, RBFKernel
+from .stationary import MaternKernel, PeriodicKernel, RBFKernel
 
-__all__ = ["Kernel", "PeriodicKernel", "RBFKernel", "ScaleKernel"]
+__all__ = ["Kernel", "MaternKernel", "PeriodicKernel", "RBFKernel", "ScaleKernel"]

@@ -1,8 +1,9 @@
-"""Stationary kernels with (ARD) lengthscales: RBF and periodic.
+"""Stationary kernels with (ARD) lengthscales: RBF, Matérn and periodic.
 
-Counterpart of ``RBFKernel`` and ``PeriodicKernel`` in ``gpytorch_tpu/kernels/stationary.py``.
-Each maps onto its fused kernel product (``ops/fused_kernels.py``,
-``ops/periodic_kernels.py``) whenever K is too large to evaluate densely.
+Counterpart of ``RBFKernel``, ``MaternKernel`` and ``PeriodicKernel`` in
+``gpytorch_tpu/kernels/stationary.py``.  Each maps onto its fused kernel product
+(``ops/fused_kernels.py``, ``ops/periodic_kernels.py``) whenever K is too large to evaluate
+densely.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import math
 import torch
 
 from ..constraints import Positive
+from ..ops.fused_kernels import _kernel_fn, kernel_type_for
 from .kernel import Kernel
 
 
@@ -23,6 +25,23 @@ class RBFKernel(Kernel):
     def evaluate(self, hypers, x1, x2, diag: bool = False):
         ls = hypers["lengthscale"]
         return torch.exp(-0.5 * self.covar_dist(x1 / ls, x2 / ls, diag=diag))
+
+
+class MaternKernel(Kernel):
+    """Matérn with ν ∈ {0.5, 1.5, 2.5} of r = ‖(x−x')/ℓ‖: exp(−r), (1 + √3r)·exp(−√3r) or
+    (1 + √5r + 5r²/3)·exp(−√5r), with r floored at √1e-30 as in the JAX package."""
+
+    has_lengthscale = True
+
+    def __init__(self, nu: float = 2.5, ard_num_dims=None, lengthscale_constraint=None):
+        if nu not in (0.5, 1.5, 2.5):
+            raise RuntimeError("nu must be one of 0.5, 1.5, 2.5")
+        super().__init__(ard_num_dims=ard_num_dims, lengthscale_constraint=lengthscale_constraint)
+        self.nu = nu
+
+    def evaluate(self, hypers, x1, x2, diag: bool = False):
+        ls = hypers["lengthscale"]
+        return _kernel_fn(self.covar_dist(x1 / ls, x2 / ls, diag=diag), kernel_type_for(self))
 
 
 class PeriodicKernel(Kernel):

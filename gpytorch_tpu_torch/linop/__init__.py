@@ -2,7 +2,7 @@ from .base import DenseLinearOperator, LinearOperator, probe_base_samples, to_li
 from .diag import ConstantDiagLinearOperator, DiagLinearOperator
 from .added_diag import AddedDiagLinearOperator
 from .composition import ConstantMulLinearOperator, SumLinearOperator
-from .lazy_kernel import LazyEvaluatedKernelOperator
+from .lazy_kernel import LazyEvaluatedKernelOperator, join_rows
 from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
 
 __all__ = [
@@ -16,6 +16,7 @@ __all__ = [
     "LowRankRootAddedDiagLinearOperator",
     "RootLinearOperator",
     "SumLinearOperator",
+    "join_rows",
     "probe_base_samples",
     "to_linear_operator",
 ]

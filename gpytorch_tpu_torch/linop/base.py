@@ -17,6 +17,7 @@ ported yet: those calls raise, so use ``settings.max_cholesky_size(0)``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -180,16 +181,47 @@ class LinearOperator:
         )
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
-        """self⁻¹ rhs by preconditioned CG; the CGResult is kept in ``last_cg_result``."""
+        """self⁻¹ rhs by preconditioned CG; the CGResult is kept in ``last_cg_result``.
+
+        Differentiable with respect to ``rhs`` (the backward is one more CG solve, self
+        being symmetric), for an operator that carries no gradient itself; raises if it
+        does."""
         from ..solvers.cg import linear_solve_cg
 
         self._check_iterative("solve")
         squeeze = rhs.ndim == 1
         if squeeze:
             rhs = rhs.unsqueeze(-1)
-        result = linear_solve_cg(self.evaluate_kernel(), rhs)
-        self.last_cg_result = result
-        return result.solution.squeeze(-1) if squeeze else result.solution
+        op = self.evaluate_kernel()
+        if torch.is_grad_enabled() and rhs.requires_grad:
+            if any(t.requires_grad for t in op._flatten()[0]):
+                raise NotImplementedError("solve is differentiated only through its right-hand side")
+            solution = _RHSSolve.apply(self, op, rhs)
+        else:
+            self.last_cg_result = linear_solve_cg(op, rhs)
+            solution = self.last_cg_result.solution
+        return solution.squeeze(-1) if squeeze else solution
+
+
+class _RHSSolve(torch.autograd.Function):
+    """op⁻¹ rhs, differentiable in rhs: the backward solves op⁻¹ g (op is symmetric) with
+    the forward's preconditioner, tolerance and iteration limit, since it runs after the
+    caller's settings have gone out of scope."""
+
+    @staticmethod
+    def forward(ctx, owner, op, rhs):
+        from ..solvers.cg import linear_cg
+
+        precond = op._preconditioner()[0]
+        ctx.solve = functools.partial(linear_cg, op._matmul, precond_fn=precond,
+                                      max_iter=settings.max_cg_iterations.value(),
+                                      tolerance=settings.cg_tolerance.value())
+        owner.last_cg_result = ctx.solve(rhs)
+        return owner.last_cg_result.solution
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.solve(g.contiguous()).solution
 
 
 class DenseLinearOperator(LinearOperator):

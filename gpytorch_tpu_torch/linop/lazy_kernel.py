@@ -3,8 +3,10 @@
 Counterpart of ``gpytorch_tpu/linop/lazy_kernel.py``.  Holds (kernel, x1, x2), the kernel's
 hyperparameter tensors and an explicit ``symmetric`` flag (the JAX package keys symmetry
 on ``x1 is x2``).  Slicing slices the inputs, so the joint train/test covariance never
-rebuilds K(train, train) at test time.  Products with a kernel too large to evaluate
-densely go to the fused kernel products (``ops/fused_kernels.py``,
+rebuilds K(train, train) at test time; on inputs joined by ``join_rows`` a slice that is
+one part takes that part itself, so that K(test, train) carries no autograd history on
+its training side when the training inputs need no gradient.  Products with a kernel too
+large to evaluate densely go to the fused kernel products (``ops/fused_kernels.py``,
 ``ops/periodic_kernels.py``): the plain streamed versions for CPU tensors, the CUDA
 kernels for CUDA tensors.
 """
@@ -17,6 +19,30 @@ import torch
 
 from .. import settings
 from .base import DenseLinearOperator, LinearOperator
+
+
+def join_rows(*parts: torch.Tensor) -> torch.Tensor:
+    """``torch.cat(parts, dim=-2)``, remembering where each part lies: a lazy kernel
+    operator built on the result and sliced to exactly one part's rows takes that part
+    itself, with its own autograd history and no other.  A slice of the plain
+    concatenation would require grad as soon as any part does."""
+    joined = torch.cat(parts, dim=-2)
+    bounds, start = [], 0
+    for part in parts:
+        bounds.append((start, start + part.shape[-2], part))
+        start += part.shape[-2]
+    joined._joined_parts = tuple(bounds)
+    return joined
+
+
+def _rows(x: torch.Tensor, ix: slice) -> torch.Tensor:
+    """x[ix] for a slice of rows: the part itself where x was joined by ``join_rows`` and
+    ix is exactly one part's rows."""
+    span = ix.indices(x.shape[-2])
+    for start, stop, part in getattr(x, "_joined_parts", ()):
+        if span == (start, stop, 1):
+            return part
+    return x[ix]
 
 
 class LazyEvaluatedKernelOperator(LinearOperator):
@@ -91,9 +117,10 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         return self._fused_matmul(rhs, grad_only=True)
 
     def _fused_matmul(self, rhs, grad_only: bool = False):
-        """K·rhs through the fused kernel products, for (Scale)(RBF | Periodic) kernels.
+        """K·rhs through the fused kernel products, for (Scale)(RBF | Matérn | Periodic)
+        kernels.
 
-        RBF: the centre is detached, as the JAX package stop-gradients it (it only
+        RBF and Matérn: the centre is detached, as the JAX package stop-gradients it (it only
         conditions the distances, and K does not depend on it), and the outputscale is an
         operand of the scaled product."""
         from ..kernels.scale_kernel import ScaleKernel
@@ -142,6 +169,6 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         if not (isinstance(row_ix, slice) and isinstance(col_ix, slice)):
             raise NotImplementedError("only (slice, slice) indexing is ported")
         symmetric = self.symmetric and row_ix == col_ix
-        x1 = self.x1[row_ix]
-        x2 = x1 if symmetric else self.x2[col_ix]
+        x1 = _rows(self.x1, row_ix)
+        x2 = x1 if symmetric else _rows(self.x2, col_ix)
         return LazyEvaluatedKernelOperator(self.kernel, x1, x2, symmetric, self.hypers)

@@ -5,6 +5,11 @@ the prior ``forward``; in eval mode it returns the posterior over the test input
 prediction strategy built once and cached until ``clear_caches()``, ``train()`` or
 ``eval()``.  The joint train/test prior is formed lazily and only its test rows are ever
 evaluated.
+
+The posterior is differentiable with respect to the test inputs, and with respect to the
+hyperparameters through its test side (K**, K*x and μ*): the strategy and its caches are
+built without gradients, as under the JAX package's default ``detach_test_caches``.
+Serving callers wrap their requests in ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from .. import settings
 from ..core.module import Module
 from ..distributions import MultivariateNormal
+from ..linop import join_rows
 from .exact_prediction_strategies import prediction_strategy as _prediction_strategy
 
 
@@ -63,10 +69,14 @@ class ExactGP(Module):
         inputs = tuple(x.unsqueeze(-1) if x.ndim == 1 else x for x in args)
         if self.training:
             return self.forward(*inputs)
+        if not settings.detach_test_caches.on():
+            raise NotImplementedError(
+                "detach_test_caches(False), a prediction differentiated through its caches, is not ported"
+            )
         with torch.no_grad():
             strategy = self.prediction_strategy()
-            full_inputs = tuple(torch.cat([ti, x], dim=-2) for ti, x in zip(self.train_inputs, inputs))
-            full_output = self.forward(*full_inputs)
-            with settings.cg_tolerance(settings.eval_cg_tolerance.value()):
-                pred_mean, pred_covar = strategy.exact_prediction(full_output.loc, full_output.lazy_covariance_matrix)
+        full_inputs = tuple(join_rows(ti, x) for ti, x in zip(self.train_inputs, inputs))
+        full_output = self.forward(*full_inputs)
+        with settings.cg_tolerance(settings.eval_cg_tolerance.value()):
+            pred_mean, pred_covar = strategy.exact_prediction(full_output.loc, full_output.lazy_covariance_matrix)
         return MultivariateNormal(pred_mean, pred_covar)

@@ -8,8 +8,13 @@ Counterpart of ``DefaultPredictionStrategy`` in
 * the predictive mean K*x·mean_cache + μ*, and under ``fast_pred_var`` the predictive
   covariance K** − (K*x R)(K*x R)ᵀ.
 
-Both caches are plain tensors built at first use and kept until the model's caches are
-cleared.  Serving runs under ``torch.no_grad()``, so nothing here is differentiated.
+Both caches are plain tensors built at first use, without gradients, and kept until the
+model's caches are cleared.  The predictive mean and covariance are differentiable with
+respect to the test side: K*x, K** and μ*, hence the test inputs.  The training operator
+carries no gradient (the strategy is built under ``torch.no_grad()``); on the exact branch
+its solve is differentiated through the right-hand side K(x, x*), so both symmetric terms
+of d(K*x (K + σ²I)⁻¹ Kx*) are kept.  (The JAX package detaches that solve's result, which
+drops one of them and halves the gradient of the exact variance.)
 """
 
 from __future__ import annotations
@@ -49,15 +54,17 @@ class DefaultPredictionStrategy:
     def mean_cache(self) -> torch.Tensor:
         """(K + σ²I)⁻¹(y − μ)."""
         if self._mean_cache is None:
-            diff = (self.train_labels - self.train_prior_dist.loc).unsqueeze(-1)
-            self._mean_cache = self.lik_train_train_covar.solve(diff).squeeze(-1)
+            with torch.no_grad():
+                diff = (self.train_labels - self.train_prior_dist.loc).unsqueeze(-1)
+                self._mean_cache = self.lik_train_train_covar.solve(diff).squeeze(-1)
         return self._mean_cache
 
     @property
     def covar_cache(self) -> torch.Tensor:
         """LOVE root R with R Rᵀ ≈ (K + σ²I)⁻¹."""
         if self._covar_cache is None:
-            self._covar_cache = self.lik_train_train_covar.root_inv_decomposition(self.lanczos_init).root
+            with torch.no_grad():
+                self._covar_cache = self.lik_train_train_covar.root_inv_decomposition(self.lanczos_init).root
         return self._covar_cache
 
     def exact_prediction(self, joint_mean, joint_covar):

@@ -6,11 +6,12 @@ Counterpart of ``gpytorch_tpu/ops/pallas_kernels.py``.  What lives here:
 * the kernel functions of squared distance (``_kernel_fn``, ``_kernel_prime`` and
   ``_kernel_fn_and_prime``, which shares one exp between k and k′);
 * the plain PyTorch versions, streamed in blocks of rows so that K is never held whole,
-  even at N=100k: the product ``_matvec_reference``, the general backward
-  ``_backward_reference`` and the fused symmetric backward ``_bwd_fused_reference``;
-* the hand-written CUDA kernels ``csrc/kernel_matvec.cu`` (K·V) and
-  ``csrc/kernel_bwd_fused.cu`` (the symmetric backward), bound by ctypes;
-* the build of every CUDA source of the package (these two and the periodic pair of
+  even at N=100k: the product ``_matvec_reference``, the cotangent of one input
+  ``_grad_x_reference`` and the fused symmetric backward ``_bwd_fused_reference``;
+* the hand-written CUDA kernels ``csrc/kernel_matvec.cu`` (K·V), ``csrc/kernel_grad_x.cu``
+  (the cotangent of one input) and ``csrc/kernel_bwd_fused.cu`` (the symmetric
+  backward), bound by ctypes;
+* the build of every CUDA source of the package (these three and the periodic pair of
   ``ops/periodic_kernels.py``) with nvcc at first use into one library;
 * the differentiable products ``fused_kernel_matvec`` and ``fused_scaled_kernel_matvec``
   (``torch.autograd.Function``s).  CPU tensors take the plain versions; CUDA tensors
@@ -118,35 +119,27 @@ def _matvec_reference(x1, x2, v, kernel_type: int, chunk: int = _CHUNK) -> torch
     return out
 
 
-def _backward_reference(x1, x2, g, v, kernel_type: int, need_dv: bool = True, need_dos: bool = False,
-                        chunk: int = _CHUNK):
-    """Plain backward of Σ g ⊙ (K(x1, x2) v): (dv, dx1, dx2, dos), by blocks of rows of x1.
+def _grad_x_reference(x1, x2, g, v, kernel_type: int, chunk: int = _CHUNK) -> torch.Tensor:
+    """Plain dx1 = 2 Σ_j k′(d2_ij)(g_i·v_j)(x1_i − x2_j), the cotangent of x1 in
+    Σ g ⊙ (K(x1, x2) v), by blocks of ``chunk`` rows of x1; dx2 is
+    ``_grad_x_reference(x2, x1, v, g)``.
 
-    The non-Pallas branches of ``gpytorch_tpu/ops/pallas_kernels.py::_fkm_bwd`` and
-    ``_fskm_bwd``: with W = k′(d2) ⊙ (g vᵀ), dx1 = 2(rowsum(W) x1 − W x2) and
-    dx2 = 2(colsum(W) x2 − Wᵀ x1); dv = Kᵀ g and dos = Σ g ⊙ (K v) where asked for
-    (``None`` otherwise)."""
-    from .sq_dist import sq_dist_centered
-
+    Counterpart of ``gpytorch_tpu/ops/pallas_kernels.py::_grad_x_pallas`` and the CUDA
+    kernel's twin: distances and the moment come from per-pair differences, one input dim
+    at a time, and not from rowsum(W)·x1 − W·x2, so that a coincident pair adds exactly 0
+    (Matérn-½'s k′(0) ~ 1/√1e-30 would otherwise multiply round-off)."""
     _check_shapes(x1, x2, v, kernel_type)
-    center = x1.mean(-2, keepdim=True)
-    x1c, x2c = x1 - center, x2 - center
-    dx1 = torch.empty_like(x1c)
-    dx2 = torch.zeros_like(x2c)
-    dv = torch.zeros_like(v) if need_dv else None
-    dos = torch.zeros((), dtype=v.dtype, device=v.device) if need_dos else None
+    if g.shape != (x1.shape[0], v.shape[1]):
+        raise ValueError(f"g {tuple(g.shape)} must be (rows of x1, columns of v) = {(x1.shape[0], v.shape[1])}")
+    d = x1.shape[1]
+    dx1 = torch.empty(x1.shape, dtype=torch.result_type(x1, g), device=x1.device)
     for i in range(0, x1.shape[0], chunk):
-        a, gb = x1c[i : i + chunk], g[i : i + chunk]
-        d2 = sq_dist_centered(a, x2c)
-        k, kp = _kernel_fn_and_prime(d2, kernel_type)
-        W = kp * (gb @ v.mT)
-        dx1[i : i + chunk] = 2.0 * (W.sum(-1, keepdim=True) * a - W @ x2c)
-        dx2 += 2.0 * (W.sum(-2).unsqueeze(-1) * x2c - W.mT @ a)
-        if need_dv:
-            dv += k.mT @ gb
-        if need_dos:
-            dos = dos + (gb * (k @ v)).sum()
-    return dv, dx1, dx2, dos
+        a = x1[i : i + chunk]
+        d2 = sum((a[:, k, None] - x2[None, :, k]) ** 2 for k in range(d))
+        W = _kernel_prime(d2, kernel_type) * (g[i : i + chunk] @ v.mT)
+        for k in range(d):
+            dx1[i : i + chunk, k] = 2.0 * (W * (a[:, k, None] - x2[None, :, k])).sum(-1)
+    return dx1
 
 
 def _bwd_fused_reference(x, g, v, kernel_type: int, need_dv: bool = True, need_dos: bool = False,
@@ -193,7 +186,8 @@ def _bwd_fused_reference(x, g, v, kernel_type: int, need_dv: bool = True, need_d
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(
     _PKG / "csrc" / f"{name}.cu"
-    for name in ("kernel_matvec", "kernel_bwd_fused", "kernel_periodic_matvec", "kernel_periodic_bwd_fused")
+    for name in ("kernel_matvec", "kernel_grad_x", "kernel_bwd_fused", "kernel_periodic_matvec",
+                 "kernel_periodic_bwd_fused")
 )
 _HEADERS = (_PKG / "csrc" / "periodic_common.cuh",)
 _BUILD_DIR = _PKG / "_build"
@@ -257,6 +251,8 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.gp_kernel_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gp_kernel_matvec_f32.restype = ctypes.c_int
+        lib.gp_kernel_grad_x_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.gp_kernel_grad_x_f32.restype = ctypes.c_int
         lib.gp_kernel_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.gp_kernel_bwd_fused_f32.restype = ctypes.c_int
         lib.gp_periodic_matvec_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -311,6 +307,64 @@ class KernelMatvecCUDA:
 
 
 kernel_matvec_cuda = KernelMatvecCUDA()
+
+# work split of csrc/kernel_grad_x.cu: rows per block, columns per chunk for t > 1, and the
+# least number of rows j in a slab of the split
+_GX_ROWS = 128
+_GX_COLS = 32
+_GX_MIN_SLAB = 256
+# blocks per SM that the slab split aims for: at d=3 a thread holds 80 registers at 32
+# columns and 43 at t=1 (ptxas on sm_90a), so 6 and 11 blocks of 128 fit on an SM at once
+_GX_BLOCKS_PER_SM = 8
+
+
+def _grad_x_slabs(row_blocks: int, chunks: int, m: int, sm_count: int) -> int:
+    """How many slabs of the j range the kernel splits into: enough that row blocks ×
+    column chunks × slabs fills the card (``_GX_BLOCKS_PER_SM`` blocks on each SM), with
+    at least ``_GX_MIN_SLAB`` rows j in a slab.  A 2048-row strip (16 row blocks) against
+    100k rows takes 66 slabs at t=1; a 100k-row side takes 1 or 2."""
+    want = -(-_GX_BLOCKS_PER_SM * sm_count // (row_blocks * chunks))
+    return max(1, min(want, m // _GX_MIN_SLAB, 65535))
+
+
+class KernelGradXCUDA:
+    """Wrapper of the asymmetric backward kernel: returns dx1 as ``_grad_x_reference``
+    does.  Chooses the slab split from the card's SM count, allocates the per-(slab, chunk)
+    partials, launches on the current stream, folds them with ``torch.sum`` and counts its
+    launches in ``launches``."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x1, x2, g, v, kernel_type: int) -> torch.Tensor:
+        _check_shapes(x1, x2, v, kernel_type)
+        if g.shape != (x1.shape[0], v.shape[1]):
+            raise ValueError(f"g {tuple(g.shape)} must be (rows of x1, columns of v) = {(x1.shape[0], v.shape[1])}")
+        _check_cuda_f32(x1=x1, x2=x2, g=g, v=v)
+        n, d = x1.shape
+        m, t = v.shape
+        if d > MAX_D:
+            raise ValueError(f"the CUDA kernel takes at most {MAX_D} input dims, got {d}")
+        if n == 0 or m == 0 or t == 0:
+            return torch.zeros_like(x1)
+        chunks = 1 if t == 1 else -(-t // _GX_COLS)
+        sms = torch.cuda.get_device_properties(x1.device).multi_processor_count
+        slabs = _grad_x_slabs(-(-n // _GX_ROWS), chunks, m, sms)
+        dx_part = torch.empty((slabs * chunks, n, d), dtype=torch.float32, device=x1.device)
+        lib = load_library()
+        with torch.cuda.device(x1.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.gp_kernel_grad_x_f32(
+                x1.data_ptr(), x2.data_ptr(), g.data_ptr(), v.data_ptr(), dx_part.data_ptr(), n, m, d, t,
+                int(kernel_type), chunks, slabs, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"kernel_grad_x launch failed: CUDA error {rc}")
+        self.launches += 1
+        return dx_part[0] if slabs * chunks == 1 else dx_part.sum(0)
+
+
+kernel_grad_x_cuda = KernelGradXCUDA()
 
 # work split of csrc/kernel_bwd_fused.cu: rows per block, and columns per chunk for t > 1
 _BWD_ROWS = 128
@@ -374,28 +428,39 @@ def _product(x1, x2, v, kernel_type: int) -> torch.Tensor:
     return _matvec_reference(x1, x2, v, kernel_type)
 
 
-def _backward(x1, x2, g, v, kernel_type: int, symmetric: bool, need_dv: bool, need_dos: bool):
-    """(dv, dx1, dx2, dos) of Σ g ⊙ (K(x1, x2) v); dv and dos are ``None`` where not needed.
+def _grad_x(x1, x2, g, v, kernel_type: int) -> torch.Tensor:
+    if x1.is_cuda:
+        return kernel_grad_x_cuda(x1, x2, g, v, kernel_type)
+    if x1.device.type != "cpu":
+        raise ValueError(f"unsupported device {x1.device}")
+    return _grad_x_reference(x1, x2, g, v, kernel_type)
+
+
+def _backward(x1, x2, g, v, kernel_type: int, symmetric: bool, need_dv: bool, need_dos: bool,
+              need_dx1: bool = True, need_dx2: bool = True):
+    """(dv, dx1, dx2, dos) of Σ g ⊙ (K(x1, x2) v); each is ``None`` where not needed.
 
     Symmetric (x1 and x2 one tensor): one fused pass, and the whole cotangent of that
     tensor comes back in dx1 — the CUDA kernel on the card, its plain twin on the CPU.
-    Asymmetric: the plain general backward on the CPU; on the card it needs the
-    asymmetric backward kernel, which is not ported, and raises."""
+    Asymmetric: the general branch of ``gpytorch_tpu/ops/pallas_kernels.py::_fkm_bwd``
+    and ``_fskm_bwd``, one pass for each output asked for: dv = K(x2, x1) g and
+    dos = Σ g ⊙ (K v) by the product, dx1 and dx2 by ``_grad_x`` (dx2 with the roles of
+    (x1, g) and (x2, v) swapped), each a CUDA kernel on the card and its plain version on
+    the CPU."""
     g = g.contiguous()
-    if x1.is_cuda:
-        if not symmetric:
-            raise NotImplementedError(
-                "the asymmetric kernel-product backward on CUDA needs the port of "
-                "gpytorch_tpu/ops/pallas_kernels.py::_grad_x_pallas, which is still to be done"
-            )
-        dv, dx, dos = kernel_bwd_fused_cuda(x1, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
-        return dv, dx, None, dos
-    if x1.device.type != "cpu":
-        raise ValueError(f"unsupported device {x1.device}")
     if symmetric:
-        dv, dx, dos = _bwd_fused_reference(x1, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
+        if x1.is_cuda:
+            dv, dx, dos = kernel_bwd_fused_cuda(x1, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
+        elif x1.device.type == "cpu":
+            dv, dx, dos = _bwd_fused_reference(x1, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
+        else:
+            raise ValueError(f"unsupported device {x1.device}")
         return dv, dx, None, dos
-    return _backward_reference(x1, x2, g, v, kernel_type, need_dv=need_dv, need_dos=need_dos)
+    dv = _product(x2, x1, g, kernel_type) if need_dv else None
+    dos = (g * _product(x1, x2, v, kernel_type)).sum() if need_dos else None
+    dx1 = _grad_x(x1, x2, g, v, kernel_type) if need_dx1 else None
+    dx2 = _grad_x(x2, x1, v, g, kernel_type) if need_dx2 else None
+    return dv, dx1, dx2, dos
 
 
 def _zeros_out(x1, v) -> torch.Tensor:
@@ -412,7 +477,8 @@ class _KernelMatvec(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x1, x2, v = ctx.saved_tensors
-        dv, dx1, dx2, _ = _backward(x1, x2, g, v, ctx.kernel_type, ctx.symmetric, ctx.needs_input_grad[2], False)
+        need = ctx.needs_input_grad
+        dv, dx1, dx2, _ = _backward(x1, x2, g, v, ctx.kernel_type, ctx.symmetric, need[2], False, need[0], need[1])
         return dx1, dx2, dv, None, None, None
 
 
@@ -431,7 +497,7 @@ class _ScaledKernelMatvec(torch.autograd.Function):
     def backward(ctx, g):
         x1, x2, v, os_ = ctx.saved_tensors
         need = ctx.needs_input_grad
-        dv, dx1, dx2, dos = _backward(x1, x2, g, v, ctx.kernel_type, ctx.symmetric, need[2], need[3])
+        dv, dx1, dx2, dos = _backward(x1, x2, g, v, ctx.kernel_type, ctx.symmetric, need[2], need[3], need[0], need[1])
         scale = lambda t: None if t is None else os_ * t  # noqa: E731
         dos = None if dos is None else dos.reshape(os_.shape).to(os_.dtype)
         return scale(dx1), scale(dx2), scale(dv), dos, None, None, None
@@ -474,7 +540,12 @@ def fused_scaled_kernel_matvec(x1, x2, v, outputscale, kernel_type: int, symmetr
 
 
 def kernel_type_for(kernel):
-    """Map a kernel module to a fused-kernel id (None if unsupported)."""
-    from ..kernels.stationary import RBFKernel
+    """Map a kernel module to a fused-kernel id (None if unsupported), as
+    ``gpytorch_tpu/ops/pallas_kernels.py::kernel_type_for`` does."""
+    from ..kernels.stationary import MaternKernel, RBFKernel
 
-    return RBF if type(kernel) is RBFKernel else None
+    if type(kernel) is RBFKernel:
+        return RBF
+    if type(kernel) is MaternKernel:
+        return {0.5: MATERN05, 1.5: MATERN15, 2.5: MATERN25}[kernel.nu]
+    return None

@@ -199,6 +199,14 @@ class memory_efficient(_feature_flag):
     _default = False
 
 
+class detach_test_caches(_feature_flag):
+    """Build the prediction caches without gradients, so that a prediction is
+    differentiable with respect to the test inputs (and the test-side hyperparameters)
+    but not through the caches.  Only the default, on, is ported: off raises."""
+
+    _default = True
+
+
 class fast_pred_var(_feature_flag):
     """LOVE predictive variances from the cached Lanczos inverse root."""
 

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (gpytorch_tpu_torch/csrc/kernel_matvec.cu,
+"""The hand-written CUDA kernels (gpytorch_tpu_torch/csrc/kernel_matvec.cu, kernel_grad_x.cu,
 kernel_bwd_fused.cu, kernel_periodic_matvec.cu and kernel_periodic_bwd_fused.cu) against
 their plain PyTorch versions, on a GPU.  Every test here is
 marked ``cuda`` and skips where there is no CUDA device: the kernels have no CPU mode.  This file imports neither JAX nor the JAX
@@ -95,12 +95,45 @@ def test_symmetric_gradient_runs_the_backward_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-def test_asymmetric_gradient_on_cuda_raises(cuda_device):
-    x1, x2, v = _data(64, 32, 3, 4, seed=0, device=cuda_device)
-    x1.requires_grad_(True)
-    out = fk.fused_kernel_matvec(x1, x2, v, fk.RBF)
-    with pytest.raises(NotImplementedError, match="_grad_x_pallas"):
-        out.sum().backward()
+@pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
+@pytest.mark.parametrize("n,m,d,t", [(300, 1537, 3, 1), (1537, 300, 3, 100), (129, 65, 11, 20), (1, 1, 1, 1),
+                                     (2048, 100_000, 3, 1)])
+def test_cuda_grad_x_kernel_matches_plain(cuda_device, ktype, n, m, d, t):
+    # ragged n ≪ m and n ≫ m, several column chunks, and the path's strip (2,048 candidates
+    # against 100k training points, split into slabs of the j range)
+    x1, x2, v = _data(n, m, d, t, seed=10 + ktype, device=cuda_device)
+    g = torch.as_tensor(np.random.default_rng(ktype).normal(size=(n, t)), dtype=torch.float32, device=cuda_device)
+    before = fk.kernel_grad_x_cuda.launches
+    got = fk.kernel_grad_x_cuda(x1, x2, g, v, ktype)
+    torch.cuda.synchronize()
+    assert fk.kernel_grad_x_cuda.launches == before + 1
+    want = fk._grad_x_reference(x1.double(), x2.double(), g.double(), v.double(), ktype)
+    if n * m <= 1537 * 300:
+        # relative to the sum of absolute terms, which bounds the float32 summation error
+        scale = cs._grad_x_abs_terms(x1.double(), x2.double(), g.double(), v.double(), ktype).max().item()
+        assert (got.double() - want).abs().max().item() <= 1e-5 * scale
+    else:
+        assert (got.double() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
+def test_asymmetric_gradient_runs_the_grad_x_kernel(cuda_device, ktype):
+    # the full asymmetric backward of the scaled product on the card (dx1 and dx2 by the
+    # grad_x kernel, dv and dos by the K·V kernel) against the plain one in float64
+    x1, x2, v = _data(300, 450, 3, 4, seed=20 + ktype, device=cuda_device)
+    g = torch.as_tensor(np.random.default_rng(5).normal(size=(300, 4)), dtype=torch.float32, device=cuda_device)
+    grads = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        a, b, w = (t.to(dev, dtype, copy=True).requires_grad_(True) for t in (x1, x2, v))
+        o = torch.tensor(1.5, dtype=dtype, device=dev, requires_grad=True)
+        before = (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches)
+        (fk.fused_scaled_kernel_matvec(a, b, w, o, ktype) * g.to(dev, dtype)).sum().backward()
+        launched = (fk.kernel_matvec_cuda.launches - before[0], fk.kernel_grad_x_cuda.launches - before[1])
+        assert launched == ((3, 2) if dev == "cuda" else (0, 0))
+        grads[dev] = [t.grad.double().cpu() for t in (a, b, w, o)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
 
 
 # ---------------------------------------------------------------------------------------
