@@ -13,21 +13,27 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               source, into one library (or reuses the build).
 3. kernel   — the CUDA K·V kernel against its plain PyTorch version on the card, for the
               four kernel types at ragged shapes, and both timed at the serving shapes
-              (with the 2048-row strip at t=1 and 100) and at the training CG shape (t=64).
+              (with the 2048-row strip at t=1 and 100) and at the training CG shape (t=64,
+              the tensor-core tier, read against float64 beside the plain version and timed
+              against ``matvec_tc_bound``); the wide-d tier (d = 100) at ragged shapes and
+              timed at 16,384 × 16,384, t = 64.
 3b. bwd     — the CUDA fused backward kernel against its plain version on the card, for
               the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 64}, with and without dv;
               at the training shape (N=100k, d=3, t=64, dos, no dv) checked against the
-              plain version in float64, and both timed.
+              plain version in float64, and both timed; the wide-d tier (d = 100) likewise,
+              at n = 517 and at 16,384 rows.
 3d. grad_x  — the CUDA grad_x kernel (the cotangent of one input of K·V) against its
               float32 plain version for the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 100}
               at ragged n ≪ m and n ≫ m; at the path's shapes (2,048 candidates against the
-              100k training points both ways, t = 1 and 100) against float64, timed there.
+              100k training points both ways, t = 1 and 100) against float64, timed there;
+              the wide-d tier (d = 100) at ragged shapes and on a 2048 × 16,384 strip.
 3c. periodic kernels — the CUDA periodic K·V and fused periodic backward kernels against
               their float32 plain versions for d ∈ {1, 2, 3, 11}, t ∈ {1, 20, 64, 100}
               (ragged n ≠ m for the product, symmetric n for the backward); at every shape
               of the path on the periodic task (N=100k, a = t / period up to 355: the
               product at t = 64, 1 and 20 and on the 2048-row strip at t = 100, the
-              backward at t = 64) against the plain versions in float64; both timed there.
+              backward at t = 64) against the plain versions in float64; both timed there;
+              the product's wide-d tier (d = 100) at ragged shapes and at 16,384 rows.
 4. slice    — serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel
               path), from the same data, parameters and Lanczos start.
 4c. grad-slice — the gradient of ΣUCB (UCB = μ + 2σ) with respect to 512 candidates at
@@ -47,9 +53,13 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               against float64) and below a planted fault in the plain backward.
 6b. periodic slice — phases 4 and 6 for the periodic model (ConstantMean +
               Scale(Periodic-ARD, d=2) + GaussianLikelihood) on the seasonal task at N=2000;
-              its fault the plain periodic backward's dw short by one block of 16.  In both
+              its fault the plain periodic backward's dw short by one block of 16.  In the
               training slices every run follows the pivots of the CPU float32 run
               (``PinnedPivots``) and a float64 run takes the float32 runs' τ.
+6c. wide slice — phase 6 for the flagship's model on 100 inputs (``make_wide_task``,
+              N=4096), whose CUDA run goes through the wide-d tier of the K·V and backward
+              kernels (launches checked), then one request of 512 points served on both
+              devices from the CPU run's trained parameters, compared as phase 4 does.
 7. flagship — the initial parameters served on all 2,048 test points; then bench.py's
               training recipe at full width (N=100,000, d=3, 63 probes, rank-50
               preconditioner, rhs-warm lagged mBCG with the variance-reduced log-det
@@ -127,10 +137,17 @@ SLICE_GRAD_TOL = 1e-3       # … max |Δgrad| over all parameters / max |grad| 
                             # step 1 (one scale for the whole gradient: the constant mean's own,
                             # −Σα/N, cancels to ≈ 3e-3 of the others and would amplify round-off)
 SLICE_PARAM_TOL = 1e-3      # … max |Δraw| after 3 steps (Adam moves each raw by ≈ lr = 0.1 a step)
+FLAGSHIP_CG_LIMIT = 800     # phase 7: CG iterations over the 120 steps.  With the t=64 product on the
+                            # CUDA cores' FP32 FMA the trajectory read 769 on an H100, bit for bit
+                            # over reruns; the tensor-core tier sums in another order (756), so the
+                            # trajectory moves, but not by more
+FLAGSHIP_RMSE = 0.1840      # … and the trained model's RMSE, which both trajectories read
+FLAGSHIP_RMSE_TOL = 3e-3    # … within this of it (the RMSE over seeds of the JAX package spans 6e-4)
 TRAIN_LOSS_DROP = 0.1       # N=100k: mean loss of the last 10 steps at least this far below step 0's
 TRAIN_NLPD_DROP = 0.1       # N=100k: marginal NLPD of the trained model at least this far below that
                             # of the initial parameters
 H100_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores, at 700 W
+H100_TF32_FLOPS = 495e12    # H100 SXM, TF32 on the tensor cores, dense, at 700 W
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SLICE_CG_TOL = 1e-4         # N=2000 slice: tighter than eval's 1e-3, so that where the two
                             # float32 runs stop CG does not dominate their difference
@@ -159,6 +176,11 @@ P_GRAD_SEEDS = 8            # probe seeds behind phase 8's reading of the period
 P_GRAD_ROUNDOFF_TOL = 1.0   # … the float32 path's raw period gradient within this many standard
                             # deviations over probe seeds of the float64 plain path's: round-off must
                             # not be what moves the periods (P_PERIOD_LR rests on probe noise)
+# the wide-d tier of the kernels (d > 64; phases 3, 3b, 3c, 3d and 6c)
+WIDE_D = 100                # inputs of the wide-d cases
+WIDE_N = 16_384             # rows of the wide tiers' timed shapes (n × n, and 2048 × n for grad_x)
+WIDE_TRAIN_N = 4096         # phase 6c: an RBF-ARD model on WIDE_D inputs, trained and served
+WIDE_TEST_N = 512           # … and the points of its one request
 # the prediction gradient (phases 3d, 4c, 9)
 GX_REL_TOL = 1e-5           # grad_x kernel against its float32 plain version, relative to the sum of
                             # absolute terms 2 Σ_j |k′||g_i·v_j||x1_i − x2_j|, which bounds float32 summation
@@ -216,21 +238,37 @@ def make_periodic_task(n_train: int, n_test: int, seed: int = 0):
     return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
 
 
+def make_wide_task(n_train: int, n_test: int, d: int = WIDE_D, seed: int = 0):
+    """A regression task on d inputs, drawn with numpy: x uniform on the unit cube, the
+    flagship's function of the first three inputs plus a smooth term in all of them,
+    Gaussian noise of 0.1, standardised."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n_train + n_test, d))
+    f = (np.sin(4 * x[:, 0]) * np.cos(3 * x[:, 1]) + 0.5 * np.sin(7 * x[:, 2] * x[:, 0])
+         + np.sin(2 * np.pi * x @ rng.normal(size=d) / np.sqrt(d)))
+    y = f + 0.1 * rng.normal(size=n_train + n_test)
+    y = (y - y.mean()) / y.std()
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
 def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS, nu=None):
     """The flagship model on ``device``: from the raw parameters ``params`` in eval mode, or
     with ``params=None`` at bench.py's initial values (noise 0.1, lengthscale 0.5) in
-    train mode.  ``nu`` swaps the RBF kernel for a Matérn kernel of that smoothness."""
+    train mode.  ``nu`` swaps the RBF kernel for a Matérn kernel of that smoothness.  Its
+    ARD width is that of ``train_x``; past d = 3 the initial lengthscale is 0.5·√(d/3),
+    which keeps the typical squared distance of points in the unit cube at the flagship's."""
     import torch
 
     import gpytorch_tpu_torch as gt
 
     base = gt.kernels.RBFKernel if nu is None else (lambda **kw: gt.kernels.MaternKernel(nu=nu, **kw))
+    d = np.shape(train_x)[1]
 
     class FlagshipGP(gt.models.ExactGP):
         def __init__(self, x, y, likelihood):
             super().__init__(x, y, likelihood)
             self.mean_module = gt.means.ConstantMean()
-            self.covar_module = gt.kernels.ScaleKernel(base(ard_num_dims=D))
+            self.covar_module = gt.kernels.ScaleKernel(base(ard_num_dims=d))
 
         def forward(self, x):
             return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
@@ -241,7 +279,7 @@ def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS, nu=None):
     model = FlagshipGP(tx, ty, likelihood).to(device=device, dtype=dtype)
     if params is None:
         model.likelihood.noise = 0.1
-        model.covar_module.base_kernel.lengthscale = 0.5
+        model.covar_module.base_kernel.lengthscale = 0.5 * math.sqrt(d / D)
         return model.train()
     gt.load_jax_params(model, {k: np.asarray(v) for k, v in params.items()})
     return model.eval()
@@ -521,6 +559,18 @@ def matvec_bound(n: int, m: int, d: int, t: int):
     return bound_ms(n * m * (2 * t + 3 * d), 4 * (n * d + m * d + m * t + n * t))
 
 
+def matvec_tc_bound(n: int, m: int, d: int, t: int):
+    """K·V on the tensor cores in 3xTF32 (the t ∈ (32, 64] tier): the larger of three
+    passes of 2t operations per (i, j) pair over the dense TF32 peak, the 3d + 4 operations
+    per pair of the distance, the kernel and the hi/lo split of K on the CUDA cores over the
+    FP32 peak, and the bytes of ``matvec_bound`` over the memory rate (one exp per pair
+    besides)."""
+    times = {"operations": max(3 * 2 * t * n * m / H100_TF32_FLOPS, (3 * d + 4) * n * m / H100_FP32_FLOPS),
+             "bytes": 4 * (n * d + m * d + m * t + n * t) / H100_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
 def grad_x_bound(n: int, m: int, d: int, t: int):
     """The cotangent of x1: per (i, j) pair 2t FLOP for g_i·v_j, 5d for the distance and the
     moment, and 4 for k′ and the weight (one exp per pair besides); x1, x2, g and v read
@@ -619,17 +669,50 @@ def phase_kernel():
         rel, err = _rel_err(got, plain, x1, x2, v, fk.RBF)
         check(rel <= KERNEL_REL_TOL, f"serving shape {n}x{m} t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
         max_abs = max(max_abs, err)
-        if t == 1 or n == N_TEST:  # both float32 versions against float64, for the record
+        if t in (1, 64) or n == N_TEST:  # both float32 versions against float64
             exact = fk._matvec_reference(x1.double(), x2.double(), v.double(), fk.RBF)
             rel64 = _rel_err(got, exact, x1, x2, v, fk.RBF)[0]
             plain64 = _rel_err(plain, exact, x1, x2, v, fk.RBF)[0]
+            del exact
             print(f"[kernel] {n}x{m} t={t} against float64: kernel {rel64:.3e}, plain float32 {plain64:.3e}", flush=True)
+            if t == 64:  # the training product, on the tensor cores in 3xTF32
+                check(rel64 <= min(2.0 * plain64, KERNEL_REL_TOL), f"the t=64 product against float64: {rel64:.3e}, "
+                      f"more than twice the plain version's {plain64:.3e} or over {KERNEL_REL_TOL}")
         ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), 10)
         plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, fk.RBF), 3)
         timed[(n, m, t)] = (ms, plain_ms)
-        bms, by = matvec_bound(n, m, D, t)
+        bms, by = matvec_tc_bound(n, m, D, t) if 32 < t <= 64 else matvec_bound(n, m, D, t)
         print(f"[kernel] {n}x{m} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
               f"({by}; {n * m:.3e} exp), max abs err {err:.3e} (rel {rel:.3e})", flush=True)
+
+    # the wide-d tier (d > 64): the four kernel types at ragged shapes, t = 1 and 64 (two
+    # column tiles of 32); then timed at WIDE_N × WIDE_N, t = 64.  Inputs scaled by 1/√d, so
+    # that squared distances stay O(1)
+    rng = np.random.default_rng(11)
+    for kt in fk.KERNEL_TYPES:
+        for t in (1, 64):
+            x1, x2 = (torch.as_tensor(rng.normal(size=(r, WIDE_D)) / math.sqrt(WIDE_D), dtype=torch.float32, device=dev)
+                      for r in (1000, 1537))
+            v = torch.as_tensor(rng.normal(size=(1537, t)), dtype=torch.float32, device=dev)
+            got = fk.kernel_matvec_cuda(x1, x2, v, kt)
+            rel, err = _rel_err(got, fk._matvec_reference(x1, x2, v, kt), x1, x2, v, kt)
+            max_abs, worst_rel = max(max_abs, err), max(worst_rel, rel)
+            check(rel <= KERNEL_REL_TOL, f"kernel type {kt}, d={WIDE_D}, t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
+    print(f"[kernel] wide tier: n=1000 m=1537 d={WIDE_D} t∈{{1,64}}, four kernel types, within {KERNEL_REL_TOL} "
+          f"(worst so far {worst_rel:.3e})", flush=True)
+    n, t = WIDE_N, 64
+    x = torch.as_tensor(rng.uniform(size=(n, WIDE_D)) / (0.3 * math.sqrt(WIDE_D / D)), dtype=torch.float32, device=dev)
+    v = torch.as_tensor(rng.normal(size=(n, t)), dtype=torch.float32, device=dev)
+    got = fk.kernel_matvec_cuda(x, x, v, fk.RBF)
+    rel, err = _rel_err(got, fk._matvec_reference(x, x, v, fk.RBF), x, x, v, fk.RBF)
+    check(rel <= KERNEL_REL_TOL, f"wide tier {n}x{n} d={WIDE_D} t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
+    max_abs = max(max_abs, err)
+    ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x, x, v, fk.RBF), 5)
+    plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x, x, v, fk.RBF), 3)
+    timed[("wide", n, n, t)] = (ms, plain_ms)
+    bms, by = matvec_bound(n, n, WIDE_D, t)
+    print(f"[kernel] wide tier {n}x{n} d={WIDE_D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
+          f"({by}), max abs err {err:.3e} (rel {rel:.3e})", flush=True)
     return max_abs, timed
 
 
@@ -701,6 +784,46 @@ def phase_bwd():
           f"{rel['plain float32'][0]:.3e}, {rel['plain float32'][1]:.3e} (tol {BWD_TRAIN_TOL})", flush=True)
     check(max(rel["kernel"]) <= BWD_TRAIN_TOL, f"backward kernel at the training shape: relative error "
                                                f"{max(rel['kernel']):.3e} > {BWD_TRAIN_TOL}")
+
+    # the wide-d tier (d > 64): the four kernel types at a ragged n, t = 1 and 40, dv on and
+    # off, against float64 over the sums of absolute terms; then at WIDE_N, t = 64 (dos, no
+    # dv) against float64, and timed there
+    rng = np.random.default_rng(12)
+    for kt in fk.KERNEL_TYPES:
+        for t in (1, 40):
+            x, g, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
+                       for s in ((517, WIDE_D), (517, t), (517, t)))
+            x = x / math.sqrt(WIDE_D)
+            x64, g64, v64 = x.double(), g.double(), v.double()
+            bx, bdv, bdos = _bwd_abs_terms(x64, g64, v64, kt)
+            for need_dv in (True, False):
+                dv, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=need_dv, need_dos=True)
+                rdv, rdx, rdos = fk._bwd_fused_reference(x64, g64, v64, kt, need_dv=need_dv, need_dos=True)
+                errs = [((dx.double() - rdx).abs().max(), bx.max()), ((dos.double() - rdos).abs(), bdos)]
+                if need_dv:
+                    errs.append(((dv.double() - rdv).abs().max(), bdv.max()))
+                for err, scale in errs:
+                    max_abs, rel_ = max(max_abs, err.item()), (err / scale).item()
+                    worst_rel = max(worst_rel, rel_)
+                    check(rel_ <= BWD_REL_TOL, f"backward kernel type {kt}, d={WIDE_D}, t={t}, need_dv={need_dv}: "
+                                               f"relative error {rel_:.3e} > {BWD_REL_TOL}")
+    print(f"[bwd] wide tier: n=517 d={WIDE_D} t∈{{1,40}}, four kernel types, dv on/off, dos, within {BWD_REL_TOL} "
+          f"(worst so far {worst_rel:.3e})", flush=True)
+    n, t = WIDE_N, 64
+    x = torch.as_tensor(rng.uniform(size=(n, WIDE_D)) / (0.3 * math.sqrt(WIDE_D / D)), dtype=torch.float32, device=dev)
+    g, v = (torch.as_tensor(rng.normal(size=(n, t)), dtype=torch.float32, device=dev) for _ in range(2))
+    _, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True)
+    _, edx, edos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, need_dv=False, need_dos=True)
+    err_dx, err_dos = (dx.double() - edx).abs().max().item(), abs(dos.double() - edos).item()
+    rel_w = max(err_dx / edx.abs().max().item(), err_dos / abs(edos.item()))
+    max_abs = max(max_abs, err_dx, err_dos)
+    check(rel_w <= BWD_TRAIN_TOL, f"wide-tier backward {n}x{n} d={WIDE_D}: relative error {rel_w:.3e} > {BWD_TRAIN_TOL}")
+    wide_ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True), 3)
+    wide_plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True), 2)
+    bms, by = bwd_bound(n, WIDE_D, t, need_dv=False)
+    print(f"[bwd] wide tier {n}x{n} d={WIDE_D} t={t} (dos, no dv): kernel {wide_ms:.3f} ms, plain {wide_plain_ms:.3f} ms, "
+          f"bound {bms:.3f} ms ({by}); against float64 max of |Δdx| / max |dx| and |Δdos| / |dos| {rel_w:.3e} "
+          f"(tol {BWD_TRAIN_TOL})", flush=True)
     return max_abs, ms, plain_ms
 
 
@@ -773,6 +896,40 @@ def phase_grad_x():
             print(f"[grad-x] {n}x{m} d={D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
                   f"({by}; {n * m:.3e} pairs); against float64 max |Δ| / max |·|: kernel {rel:.3e}, plain float32 "
                   f"{plain_rel:.3e} (tol {GX_PATH_TOL})", flush=True)
+
+    # the wide-d tier (d > 64): the four kernel types at ragged n ≪ m and n ≫ m, t = 1 and
+    # 40, against the float32 plain version; then a 2048-row strip against WIDE_N rows at
+    # t = 100 against float64, timed there
+    for kt in fk.KERNEL_TYPES:
+        for t in (1, 40):
+            for n, m in ((300, 517), (517, 300)):
+                x1, x2, g, v = data((n, WIDE_D), (m, WIDE_D), (n, t), (m, t))
+                x1, x2 = x1 / math.sqrt(WIDE_D), x2 / math.sqrt(WIDE_D)
+                got = fk.kernel_grad_x_cuda(x1, x2, g, v, kt)
+                err = (got.double() - fk._grad_x_reference(x1, x2, g, v, kt).double()).abs().max().item()
+                rel = err / _grad_x_abs_terms(x1.double(), x2.double(), g.double(), v.double(), kt).max().item()
+                max_abs, worst = max(max_abs, err), max(worst, rel)
+                check(rel <= GX_REL_TOL, f"grad_x kernel type {kt}, d={WIDE_D}, t={t}, {n}x{m}: relative error "
+                                         f"{rel:.3e} > {GX_REL_TOL}")
+    print(f"[grad-x] wide tier: 300x517 and 517x300, d={WIDE_D} t∈{{1,40}}, four kernel types, within {GX_REL_TOL} of "
+          f"the float32 plain version (worst so far {worst:.3e})", flush=True)
+    n, m, t = N_TEST, WIDE_N, 100
+    x1, x2 = (torch.as_tensor(rng.uniform(size=(r, WIDE_D)) / (0.3 * math.sqrt(WIDE_D / D)), dtype=torch.float32,
+                              device=dev) for r in (n, m))
+    g, v = data((n, t), (m, t))
+    got = fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF)
+    exact = fk._grad_x_reference(x1.double(), x2.double(), g.double(), v.double(), fk.RBF)
+    err = (got.double() - exact).abs().max().item()
+    rel = err / exact.abs().max().item()
+    max_abs = max(max_abs, err)
+    del exact
+    check(rel <= GX_PATH_TOL, f"wide-tier grad_x {n}x{m} d={WIDE_D} t={t} against float64: {rel:.3e} > {GX_PATH_TOL}")
+    ms = cuda_time_ms(lambda: fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF), 5)
+    plain_ms = cuda_time_ms(lambda: fk._grad_x_reference(x1, x2, g, v, fk.RBF), 2)
+    timed[("wide", n, m, t)] = (ms, plain_ms)
+    bms, by = grad_x_bound(n, m, WIDE_D, t)
+    print(f"[grad-x] wide tier {n}x{m} d={WIDE_D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
+          f"({by}); against float64 max |Δ| / max |·| {rel:.3e} (tol {GX_PATH_TOL})", flush=True)
     return max_abs, timed
 
 
@@ -880,6 +1037,41 @@ def phase_periodic_kernels():
     print(f"[periodic-kernel] backward {N}x{N} d={P_D} t={t}: kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
           f"bound {bms:.3f} ms ({by}); against float64, max |Δ| / max |·| of dv, dx, dw: "
           f"{rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e} (tol {P_PATH_TOL})", flush=True)
+
+    # the product's wide-d tier (d > 64; the fused backward takes d ≤ 64, as the JAX
+    # package's): ragged n ≠ m at t = 1 and 64 against the float32 plain version, weights
+    # over d so that Σ w sin² stays O(1); then WIDE_N × WIDE_N at t = 64 against float64,
+    # timed there
+    for t in (1, 64):
+        w = torch.as_tensor(rng.uniform(0.5, 4.0, size=WIDE_D) / WIDE_D, dtype=torch.float32, device=dev)
+        x1, x2 = (torch.as_tensor(rng.uniform(0.0, 355.0, size=(r, WIDE_D)), dtype=torch.float32, device=dev)
+                  for r in (1000, 1537))
+        (v,) = data((1537, t))
+        got, plain = ppk.periodic_matvec_cuda(x1, x2, w, v), ppk._periodic_matvec_reference(x1, x2, w, v)
+        err = (got.double() - plain.double()).abs().max().item()
+        rel = err / ppk._periodic_matvec_reference(x1.double(), x2.double(), w.double(), v.double().abs()).max().item()
+        mv_abs, worst_mv = max(mv_abs, err), max(worst_mv, rel)
+        check(rel <= P_KERNEL_REL_TOL, f"periodic product d={WIDE_D}, t={t}: relative error {rel:.3e} > {P_KERNEL_REL_TOL}")
+    n, t = WIDE_N, 64
+    w = torch.as_tensor(rng.uniform(0.5, 4.0, size=WIDE_D) / WIDE_D, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(rng.uniform(0.0, 355.0, size=(n, WIDE_D)), dtype=torch.float32, device=dev)
+    (v,) = data((n, t))
+    got = ppk.periodic_matvec_cuda(x, x, w, v)
+    # the plain version holds d (chunk, n) matrices: chunks of 256 rows keep them to 3.4 GB
+    exact = ppk._periodic_matvec_reference(x.double(), x.double(), w.double(), v.double(), chunk=256)
+    err = (got.double() - exact).abs().max().item()
+    rel = err / exact.abs().max().item()
+    mv_abs = max(mv_abs, err)
+    del exact
+    check(rel <= P_PATH_TOL, f"wide-tier periodic product {n}x{n} d={WIDE_D} against float64: {rel:.3e} > {P_PATH_TOL}")
+    ms = cuda_time_ms(lambda: ppk.periodic_matvec_cuda(x, x, w, v), 3)
+    plain_ms = cuda_time_ms(lambda: ppk._periodic_matvec_reference(x, x, w, v, chunk=256), 1)
+    timed[("wide", n, n, t)] = (ms, plain_ms)
+    bms, by = periodic_matvec_bound(n, n, WIDE_D, t)
+    print(f"[periodic-kernel] product wide tier: n=1000 m=1537 d={WIDE_D} t∈{{1,64}} within {P_KERNEL_REL_TOL} of the "
+          f"float32 plain version (worst product so far {worst_mv:.3e}); {n}x{n} t={t}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), against float64 max |Δ| / max |·| {rel:.3e} (tol {P_PATH_TOL})",
+          flush=True)
     return mv_abs, timed, bwd_abs, bwd_ms, bwd_plain_ms
 
 
@@ -1031,20 +1223,21 @@ def marginal_nlpd(mean, var, y, noise) -> float:
     return (0.5 * (torch.log(2 * math.pi * var_f) + (mean - y) ** 2 / var_f)).mean().item()
 
 
-def _slice_run(device, dtype, steps, periodic=False):
-    """Training at N=2000 from the initial values (bench.py's for the flagship) with
-    injected probes, a float64 run with the float32 runs' τ: (step-1 loss, step-1
-    gradients, raw parameters after ``steps`` steps, CG iterations per step)."""
+def _slice_run(device, dtype, steps, periodic=False, wide=False):
+    """Training at N=2000 (``wide``: N=4096 on WIDE_D inputs) from the initial values
+    (bench.py's for the flagship) with injected probes, a float64 run with the float32
+    runs' τ: (step-1 loss, step-1 gradients, raw parameters after ``steps`` steps, CG
+    iterations per step, the model)."""
     import torch
 
-    n = SLICE_TRAIN_N
+    n = WIDE_TRAIN_N if wide else SLICE_TRAIN_N
     budget = PC_NOISE_BUDGET_F64 if dtype == torch.float64 else PC_NOISE_BUDGET
     if periodic:
         train_x, train_y, _, _ = make_periodic_task(n, 0, seed=3)
         model = build_periodic_model(train_x, train_y, device, dtype)
         optimizer, scheduler = make_periodic_optimizer(model)
     else:
-        train_x, train_y, _, _ = make_task(n, 0, seed=3)
+        train_x, train_y, _, _ = make_wide_task(n, WIDE_TEST_N, seed=3) if wide else make_task(n, 0, seed=3)
         model = build_model(train_x, train_y, device, dtype, params=None)
         optimizer, scheduler = make_optimizer(model)
     state = torch.zeros(n, 1, dtype=dtype, device=device)
@@ -1057,7 +1250,7 @@ def _slice_run(device, dtype, steps, periodic=False):
             loss0 = loss.item()
             grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
     raw = {k: p.detach().cpu().double() for k, p in model.named_parameters()}
-    return loss0, grads, raw, iters
+    return loss0, grads, raw, iters, model
 
 
 def _grad_gap(g_ref, g):
@@ -1067,28 +1260,33 @@ def _grad_gap(g_ref, g):
     return max(gaps.values()) / scale, gaps
 
 
-def phase_train_slice(periodic=False):
+def phase_train_slice(periodic=False, wide=False):
     """Training at N=2000, CPU tensors (plain path) against CUDA tensors (kernel path); on
     the CPU besides, float32 against float64 (the rounding floor of the gradient gate) and
     against a planted fault, which the gate must see: the plain backward's dos (flagship)
     or dw (periodic) short by one block of 16.  Every run follows the CPU float32 run's
-    preconditioner pivots (``PinnedPivots``)."""
+    preconditioner pivots (``PinnedPivots``).  ``wide`` (phase 6c): the flagship's model on
+    ``make_wide_task`` (N=4096, WIDE_D inputs), whose CUDA run goes through the wide-d tier
+    of the K·V and backward kernels; then one request of WIDE_TEST_N points, served from
+    the CPU run's trained parameters on both devices, compared as phase 4 does."""
     import torch
 
     from gpytorch_tpu_torch.ops import fused_kernels as fk
     from gpytorch_tpu_torch.ops import periodic_kernels as ppk
 
-    tag = "periodic-train-slice" if periodic else "train-slice"
+    tag = "periodic-train-slice" if periodic else "wide-train-slice" if wide else "train-slice"
     pins = PinnedPivots()
     with pins.record():
-        l_cpu, g_cpu, r_cpu, it_cpu = _slice_run("cpu", torch.float32, SLICE_TRAIN_STEPS, periodic)
+        l_cpu, g_cpu, r_cpu, it_cpu, m_cpu = _slice_run("cpu", torch.float32, SLICE_TRAIN_STEPS, periodic, wide)
+    launches = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
     with pins.replay():
-        l_gpu, g_gpu, r_gpu, it_gpu = _slice_run("cuda", torch.float32, SLICE_TRAIN_STEPS, periodic)
+        l_gpu, g_gpu, r_gpu, it_gpu, _ = _slice_run("cuda", torch.float32, SLICE_TRAIN_STEPS, periodic, wide)
+    launches = (fk.kernel_matvec_cuda.launches - launches[0], fk.kernel_bwd_fused_cuda.launches - launches[1])
     d_loss = abs(l_cpu - l_gpu) / max(abs(l_cpu), 1.0)
     d_grad, gaps = _grad_gap(g_cpu, g_gpu)
     d_raw = max((r_cpu[k] - r_gpu[k]).abs().max().item() for k in r_cpu)
     with pins.replay():
-        floor = _grad_gap(_slice_run("cpu", torch.float64, 1, periodic)[1], g_cpu)[0]
+        floor = _grad_gap(_slice_run("cpu", torch.float64, 1, periodic, wide)[1], g_cpu)[0]
     module, name = (ppk, "_periodic_bwd_fused_reference") if periodic else (fk, "_bwd_fused_reference")
     sound = getattr(module, name)
 
@@ -1099,10 +1297,11 @@ def phase_train_slice(periodic=False):
     setattr(module, name, planted)
     try:
         with pins.replay():
-            fault = _grad_gap(g_cpu, _slice_run("cpu", torch.float32, 1, periodic)[1])[0]
+            fault = _grad_gap(g_cpu, _slice_run("cpu", torch.float32, 1, periodic, wide)[1])[0]
     finally:
         setattr(module, name, sound)
-    print(f"[{tag}] N={SLICE_TRAIN_N}: CG iters cpu {it_cpu} cuda {it_gpu}; step-1 loss cpu {l_cpu:.6f} cuda "
+    shape = f"N={WIDE_TRAIN_N} d={WIDE_D}" if wide else f"N={SLICE_TRAIN_N}"
+    print(f"[{tag}] {shape}: CG iters cpu {it_cpu} cuda {it_gpu}; step-1 loss cpu {l_cpu:.6f} cuda "
           f"{l_gpu:.6f} (rel diff {d_loss:.3e}, tol {SLICE_LOSS_TOL}); step-1 grads max diff {d_grad:.3e} of the "
           f"largest (tol {SLICE_GRAD_TOL}; cpu float32 against float64 {floor:.3e}, against a planted fault "
           f"{fault:.3e}); raw parameters after {SLICE_TRAIN_STEPS} steps max diff {d_raw:.3e} (tol {SLICE_PARAM_TOL})",
@@ -1114,6 +1313,37 @@ def phase_train_slice(periodic=False):
     check(d_grad <= SLICE_GRAD_TOL, f"{tag} training gradients differ: {d_grad:.3e}")
     check(fault > SLICE_GRAD_TOL, f"the {tag} gradient gate does not see a planted fault: {fault:.3e}")
     check(d_raw <= SLICE_PARAM_TOL, f"{tag} training parameters differ: {d_raw:.3e}")
+    if not wide:
+        return
+    print(f"[{tag}] CUDA training launched kernel_matvec {launches[0]} (CG iterations {sum(it_gpu)}), "
+          f"kernel_bwd_fused {launches[1]} (expected {SLICE_TRAIN_STEPS})", flush=True)
+    check(launches == (sum(it_gpu), SLICE_TRAIN_STEPS), f"{tag}: CUDA training launched {launches}, expected "
+                                                         f"({sum(it_gpu)}, {SLICE_TRAIN_STEPS})")
+    _, _, test_x, _ = make_wide_task(WIDE_TRAIN_N, WIDE_TEST_N, seed=3)
+    train_x, train_y = m_cpu.train_inputs[0].numpy(), m_cpu.train_targets.numpy()
+    out = {}
+    from gpytorch_tpu_torch import settings
+
+    with eval_settings(min_preconditioning_size=1000), settings.eval_cg_tolerance(SLICE_CG_TOL):
+        for device in ("cpu", "cuda"):
+            model = build_model(train_x, train_y, device, torch.float32, params=None)
+            model.load_state_dict(m_cpu.state_dict())
+            model.eval()
+            before = fk.kernel_matvec_cuda.launches
+            cg, _, answers = serve(model, torch.as_tensor(test_x, dtype=torch.float32, device=device), device,
+                                   [slice(0, WIDE_TEST_N)])
+            _, mean, var, _ = answers[0]
+            out[device] = (mean.cpu().double(), var.cpu().double(), cg.num_iters, fk.kernel_matvec_cuda.launches - before)
+    (mc, vc, itc, _), (mg, vg, itg, served) = out["cpu"], out["cuda"]
+    dm = ((mc - mg).abs().max() / mc.abs().max()).item()
+    dv = ((vc - vg).abs().max() / vc.abs().max()).item()
+    print(f"[{tag}] served {WIDE_TEST_N} points from the CPU run's parameters: CG iters cpu {itc} cuda {itg}; CUDA "
+          f"launched kernel_matvec {served} (expected {itg + 5 + 2}); mean rel diff {dm:.3e} (tol {SLICE_MEAN_TOL}), var "
+          f"rel diff {dv:.3e} (tol {SLICE_VAR_TOL})", flush=True)
+    check(served == itg + 5 + 2, f"{tag}: serving launched kernel_matvec {served} times, expected {itg + 5 + 2}")
+    check(bool(torch.isfinite(mg).all()) and bool((vg > 0).all()), f"{tag}: served means not finite or variances ≤ 0")
+    check(dm <= SLICE_MEAN_TOL, f"{tag} served mean differs: {dm:.3e}")
+    check(dv <= SLICE_VAR_TOL, f"{tag} served variance differs: {dv:.3e}")
 
 
 def phase_flagship():
@@ -1172,7 +1402,7 @@ def phase_flagship():
     kern = model.covar_module
     print(f"[flagship] {TRAIN_STEPS} steps: median {median:.4f} s/step over steps 1-{TRAIN_TIMED} (synchronised), "
           f"mean {mean:.4f} s/step over steps 1-{TRAIN_STEPS - 1}, first step {times[0]:.3f} s", flush=True)
-    print(f"[flagship] CG iterations per step: {iters}", flush=True)
+    print(f"[flagship] CG iterations per step: {iters} ({sum(iters)} in all, limit {FLAGSHIP_CG_LIMIT})", flush=True)
     print(f"[flagship] loss per step: {[round(x, 6) for x in losses]}", flush=True)
     print(f"[flagship] lengthscale {kern.base_kernel.lengthscale.detach().cpu().numpy().round(5).tolist()}, "
           f"outputscale {kern.outputscale.item():.5f}, noise {model.likelihood.noise.item():.5f}, "
@@ -1197,6 +1427,9 @@ def phase_flagship():
     check(launches[1] == TRAIN_STEPS, f"kernel_bwd_fused launched {launches[1]} times, expected {TRAIN_STEPS}")
     check(launches[0] == expected_mv, f"kernel_matvec launched {launches[0]} times, expected {expected_mv}")
     check(rmse <= RMSE_LIMIT, f"flagship rmse {rmse:.4f} > {RMSE_LIMIT}")
+    check(abs(rmse - FLAGSHIP_RMSE) <= FLAGSHIP_RMSE_TOL, f"flagship rmse {rmse:.4f} is more than {FLAGSHIP_RMSE_TOL} "
+                                                          f"from {FLAGSHIP_RMSE}")
+    check(sum(iters) <= FLAGSHIP_CG_LIMIT, f"flagship training took {sum(iters)} CG iterations > {FLAGSHIP_CG_LIMIT}")
     check(loss_end <= losses[0] - TRAIN_LOSS_DROP, f"training loss fell from {losses[0]:.5f} only to {loss_end:.5f}")
     check(nlpd <= nlpd0 - TRAIN_NLPD_DROP, f"training took the marginal nlpd from {nlpd0:.4f} only to {nlpd:.4f}")
     return launches, model
@@ -1580,6 +1813,7 @@ def main() -> int:
         phase_train_slice()
         phase_slice(periodic=True)
         phase_train_slice(periodic=True)
+        phase_train_slice(wide=True)
         (mv_launches, bwd_launches), flagship = phase_flagship()
         pmv_launches, pbwd_launches = phase_periodic()
         _, gx_launches = phase_acquisition(flagship)
@@ -1597,7 +1831,8 @@ def main() -> int:
     report = {
         "kernels": [
             entry("kernel_matvec", "kernel_matvec.cu", 230, mv_launches, mv_err, *mv_timed[(N_TRAIN, N_TRAIN, 64)],
-                  matvec_bound(N_TRAIN, N_TRAIN, D, 64)),
+                  matvec_tc_bound(N_TRAIN, N_TRAIN, D, 64))
+            | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound"},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_bound(N_TEST, N_TRAIN, D, 100)),
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,

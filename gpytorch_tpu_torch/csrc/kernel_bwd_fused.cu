@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wide_d.cuh"
+
 namespace {
 
 constexpr int kRows = 128;  // threads per block = rows i per block
@@ -213,6 +215,122 @@ kernel_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g, c
     }
 }
 
+// The wide-d tier (d > 64; csrc/wide_d.cuh).  Each block owns one slab of kOutSlab dx
+// dims o0.. (folded into blockIdx.x with the row block) besides its rows and column chunk:
+// the distances of each staged tile of kWideTJ rows are summed over slabs of all the input
+// dims, and dx is taken over the block's output dims alone.  dv and dos do not depend on
+// the output slab, so only the blocks of the first slab (o0 = 0) accumulate and write them.
+// need_dv and need_dos are arguments here, not template flags as in the tiers above: four
+// flag instantiations of this tier took nvcc over a minute more.
+constexpr int kWideTJ = 16;
+
+template <int KT, int TC>
+__global__ void __launch_bounds__(kRows)
+kernel_bwd_fused_wide_f32(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ v,
+                          float* __restrict__ dv, float* __restrict__ dx_part, float* __restrict__ dos_part,
+                          int n, int d, int t, bool need_dv, bool need_dos) {
+    constexpr int kO = wide::kOutSlab;
+    __shared__ float x1s[kRows * wide::kRowStride];
+    __shared__ float x2s[kWideTJ * wide::kSlab];
+    __shared__ float x2o[kWideTJ * kO];
+    __shared__ __align__(16) float gs[kWideTJ * TC];
+    __shared__ __align__(16) float vs[kWideTJ * TC];
+    __shared__ float warp_sums[kRows / 32];
+
+    const int row_blocks = (n + kRows - 1) / kRows;
+    const int block = blockIdx.x % row_blocks;
+    const int row0 = block * kRows;
+    const int o0 = (blockIdx.x / row_blocks) * kO;
+    const bool lead = o0 == 0;  // the output slab that also carries dv and dos
+    const bool do_dv = need_dv && lead, do_dos = need_dos && lead;  // uniform over the block
+    const int row = row0 + threadIdx.x;
+    const int chunk = blockIdx.y;
+    const int c0 = chunk * TC;
+
+    float xo[kO], dxa[kO];
+#pragma unroll
+    for (int k = 0; k < kO; ++k) {
+        xo[k] = (row < n && o0 + k < d) ? x[(int64_t)row * d + o0 + k] : 0.0f;
+        dxa[k] = 0.0f;
+    }
+    float gi[TC], vi[TC], dva[TC];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+        const bool in = row < n && c0 + c < t;
+        gi[c] = in ? g[(int64_t)row * t + c0 + c] : 0.0f;
+        vi[c] = in ? v[(int64_t)row * t + c0 + c] : 0.0f;
+        dva[c] = 0.0f;
+    }
+    float dos = 0.0f;
+
+    for (int j0 = 0; j0 < n; j0 += kWideTJ) {
+        float d2[kWideTJ];
+        wide::sq_dist_tile<kRows, kWideTJ>(x, x, n, n, d, row0, j0, x1s, x2s, d2);
+        wide::stage_slab<kO>(x, j0, n, d, o0, kWideTJ, kO, x2o);
+        for (int idx = threadIdx.x; idx < kWideTJ * TC; idx += kRows) {
+            const int jj = idx / TC, c = idx % TC;
+            const int j = j0 + jj;
+            const bool in = j < n && c0 + c < t;
+            gs[idx] = in ? g[(int64_t)j * t + c0 + c] : 0.0f;
+            vs[idx] = in ? v[(int64_t)j * t + c0 + c] : 0.0f;
+        }
+        __syncthreads();
+
+        float tile_dx[kO];
+#pragma unroll
+        for (int k = 0; k < kO; ++k) tile_dx[k] = 0.0f;
+        float tile_dos = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < kWideTJ; ++jj) {
+            float kv, kp;
+            kernel_fn_and_prime<KT>(d2[jj], kv, kp);
+            if (j0 + jj == row) kp = 0.0f;
+            float gv = 0.0f, vg = 0.0f;
+#pragma unroll
+            for (int c = 0; c < TC; ++c) {
+                gv = fmaf(gi[c], vs[jj * TC + c], gv);
+                vg = fmaf(vi[c], gs[jj * TC + c], vg);
+            }
+            if (do_dv) {
+#pragma unroll
+                for (int c = 0; c < TC; ++c) dva[c] = fmaf(kv, gs[jj * TC + c], dva[c]);
+            }
+            const float w = kp * (gv + vg);
+#pragma unroll
+            for (int k = 0; k < kO; ++k) tile_dx[k] = fmaf(w, xo[k] - x2o[jj * kO + k], tile_dx[k]);
+            tile_dos = fmaf(kv, gv, tile_dos);
+        }
+#pragma unroll
+        for (int k = 0; k < kO; ++k) dxa[k] += tile_dx[k];
+        dos += tile_dos;
+    }
+
+    if (row < n) {
+#pragma unroll
+        for (int k = 0; k < kO; ++k) {
+            if (o0 + k < d) dx_part[((int64_t)chunk * n + row) * d + o0 + k] = 2.0f * dxa[k];
+        }
+        if (do_dv) {
+#pragma unroll
+            for (int c = 0; c < TC; ++c) {
+                if (c0 + c < t) dv[(int64_t)row * t + c0 + c] = dva[c];
+            }
+        }
+    }
+    if (do_dos) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) dos += __shfl_down_sync(0xffffffffu, dos, off);
+        if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = dos;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            float s = 0.0f;
+#pragma unroll
+            for (int w = 0; w < kRows / 32; ++w) s += warp_sums[w];
+            dos_part[(int64_t)chunk * row_blocks + block] = s;
+        }
+    }
+}
+
 struct Args {
     const float *x, *g, *v;
     float *dv, *dx_part, *dos_part;
@@ -241,11 +359,20 @@ void dispatch_tc(const Args& a, bool need_dv, bool need_dos) {
     else dispatch_flags<KT, DP, kTC>(a, need_dv, need_dos);
 }
 
+template <int KT, int TC>
+void launch_wide(const Args& a, bool need_dv, bool need_dos) {
+    const int out_slabs = (a.d + wide::kOutSlab - 1) / wide::kOutSlab;
+    const dim3 grid(a.num_blocks * out_slabs, a.num_chunks);
+    kernel_bwd_fused_wide_f32<KT, TC><<<grid, kRows, 0, a.stream>>>(a.x, a.g, a.v, a.dv, a.dx_part, a.dos_part, a.n,
+                                                                    a.d, a.t, need_dv, need_dos);
+}
+
 template <int KT>
 int dispatch_d(const Args& a, bool need_dv, bool need_dos) {
     if (a.d == 3) dispatch_tc<KT, 3>(a, need_dv, need_dos);
     else if (a.d <= 64) dispatch_tc<KT, 64>(a, need_dv, need_dos);
-    else return (int)cudaErrorInvalidValue;
+    else if (a.t == 1) launch_wide<KT, 1>(a, need_dv, need_dos);
+    else launch_wide<KT, kTC>(a, need_dv, need_dos);
     return 0;
 }
 

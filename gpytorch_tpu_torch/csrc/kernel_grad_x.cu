@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wide_d.cuh"
+
 namespace {
 
 constexpr int kRows = 128;  // threads per block = rows i per block
@@ -158,6 +160,81 @@ kernel_grad_x_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
     }
 }
 
+// The wide-d tier (d > 64; csrc/wide_d.cuh).  Each block owns one slab of kOutSlab output
+// dims o0.. (folded into blockIdx.x with the row block) besides its rows, column chunk and
+// slab of j: the distances of each staged tile of kWideTJ rows are summed over slabs of all
+// the input dims, and the moment is taken over the block's output dims alone, from x1_i's
+// output dims in registers and the tile's staged in shared memory.
+constexpr int kWideTJ = 16;
+
+template <int KT, int TC>
+__global__ void __launch_bounds__(kRows)
+kernel_grad_x_wide_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ g,
+                       const float* __restrict__ v, float* __restrict__ dx_part, int n, int m, int d, int t,
+                       int slab_len) {
+    constexpr int kO = wide::kOutSlab;
+    __shared__ float x1s[kRows * wide::kRowStride];
+    __shared__ float x2s[kWideTJ * wide::kSlab];
+    __shared__ float x2o[kWideTJ * kO];
+    __shared__ __align__(16) float vs[kWideTJ * TC];
+
+    const int row_blocks = (n + kRows - 1) / kRows;
+    const int row0 = (blockIdx.x % row_blocks) * kRows;
+    const int o0 = (blockIdx.x / row_blocks) * kO;
+    const int row = row0 + threadIdx.x;
+    const int chunk = blockIdx.y;
+    const int c0 = chunk * TC;
+    const int j_begin = blockIdx.z * slab_len;
+    const int j_end = min(m, j_begin + slab_len);
+
+    float xo[kO], dxa[kO];
+#pragma unroll
+    for (int k = 0; k < kO; ++k) {
+        xo[k] = (row < n && o0 + k < d) ? x1[(int64_t)row * d + o0 + k] : 0.0f;
+        dxa[k] = 0.0f;
+    }
+    float gi[TC];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+        gi[c] = (row < n && c0 + c < t) ? g[(int64_t)row * t + c0 + c] : 0.0f;
+    }
+
+    for (int j0 = j_begin; j0 < j_end; j0 += kWideTJ) {
+        float d2[kWideTJ];
+        wide::sq_dist_tile<kRows, kWideTJ>(x1, x2, n, j_end, d, row0, j0, x1s, x2s, d2);
+        wide::stage_slab<kO>(x2, j0, j_end, d, o0, kWideTJ, kO, x2o);
+        for (int idx = threadIdx.x; idx < kWideTJ * TC; idx += kRows) {
+            const int jj = idx / TC, c = idx % TC;
+            const int j = j0 + jj;
+            vs[idx] = (j < j_end && c0 + c < t) ? v[(int64_t)j * t + c0 + c] : 0.0f;
+        }
+        __syncthreads();
+
+        float tile_dx[kO];
+#pragma unroll
+        for (int k = 0; k < kO; ++k) tile_dx[k] = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < kWideTJ; ++jj) {
+            float gv = 0.0f;
+#pragma unroll
+            for (int c = 0; c < TC; ++c) gv = fmaf(gi[c], vs[jj * TC + c], gv);
+            const float w = kernel_prime<KT>(d2[jj]) * gv;
+#pragma unroll
+            for (int k = 0; k < kO; ++k) tile_dx[k] = fmaf(w, xo[k] - x2o[jj * kO + k], tile_dx[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kO; ++k) dxa[k] += tile_dx[k];
+    }
+
+    if (row < n) {
+        const int64_t part = (int64_t)blockIdx.z * gridDim.y + chunk;
+#pragma unroll
+        for (int k = 0; k < kO; ++k) {
+            if (o0 + k < d) dx_part[(part * n + row) * d + o0 + k] = 2.0f * dxa[k];
+        }
+    }
+}
+
 struct Args {
     const float *x1, *x2, *g, *v;
     float* dx_part;
@@ -178,11 +255,20 @@ void dispatch_tc(const Args& a) {
     else launch<KT, DP, kTC>(a);
 }
 
+template <int KT, int TC>
+void launch_wide(const Args& a) {
+    const int out_slabs = (a.d + wide::kOutSlab - 1) / wide::kOutSlab;
+    const dim3 grid((a.n + kRows - 1) / kRows * out_slabs, a.num_chunks, a.num_slabs);
+    kernel_grad_x_wide_f32<KT, TC>
+        <<<grid, kRows, 0, a.stream>>>(a.x1, a.x2, a.g, a.v, a.dx_part, a.n, a.m, a.d, a.t, a.slab_len);
+}
+
 template <int KT>
 int dispatch_d(const Args& a) {
     if (a.d == 3) dispatch_tc<KT, 3>(a);
     else if (a.d <= 64) dispatch_tc<KT, 64>(a);
-    else return (int)cudaErrorInvalidValue;
+    else if (a.t == 1) launch_wide<KT, 1>(a);
+    else launch_wide<KT, kTC>(a);
     return 0;
 }
 

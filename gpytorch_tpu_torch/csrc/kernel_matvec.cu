@@ -4,36 +4,42 @@
 // CG iteration, every Lanczos block and every cross-covariance product of exact-GP serving).
 // Only what it computes is carried over.  The TPU kernel's (1024, 2048) tiles, lane padding,
 // column chunking, sub-blocking, bf16 / hi-lo MXU emulations and quadratic-expansion
-// distances are not: here the distance is a direct difference for every d and the K.V
-// product is plain FP32 FMA on the CUDA cores (the "highest" precision the eval path uses;
-// TF32 or BF16 would reintroduce the CG stalls the JAX package measured).
+// distances are not: here the distance is a direct difference for every d.  The K.V
+// product is FP32 FMA on the CUDA cores for t <= 32 and t > 64, and 3xTF32 on the tensor
+// cores for t in (32, 64] (below).  One-pass TF32 or BF16 would reintroduce the CG stalls
+// the JAX package measured; 3xTF32 keeps about 21 mantissa bits.
 //
-// Design: each thread owns one output row and TC output columns, accumulated in registers
-// (for t = 1 and t > 64 in two levels, one sum per staged tile: CG's residual stays
-// honest, and so do the LOVE variances K** - |K*x R|^2, which cancel to 1e-5 of K**).
-// A block of 128 threads owns 128 rows and one tile of TC columns (blockIdx.y), and walks
-// over all of x2 and v in tiles of TJ rows staged in shared memory.  Every output element is
-// written once, by one thread, with no atomics, so the result is deterministic.  Ragged
-// n, m and t are masked: out-of-range x2 rows and v entries are staged as zeros, so the
-// inner loop needs no branch; out-of-range output rows and columns are never stored.
-// K is never stored anywhere.
+// Design of the FMA tiers: each thread owns one output row and TC output columns,
+// accumulated in registers (for t = 1 and t > 64 in two levels, one sum per staged tile:
+// CG's residual stays honest, and so do the LOVE variances K** - |K*x R|^2, which cancel
+// to 1e-5 of K**).  A block of 128 threads owns 128 rows and one tile of TC columns
+// (blockIdx.y), and walks over all of x2 and v in tiles of TJ rows staged in shared memory.
+// Every output element is written once, by one thread, with no atomics, so the result is
+// deterministic.  Ragged n, m and t are masked: out-of-range x2 rows and v entries are
+// staged as zeros, so the inner loop needs no branch; out-of-range output rows and columns
+// are never stored.  K is never stored anywhere.
 //
 // What bounds it on the H100: for d = 3 and t = 1 each kernel element costs one MUFU exp
 // (plus a sqrt for the Matern kernels) and about ten FP32 / shared-memory instructions, so
 // the kernel is bound by instruction issue and the SFU, not by memory (x2 and v stream
-// through shared memory once per 128 rows).  For wide t the TC accumulating FMAs dominate.
-// Known gaps, left to later work: a cross-covariance strip of 2048 test rows fills only
-// 16 of the 132 SMs per column tile (no split over j, which would need a second reduction
-// pass); column tiles are 1, 32 or 64 wide (t = 20 runs 32 FMAs per element, t = 100 runs
-// four tiles of 32 summed per staged tile), and each column tile recomputes k; any d other
-// than 3 runs padded to 64 dims.  The template tiers are the ones the paths use (d = 3;
-// t = 1, 20, 64, 100), so that nvcc builds 4 x 2 x 4 instantiations; a finer tier waits
-// for a measured shape that needs it.
+// through shared memory once per 128 rows).  For t = 20 and 100 the TC accumulating FMAs
+// dominate; at t = 64 the product moves to the tensor cores, where three TF32 passes of
+// 2t operations per pair and the B fragments' shared-memory reads bound it (see the tier's
+// note).  Known gaps, left to later work: a cross-covariance strip of 2048 test rows fills
+// only 16 of the 132 SMs per column tile (no split over j, which would need a second
+// reduction pass); column tiles are 1, 32 or 64 wide (t = 20 runs 32 FMAs per element,
+// t = 100 runs four tiles of 32 summed per staged tile), and each column tile recomputes k.
+// Input dims: d = 3 exact, any other d <= 64 padded to 64 dims, and d > 64 through the
+// wide-d tier (csrc/wide_d.cuh), which walks the dims in slabs.  The template tiers are
+// the ones the paths use (d = 3; t = 1, 20, 64, 100); a finer tier waits for a measured
+// shape that needs it.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; loaded with ctypes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wide_d.cuh"
 
 namespace {
 
@@ -104,8 +110,9 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
         // and then added to the running sum, which cuts the float32 summation error about
         // tenfold.  CG needs it: with one running sum it took 10 more iterations at N=100k
         // on an H100 and ended with its true residual 2.4 times over the tolerance.  The
-        // t = 20 and t = 64 tiers keep one level, because a second set of TC accumulators
-        // made them 40-60 % slower there.  t > 64 (the LOVE root, t = 100) runs TILED tiles
+        // t <= 32 tier (t = 20, a Lanczos block) keeps one level, because a second set of
+        // TC accumulators made it 40-60 % slower there (t in (32, 64] runs the tensor-core
+        // tier, in two levels).  t > 64 (the LOVE root, t = 100) runs TILED tiles
         // of 32: with one level over 100k terms the smallest LOVE variances of the trained
         // flagship (N=100k, on an H100) were 90 % off float64 (5 % through cuBLAS), and their input gradients
         // 2.3e-3 of the largest gradient (1.4e-4).
@@ -173,6 +180,308 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
     }
 }
 
+// ---------------------------------------------------------------------------------------
+// The tensor-core tier, t in (32, 64]: every training CG iteration (t = 1 + 63 probes).
+//
+// A block's K.V over one staged tile of kTcTJ rows j is a small matrix product, K_tile
+// (rows x kTcTJ) times V_tile (kTcTJ x 64): the shape of mma.sync.m16n8k8 on TF32 operands.
+// One TF32 pass keeps 10 mantissa bits, which stalls float32 CG (the JAX package measured
+// that for one-pass bf16), so the product runs in 3xTF32: with hi = rna(x) and
+// lo = rna(x - hi), A B ~ A_hi B_hi + A_hi B_lo + A_lo B_hi, which keeps about 21 bits.
+//
+// Each warp owns one m-tile of 16 rows and all 64 columns (8 n-tiles of 8).  For every
+// 8-wide k-step over j, each lane computes the four K elements of its own A fragment in
+// registers (rows g and g + 8 with g = lane / 4, columns lane % 4 and lane % 4 + 4) from its
+// x1 rows and the staged x2 rows, splits them into hi and lo, and runs three mma per
+// n-tile.  Every K element is thus computed once per block and never stored.  V is staged
+// per tile, split into hi and lo once as it is staged, and laid out in B-fragment order, so
+// that a lane reads its (b0, b1) hi and lo of one n-tile with one 16-byte shared load.
+// Sums in two levels, as the t = 1 and t > 64 tiers: each staged tile's terms go into a
+// fresh accumulator fragment, which is then added to the running one (one running float32
+// sum over 100k terms is what made the LOVE variances 90 % wrong).  No atomics and a fixed
+// order: deterministic.  Ragged n, m and t are masked as in the FMA tiers.
+//
+// What bounds it on the H100: 3 passes of 2t operations per pair on the tensor cores
+// (7.7 ms at 100k x 100k, t = 64, at the dense TF32 peak of 495 TFLOP/s), against about
+// 3d + 4 FP32 operations and one exp per pair on the CUDA cores (about 2.5 ms each).  It
+// reads 27.5 ms there (59.0 ms for the FMA tier it replaced): about 140 TFLOP/s of TF32
+// mma.sync, which no tile shape tried moved (see launch_tc).  The rest of the way is
+// wgmma (a warpgroup's 64-row tile with B read from shared memory) and TMA, later work.
+
+constexpr int kTcTJ = 32;              // rows j per staged tile: 4 k-steps of 8
+constexpr int kTcSteps = kTcTJ / 8;
+constexpr int kTcCols = 64;            // output columns per block: 8 n-tiles of 8
+constexpr int kTcNTiles = kTcCols / 8;
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// x ~ hi + lo, both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact in float32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b: one m16n8k8 product on the tensor cores, TF32 operands, float32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// WARPS warps of one m-tile each: a block owns WARPS * 16 rows and 64 columns, and stages
+// kTcTJ rows j per tile.  For d = 3 (DP <= 4) a lane holds its two rows of x1 in registers;
+// for the padded tier (DP = 64) the block's x1 rows are staged in shared memory.  The next
+// tile's x2 rows and V entries are loaded into registers while the current tile is
+// computed, and split and stored after the tile's barrier, so that the global loads'
+// latency hides behind the tensor-core work (without it the tier took twice as long).
+template <int KT, int DP, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ v,
+                 float* __restrict__ out, int n, int m, int d, int t) {
+    constexpr int kThreads = WARPS * 32;
+    constexpr int kBRows = WARPS * 16;
+    constexpr bool kRegX1 = DP <= 4;
+    // row stride of the staged x rows: 16-byte rows; past 4 dims padded by 4 floats, so
+    // that the 4 rows a quarter-warp reads fall in different banks
+    constexpr int DS = kRegX1 ? 4 : DP + 4;
+    constexpr int kFrags = kTcSteps * kTcNTiles * 32;  // B fragments of a tile
+    static_assert(kFrags % kThreads == 0, "whole B fragments per thread");
+    constexpr int kFragsPer = kFrags / kThreads;
+    constexpr int kXsPer = (kTcTJ * DS + kThreads - 1) / kThreads;
+    __shared__ __align__(16) uint32_t vf[kTcSteps][kTcNTiles][32][4];  // (b0, b1) hi, (b0, b1) lo
+    __shared__ __align__(16) float xs[kTcTJ * DS];
+    __shared__ __align__(16) float x1s[kRegX1 ? 4 : kBRows * DS];
+
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int lrow = (threadIdx.x >> 5) * 16 + g;  // this lane's first row within the block
+    const int row0 = blockIdx.x * kBRows;
+    const int c0 = blockIdx.y * kTcCols;
+
+    // this lane's rows: row0 + lrow + 8 h, for h = 0, 1
+    float xr[2][kRegX1 ? DP : 1];
+    if constexpr (kRegX1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = row0 + lrow + 8 * h;
+#pragma unroll
+            for (int k = 0; k < DP; ++k) xr[h][k] = (r < n && k < d) ? x1[(int64_t)r * d + k] : 0.0f;
+        }
+    } else {
+        for (int idx = threadIdx.x; idx < kBRows * DS; idx += kThreads) {
+            const int r = idx / DS, k = idx % DS;
+            x1s[idx] = (row0 + r < n && k < d) ? x1[(int64_t)(row0 + r) * d + k] : 0.0f;
+        }
+    }
+    float acc[kTcNTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kTcNTiles; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[nt][r] = 0.0f;
+    }
+
+    // one thread per B fragment (k-step s, n-tile nt, lane L): b0 = V(8 s + L % 4,
+    // 8 nt + L / 4) and b1 four rows on, each split into hi and lo and stored as one 16-byte
+    // word, so that consecutive threads write consecutive words
+    float pv[kFragsPer][2], px[kXsPer];
+    auto fetch = [&](int j0) {
+#pragma unroll
+        for (int i = 0; i < kFragsPer; ++i) {
+            const int f = threadIdx.x + i * kThreads;
+            const int L = f & 31, nt = (f >> 5) % kTcNTiles, s = f / (32 * kTcNTiles);
+            const int c = c0 + 8 * nt + (L >> 2);
+            const int ja = j0 + 8 * s + (L & 3), jb = ja + 4;
+            pv[i][0] = (ja < m && c < t) ? v[(int64_t)ja * t + c] : 0.0f;
+            pv[i][1] = (jb < m && c < t) ? v[(int64_t)jb * t + c] : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < kXsPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            const int jj = idx / DS, k = idx % DS;
+            px[i] = (idx < kTcTJ * DS && j0 + jj < m && k < d) ? x2[(int64_t)(j0 + jj) * d + k] : 0.0f;
+        }
+    };
+    auto store = [&]() {
+#pragma unroll
+        for (int i = 0; i < kFragsPer; ++i) {
+            const int f = threadIdx.x + i * kThreads;
+            uint4 frag;
+            split_tf32(pv[i][0], frag.x, frag.z);
+            split_tf32(pv[i][1], frag.y, frag.w);
+            *reinterpret_cast<uint4*>(vf[f / (32 * kTcNTiles)][(f >> 5) % kTcNTiles][f & 31]) = frag;
+        }
+#pragma unroll
+        for (int i = 0; i < kXsPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            if (idx < kTcTJ * DS) xs[idx] = px[i];
+        }
+    };
+
+    fetch(0);
+    for (int j0 = 0; j0 < m; j0 += kTcTJ) {
+        store();
+        __syncthreads();
+        if (j0 + kTcTJ < m) fetch(j0 + kTcTJ);
+
+        float tile[kTcNTiles][4];
+#pragma unroll
+        for (int nt = 0; nt < kTcNTiles; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) tile[nt][r] = 0.0f;
+        }
+#pragma unroll
+        for (int s = 0; s < kTcSteps; ++s) {
+            // A fragment: a[h + 2 c] = K(row g + 8 h, column q + 4 c) of the k-step
+            const int jrow[2] = {8 * s + q, 8 * s + q + 4};
+            float d2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if constexpr (kRegX1) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const float4 b = *reinterpret_cast<const float4*>(&xs[jrow[c] * DS]);
+                    const float bk[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                        for (int k = 0; k < DP; ++k) {
+                            const float diff = xr[h][k] - bk[k];
+                            d2[h + 2 * c] = fmaf(diff, diff, d2[h + 2 * c]);
+                        }
+                    }
+                }
+            } else {
+                const float* ar[2] = {&x1s[lrow * DS], &x1s[(lrow + 8) * DS]};
+#pragma unroll 4
+                for (int k4 = 0; k4 < DP; k4 += 4) {
+                    float4 a4[2], b4[2];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) a4[h] = *reinterpret_cast<const float4*>(ar[h] + k4);
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) b4[c] = *reinterpret_cast<const float4*>(&xs[jrow[c] * DS + k4]);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            const float ak[4] = {a4[h].x, a4[h].y, a4[h].z, a4[h].w};
+                            const float bk[4] = {b4[c].x, b4[c].y, b4[c].z, b4[c].w};
+#pragma unroll
+                            for (int k = 0; k < 4; ++k) {
+                                const float diff = ak[k] - bk[k];
+                                d2[h + 2 * c] = fmaf(diff, diff, d2[h + 2 * c]);
+                            }
+                        }
+                    }
+                }
+            }
+            uint32_t ahi[4], alo[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(kernel_fn<KT>(d2[e]), ahi[e], alo[e]);
+#pragma unroll
+            for (int nt = 0; nt < kTcNTiles; ++nt) {
+                const uint4 b = *reinterpret_cast<const uint4*>(vf[s][nt][lane]);
+                mma_tf32(tile[nt], alo, b.x, b.y);  // A_lo B_hi
+                mma_tf32(tile[nt], ahi, b.z, b.w);  // A_hi B_lo
+                mma_tf32(tile[nt], ahi, b.x, b.y);  // A_hi B_hi
+            }
+        }
+#pragma unroll
+        for (int nt = 0; nt < kTcNTiles; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[nt][r] += tile[nt][r];
+        }
+        __syncthreads();
+    }
+
+    // C fragment: c[2 h + e] = out(row g + 8 h, column 2 q + e) of the n-tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = row0 + lrow + 8 * h;
+        if (r >= n) continue;
+#pragma unroll
+        for (int nt = 0; nt < kTcNTiles; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int c = c0 + 8 * nt + 2 * q + e;
+                if (c < t) out[(int64_t)r * t + c] = acc[nt][2 * h + e];
+            }
+        }
+    }
+}
+
+// the tensor-core tier's blocks: 8 warps (128 rows) for d = 3; 4 warps (64 rows) for the
+// padded tier, whose staged x1 rows take 17 KB.  On an H100 at 100k x 100k, d = 3, t = 64,
+// every shape tried read 27.3-28.0 ms (8 warps of one or two m-tiles, tiles of 32 or 64 rows
+// j) but fewer warps (4 warps of two m-tiles 30-32 ms, of four 46 ms): the tensor cores'
+// mma.sync rate, not the shared-memory reads, sets the time once the loads are prefetched
+template <int KT, int DP>
+void launch_tc(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
+               cudaStream_t stream) {
+    constexpr int kWarps = DP <= 4 ? 8 : 4;
+    const dim3 grid((n + kWarps * 16 - 1) / (kWarps * 16), (t + kTcCols - 1) / kTcCols);
+    kernel_matvec_tc<KT, DP, kWarps><<<grid, kWarps * 32, 0, stream>>>(x1, x2, v, out, n, m, d, t);
+}
+
+// The wide-d tier (d > 64; csrc/wide_d.cuh): one thread per output row as above, the
+// distances of each staged tile of kWideTJ rows summed over slabs of the input dims, and
+// TC = 1 or 32 columns per block, summed per staged tile.
+constexpr int kWideTJ = 32;
+
+template <int KT, int TC>
+__global__ void __launch_bounds__(kRows)
+kernel_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ v,
+                       float* __restrict__ out, int n, int m, int d, int t) {
+    __shared__ float x1s[kRows * wide::kRowStride];
+    __shared__ float x2s[kWideTJ * wide::kSlab];
+    __shared__ __align__(16) float vs[kWideTJ * TC];
+
+    const int row0 = blockIdx.x * kRows;
+    const int row = row0 + threadIdx.x;
+    const int c0 = blockIdx.y * TC;
+    float acc[TC];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[c] = 0.0f;
+
+    for (int j0 = 0; j0 < m; j0 += kWideTJ) {
+        float d2[kWideTJ];
+        wide::sq_dist_tile<kRows, kWideTJ>(x1, x2, n, m, d, row0, j0, x1s, x2s, d2);
+        for (int idx = threadIdx.x; idx < kWideTJ * TC; idx += kRows) {
+            const int jj = idx / TC, c = idx % TC;
+            const int j = j0 + jj;
+            vs[idx] = (j < m && c0 + c < t) ? v[(int64_t)j * t + c0 + c] : 0.0f;
+        }
+        __syncthreads();
+        float tile[TC];
+#pragma unroll
+        for (int c = 0; c < TC; ++c) tile[c] = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < kWideTJ; ++jj) {
+            const float kv = kernel_fn<KT>(d2[jj]);
+#pragma unroll
+            for (int c = 0; c < TC; ++c) tile[c] = fmaf(kv, vs[jj * TC + c], tile[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < TC; ++c) acc[c] += tile[c];
+    }
+
+    if (row < n) {
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+            if (c0 + c < t) out[(int64_t)row * t + c0 + c] = acc[c];
+        }
+    }
+}
+
+template <int KT, int TC>
+void launch_wide(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
+                 cudaStream_t stream) {
+    const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
+    kernel_matvec_wide_f32<KT, TC><<<grid, kRows, 0, stream>>>(x1, x2, v, out, n, m, d, t);
+}
+
 template <int KT, int DP, int TC, bool TILED = false>
 void launch(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
             cudaStream_t stream) {
@@ -185,7 +494,7 @@ int dispatch_tc(const float* x1, const float* x2, const float* v, float* out, in
                 cudaStream_t s) {
     if (t == 1) launch<KT, DP, 1>(x1, x2, v, out, n, m, d, t, s);
     else if (t <= 32) launch<KT, DP, 32>(x1, x2, v, out, n, m, d, t, s);
-    else if (t <= 64) launch<KT, DP, 64>(x1, x2, v, out, n, m, d, t, s);
+    else if (t <= 64) launch_tc<KT, DP>(x1, x2, v, out, n, m, d, t, s);
     else launch<KT, DP, 32, true>(x1, x2, v, out, n, m, d, t, s);
     return 0;
 }
@@ -195,7 +504,9 @@ int dispatch_d(const float* x1, const float* x2, const float* v, float* out, int
                cudaStream_t s) {
     if (d == 3) return dispatch_tc<KT, 3>(x1, x2, v, out, n, m, d, t, s);
     if (d <= 64) return dispatch_tc<KT, 64>(x1, x2, v, out, n, m, d, t, s);
-    return (int)cudaErrorInvalidValue;
+    if (t == 1) launch_wide<KT, 1>(x1, x2, v, out, n, m, d, t, s);
+    else launch_wide<KT, 32>(x1, x2, v, out, n, m, d, t, s);
+    return 0;
 }
 
 }  // namespace

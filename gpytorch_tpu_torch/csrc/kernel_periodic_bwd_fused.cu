@@ -208,7 +208,7 @@ void dispatch_tc(const float* x, const float* w, const float* g, const float* v,
 extern "C" int gp_periodic_bwd_fused_f32(const void* x, const void* w, const void* g, const void* v, void* dv,
                                          void* dx_part, void* dw_part, int n, int d, int t, int num_chunks,
                                          void* stream) {
-    if (n <= 0 || t <= 0 || d <= 0 || d > 64) return (int)cudaErrorInvalidValue;
+    if (n <= 0 || t <= 0 || d <= 0 || d > periodic::kMaxDP) return (int)cudaErrorInvalidValue;
     const int want_chunks = t == 1 ? 1 : (t + kTC - 1) / kTC;
     if (num_chunks != want_chunks || want_chunks > 65535) return (int)cudaErrorInvalidValue;
     if (dv == nullptr || dx_part == nullptr || dw_part == nullptr) return (int)cudaErrorInvalidValue;

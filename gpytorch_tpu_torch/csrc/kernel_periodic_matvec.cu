@@ -117,6 +117,104 @@ periodic_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, 
     }
 }
 
+// The wide-d tier (d > kMaxDP): the half-angle tables of the block's rows no longer fit in
+// registers, so the input dims are walked in slabs of kWideSlab.  For each staged tile of
+// kWideTJ rows j, every slab's tables of the block's rows i and of the tile's rows j are
+// formed as they are staged into shared memory (the rows i's once per tile: 1/kWideTJ more
+// sincospif than pair terms) with the slab's weights, and each pair's weighted sin^2 is
+// summed across the slabs in registers.  Columns in tiles of TC = 1 or 32, each summed per
+// staged tile.  As in csrc/wide_d.cuh, speed is not this tier's job.
+constexpr int kWideSlab = 32;
+constexpr int kWideStride = kWideSlab + 1;  // the rows i's tables, padded against bank conflicts
+constexpr int kWideTJ = 16;
+
+template <int TC>
+__global__ void __launch_bounds__(kRows)
+periodic_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ w,
+                         const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t) {
+    __shared__ float s1[kRows * kWideStride];
+    __shared__ float c1[kRows * kWideStride];
+    __shared__ float s2[kWideTJ * kWideSlab];
+    __shared__ float c2[kWideTJ * kWideSlab];
+    __shared__ float ws[kWideSlab];
+    __shared__ __align__(16) float vs[kWideTJ * TC];
+
+    const int row0 = blockIdx.x * kRows;
+    const int row = row0 + threadIdx.x;
+    const int c0 = blockIdx.y * TC;
+    float acc[TC];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[c] = 0.0f;
+
+    for (int j0 = 0; j0 < m; j0 += kWideTJ) {
+        float q[kWideTJ];
+#pragma unroll
+        for (int jj = 0; jj < kWideTJ; ++jj) q[jj] = 0.0f;
+        for (int k0 = 0; k0 < d; k0 += kWideSlab) {
+            __syncthreads();
+            for (int idx = threadIdx.x; idx < kRows * kWideSlab; idx += kRows) {
+                const int r = idx / kWideSlab, k = idx % kWideSlab;
+                float sv = 0.0f, cv = 0.0f;
+                if (row0 + r < n && k0 + k < d) half_angle(x1[(int64_t)(row0 + r) * d + k0 + k], sv, cv);
+                s1[r * kWideStride + k] = sv;
+                c1[r * kWideStride + k] = cv;
+            }
+            for (int idx = threadIdx.x; idx < kWideTJ * kWideSlab; idx += kRows) {
+                const int jj = idx / kWideSlab, k = idx % kWideSlab;
+                float sv = 0.0f, cv = 0.0f;
+                if (j0 + jj < m && k0 + k < d) half_angle(x2[(int64_t)(j0 + jj) * d + k0 + k], sv, cv);
+                s2[idx] = sv;
+                c2[idx] = cv;
+            }
+            const int k = threadIdx.x;
+            if (k < kWideSlab) ws[k] = k0 + k < d ? w[k0 + k] : 0.0f;
+            __syncthreads();
+#pragma unroll 4
+            for (int k = 0; k < kWideSlab; ++k) {
+                const float si = s1[threadIdx.x * kWideStride + k], ci = c1[threadIdx.x * kWideStride + k];
+                const float wk = ws[k];
+#pragma unroll
+                for (int jj = 0; jj < kWideTJ; ++jj) {
+                    const float sd = sin_diff(si, ci, s2[jj * kWideSlab + k], c2[jj * kWideSlab + k]);
+                    q[jj] = fmaf(wk * sd, sd, q[jj]);
+                }
+            }
+        }
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < kWideTJ * TC; idx += kRows) {
+            const int jj = idx / TC, c = idx % TC;
+            const int j = j0 + jj;
+            vs[idx] = (j < m && c0 + c < t) ? v[(int64_t)j * t + c0 + c] : 0.0f;
+        }
+        __syncthreads();
+        float tile[TC];
+#pragma unroll
+        for (int c = 0; c < TC; ++c) tile[c] = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < kWideTJ; ++jj) {
+            const float kv = __expf(-2.0f * q[jj]);
+#pragma unroll
+            for (int c = 0; c < TC; ++c) tile[c] = fmaf(kv, vs[jj * TC + c], tile[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < TC; ++c) acc[c] += tile[c];
+    }
+
+    if (row < n) {
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+            if (c0 + c < t) out[(int64_t)row * t + c0 + c] = acc[c];
+        }
+    }
+}
+
+template <int TC>
+void launch_wide(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m, int d,
+                 int t, cudaStream_t stream) {
+    const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
+    periodic_matvec_wide_f32<TC><<<grid, kRows, 0, stream>>>(x1, x2, w, v, out, n, m, d, t);
+}
+
 template <int DP, int TC>
 void launch(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m, int d,
             int t, cudaStream_t stream) {
@@ -136,16 +234,21 @@ void dispatch_tc(const float* x1, const float* x2, const float* w, const float* 
 
 // Launches the periodic matvec on `stream` and returns cudaGetLastError() (0 on success).
 // x1 (n, d), x2 (m, d), w (d,), v (m, t), out (n, t): float32, row-major, contiguous, on
-// one device; 1 <= d <= 64.
+// one device; any d >= 1.
 extern "C" int gp_periodic_matvec_f32(const void* x1, const void* x2, const void* w, const void* v, void* out,
                                       int n, int m, int d, int t, void* stream) {
-    if (n <= 0 || t <= 0 || m < 0 || d <= 0 || d > 64 || (t + 63) / 64 > 65535) return (int)cudaErrorInvalidValue;
+    if (n <= 0 || t <= 0 || m < 0 || d <= 0 || (t + 31) / 32 > 65535) return (int)cudaErrorInvalidValue;
     const float* a = static_cast<const float*>(x1);
     const float* b = static_cast<const float*>(x2);
     const float* ww = static_cast<const float*>(w);
     const float* vv = static_cast<const float*>(v);
     float* o = static_cast<float*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    periodic::dispatch_dp(d, [&](auto dp) { dispatch_tc<decltype(dp)::value>(a, b, ww, vv, o, n, m, d, t, s); });
+    if (d > periodic::kMaxDP) {
+        if (t == 1) launch_wide<1>(a, b, ww, vv, o, n, m, d, t, s);
+        else launch_wide<32>(a, b, ww, vv, o, n, m, d, t, s);
+    } else {
+        periodic::dispatch_dp(d, [&](auto dp) { dispatch_tc<decltype(dp)::value>(a, b, ww, vv, o, n, m, d, t, s); });
+    }
     return (int)cudaGetLastError();
 }

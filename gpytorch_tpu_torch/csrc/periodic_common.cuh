@@ -29,8 +29,14 @@ __device__ __forceinline__ float sin_diff(float si, float ci, float sj, float cj
     return __fsub_rn(__fmul_rn(si, cj), __fmul_rn(ci, sj));
 }
 
+// The widest input the register tiers take; kernel_periodic_matvec.cu runs wider inputs
+// through its wide tier, and kernel_periodic_bwd_fused.cu refuses them, as the JAX package
+// runs its fused periodic backward only for d <= 64 (gpytorch_tpu/ops/pallas_kernels.py::_fpm_bwd).
+constexpr int kMaxDP = 64;
+
 // Calls launch(std::integral_constant<int, DP>{}) with the register tier DP of d input
-// dims: 1 and 2 exact, 4, 16 and 64 padded with zero tables, which add nothing.
+// dims (1 <= d <= kMaxDP): 1 and 2 exact, 4, 16 and 64 padded with zero tables, which add
+// nothing.
 template <typename F>
 inline void dispatch_dp(int d, F&& launch) {
     if (d == 1) launch(std::integral_constant<int, 1>{});

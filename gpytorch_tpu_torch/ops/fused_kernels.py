@@ -44,9 +44,6 @@ KERNEL_TYPES = (RBF, MATERN05, MATERN15, MATERN25)
 # rows per block of the plain streamed versions (gpytorch_tpu/linop/lazy_kernel.py:24)
 _CHUNK = 4096
 
-# the widest input the CUDA kernels take (their distance tiles are padded to 64 dims)
-MAX_D = 64
-
 
 def _kernel_fn(d2: torch.Tensor, kernel_type: int) -> torch.Tensor:
     if kernel_type == RBF:
@@ -189,7 +186,7 @@ _SOURCES = tuple(
     for name in ("kernel_matvec", "kernel_grad_x", "kernel_bwd_fused", "kernel_periodic_matvec",
                  "kernel_periodic_bwd_fused")
 )
-_HEADERS = (_PKG / "csrc" / "periodic_common.cuh",)
+_HEADERS = tuple(_PKG / "csrc" / name for name in ("periodic_common.cuh", "wide_d.cuh"))
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -289,8 +286,6 @@ class KernelMatvecCUDA:
         _check_cuda_f32(x1=x1, x2=x2, v=v)
         n, d = x1.shape
         m, t = v.shape
-        if d > MAX_D:
-            raise ValueError(f"the CUDA kernel takes at most {MAX_D} input dims, got {d}")
         out = torch.empty((n, t), dtype=torch.float32, device=x1.device)
         if n == 0 or t == 0:
             return out
@@ -343,8 +338,6 @@ class KernelGradXCUDA:
         _check_cuda_f32(x1=x1, x2=x2, g=g, v=v)
         n, d = x1.shape
         m, t = v.shape
-        if d > MAX_D:
-            raise ValueError(f"the CUDA kernel takes at most {MAX_D} input dims, got {d}")
         if n == 0 or m == 0 or t == 0:
             return torch.zeros_like(x1)
         chunks = 1 if t == 1 else -(-t // _GX_COLS)
@@ -387,8 +380,6 @@ class KernelBwdFusedCUDA:
         _check_cuda_f32(x=x, g=g, v=v)
         n, d = x.shape
         t = v.shape[1]
-        if d > MAX_D:
-            raise ValueError(f"the CUDA kernel takes at most {MAX_D} input dims, got {d}")
         dev = x.device
         if n == 0 or t == 0:
             dos = torch.zeros((), dtype=torch.float32, device=dev) if need_dos else None

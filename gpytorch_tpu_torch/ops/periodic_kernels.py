@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from .fused_kernels import MAX_D, _check_cuda_f32, _zeros_out, load_library
+from .fused_kernels import _check_cuda_f32, _zeros_out, load_library
 
 # rows per block of the plain streamed versions (the JAX package's general periodic
 # backward chunks by 2048 rows: gpytorch_tpu/ops/pallas_kernels.py::_fpm_bwd)
@@ -39,6 +39,11 @@ _CHUNK = 2048
 
 # columns per chunk of csrc/kernel_periodic_bwd_fused.cu for t > 1
 _BWD_COLS = 32
+
+# the widest input of the fused symmetric backward (``periodic_common.cuh::kMaxDP``): the
+# JAX package fuses it only for d ≤ 64 (gpytorch_tpu/ops/pallas_kernels.py::_fpm_bwd) and
+# runs the plain general backward above, and so does ``_PeriodicMatvec.backward``
+FUSED_BWD_MAX_D = 64
 
 
 def _check_shapes(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, v: torch.Tensor) -> None:
@@ -161,8 +166,6 @@ class PeriodicMatvecCUDA:
         _check_cuda_f32(x1p=x1p, x2p=x2p, w=w, v=v)
         n, d = x1p.shape
         m, t = v.shape
-        if d > MAX_D:
-            raise ValueError(f"the CUDA kernel takes at most {MAX_D} input dims, got {d}")
         out = torch.empty((n, t), dtype=torch.float32, device=x1p.device)
         if n == 0 or t == 0:
             return out
@@ -197,8 +200,8 @@ class PeriodicBwdFusedCUDA:
         _check_cuda_f32(xp=xp, w=w, g=g, v=v)
         n, d = xp.shape
         t = v.shape[1]
-        if d > MAX_D:
-            raise ValueError(f"the CUDA kernel takes at most {MAX_D} input dims, got {d}")
+        if d > FUSED_BWD_MAX_D:
+            raise ValueError(f"the fused backward kernel takes at most {FUSED_BWD_MAX_D} input dims, got {d}")
         dev = xp.device
         if n == 0 or t == 0:
             return torch.zeros_like(v), torch.zeros_like(xp), torch.zeros(d, dtype=torch.float32, device=dev)
@@ -257,7 +260,7 @@ class _PeriodicMatvec(torch.autograd.Function):
         x1p, x2p, w, v = ctx.saved_tensors
         need_dv = ctx.needs_input_grad[3]
         g = g.contiguous()
-        if ctx.symmetric and x1p.shape[-1] <= MAX_D:
+        if ctx.symmetric and x1p.shape[-1] <= FUSED_BWD_MAX_D:
             # one fused pass; the whole cotangent of the one input tensor comes back in dx1
             dv, dx, dw = _periodic_bwd_fused(x1p, w, g, v)
             return dx, None, dw.reshape(w.shape), (dv if need_dv else None), None, None

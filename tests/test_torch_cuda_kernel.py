@@ -30,11 +30,25 @@ def _data(n, m, d, t, seed, device):
     return tuple(torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=device) for s in ((n, d), (m, d), (m, t)))
 
 
+def _wide_data(n, m, d, t, seed, device):
+    """As ``_data``, with the inputs scaled by 1/√d so that squared distances stay O(1) at
+    any d (unscaled, K would underflow to 0 past a few dozen dims and check nothing)."""
+    x1, x2, v = _data(n, m, d, t, seed, device)
+    return x1 / d**0.5, x2 / d**0.5, v
+
+
+# the wide-d tier (d > 64), ragged n ≠ m, t = 1, a column tile and a half, and two tiles
+WIDE_CASES = [(300, 517, 65, 1), (517, 300, 100, 40), (129, 300, 200, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
-@pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 3, 1), (1000, 1537, 11, 20), (129, 65, 3, 100), (1, 1, 1, 1)])
+@pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 3, 1), (1000, 1537, 11, 20), (129, 65, 3, 100), (1, 1, 1, 1),
+                                     # the tensor-core tier, t ∈ (32, 64]
+                                     (1000, 1537, 3, 33), (1000, 1537, 3, 64), (1000, 1537, 11, 33),
+                                     (1000, 1537, 11, 64), *WIDE_CASES])
 def test_cuda_kernel_matches_plain(cuda_device, ktype, n, m, d, t):
-    x1, x2, v = _data(n, m, d, t, seed=ktype, device=cuda_device)
+    x1, x2, v = (_wide_data if d > 64 else _data)(n, m, d, t, seed=ktype, device=cuda_device)
     before = fk.kernel_matvec_cuda.launches
     got = fk.fused_kernel_matvec(x1, x2, v, ktype)
     torch.cuda.synchronize()
@@ -58,10 +72,12 @@ def test_cuda_wrapper_rejects_non_contiguous_and_mixed_devices(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("need_dv", [True, False])
 @pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
-@pytest.mark.parametrize("n,d,t", [(1537, 3, 64), (1537, 11, 20), (129, 3, 1), (1, 1, 1)])
+@pytest.mark.parametrize("n,d,t", [(1537, 3, 64), (1537, 11, 20), (129, 3, 1), (1, 1, 1),
+                                   (300, 65, 1), (517, 100, 40), (129, 200, 64)])
 def test_cuda_backward_kernel_matches_plain(cuda_device, ktype, need_dv, n, d, t):
     rng = np.random.default_rng(ktype)
     x, g, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((n, d), (n, t), (n, t)))
+    x = x / d**0.5 if d > 64 else x
     before = fk.kernel_bwd_fused_cuda.launches
     dv, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, ktype, need_dv=need_dv, need_dos=True)
     torch.cuda.synchronize()
@@ -80,9 +96,12 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, ktype, need_dv, n, d, t
 
 
 @pytest.mark.cuda
-def test_symmetric_gradient_runs_the_backward_kernel(cuda_device):
+@pytest.mark.parametrize("d", [3, 100])
+def test_symmetric_gradient_runs_the_backward_kernel(cuda_device, d):
+    # d = 100: a training gradient of a model with 100 inputs runs the wide-d tier
     rng = np.random.default_rng(5)
-    x, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((300, 3), (300, 4), (300, 4)))
+    x, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((300, d), (300, 4), (300, 4)))
+    x = x / d**0.5 if d > 64 else x
     xs, os_ = x.clone().requires_grad_(True), torch.tensor(1.5, device=cuda_device, requires_grad=True)
     before = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
     out = fk.fused_scaled_kernel_matvec(xs, xs, v, os_, fk.RBF, symmetric=True, grad_only=True)
@@ -97,11 +116,11 @@ def test_symmetric_gradient_runs_the_backward_kernel(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
 @pytest.mark.parametrize("n,m,d,t", [(300, 1537, 3, 1), (1537, 300, 3, 100), (129, 65, 11, 20), (1, 1, 1, 1),
-                                     (2048, 100_000, 3, 1)])
+                                     (2048, 100_000, 3, 1), *WIDE_CASES])
 def test_cuda_grad_x_kernel_matches_plain(cuda_device, ktype, n, m, d, t):
-    # ragged n ≪ m and n ≫ m, several column chunks, and the path's strip (2,048 candidates
-    # against 100k training points, split into slabs of the j range)
-    x1, x2, v = _data(n, m, d, t, seed=10 + ktype, device=cuda_device)
+    # ragged n ≪ m and n ≫ m, several column chunks, the path's strip (2,048 candidates
+    # against 100k training points, split into slabs of the j range), and the wide-d tier
+    x1, x2, v = (_wide_data if d > 64 else _data)(n, m, d, t, seed=10 + ktype, device=cuda_device)
     g = torch.as_tensor(np.random.default_rng(ktype).normal(size=(n, t)), dtype=torch.float32, device=cuda_device)
     before = fk.kernel_grad_x_cuda.launches
     got = fk.kernel_grad_x_cuda(x1, x2, g, v, ktype)
@@ -150,9 +169,10 @@ def _periodic_data(n, m, d, t, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 2, 1), (1000, 1537, 1, 64), (129, 65, 3, 100), (300, 200, 11, 20),
-                                     (1, 1, 1, 1)])
+                                     (1, 1, 1, 1), *WIDE_CASES])
 def test_cuda_periodic_kernel_matches_plain(cuda_device, n, m, d, t):
     x1, x2, w, v = _periodic_data(n, m, d, t, seed=d + t, device=cuda_device)
+    w = w / d if d > 64 else w  # keeps Σ_k w_k sin² O(1): K would underflow to 0 otherwise
     before = ppk.periodic_matvec_cuda.launches
     got = ppk.fused_periodic_matvec(x1, x2, w, v)
     torch.cuda.synchronize()

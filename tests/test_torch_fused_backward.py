@@ -74,11 +74,20 @@ def _t(*arrays, grad=False):
 # ---------------------------------------------------------------------------------------
 
 @pytest.mark.parametrize("need_dv", [True, False])
-@pytest.mark.parametrize("ktype", KERNEL_TYPES)
-def test_plain_fused_backward_matches_pallas_kernel_interpret(ktype, need_dv, pallas_interpret_small_tiles):
+@pytest.mark.parametrize("ktype,d", [pytest.param(k, 3, id=str(k)) for k in KERNEL_TYPES]
+                         + [pytest.param(k, 100, id=f"{k}-d100") for k in KERNEL_TYPES])
+def test_plain_fused_backward_matches_pallas_kernel_interpret(ktype, d, need_dv, pallas_interpret_small_tiles):
     # float32, ragged: 300 rows = 3 row tiles and 2 padded column tiles; the tolerances of
-    # tests/test_pallas_interpret.py (3e-4) for dx and dv, and 2e-4 for dos
-    x, g, v = _arrays(30 + ktype, (300, 3), (300, 5), (300, 5), dtype=np.float32)
+    # tests/test_pallas_interpret.py (3e-4) for dx and dv, and 2e-4 for dos.  d = 100 (the
+    # Pallas kernel's quadratic-expansion path): 70 rows on the grid of eighths in [-1/4,
+    # 1/4], where every squared distance of the expansion is exact in float32.  Off the grid
+    # its diagonal keeps the expansion's round-off (~1e-7), which Matérn-½'s k(d2) = e^(−√d2)
+    # turns into 3e-4 of K_ii, where the port's d2_ii is exactly 0
+    if d == 3:
+        x, g, v = _arrays(30 + ktype, (300, 3), (300, 5), (300, 5), dtype=np.float32)
+    else:
+        g, v = _arrays(30 + ktype, (70, 5), (70, 5), dtype=np.float32)
+        x = (np.random.default_rng(40 + ktype).integers(-2, 3, size=(70, d)) / 8).astype(np.float32)
     want_dv, want_dx, want_dos = pk._bwd_fused_pallas(jnp.asarray(x), jnp.asarray(g), jnp.asarray(v), ktype,
                                                       need_dv=need_dv, need_dos=True)
     dv, dx, dos = fk._bwd_fused_reference(*_t(x, g, v), ktype, need_dv=need_dv, need_dos=True)

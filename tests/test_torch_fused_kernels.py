@@ -47,10 +47,17 @@ def test_kernel_ids_match_the_jax_package():
     assert (fk.RBF, fk.MATERN05, fk.MATERN15, fk.MATERN25) == (pk.RBF, pk.MATERN05, pk.MATERN15, pk.MATERN25)
 
 
-@pytest.mark.parametrize("ktype", KERNEL_TYPES)
-def test_plain_matches_pallas_kernel_interpret(ktype, pallas_interpret_small_tiles):
-    # float32, ragged: 137 rows = 2 row tiles, 251 columns = 1 padded column tile
-    x1, x2, v = _data(137, 251, 3, 5, seed=ktype, dtype=np.float32)
+@pytest.mark.parametrize("ktype,d", [pytest.param(k, 3, id=str(k)) for k in KERNEL_TYPES]
+                         + [pytest.param(k, 100, id=f"{k}-d100") for k in KERNEL_TYPES])
+def test_plain_matches_pallas_kernel_interpret(ktype, d, pallas_interpret_small_tiles):
+    # float32, ragged: 137 rows = 2 row tiles, 251 columns = 1 padded column tile.  d = 100
+    # (the Pallas kernel's quadratic-expansion path, past 8 dims): 40 × 70, the inputs
+    # scaled by 1/√d so that K is not all 0; the same tolerance
+    if d == 3:
+        x1, x2, v = _data(137, 251, 3, 5, seed=ktype, dtype=np.float32)
+    else:
+        x1, x2, v = _data(40, 70, d, 5, seed=ktype, dtype=np.float32)
+        x1, x2 = x1 / np.float32(np.sqrt(d)), x2 / np.float32(np.sqrt(d))
     want = np.asarray(pk._matvec_pallas(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v), ktype))
     np.testing.assert_allclose(_port(x1, x2, v, ktype), want, rtol=2e-5, atol=2e-5)
 

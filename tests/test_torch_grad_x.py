@@ -54,11 +54,16 @@ def _t(*arrays, grad=False):
 # ---------------------------------------------------------------------------------------
 
 @pytest.mark.parametrize("ktype", KERNEL_TYPES)
-@pytest.mark.parametrize("n,m,t", [(140, 300, 5), (300, 90, 40)])
-def test_plain_grad_x_matches_pallas_kernel_interpret(ktype, n, m, t, pallas_interpret_small_tiles):
+@pytest.mark.parametrize("n,m,d,t", [pytest.param(140, 300, 3, 5, id="140-300-5"), pytest.param(300, 90, 3, 40, id="300-90-40"),
+                                     pytest.param(40, 70, 100, 5, id="40-70-d100-5")])
+def test_plain_grad_x_matches_pallas_kernel_interpret(ktype, n, m, d, t, pallas_interpret_small_tiles):
     # float32, ragged both ways (n ≪ m, n ≫ m) over several tiles, t > 32 in the second
-    # case; the tolerance of tests/test_pallas_interpret.py's grad_x cases (2e-4)
-    x1, x2, g, v = _arrays(20 + ktype, (n, 3), (m, 3), (n, t), (m, t), dtype=np.float32)
+    # case, and d = 100 (the Pallas kernel's quadratic-expansion path; inputs scaled by 1/√d
+    # so that K is not all 0); the tolerance of tests/test_pallas_interpret.py's grad_x
+    # cases (2e-4)
+    x1, x2, g, v = _arrays(20 + ktype, (n, d), (m, d), (n, t), (m, t), dtype=np.float32)
+    if d > 3:
+        x1, x2 = x1 / np.float32(np.sqrt(d)), x2 / np.float32(np.sqrt(d))
     want = pk._grad_x_pallas(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(g), jnp.asarray(v), ktype)
     got = fk._grad_x_reference(*_t(x1, x2, g, v), ktype)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)

@@ -84,6 +84,17 @@ def test_plain_product_matches_jax_reference(d, t):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("d", [3, 100])
+def test_plain_product_matches_pallas_kernel_interpret(d, pallas_interpret_small_tiles):
+    # float32, 40 × 70 over several periods; the weights divided by d so that Σ w sin² stays
+    # O(1) at d = 100 (K would be all 0 otherwise); the tolerance of the backward's case
+    x1, x2, w, v = _inputs(30 + d, 40, 70, d, 5, dtype=np.float32)
+    w = w * np.float32(3.0 / d)
+    want = pk._periodic_matvec_pallas(*(jnp.asarray(a) for a in (x1, x2, w, v)))
+    got = ppk._periodic_matvec_reference(*_t(x1, x2, w, v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4, atol=3e-4)
+
+
 @pytest.mark.parametrize("d", [1, 3])
 def test_plain_fused_backward_matches_pallas_kernel_interpret(d, pallas_interpret_small_tiles):
     # float32, 150 rows = 2 row tiles, one ragged; the tolerance of tests/test_pallas_interpret.py
