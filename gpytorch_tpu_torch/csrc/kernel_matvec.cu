@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
 #include "wide_d.cuh"
 
 namespace {
@@ -183,23 +184,18 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
 // ---------------------------------------------------------------------------------------
 // The tensor-core tier, t in (32, 64]: every training CG iteration (t = 1 + 63 probes).
 //
-// A block's K.V over one staged tile of kTcTJ rows j is a small matrix product, K_tile
-// (rows x kTcTJ) times V_tile (kTcTJ x 64): the shape of mma.sync.m16n8k8 on TF32 operands.
-// One TF32 pass keeps 10 mantissa bits, which stalls float32 CG (the JAX package measured
-// that for one-pass bf16), so the product runs in 3xTF32: with hi = rna(x) and
-// lo = rna(x - hi), A B ~ A_hi B_hi + A_hi B_lo + A_lo B_hi, which keeps about 21 bits.
-//
-// Each warp owns one m-tile of 16 rows and all 64 columns (8 n-tiles of 8).  For every
-// 8-wide k-step over j, each lane computes the four K elements of its own A fragment in
-// registers (rows g and g + 8 with g = lane / 4, columns lane % 4 and lane % 4 + 4) from its
-// x1 rows and the staged x2 rows, splits them into hi and lo, and runs three mma per
-// n-tile.  Every K element is thus computed once per block and never stored.  V is staged
-// per tile, split into hi and lo once as it is staged, and laid out in B-fragment order, so
-// that a lane reads its (b0, b1) hi and lo of one n-tile with one 16-byte shared load.
-// Sums in two levels, as the t = 1 and t > 64 tiers: each staged tile's terms go into a
-// fresh accumulator fragment, which is then added to the running one (one running float32
-// sum over 100k terms is what made the LOVE variances 90 % wrong).  No atomics and a fixed
-// order: deterministic.  Ragged n, m and t are masked as in the FMA tiers.
+// K_tile . V_tile per staged tile of tc::kTJ rows j in 3xTF32 on mma.sync.m16n8k8 (see
+// tc_common.cuh).  Each warp owns one m-tile of 16 rows and all 64 columns (8 n-tiles of
+// 8).  For every 8-wide k-step over j, each lane computes the four K elements of its own A
+// fragment in registers (rows g and g + 8 with g = lane / 4, columns lane % 4 and
+// lane % 4 + 4) from its x1 rows and the staged x2 rows, splits them into hi and lo, and
+// runs three mma per n-tile.  Every K element is thus computed once per block and never
+// stored.  V is staged per tile in B-fragment order, split into hi and lo once
+// (tc::VStage).  Sums in two levels, as the t = 1 and t > 64 tiers: each staged tile's
+// terms go into a fresh accumulator fragment, which is then added to the running one (one
+// running float32 sum over 100k terms is what made the LOVE variances 90 % wrong).  No
+// atomics and a fixed order: deterministic.  Ragged n, m and t are masked as in the FMA
+// tiers.
 //
 // What bounds it on the H100: 3 passes of 2t operations per pair on the tensor cores
 // (7.7 ms at 100k x 100k, t = 64, at the dense TF32 peak of 495 TFLOP/s), against about
@@ -208,33 +204,11 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
 // mma.sync, which no tile shape tried moved (see launch_tc).  The rest of the way is
 // wgmma (a warpgroup's 64-row tile with B read from shared memory) and TMA, later work.
 
-constexpr int kTcTJ = 32;              // rows j per staged tile: 4 k-steps of 8
-constexpr int kTcSteps = kTcTJ / 8;
-constexpr int kTcCols = 64;            // output columns per block: 8 n-tiles of 8
-constexpr int kTcNTiles = kTcCols / 8;
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-    return r;
-}
-
-// x ~ hi + lo, both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact in float32)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a b: one m16n8k8 product on the tensor cores, TF32 operands, float32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using tc::mma_tf32;
+using tc::split_tf32;
 
 // WARPS warps of one m-tile each: a block owns WARPS * 16 rows and 64 columns, and stages
-// kTcTJ rows j per tile.  For d = 3 (DP <= 4) a lane holds its two rows of x1 in registers;
+// tc::kTJ rows j per tile.  For d = 3 (DP <= 4) a lane holds its two rows of x1 in registers;
 // for the padded tier (DP = 64) the block's x1 rows are staged in shared memory.  The next
 // tile's x2 rows and V entries are loaded into registers while the current tile is
 // computed, and split and stored after the tile's barrier, so that the global loads'
@@ -249,19 +223,16 @@ kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, con
     // row stride of the staged x rows: 16-byte rows; past 4 dims padded by 4 floats, so
     // that the 4 rows a quarter-warp reads fall in different banks
     constexpr int DS = kRegX1 ? 4 : DP + 4;
-    constexpr int kFrags = kTcSteps * kTcNTiles * 32;  // B fragments of a tile
-    static_assert(kFrags % kThreads == 0, "whole B fragments per thread");
-    constexpr int kFragsPer = kFrags / kThreads;
-    constexpr int kXsPer = (kTcTJ * DS + kThreads - 1) / kThreads;
-    __shared__ __align__(16) uint32_t vf[kTcSteps][kTcNTiles][32][4];  // (b0, b1) hi, (b0, b1) lo
-    __shared__ __align__(16) float xs[kTcTJ * DS];
+    constexpr int kXsPer = (tc::kTJ * DS + kThreads - 1) / kThreads;
+    __shared__ __align__(16) tc::VFrags vf;
+    __shared__ __align__(16) float xs[tc::kTJ * DS];
     __shared__ __align__(16) float x1s[kRegX1 ? 4 : kBRows * DS];
 
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, q = lane & 3;
     const int lrow = (threadIdx.x >> 5) * 16 + g;  // this lane's first row within the block
     const int row0 = blockIdx.x * kBRows;
-    const int c0 = blockIdx.y * kTcCols;
+    const int c0 = blockIdx.y * tc::kCols;
 
     // this lane's rows: row0 + lrow + 8 h, for h = 0, 1
     float xr[2][kRegX1 ? DP : 1];
@@ -278,64 +249,48 @@ kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, con
             x1s[idx] = (row0 + r < n && k < d) ? x1[(int64_t)(row0 + r) * d + k] : 0.0f;
         }
     }
-    float acc[kTcNTiles][4];
+    float acc[tc::kNTiles][4];
 #pragma unroll
-    for (int nt = 0; nt < kTcNTiles; ++nt) {
+    for (int nt = 0; nt < tc::kNTiles; ++nt) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[nt][r] = 0.0f;
     }
 
-    // one thread per B fragment (k-step s, n-tile nt, lane L): b0 = V(8 s + L % 4,
-    // 8 nt + L / 4) and b1 four rows on, each split into hi and lo and stored as one 16-byte
-    // word, so that consecutive threads write consecutive words
-    float pv[kFragsPer][2], px[kXsPer];
+    // the next tile's V entries and x2 rows, in registers until the tile is stored
+    tc::VStage<kThreads> vstage;
+    float px[kXsPer];
     auto fetch = [&](int j0) {
-#pragma unroll
-        for (int i = 0; i < kFragsPer; ++i) {
-            const int f = threadIdx.x + i * kThreads;
-            const int L = f & 31, nt = (f >> 5) % kTcNTiles, s = f / (32 * kTcNTiles);
-            const int c = c0 + 8 * nt + (L >> 2);
-            const int ja = j0 + 8 * s + (L & 3), jb = ja + 4;
-            pv[i][0] = (ja < m && c < t) ? v[(int64_t)ja * t + c] : 0.0f;
-            pv[i][1] = (jb < m && c < t) ? v[(int64_t)jb * t + c] : 0.0f;
-        }
+        vstage.fetch(v, m, t, j0, c0);
 #pragma unroll
         for (int i = 0; i < kXsPer; ++i) {
             const int idx = threadIdx.x + i * kThreads;
             const int jj = idx / DS, k = idx % DS;
-            px[i] = (idx < kTcTJ * DS && j0 + jj < m && k < d) ? x2[(int64_t)(j0 + jj) * d + k] : 0.0f;
+            px[i] = (idx < tc::kTJ * DS && j0 + jj < m && k < d) ? x2[(int64_t)(j0 + jj) * d + k] : 0.0f;
         }
     };
     auto store = [&]() {
-#pragma unroll
-        for (int i = 0; i < kFragsPer; ++i) {
-            const int f = threadIdx.x + i * kThreads;
-            uint4 frag;
-            split_tf32(pv[i][0], frag.x, frag.z);
-            split_tf32(pv[i][1], frag.y, frag.w);
-            *reinterpret_cast<uint4*>(vf[f / (32 * kTcNTiles)][(f >> 5) % kTcNTiles][f & 31]) = frag;
-        }
+        vstage.store(vf);
 #pragma unroll
         for (int i = 0; i < kXsPer; ++i) {
             const int idx = threadIdx.x + i * kThreads;
-            if (idx < kTcTJ * DS) xs[idx] = px[i];
+            if (idx < tc::kTJ * DS) xs[idx] = px[i];
         }
     };
 
     fetch(0);
-    for (int j0 = 0; j0 < m; j0 += kTcTJ) {
+    for (int j0 = 0; j0 < m; j0 += tc::kTJ) {
         store();
         __syncthreads();
-        if (j0 + kTcTJ < m) fetch(j0 + kTcTJ);
+        if (j0 + tc::kTJ < m) fetch(j0 + tc::kTJ);
 
-        float tile[kTcNTiles][4];
+        float tile[tc::kNTiles][4];
 #pragma unroll
-        for (int nt = 0; nt < kTcNTiles; ++nt) {
+        for (int nt = 0; nt < tc::kNTiles; ++nt) {
 #pragma unroll
             for (int r = 0; r < 4; ++r) tile[nt][r] = 0.0f;
         }
 #pragma unroll
-        for (int s = 0; s < kTcSteps; ++s) {
+        for (int s = 0; s < tc::kSteps; ++s) {
             // A fragment: a[h + 2 c] = K(row g + 8 h, column q + 4 c) of the k-step
             const int jrow[2] = {8 * s + q, 8 * s + q + 4};
             float d2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -381,7 +336,7 @@ kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, con
 #pragma unroll
             for (int e = 0; e < 4; ++e) split_tf32(kernel_fn<KT>(d2[e]), ahi[e], alo[e]);
 #pragma unroll
-            for (int nt = 0; nt < kTcNTiles; ++nt) {
+            for (int nt = 0; nt < tc::kNTiles; ++nt) {
                 const uint4 b = *reinterpret_cast<const uint4*>(vf[s][nt][lane]);
                 mma_tf32(tile[nt], alo, b.x, b.y);  // A_lo B_hi
                 mma_tf32(tile[nt], ahi, b.z, b.w);  // A_hi B_lo
@@ -389,7 +344,7 @@ kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, con
             }
         }
 #pragma unroll
-        for (int nt = 0; nt < kTcNTiles; ++nt) {
+        for (int nt = 0; nt < tc::kNTiles; ++nt) {
 #pragma unroll
             for (int r = 0; r < 4; ++r) acc[nt][r] += tile[nt][r];
         }
@@ -402,7 +357,7 @@ kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, con
         const int r = row0 + lrow + 8 * h;
         if (r >= n) continue;
 #pragma unroll
-        for (int nt = 0; nt < kTcNTiles; ++nt) {
+        for (int nt = 0; nt < tc::kNTiles; ++nt) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int c = c0 + 8 * nt + 2 * q + e;
@@ -421,7 +376,7 @@ template <int KT, int DP>
 void launch_tc(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
                cudaStream_t stream) {
     constexpr int kWarps = DP <= 4 ? 8 : 4;
-    const dim3 grid((n + kWarps * 16 - 1) / (kWarps * 16), (t + kTcCols - 1) / kTcCols);
+    const dim3 grid((n + kWarps * 16 - 1) / (kWarps * 16), (t + tc::kCols - 1) / tc::kCols);
     kernel_matvec_tc<KT, DP, kWarps><<<grid, kWarps * 32, 0, stream>>>(x1, x2, v, out, n, m, d, t);
 }
 

@@ -12,21 +12,29 @@
 // +-(s_i c_j - c_i s_j), exactly 0 for equal points, whatever the size of a (see
 // periodic_common.cuh).  No per-pair transcendental is left but the exp.
 //
-// Design (as csrc/kernel_matvec.cu): each thread owns one output row and TC output columns
-// accumulated in registers (for t = 1 in two levels, one sum per staged tile, which keeps
-// float32 CG honest).  A block of 128 threads owns 128 rows and one tile of TC columns
-// (blockIdx.y) and walks over all of x2 and v in tiles of kTJ rows: the tile's half-angle
-// tables are formed once per block as it is staged into shared memory (O(m d) sincospif
-// per 128 rows, against O(128 m d) pair terms).  Every output element is written once by
-// one thread, without atomics: the result is deterministic.  Ragged n, m and t are masked:
-// out-of-range x2 rows stage zero tables (K = 1) against zero v rows, so they add nothing.
+// The K.V product is FP32 FMA on the CUDA cores for t <= 32 and t > 64, and 3xTF32 on the
+// tensor cores for t in (32, 64] (periodic_matvec_tc, below; tc_common.cuh).
 //
-// What bounds it on the H100: per (i, j) pair about 5 FP32 instructions per input dim, one
-// MUFU exp, and TC FMAs with their shared-memory loads; at t = 64 and d = 2 the FMAs
-// dominate and the FP32 instruction rate bounds it, not memory.  Known gaps, as for
-// kernel_matvec.cu: a 2048-row cross-covariance strip fills few SMs, and each column tile
-// recomputes K.  Tiers: DP input dims in registers (periodic::dispatch_dp); column tiles of
-// 1, 32 and 64.
+// Design of the FMA tiers (as csrc/kernel_matvec.cu): each thread owns one output row and
+// TC output columns accumulated in registers.  A block of 128 threads owns 128 rows and one
+// tile of TC columns (blockIdx.y) and walks over all of x2 and v in tiles of kTJ rows: the
+// tile's half-angle tables are formed once per block as it is staged into shared memory
+// (O(m d) sincospif per 128 rows, against O(128 m d) pair terms).  Sums: t = 1 and t > 64
+// in two levels, each staged tile's kTJ terms summed apart and then added to the running
+// sum, as the JAX kernel sums per block of rows j (o_ref += pv per _BM-row block); t <= 32
+// (t = 20, a Lanczos block) in one, as kernel_matvec.cu chose (a second set of TC sums
+// made that tier 40-60 % slower).  t > 64 (t = 100, the LOVE root) runs tiles of 32
+// columns: one running float32 sum over 100k terms per column is what made the RBF
+// kernel's smallest LOVE variances 90 % off float64.  Every output element is written
+// once by one thread, without atomics: the result is deterministic.  Ragged n, m and t are
+// masked: out-of-range x2 rows stage zero tables (K = 1) against zero v rows, so they add
+// nothing.
+//
+// What bounds the FMA tiers on the H100: per (i, j) pair about 5 FP32 instructions per
+// input dim, one MUFU exp, and TC FMAs with their shared-memory loads, so the FP32
+// instruction rate, not memory.  Known gaps, as for kernel_matvec.cu: a 2048-row
+// cross-covariance strip fills few SMs, and each column tile recomputes K.  Tiers: DP
+// input dims (periodic::dispatch_dp); column tiles of 1 and 32, and 64 on the tensor cores.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; loaded with ctypes.
 
@@ -34,6 +42,7 @@
 #include <stdint.h>
 
 #include "periodic_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -43,7 +52,9 @@ using periodic::sin_diff;
 constexpr int kRows = 128;  // threads per block = output rows per block
 constexpr int kTJ = 64;     // x2 / v rows staged per shared-memory tile
 
-template <int DP, int TC>
+// TILED: sum each staged tile's kTJ terms apart before adding them to the running sums
+// (always so for TC = 1)
+template <int DP, int TC, bool TILED>
 __global__ void __launch_bounds__(kRows)
 periodic_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ w,
                     const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t) {
@@ -82,7 +93,12 @@ periodic_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, 
         }
         __syncthreads();
 
-        float tile_sum = 0.0f;  // t = 1: one sum per staged tile (see kernel_matvec.cu)
+        float tile_sum = 0.0f;
+        float tile[TILED ? TC : 1];
+        if constexpr (TILED) {
+#pragma unroll
+            for (int c = 0; c < TC; ++c) tile[c] = 0.0f;
+        }
 #pragma unroll 4
         for (int jj = 0; jj < kTJ; ++jj) {
             float q = 0.0f;
@@ -94,6 +110,15 @@ periodic_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, 
             const float kv = __expf(-2.0f * q);
             if constexpr (TC == 1) {
                 tile_sum = fmaf(kv, vs[jj], tile_sum);
+            } else if constexpr (TILED) {
+#pragma unroll
+                for (int c = 0; c < TC; c += 4) {
+                    const float4 b = *reinterpret_cast<const float4*>(&vs[jj * TC + c]);
+                    tile[c] = fmaf(kv, b.x, tile[c]);
+                    tile[c + 1] = fmaf(kv, b.y, tile[c + 1]);
+                    tile[c + 2] = fmaf(kv, b.z, tile[c + 2]);
+                    tile[c + 3] = fmaf(kv, b.w, tile[c + 3]);
+                }
             } else {
 #pragma unroll
                 for (int c = 0; c < TC; c += 4) {
@@ -106,6 +131,10 @@ periodic_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, 
             }
         }
         if constexpr (TC == 1) acc[0] += tile_sum;
+        if constexpr (TILED) {
+#pragma unroll
+            for (int c = 0; c < TC; ++c) acc[c] += tile[c];
+        }
         __syncthreads();
     }
 
@@ -113,6 +142,263 @@ periodic_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, 
 #pragma unroll
         for (int c = 0; c < TC; ++c) {
             if (c0 + c < t) out[(int64_t)row * t + c0 + c] = acc[c];
+        }
+    }
+}
+
+// The tensor-core tier's shared memory (dynamic): the V fragments; each thread's running
+// sums (its 32 accumulator entries, thread-minor, so that a warp touches 32 consecutive
+// words); the staged tile's half-angle tables (tc::kTJ rows of kRowStride floats); for
+// DP > 4 the block's rows' tables (16 WARPS rows) and the DP weights.  A row's tables take
+// 2 DP floats in 16-byte rows; past DP = 4 padded by 4 floats, so that the rows a
+// quarter-warp reads fall in different banks.
+template <int DP, int WARPS>
+struct TcLayout {
+    static constexpr int kRowStride = DP <= 4 ? (2 * DP + 3) / 4 * 4 : 2 * DP + 4;
+    static constexpr int kAccFloats = tc::kNTiles * 4 * WARPS * 32;
+    static constexpr int kFloats =
+        kAccFloats + tc::kTJ * kRowStride + (DP <= 4 ? 0 : WARPS * 16 * kRowStride + DP);
+    static constexpr size_t kBytes = sizeof(tc::VFrags) + sizeof(float) * kFloats;
+};
+
+// ---------------------------------------------------------------------------------------
+// The tensor-core tier, t in (32, 64]: every training CG iteration of the periodic model
+// (t = 1 + 63 probes).
+//
+// The layout of kernel_matvec.cu's kernel_matvec_tc, with other K elements: K_tile .
+// V_tile per staged tile of tc::kTJ rows j in 3xTF32 on mma.sync.m16n8k8.  Each warp owns
+// one m-tile of 16 rows and all 64 columns (8 n-tiles); for every 8-wide k-step over j, a
+// lane forms the four K elements of its own A fragment (rows g and g + 8 with g = lane / 4,
+// columns lane % 4 and lane % 4 + 4) as exp(-2 sum_k w_k sin_diff^2) from the half-angle
+// tables of its two rows and of the staged rows j, splits each into hi and lo and runs
+// three mma per n-tile.  K is thus formed once per block and never stored, and each K
+// element is the FMA tiers' own (the same tables, sums and exp).  The half-angle tables of
+// a row are interleaved (s_0, c_0, s_1, c_1, ...), so that one 16-byte shared load gives
+// two input dims; the staged tile's tables are formed with sincospif as the tile is stored
+// (O(m d) per block against O(16 WARPS m d) pair terms).  V is staged in
+// B-fragment order, split into hi and lo once (tc::VStage); the next tile's x2 values and
+// V entries are loaded into registers before the current tile's mma, so that the loads'
+// latency hides behind the tensor cores (without it kernel_matvec_tc took twice as long).
+// Sums in three levels: each staged tile's terms go into a fresh accumulator fragment,
+// the tiles' sums into a block sum over kTcBlockTiles tiles (2048 rows j, the JAX kernel's
+// _BM), and the block sums into the running one.  Rows of the periodic K hold thousands of
+// entries near 1, so a running sum grows large and rounds at each step: with two levels,
+// as kernel_matvec_tc sums, this kernel read 2.979e-06 of max |out| against float64 at
+// 100k x 100k, t = 64 (H100 80GB HBM3, 700 W), more than twice the plain float32 version's
+// 1.364e-06; with three, 6.308e-07.  The block sum cannot live in the mma's accumulators:
+// summed there over a block's 768 mma, the error read 1.050e-05.  No atomics and a fixed
+// order: deterministic.  Ragged n, m and t are masked as in the FMA tiers (zero tables and
+// zero V entries).
+//
+// Occupancy: two blocks an SM (at most 128 registers a thread at 8 warps).  The running
+// sums live in shared memory, each thread's own 32 entries touched once per block of
+// tiles, so that the third level takes no registers: with them in registers the kernel
+// took 178 registers, one block an SM and 43.2 ms at 100k x 100k, t = 64; forced to 128 it
+// spilled and took 35.0 ms; two levels in 128 registers took 32.2 ms.
+//
+// Tiers: for DP <= 4 (the path's d = 2) each lane holds its two rows' tables and the
+// weights in registers, with 8 warps (128 rows) a block.  For DP = 16 and 64 the block's
+// rows' tables and the weights are staged in shared memory, with 4 warps (64 rows), and the
+// dims are walked to d (rounded up to 2), not to DP.  Shared memory (TcLayout): 16 KB of V
+// fragments, the running sums (32 KB at 8 warps), and the tables: 82 KB at DP = 64, past
+// the 48 KB of static shared memory, so every tier takes it as dynamic shared memory
+// (cudaFuncAttributeMaxDynamicSharedMemorySize set where it passes 48 KB).
+//
+// What bounds it on the H100: 3 passes of 2t operations per pair on the tensor cores (7.8
+// ms at 100k x 100k, t = 64, at the dense TF32 peak of 495 TFLOP/s), against about 6d + 2
+// FP32 operations and one exp per pair on the CUDA cores (2.1 ms at d = 2 at 67 TFLOP/s).
+constexpr int kTcBlockTiles = 64;  // staged tiles per block sum: 2048 rows j
+
+template <int DP, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, 2)
+periodic_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ w,
+                   const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t) {
+    constexpr int kThreads = WARPS * 32;
+    constexpr int kBRows = WARPS * 16;
+    constexpr bool kRegX1 = DP <= 4;
+    constexpr int TS = TcLayout<DP, WARPS>::kRowStride;
+    constexpr int kXsPer = (tc::kTJ * DP + kThreads - 1) / kThreads;  // x2 values per thread per tile
+    extern __shared__ __align__(16) unsigned char smem[];
+    tc::VFrags& vf = *reinterpret_cast<tc::VFrags*>(smem);
+    float* accs = reinterpret_cast<float*>(smem + sizeof(tc::VFrags));  // the running sums
+    float* xs = accs + TcLayout<DP, WARPS>::kAccFloats;                 // the staged rows j' tables
+    float* x1s = xs + tc::kTJ * TS;                                     // the block's rows' (DP > 4)
+    float* ws = x1s + (kRegX1 ? 0 : kBRows * TS);                       // the weights (DP > 4)
+
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int lrow = (threadIdx.x >> 5) * 16 + g;  // this lane's first row within the block
+    const int row0 = blockIdx.x * kBRows;
+    const int c0 = blockIdx.y * tc::kCols;
+
+    // this lane's rows row0 + lrow + 8 h (h = 0, 1): their tables (s, c) and the weights
+    float sr[2][kRegX1 ? DP : 1], cr[2][kRegX1 ? DP : 1], wk[kRegX1 ? DP : 1];
+    if constexpr (kRegX1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = row0 + lrow + 8 * h;
+#pragma unroll
+            for (int k = 0; k < DP; ++k) {
+                sr[h][k] = 0.0f;
+                cr[h][k] = 0.0f;
+                if (r < n && k < d) half_angle(x1[(int64_t)r * d + k], sr[h][k], cr[h][k]);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < DP; ++k) wk[k] = k < d ? w[k] : 0.0f;
+    } else {
+        for (int idx = threadIdx.x; idx < kBRows * DP; idx += kThreads) {
+            const int r = idx / DP, k = idx % DP;
+            float s = 0.0f, c = 0.0f;
+            if (row0 + r < n && k < d) half_angle(x1[(int64_t)(row0 + r) * d + k], s, c);
+            x1s[r * TS + 2 * k] = s;
+            x1s[r * TS + 2 * k + 1] = c;
+        }
+        for (int k = threadIdx.x; k < DP; k += kThreads) ws[k] = k < d ? w[k] : 0.0f;
+    }
+    // the sums of the current block of kTcBlockTiles staged tiles, in registers; the
+    // running sums in shared memory (each thread's own entries: no barrier needed), where
+    // they take no registers from the 128 that two blocks an SM leave a thread
+    float blk[tc::kNTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < tc::kNTiles; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            blk[nt][r] = 0.0f;
+            accs[(4 * nt + r) * kThreads + threadIdx.x] = 0.0f;
+        }
+    }
+
+    // the next tile's V entries and x2 values, in registers until the tile is stored; the
+    // x2 values become half-angle tables as they are stored (zero tables past m and d)
+    tc::VStage<kThreads> vstage;
+    float px[kXsPer];
+    auto fetch = [&](int j0) {
+        vstage.fetch(v, m, t, j0, c0);
+#pragma unroll
+        for (int i = 0; i < kXsPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            const int jj = idx / DP, k = idx % DP;
+            px[i] = (idx < tc::kTJ * DP && j0 + jj < m && k < d) ? x2[(int64_t)(j0 + jj) * d + k] : 0.0f;
+        }
+    };
+    auto store = [&](int j0) {
+        vstage.store(vf);
+#pragma unroll
+        for (int i = 0; i < kXsPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            const int jj = idx / DP, k = idx % DP;
+            if (idx < tc::kTJ * DP) {
+                float s = 0.0f, c = 0.0f;
+                if (j0 + jj < m && k < d) half_angle(px[i], s, c);
+                xs[jj * TS + 2 * k] = s;
+                xs[jj * TS + 2 * k + 1] = c;
+            }
+        }
+    };
+    fetch(0);
+    for (int j0 = 0, tiles = 1; j0 < m; j0 += tc::kTJ, ++tiles) {
+        store(j0);
+        __syncthreads();
+        if (j0 + tc::kTJ < m) fetch(j0 + tc::kTJ);
+
+        float tile[tc::kNTiles][4];
+#pragma unroll
+        for (int nt = 0; nt < tc::kNTiles; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) tile[nt][r] = 0.0f;
+        }
+#pragma unroll
+        for (int s = 0; s < tc::kSteps; ++s) {
+            // A fragment: a[h + 2 c] = K(row g + 8 h, column q + 4 c) of the k-step, from
+            // qs[h + 2 c] = sum_k w_k sin_diff^2, summed over k in order as the FMA tiers do
+            const int jrow[2] = {8 * s + q, 8 * s + q + 4};
+            float qs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if constexpr (kRegX1) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+#pragma unroll
+                    for (int k4 = 0; k4 < 2 * DP; k4 += 4) {
+                        const float4 b = *reinterpret_cast<const float4*>(&xs[jrow[c] * TS + k4]);
+                        const float bk[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                            for (int kk = 0; kk < 2; ++kk) {
+                                const int k = k4 / 2 + kk;
+                                if (k < DP) {
+                                    const float sd = sin_diff(sr[h][k], cr[h][k], bk[2 * kk], bk[2 * kk + 1]);
+                                    qs[h + 2 * c] = fmaf(wk[k] * sd, sd, qs[h + 2 * c]);
+                                }
+                            }
+                        }
+                    }
+                }
+            } else {
+                // the dims to d rounded up to 2 (a 16-byte load holds two dims), not to DP
+                const float* ar[2] = {&x1s[lrow * TS], &x1s[(lrow + 8) * TS]};
+#pragma unroll 2
+                for (int k4 = 0; k4 < 2 * (d + (d & 1)); k4 += 4) {
+                    const float2 w2 = *reinterpret_cast<const float2*>(&ws[k4 / 2]);
+                    const float wv[2] = {w2.x, w2.y};
+                    float4 a4[2], b4[2];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) a4[h] = *reinterpret_cast<const float4*>(ar[h] + k4);
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) b4[c] = *reinterpret_cast<const float4*>(&xs[jrow[c] * TS + k4]);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            const float ak[4] = {a4[h].x, a4[h].y, a4[h].z, a4[h].w};
+                            const float bk[4] = {b4[c].x, b4[c].y, b4[c].z, b4[c].w};
+#pragma unroll
+                            for (int kk = 0; kk < 2; ++kk) {
+                                const float sd = sin_diff(ak[2 * kk], ak[2 * kk + 1], bk[2 * kk], bk[2 * kk + 1]);
+                                qs[h + 2 * c] = fmaf(wv[kk] * sd, sd, qs[h + 2 * c]);
+                            }
+                        }
+                    }
+                }
+            }
+            uint32_t ahi[4], alo[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tc::split_tf32(__expf(-2.0f * qs[e]), ahi[e], alo[e]);
+#pragma unroll
+            for (int nt = 0; nt < tc::kNTiles; ++nt) {
+                const uint4 b = *reinterpret_cast<const uint4*>(vf[s][nt][lane]);
+                tc::mma_tf32(tile[nt], alo, b.x, b.y);  // A_lo B_hi
+                tc::mma_tf32(tile[nt], ahi, b.z, b.w);  // A_hi B_lo
+                tc::mma_tf32(tile[nt], ahi, b.x, b.y);  // A_hi B_hi
+            }
+        }
+        const bool block_end = tiles % kTcBlockTiles == 0 || j0 + tc::kTJ >= m;
+#pragma unroll
+        for (int nt = 0; nt < tc::kNTiles; ++nt) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                blk[nt][r] += tile[nt][r];
+                if (block_end) {
+                    accs[(4 * nt + r) * kThreads + threadIdx.x] += blk[nt][r];
+                    blk[nt][r] = 0.0f;
+                }
+            }
+        }
+        __syncthreads();
+    }
+
+    // C fragment: c[2 h + e] = out(row g + 8 h, column 2 q + e) of the n-tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = row0 + lrow + 8 * h;
+        if (r >= n) continue;
+#pragma unroll
+        for (int nt = 0; nt < tc::kNTiles; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int c = c0 + 8 * nt + 2 * q + e;
+                if (c < t) out[(int64_t)r * t + c] = accs[(4 * nt + 2 * h + e) * kThreads + threadIdx.x];
+            }
         }
     }
 }
@@ -215,19 +501,38 @@ void launch_wide(const float* x1, const float* x2, const float* w, const float* 
     periodic_matvec_wide_f32<TC><<<grid, kRows, 0, stream>>>(x1, x2, w, v, out, n, m, d, t);
 }
 
-template <int DP, int TC>
+template <int DP, int TC, bool TILED = false>
 void launch(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m, int d,
             int t, cudaStream_t stream) {
     const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
-    periodic_matvec_f32<DP, TC><<<grid, kRows, 0, stream>>>(x1, x2, w, v, out, n, m, d, t);
+    periodic_matvec_f32<DP, TC, TILED><<<grid, kRows, 0, stream>>>(x1, x2, w, v, out, n, m, d, t);
+}
+
+// the tensor-core tier's blocks: 8 warps (128 rows) with the rows' tables in registers
+// (DP <= 4), 4 warps (64 rows) with them staged (DP = 16, 64), as kernel_matvec.cu's launch_tc
+template <int DP>
+cudaError_t launch_tc(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m,
+                      int d, int t, cudaStream_t stream) {
+    constexpr int kWarps = DP <= 4 ? 8 : 4;
+    constexpr size_t kBytes = TcLayout<DP, kWarps>::kBytes;
+    if constexpr (kBytes > 48 * 1024) {
+        const cudaError_t rc = cudaFuncSetAttribute(periodic_matvec_tc<DP, kWarps>,
+                                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+        if (rc != cudaSuccess) return rc;
+    }
+    const dim3 grid((n + kWarps * 16 - 1) / (kWarps * 16), (t + tc::kCols - 1) / tc::kCols);
+    periodic_matvec_tc<DP, kWarps><<<grid, kWarps * 32, kBytes, stream>>>(x1, x2, w, v, out, n, m, d, t);
+    return cudaSuccess;
 }
 
 template <int DP>
-void dispatch_tc(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m,
-                 int d, int t, cudaStream_t s) {
+cudaError_t dispatch_tc(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m,
+                        int d, int t, cudaStream_t s) {
     if (t == 1) launch<DP, 1>(x1, x2, w, v, out, n, m, d, t, s);
     else if (t <= 32) launch<DP, 32>(x1, x2, w, v, out, n, m, d, t, s);
-    else launch<DP, 64>(x1, x2, w, v, out, n, m, d, t, s);
+    else if (t <= 64) return launch_tc<DP>(x1, x2, w, v, out, n, m, d, t, s);
+    else launch<DP, 32, true>(x1, x2, w, v, out, n, m, d, t, s);
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -248,7 +553,9 @@ extern "C" int gp_periodic_matvec_f32(const void* x1, const void* x2, const void
         if (t == 1) launch_wide<1>(a, b, ww, vv, o, n, m, d, t, s);
         else launch_wide<32>(a, b, ww, vv, o, n, m, d, t, s);
     } else {
-        periodic::dispatch_dp(d, [&](auto dp) { dispatch_tc<decltype(dp)::value>(a, b, ww, vv, o, n, m, d, t, s); });
+        cudaError_t rc = cudaSuccess;
+        periodic::dispatch_dp(d, [&](auto dp) { rc = dispatch_tc<decltype(dp)::value>(a, b, ww, vv, o, n, m, d, t, s); });
+        if (rc != cudaSuccess) return (int)rc;
     }
     return (int)cudaGetLastError();
 }

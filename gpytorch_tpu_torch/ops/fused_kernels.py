@@ -186,7 +186,7 @@ _SOURCES = tuple(
     for name in ("kernel_matvec", "kernel_grad_x", "kernel_bwd_fused", "kernel_periodic_matvec",
                  "kernel_periodic_bwd_fused")
 )
-_HEADERS = tuple(_PKG / "csrc" / name for name in ("periodic_common.cuh", "wide_d.cuh"))
+_HEADERS = tuple(_PKG / "csrc" / name for name in ("periodic_common.cuh", "tc_common.cuh", "wide_d.cuh"))
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 

@@ -167,12 +167,20 @@ def _periodic_data(n, m, d, t, seed, device):
     return tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrays)
 
 
+# the periodic product's tensor-core tier, t ∈ (32, 64], over every register and staged tier
+# of d, at ragged n and m (m < 32: one partial staged tile); (1000, 1537, 1, 64) is below
+PERIODIC_TC_CASES = [(n, m, d, t) for n, m in ((1000, 1537), (77, 19)) for d in (1, 2, 3, 11, 64) for t in (33, 64)
+                     if (n, m, d, t) != (1000, 1537, 1, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 2, 1), (1000, 1537, 1, 64), (129, 65, 3, 100), (300, 200, 11, 20),
-                                     (1, 1, 1, 1), *WIDE_CASES])
+                                     (1, 1, 1, 1), *WIDE_CASES, *PERIODIC_TC_CASES,
+                                     # t > 64: three 32-column tiles and a ragged one, summed per staged tile
+                                     (1000, 1537, 2, 100), (77, 1537, 64, 100)])
 def test_cuda_periodic_kernel_matches_plain(cuda_device, n, m, d, t):
     x1, x2, w, v = _periodic_data(n, m, d, t, seed=d + t, device=cuda_device)
-    w = w / d if d > 64 else w  # keeps Σ_k w_k sin² O(1): K would underflow to 0 otherwise
+    w = w / d if d > 11 else w  # keeps Σ_k w_k sin² O(1): K would underflow to 0 otherwise
     before = ppk.periodic_matvec_cuda.launches
     got = ppk.fused_periodic_matvec(x1, x2, w, v)
     torch.cuda.synchronize()

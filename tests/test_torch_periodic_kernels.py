@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 import gpytorch_tpu as gp
 from gpytorch_tpu.ops import pallas_kernels as pk
 from gpytorch_tpu_torch.ops import periodic_kernels as ppk
@@ -93,6 +94,29 @@ def test_plain_product_matches_pallas_kernel_interpret(d, pallas_interpret_small
     want = pk._periodic_matvec_pallas(*(jnp.asarray(a) for a in (x1, x2, w, v)))
     got = ppk._periodic_matvec_reference(*_t(x1, x2, w, v))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4, atol=3e-4)
+
+
+@jax.jit
+def _pallas_product(x1, x2, w, v):
+    return pk._periodic_matvec_pallas(x1, x2, w, v)
+
+
+@pytest.mark.parametrize("t", [64, 100])
+def test_plain_product_matches_pallas_kernel_interpret_at_path_arguments(t, pallas_interpret_small_tiles):
+    # the path's shape of input: d = 2, a = x / period up to 355 (a daily period over a year
+    # of readings), the weights of lengthscale 0.5, and the t of a training CG iteration and
+    # of the LOVE root; 300 × 700 spans 3 row and 3 column tiles of the interpret run, both
+    # ragged.  Float64 inputs, so that the Pallas kernel's own a − b is exact to 1e-13; its
+    # product still accumulates in float32 (preferred_element_type), which sets the tolerance:
+    # float32 rounding of each output against K|v|, the sum of its absolute terms
+    rng = np.random.default_rng(70 + t)
+    x1, x2 = (rng.uniform(0.0, 355.0, size=(r, 2)) for r in (300, 700))
+    w = np.full(2, 4.0)
+    v = rng.normal(size=(700, t))
+    want = np.asarray(_pallas_product(*(jnp.asarray(a) for a in (x1, x2, w, v))))
+    got = ppk._periodic_matvec_reference(*_t(x1, x2, w, v), chunk=128).numpy()
+    scale = ppk._periodic_matvec_reference(*_t(x1, x2, w, np.abs(v))).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * scale.max()
 
 
 @pytest.mark.parametrize("d", [1, 3])
@@ -209,3 +233,24 @@ def test_cuda_product_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError):
         ppk.periodic_matvec_cuda(*_f32((4, 2), (5, 2), (2,), (5, 3)))
     assert ppk.periodic_matvec_cuda.launches == before
+
+
+# chip_smoke.py's least time of the periodic product's tensor-core tier: the larger of the
+# tensor cores' 3 × 2t operations a pair, the CUDA cores' 6d + 2 and the bytes
+@pytest.mark.parametrize(
+    "n,m,d,t,want_ms,term",
+    [(100_000, 100_000, 2, 64, 7.758, "tensor"),  # the training CG shape: 7.758 ms, the tensor cores
+     (100_000, 100_000, 2, 1, 2.090, "cuda"),  # t = 1: the CUDA cores' 14 operations a pair decide
+     (2048, 100_000, 11, 33, 0.208, "cuda")],  # d = 11, t = 33: 68 CUDA-core operations against 198
+)
+def test_periodic_matvec_tc_bound(n, m, d, t, want_ms, term):
+    ms, by = cs.periodic_matvec_tc_bound(n, m, d, t)
+    assert by == "operations"
+    assert ms == pytest.approx(want_ms, abs=5e-4)
+    tensor_ms = 1e3 * 3 * 2 * t * n * m / cs.H100_TF32_FLOPS
+    cuda_ms = 1e3 * (6 * d + 2) * n * m / cs.H100_FP32_FLOPS
+    assert ms == pytest.approx(tensor_ms if term == "tensor" else cuda_ms, rel=1e-12)
+    # the tensor-core term is matvec_tc_bound's at the same n, m, t (where it decides there)
+    rbf_ms, rbf_by = cs.matvec_tc_bound(n, m, 1, t)
+    if term == "tensor":
+        assert (rbf_ms, rbf_by) == (pytest.approx(ms, rel=1e-12), "operations")
