@@ -29,19 +29,24 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               the wide-d tier (d = 100) at ragged shapes and on a 2048 × 16,384 strip.
 3c. periodic kernels — the CUDA periodic K·V and fused periodic backward kernels against
               their float32 plain versions for d ∈ {1, 2, 3, 11}, t ∈ {1, 20, 64, 100}
-              (ragged n ≠ m for the product, symmetric n for the backward); at every shape
-              of the path on the periodic task (N=100k, a = t / period up to 355: the
+              (ragged n ≠ m for the product, symmetric n for the backward: dx, dw and dos,
+              without and with dv; at t = 64 the backward's tensor-core tier); at every
+              shape of the path on the periodic task (N=100k, a = t / period up to 355: the
               product at t = 64, 1 and 20 and on the 2048-row strip at t = 100, the
-              backward at t = 64) against the plain versions in float64, the t=64 product
-              (the tensor-core tier) and the t=100 strip (32-column tiles summed per staged
-              tile) gated at twice the plain float32 version's error there; both timed;
-              the product's wide-d tier (d = 100) at ragged shapes and at 16,384 rows.
+              backward's training call at t = 64: dx, dw and dos) against the plain
+              versions in float64, the t=64 product and backward (the tensor-core tiers)
+              and the t=100 strip (32-column tiles summed per staged tile) gated at twice
+              the plain float32 version's error there; both timed; the product's wide-d
+              tier (d = 100) at ragged shapes and at 16,384 rows.
 4. slice    — serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel
               path), from the same data, parameters and Lanczos start.
 4c. grad-slice — the gradient of ΣUCB (UCB = μ + 2σ) with respect to 512 candidates at
               N=2000, CPU tensors against CUDA tensors, with the parameters frozen and live;
               the gate sits above a CPU float32-vs-float64 reading and below a planted fault
-              in the plain grad_x (the last sixteenth of the j range dropped).
+              in the plain grad_x (the last sixteenth of the j range dropped); then the same
+              for the periodic model at its initial values on the forecast week, through
+              the periodic product and the plain general periodic backward (its fault the
+              same sixteenth dropped there).
 5. serve    — the flagship exact GP of bench.py (ConstantMean + Scale(RBF-ARD) +
               GaussianLikelihood) on its synthetic 3droad-shaped task, N=100,000 train,
               2,048 test, d=3, under bench.py's eval settings, from fixed parameters: one
@@ -71,10 +76,11 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               marginal NLPD, and the launches of both kernels.
 8. periodic — the periodic model on 347 days of 5-minute readings (N=100,000, x = [t, t],
               periods starting at 1 and 7 days): the initial parameters served on the
-              forecast week (the next 2,048 readings); the sources of the period gradient's
-              noise there (``period_gradient_sources``: the float32 kernel path against the
-              float64 plain path, and the spread over probe seeds; the round-off must stay
-              under the probe noise); phase 7's recipe for 120 steps with
+              forecast week (the next 2,048 readings); the sources of the gradients' noise
+              there (``period_gradient_sources``: the float32 kernel path and the float32
+              plain path against the float64 plain path, and the spread over probe seeds;
+              the period's round-off must stay under the probe noise); phase 7's recipe for
+              120 steps with
               the periods at their own learning rate; the trained model refreshed and asked
               for the week in 8 requests of 256 and one of 2,048.  Checks finite losses and
               gradients, the CG iterations of training and the forecast RMSE (within 0.003
@@ -94,8 +100,7 @@ Phases, in order; any failed check exits non-zero before the result line is prin
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
 
-``period_witness`` is not part of the run: it shows what a drifted period costs the
-periodic forecast (see its docstring).
+``period_witness`` and ``sass_witness`` are not part of the run (see their docstrings).
 """
 
 from __future__ import annotations
@@ -617,11 +622,18 @@ def periodic_matvec_tc_bound(n: int, m: int, d: int, t: int):
 
 
 def periodic_bwd_bound(n: int, d: int, t: int):
-    """Fused periodic backward: per (i, j) pair 6t FLOP for g_i·v_j, v_i·g_j and dv, 15d for
-    the sine and cosine of the difference from the tables, the weighted sin² and the dx and
-    dw updates, and 4 for the exponent and the two weights (one exp per pair besides); x,
-    w, g and v read once, dv, dx and dw written once."""
-    return bound_ms(n * n * (6 * t + 15 * d + 4), 4 * (2 * n * d + 2 * d + 3 * n * t))
+    """Fused periodic backward on the FP32 cores: per (i, j) pair 4t FLOP for the score
+    g_i·v_j + v_i·g_j, 15d for the sine and cosine of the difference from the tables, the
+    weighted sin² and the dx and dw updates, and 4 for the exponent, the score's weight and
+    dos (one exp per pair besides); x, w, g and v read once, dx, dw and dos written once."""
+    return bound_ms(n * n * (4 * t + 15 * d + 4), 4 * (2 * n * d + 2 * d + 2 * n * t + 1))
+
+
+def periodic_bwd_tc_bound(n: int, d: int, t: int):
+    """The fused periodic backward's t ∈ (32, 64] tier (dx, dw and dos): ``tc_bound`` with
+    the score [g_i | v_i]·[v_j | g_j] of depth 2t on the tensor cores, the 15d + 4
+    CUDA-core operations per pair of ``periodic_bwd_bound``, and its bytes."""
+    return tc_bound(n * n, 2 * t, 15 * d + 4, 4 * (2 * n * d + 2 * d + 2 * n * t + 1))
 
 
 def phase_device():
@@ -957,7 +969,7 @@ def phase_grad_x():
 
 def _periodic_abs_terms(x1, x2, w, v, g=None):
     """Sums of absolute terms, dense and float64: of the periodic product (K|v|) without
-    ``g``, else of the fused backward's (dv, dx, dw) with x1 = x2."""
+    ``g``, else of the fused backward's (dv, dx, dw, dos) with x1 = x2."""
     import torch
 
     f1, f2 = x1 - torch.round(x1), x2 - torch.round(x2)
@@ -966,10 +978,9 @@ def _periodic_abs_terms(x1, x2, w, v, g=None):
     K = torch.exp(-2.0 * (w * S * S).sum(-1))
     if g is None:
         return K @ v.abs()
-    gv = (g @ v.mT).abs()
-    gg = K * (gv + (v @ g.mT).abs())
+    gg = K * ((g @ v.mT).abs() + (v @ g.mT).abs())
     dx = 4.0 * torch.pi * w * torch.einsum("ij,ijk->ik", gg, (S * torch.cos(torch.pi * diff)).abs())
-    return K @ g.abs(), dx, 2.0 * torch.einsum("ij,ijk->k", K * gv, S * S)
+    return K @ g.abs(), dx, torch.einsum("ij,ijk->k", gg, S * S), 0.5 * gg.sum()
 
 
 def phase_periodic_kernels():
@@ -1002,16 +1013,22 @@ def phase_periodic_kernels():
             check(rel <= P_KERNEL_REL_TOL, f"periodic product d={d}, t={t}: relative error {rel:.3e} > {P_KERNEL_REL_TOL}")
 
             g, v = data((1537, t), (1537, t))
-            got = ppk.periodic_bwd_fused_cuda(x2, w, g, v)
-            plain = ppk._periodic_bwd_fused_reference(x2, w, g, v)
+            plain = ppk._periodic_bwd_fused_reference(x2, w, g, v, True, True)
             scales = _periodic_abs_terms(x2.double(), x2.double(), w.double(), v.double(), g.double())
-            for name, a, b, scale in zip(("dv", "dx", "dw"), got, plain, scales):
-                err = (a.double() - b.double()).abs().max().item()
-                rel = err / scale.max().item()
-                bwd_abs, worst_bwd = max(bwd_abs, err), max(worst_bwd, rel)
-                check(rel <= P_KERNEL_REL_TOL,
-                      f"periodic backward d={d}, t={t}, {name}: relative error {rel:.3e} > {P_KERNEL_REL_TOL}")
-        print(f"[periodic-kernel] d={d}: product n=1000 m=1537 and backward n=1537, t∈{{1,20,64,100}}, within "
+            # the FMA tier at t = 1, 20, 100, the tensor-core tier at t = 64; dv, where
+            # asked for, is one product besides
+            for need_dv in (False, True):
+                got = ppk.periodic_bwd_fused_cuda(x2, w, g, v, need_dv, True)
+                for name, a, b, scale in zip(("dv", "dx", "dw", "dos"), got, plain, scales):
+                    if a is None:
+                        continue
+                    err = (a.double() - b.double()).abs().max().item()
+                    rel = err / scale.max().item()
+                    bwd_abs, worst_bwd = max(bwd_abs, err), max(worst_bwd, rel)
+                    check(rel <= P_KERNEL_REL_TOL, f"periodic backward d={d}, t={t}, dv {need_dv}, {name}: relative "
+                                                   f"error {rel:.3e} > {P_KERNEL_REL_TOL}")
+        print(f"[periodic-kernel] d={d}: product n=1000 m=1537 and backward n=1537 (dx, dw, dos, without and with "
+              f"dv; at t=64 the tensor-core tier), t∈{{1,20,64,100}}, within "
               f"{P_KERNEL_REL_TOL} of the float32 plain versions (worst so far: product {worst_mv:.3e}, backward "
               f"{worst_bwd:.3e})", flush=True)
 
@@ -1049,24 +1066,8 @@ def phase_periodic_kernels():
         print(f"[periodic-kernel] product {n}x{N} d={P_D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{bms:.3f} ms ({by}), against float64 max |Δ| / max |·| {rel:.3e} (tol {P_PATH_TOL})", flush=True)
 
-    t = 64
-    g, v = data((N, t), (N, t))
-    got = ppk.periodic_bwd_fused_cuda(xp, w, g, v)
-    exact = ppk._periodic_bwd_fused_reference(xp.double(), w.double(), g.double(), v.double())
-    rels = []
-    for name, a, b in zip(("dv", "dx", "dw"), got, exact):
-        err = (a.double() - b).abs().max().item()
-        bwd_abs = max(bwd_abs, err)
-        rels.append(err / b.abs().max().item())
-        check(rels[-1] <= P_PATH_TOL, f"periodic backward at the training shape, {name}, against float64: "
-                                      f"{rels[-1]:.3e} > {P_PATH_TOL}")
-    del exact
-    bwd_ms = cuda_time_ms(lambda: ppk.periodic_bwd_fused_cuda(xp, w, g, v), 3)
-    bwd_plain_ms = cuda_time_ms(lambda: ppk._periodic_bwd_fused_reference(xp, w, g, v), 1)
-    bms, by = periodic_bwd_bound(N, P_D, t)
-    print(f"[periodic-kernel] backward {N}x{N} d={P_D} t={t}: kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, "
-          f"bound {bms:.3f} ms ({by}); against float64, max |Δ| / max |·| of dv, dx, dw: "
-          f"{rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e} (tol {P_PATH_TOL})", flush=True)
+    bwd_err, bwd_ms, bwd_plain_ms = periodic_bwd_at_path(xp, w)
+    bwd_abs = max(bwd_abs, bwd_err)
 
     # the product's wide-d tier (d > 64; the fused backward takes d ≤ 64, as the JAX
     # package's): ragged n ≠ m at t = 1 and 64 against the float32 plain version, weights
@@ -1103,6 +1104,57 @@ def phase_periodic_kernels():
           f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), against float64 max |Δ| / max |·| {rel:.3e} (tol {P_PATH_TOL})",
           flush=True)
     return mv_abs, timed, bwd_abs, bwd_ms, bwd_plain_ms
+
+
+def periodic_bwd_at_path(xp=None, w=None):
+    """The fused periodic backward's training call (dx, dw and dos, no dv; the tensor-core
+    tier) at N=100k on the periodic task's inputs ``xp`` (x / period) with weights ``w``,
+    on random g and v (t = 64): against float64 beside the plain float32 version, gated at
+    twice the plain version's error and ``P_PATH_TOL``; timed beside its bounds and the
+    plain version.  Returns (max_abs_err, ms, plain_ms).  Phase 3c calls it; alone (phase
+    8's inputs, about a minute after the build):
+
+        python3 -c 'import chip_smoke; chip_smoke.periodic_bwd_at_path()'
+    """
+    import torch
+
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    dev = "cuda"
+    if xp is None:
+        phase_device()
+        train_x, _, _, _ = make_periodic_task(P_N_TRAIN, P_N_TEST)
+        xp = torch.as_tensor(train_x, dtype=torch.float32, device=dev) / torch.tensor(P_PERIODS, device=dev)
+        w = torch.full((P_D,), 4.0, dtype=torch.float32, device=dev)  # lengthscale 0.5
+    n, t = xp.shape[0], 64
+    rng = np.random.default_rng(7)
+    g, v = (torch.as_tensor(rng.normal(size=(n, t)), dtype=torch.float32, device=dev) for _ in range(2))
+    exact = ppk._periodic_bwd_fused_reference(xp.double(), w.double(), g.double(), v.double(), False, True)
+
+    def rel(out):
+        return [(a.double() - b).abs().max().item() / b.abs().max().item() for a, b in zip(out[1:], exact[1:])]
+
+    got = ppk.periodic_bwd_fused_cuda(xp, w, g, v, False, True)
+    rels = rel(got)
+    plain_rels = rel(ppk._periodic_bwd_fused_reference(xp, w, g, v, False, True))
+    err = max((a.double() - b).abs().max().item() for a, b in zip(got[1:], exact[1:]))
+    del exact
+    ms = cuda_time_ms(lambda: ppk.periodic_bwd_fused_cuda(xp, w, g, v, False, True), 3)
+    plain_ms = cuda_time_ms(lambda: ppk._periodic_bwd_fused_reference(xp, w, g, v, False, True), 1)
+    bms, by = periodic_bwd_tc_bound(n, P_D, t)
+    fp32_ms, _ = periodic_bwd_bound(n, P_D, t)
+
+    def fmt(r):
+        return ", ".join(f"{x:.3e}" for x in r)
+
+    print(f"[periodic-kernel] backward {n}x{n} d={P_D} t={t}, dx, dw and dos (the tensor-core tier): kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}; on the FP32 cores {fp32_ms:.3f} ms); against float64, "
+          f"max |Δ| / max |·| of dx, dw, dos: kernel {fmt(rels)}, plain float32 {fmt(plain_rels)} (gate: twice the "
+          f"plain version's, and {P_PATH_TOL})", flush=True)
+    for name, r, p in zip(("dx", "dw", "dos"), rels, plain_rels):
+        check(r <= min(2.0 * p, P_PATH_TOL), f"periodic backward at the training shape, {name}, against float64: "
+                                             f"{r:.3e}, more than twice the plain version's {p:.3e} or over {P_PATH_TOL}")
+    return err, ms, plain_ms
 
 
 def phase_slice(periodic=False):
@@ -1142,22 +1194,31 @@ def _per_key_gap(ref, got):
     return max((ref[k] - got[k]).abs().max().item() / ref[k].abs().max().item() for k in ref)
 
 
-def phase_grad_slice():
+def phase_grad_slice(periodic=False):
     """The gradient of ΣUCB at N=2000 on CPU tensors (plain path) against CUDA tensors
     (kernel path), from the same data, parameters and Lanczos start: with the parameters
     frozen (dx1 of each product) and live (dx1, dx2 and dos).  The gate sits above a CPU
-    float32-against-float64 reading and below a planted fault in the plain
-    ``_grad_x_reference`` (the last sixteenth of the j range dropped), which it must see."""
+    float32-against-float64 reading and below a planted fault, which it must see: the last
+    sixteenth of the j range dropped from the plain ``_grad_x_reference`` (flagship, from
+    JAX_PARAMS) or, for the periodic model at its initial values on the forecast week, from
+    the plain general backward ``_periodic_backward_reference`` (plain on both devices;
+    on the card its products and the outputscale's dos = Σ g ⊙ (K v) launch the periodic
+    K·V kernel)."""
     import torch
 
     from gpytorch_tpu_torch import settings
     from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
 
+    tag = "periodic-grad-slice" if periodic else "grad-slice"
     n, n_test = 2000, 512
-    train_x, train_y, test_x, _ = make_task(n, n_test, seed=2)
+    train_x, train_y, test_x, _ = (make_periodic_task if periodic else make_task)(n, n_test, seed=2)
 
     def run(device, dtype, live):
-        model = build_model(train_x, train_y, device, dtype)
+        if periodic:
+            model = build_periodic_model(train_x, train_y, device, dtype).eval()
+        else:
+            model = build_model(train_x, train_y, device, dtype)
         params = dict(model.named_parameters())
         for p in params.values():
             p.requires_grad_(live)
@@ -1169,26 +1230,31 @@ def phase_grad_slice():
         out.update({k: g for k, g in zip(params, pgrads) if g is not None})
         return {k: g.detach().cpu().double() for k, g in out.items()}
 
-    sound = fk._grad_x_reference
+    module, name = (ppk, "_periodic_backward_reference") if periodic else (fk, "_grad_x_reference")
+    sound = getattr(module, name)
 
-    def planted(x1, x2, g, v, kernel_type, **kwargs):
+    def planted(x1, x2, *args, **kwargs):
         keep = x2.shape[0] - x2.shape[0] // 16
-        return sound(x1, x2[:keep], g, v[:keep], kernel_type, **kwargs)
+        if not periodic:
+            g, v, kernel_type = args
+            return sound(x1, x2[:keep], g, v[:keep], kernel_type, **kwargs)
+        w, g, v = args  # the rows j past keep add nothing to dx1, dx2 and dw
+        return sound(x1, x2, w, g, torch.cat((v[:keep], torch.zeros_like(v[keep:]))), **kwargs)
 
     for live in (False, True):
         cpu, gpu = run("cpu", torch.float32, live), run("cuda", torch.float32, live)
         gap, floor = _per_key_gap(cpu, gpu), _per_key_gap(run("cpu", torch.float64, live), cpu)
-        fk._grad_x_reference = planted
+        setattr(module, name, planted)
         try:
             fault = _per_key_gap(cpu, run("cpu", torch.float32, live))
         finally:
-            fk._grad_x_reference = sound
+            setattr(module, name, sound)
         label = "parameters live" if live else "parameters frozen"
-        print(f"[grad-slice] N={n} candidates={n_test}, {label} ({', '.join(cpu)}): CPU against CUDA max |Δ∇| / max "
+        print(f"[{tag}] N={n} candidates={n_test}, {label} ({', '.join(cpu)}): CPU against CUDA max |Δ∇| / max "
               f"|∇| {gap:.3e} (tol {GX_SLICE_TOL}; cpu float32 against float64 {floor:.3e}, against a planted fault "
               f"{fault:.3e})", flush=True)
-        check(gap <= GX_SLICE_TOL, f"grad-slice ({label}): CPU and CUDA gradients differ: {gap:.3e}")
-        check(fault > GX_SLICE_TOL, f"the grad-slice gate ({label}) does not see a planted fault: {fault:.3e}")
+        check(gap <= GX_SLICE_TOL, f"{tag} ({label}): CPU and CUDA gradients differ: {gap:.3e}")
+        check(fault > GX_SLICE_TOL, f"the {tag} gate ({label}) does not see a planted fault: {fault:.3e}")
 
 
 def phase_serve():
@@ -1321,8 +1387,10 @@ def phase_train_slice(periodic=False, wide=False):
     sound = getattr(module, name)
 
     def planted(*args, **kwargs):
-        a, b, c = sound(*args, **kwargs)
-        return a, b, None if c is None else c * (15 / 16)
+        # the third output: dos of (dv, dx, dos), dw of the periodic (dv, dx, dw, dos)
+        out = list(sound(*args, **kwargs))
+        out[2] = None if out[2] is None else out[2] * (15 / 16)
+        return tuple(out)
 
     setattr(module, name, planted)
     try:
@@ -1466,13 +1534,15 @@ def phase_flagship():
 
 
 def period_gradient_sources(model):
-    """Where the noise in the periods' gradient comes from, at ``model``'s parameters
-    (phase 8's initial ones): the raw gradients of one cold-started step by the float32
-    kernel path for each of ``P_GRAD_SEEDS`` probe seeds, and by the float64 plain path on
-    the first seed's probes, pivots and τ.  Their gap is the float32 round-off (kernels, CG,
-    preconditioner); the spread over seeds is the probe noise of the stochastic log-det
-    gradient.  Returns {name: (float64 grad, float32 grad, standard deviation over seeds)}
-    of the first seed."""
+    """Where the noise in the raw parameters' gradients comes from, at ``model``'s
+    parameters (phase 8's initial ones): the raw gradients of one cold-started step by the
+    float32 kernel path for each of ``P_GRAD_SEEDS`` probe seeds, and on the first seed's
+    probes, pivots and τ by the float32 and the float64 plain paths.  The kernel path's gap
+    to float64 is the float32 round-off (kernels, CG, preconditioner); the plain float32
+    path's gap is the part that the kernels do not carry; the spread over seeds is the
+    probe noise of the stochastic log-det gradient.  Returns {name: (float64 grad, float32
+    kernel-path grad, float32 plain-path grad, standard deviation over seeds)} of the first
+    seed."""
     import torch
 
     train_x = model.train_inputs[0].double().cpu().numpy()
@@ -1501,17 +1571,23 @@ def period_gradient_sources(model):
     with plain_kernels(), pins.replay():
         g64, it64 = grads(ref, 0, PC_NOISE_BUDGET_F64)
     t64 = time.perf_counter() - t0
+    with plain_kernels(), pins.replay():
+        g32p, it32p = grads(model, 0)
     out = {}
     print(f"[periodic] gradient sources at the initial parameters: float32 kernel path, {P_GRAD_SEEDS} probe seeds "
-          f"(CG {it32} iterations on the first; {t32:.1f} s), float64 plain path on the first seed's probes and "
-          f"pivots (CG {it64}; {t64:.1f} s)", flush=True)
+          f"(CG {it32} iterations on the first; {t32:.1f} s), float64 and float32 plain paths on the first seed's "
+          f"probes and pivots (CG {it64} and {it32p}; {t64:.1f} s for float64)", flush=True)
     for k in g32:
         spread = torch.stack([d[k] for d in draws]).std(0)
         mean = torch.stack([d[k] for d in draws]).mean(0)
-        out[k] = (g64[k], g32[k], spread)
-        print(f"[periodic]   {k}: float64 {g64[k].reshape(-1).numpy().tolist()}, float32 "
-              f"{g32[k].reshape(-1).numpy().tolist()}, |Δ| / spread "
-              f"{((g32[k] - g64[k]).abs() / spread).reshape(-1).numpy().round(4).tolist()}; over seeds mean "
+        out[k] = (g64[k], g32[k], g32p[k], spread)
+
+        def gap(a):
+            return ((a - g64[k]).abs() / spread).reshape(-1).numpy().round(4).tolist()
+
+        print(f"[periodic]   {k}: float64 {g64[k].reshape(-1).numpy().tolist()}, float32 kernel path "
+              f"{g32[k].reshape(-1).numpy().tolist()}, float32 plain path {g32p[k].reshape(-1).numpy().tolist()}; "
+              f"|Δ| from float64 / spread: kernel path {gap(g32[k])}, plain float32 {gap(g32p[k])}; over seeds mean "
               f"{mean.reshape(-1).numpy().tolist()}, spread {spread.reshape(-1).numpy().tolist()}", flush=True)
     return out
 
@@ -1557,8 +1633,8 @@ def period_witness():
 def sass_witness():
     """Which functions of the built kernel library run on the tensor cores: the count of
     ``HMMA.1688.F32.TF32`` in each function's SASS (``cuobjdump -sass``), printed for every
-    function that has one.  Fails unless every ``kernel_matvec_tc`` and
-    ``periodic_matvec_tc`` function has them and no other function does.  Not part of
+    function that has one.  Fails unless every ``kernel_matvec_tc``, ``periodic_matvec_tc``
+    and ``periodic_bwd_tc`` function has them and no other function does.  Not part of
     ``main`` (the disassembly is over 64 MiB and takes a minute):
 
         python3 -c 'import chip_smoke; chip_smoke.sass_witness()'
@@ -1583,7 +1659,7 @@ def sass_witness():
     check(proc.wait() == 0, "cuobjdump failed")
     demangled = (subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True, text=True).stdout.split("\n")
                  if shutil.which("c++filt") else list(counts))
-    tc_names = ("kernel_matvec_tc", "periodic_matvec_tc")
+    tc_names = ("kernel_matvec_tc", "periodic_matvec_tc", "periodic_bwd_tc")
     for (mangled, hmma), pretty in zip(counts.items(), demangled):
         if hmma or any(k in mangled for k in tc_names):
             print(f"[sass] {pretty[:120]}: {hmma} HMMA.1688.F32.TF32", flush=True)
@@ -1631,7 +1707,7 @@ def phase_periodic():
     rmse0, nlpd0, _, _, _ = forecast([slice(0, P_N_TEST)])
     print(f"[periodic] serving the initial parameters: rmse {rmse0:.4f}, marginal nlpd {nlpd0:.4f}", flush=True)
     sources = period_gradient_sources(model)
-    g64, g32, spread = sources["covar_module.base_kernel.raw_period_length"]
+    g64, g32, _, spread = sources["covar_module.base_kernel.raw_period_length"]
     roundoff = ((g32 - g64).abs() / spread).max().item()
     check(roundoff <= P_GRAD_ROUNDOFF_TOL, f"the float32 path's period gradient is {roundoff:.3f} probe-noise standard "
                                            f"deviations from the float64 plain path's (tol {P_GRAD_ROUNDOFF_TOL})")
@@ -1908,6 +1984,7 @@ def main() -> int:
         pmv_err, pmv_timed, pbwd_err, pbwd_ms, pbwd_plain_ms = phase_periodic_kernels()
         phase_slice()
         phase_grad_slice()
+        phase_grad_slice(periodic=True)
         serve_launches = phase_serve()
         phase_train_slice()
         phase_slice(periodic=True)
@@ -1941,7 +2018,9 @@ def main() -> int:
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
                        "periodic_matvec_tc_bound"},
             entry("periodic_bwd_fused", "kernel_periodic_bwd_fused.cu", 872, pbwd_launches, pbwd_err, pbwd_ms,
-                  pbwd_plain_ms, periodic_bwd_bound(P_N_TRAIN, P_D, 64)),
+                  pbwd_plain_ms, periodic_bwd_tc_bound(P_N_TRAIN, P_D, 64))
+            | {"tier": "t in (32, 64] (dx, dw, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
+                       "bound_ms from periodic_bwd_tc_bound"},
         ]
     }
     smi = subprocess.run(

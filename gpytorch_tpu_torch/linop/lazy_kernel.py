@@ -148,10 +148,11 @@ class LazyEvaluatedKernelOperator(LinearOperator):
 
     def _periodic_matmul(self, rhs, prefix: str, outputscale, grad_only: bool):
         """The periodic branch (``gpytorch_tpu/linop/lazy_kernel.py:200-210``): inputs
-        divided by the period, no centring, w = 1/ℓ² per input dim.  The outputscale stays
-        folded into the right-hand side, as in the JAX package: the periodic backward always
-        returns dv, so σ²'s gradient is Σ rhs ⊙ dv.  The lengthscale's gradient flows through
-        w and the period's through x / period, outside the kernels."""
+        divided by the period, no centring, w = 1/ℓ² per input dim.  The outputscale is an
+        operand of the scaled product, whose symmetric backward reads its gradient out of
+        the fused kernel, so that training computes no dv (the JAX package folds it into
+        the right-hand side and takes its gradient through dv).  The lengthscale's gradient
+        flows through w and the period's through x / period, outside the kernels."""
         from ..ops import periodic_kernels as pk
 
         per = self.hypers[prefix + "period_length"]
@@ -159,9 +160,10 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         w = torch.broadcast_to((1.0 / ls**2).reshape(-1), self.x1.shape[-1:]).contiguous()
         xs1 = (self.x1 / per).contiguous()
         xs2 = xs1 if self.symmetric else (self.x2 / per).contiguous()
+        rhs = rhs.contiguous()
         if outputscale is not None:
-            rhs = rhs * outputscale
-        return pk.fused_periodic_matvec(xs1, xs2, w, rhs.contiguous(), self.symmetric, grad_only)
+            return pk.fused_scaled_periodic_matvec(xs1, xs2, w, rhs, outputscale, self.symmetric, grad_only)
+        return pk.fused_periodic_matvec(xs1, xs2, w, rhs, self.symmetric, grad_only)
 
     def __getitem__(self, index):
         """Slice the inputs, not the kernel matrix: ``op[rows, cols]`` with two slices."""

@@ -256,6 +256,8 @@ def load_library() -> ctypes.CDLL:
         lib.gp_periodic_matvec_f32.restype = ctypes.c_int
         lib.gp_periodic_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.gp_periodic_bwd_fused_f32.restype = ctypes.c_int
+        lib.gp_periodic_bwd_fused_chunks.argtypes = [ctypes.c_int]
+        lib.gp_periodic_bwd_fused_chunks.restype = ctypes.c_int
         _lib = lib
     return _lib
 

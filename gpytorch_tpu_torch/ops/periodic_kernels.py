@@ -14,7 +14,8 @@ here:
 * the wrappers of the hand-written CUDA kernels ``csrc/kernel_periodic_matvec.cu`` and
   ``csrc/kernel_periodic_bwd_fused.cu`` (built with the package's other kernels, see
   ``ops/fused_kernels.py::build``);
-* the differentiable product ``fused_periodic_matvec`` (a ``torch.autograd.Function``).
+* the differentiable products ``fused_periodic_matvec`` and, with the outputscale an
+  operand of its own, ``fused_scaled_periodic_matvec`` (one ``torch.autograd.Function``).
   CPU tensors take the plain versions; CUDA tensors launch the CUDA kernels or raise —
   there is no fallback.
 
@@ -31,14 +32,11 @@ import math
 
 import torch
 
-from .fused_kernels import _check_cuda_f32, _zeros_out, load_library
+from .fused_kernels import _check_cuda_f32, _check_symmetric, _zeros_out, load_library
 
 # rows per block of the plain streamed versions (the JAX package's general periodic
 # backward chunks by 2048 rows: gpytorch_tpu/ops/pallas_kernels.py::_fpm_bwd)
 _CHUNK = 2048
-
-# columns per chunk of csrc/kernel_periodic_bwd_fused.cu for t > 1
-_BWD_COLS = 32
 
 # the widest input of the fused symmetric backward (``periodic_common.cuh::kMaxDP``): the
 # JAX package fuses it only for d ≤ 64 (gpytorch_tpu/ops/pallas_kernels.py::_fpm_bwd) and
@@ -93,35 +91,42 @@ def _periodic_matvec_reference(x1p, x2p, w, v, chunk: int = _CHUNK) -> torch.Ten
     return out
 
 
-def _periodic_bwd_fused_reference(xp, w, g, v, chunk: int = _CHUNK):
+def _periodic_bwd_fused_reference(xp, w, g, v, need_dv: bool = True, need_dos: bool = False, chunk: int = _CHUNK):
     """Plain version of the fused symmetric backward (the CUDA kernel's twin): for
-    out = K(xp, xp) v and the cotangent g, (dv, dx, dw) with
-    dv = K g, dx_ik = −4π w_k Σ_j K_ij (g_i·v_j + v_i·g_j) S_ijk C_ijk and
-    dw_k = −2 Σ_ij K_ij (g_i·v_j) S_ijk², where S and C are sin and cos of π(a_ik − a_jk)
-    (2 S C = sin 2π(a_ik − a_jk)): the function of
-    ``gpytorch_tpu/ops/pallas_kernels.py::_periodic_bwd_fused_pallas``.  Streamed by blocks
-    of rows."""
+    out = K(xp, xp) v and the cotangent g, (dv, dx, dw, dos) with the score
+    GG_ij = g_i·v_j + v_i·g_j = [g_i | v_i]·[v_j | g_j],
+    dv = K g, dx_ik = −4π w_k Σ_j K_ij GG_ij S_ijk C_ijk, dw_k = −Σ_ij K_ij GG_ij S_ijk² and
+    dos = ½ Σ_ij K_ij GG_ij, where S and C are sin and cos of π(a_ik − a_jk)
+    (2 S C = sin 2π(a_ik − a_jk)).  The function of
+    ``gpytorch_tpu/ops/pallas_kernels.py::_periodic_bwd_fused_pallas``, whose dw is
+    −2 Σ_ij K_ij (g_i·v_j) S_ijk²: K and S² are symmetric in (i, j), so that sum is half of
+    Σ_ij K_ij GG_ij S_ijk², and dos = Σ_ij K_ij (g_i·v_j) half of Σ_ij K_ij GG_ij; every
+    output is a sum of one score a pair.  dv and dos are ``None`` unless asked for; dv is
+    the plain product K·g, as the CUDA wrapper's is the product kernel's.  Streamed by
+    blocks of rows."""
     _check_shapes(xp, xp, w, v)
     if g.shape != v.shape:
         raise ValueError(f"g {tuple(g.shape)} and v {tuple(v.shape)} differ")
     s, c = _half_angle(xp)
     wf = w.reshape(-1)
     n, d = xp.shape
-    dv = torch.empty_like(v)
+    vg = torch.cat((v, g), -1)
+    dv = _periodic_matvec_reference(xp, xp, w, g, chunk) if need_dv else None
     dx = torch.empty_like(xp)
     dw = torch.zeros(d, dtype=xp.dtype, device=xp.device)
+    dos = torch.zeros((), dtype=v.dtype, device=v.device)
     for i in range(0, n, chunk):
-        sb, cb, gb, vb = s[i : i + chunk], c[i : i + chunk], g[i : i + chunk], v[i : i + chunk]
+        sb, cb = s[i : i + chunk], c[i : i + chunk]
         S = _sin_diffs(sb, cb, s, c)
         K = _kernel_block(S, wf)
-        KW = K * (gb @ v.mT)
-        GG = KW + K * (vb @ g.mT)
-        dv[i : i + chunk] = K @ g
+        KG = K * (torch.cat((g[i : i + chunk], v[i : i + chunk]), -1) @ vg.mT)
+        if need_dos:
+            dos += KG.sum()
         for k in range(d):
             C = cb[:, k, None] * c[None, :, k] + sb[:, k, None] * s[None, :, k]
-            dx[i : i + chunk, k] = (-4.0 * math.pi) * wf[k] * (GG * S[k] * C).sum(-1)
-            dw[k] += -2.0 * (KW * S[k] * S[k]).sum()
-    return dv, dx, dw
+            dx[i : i + chunk, k] = (-4.0 * math.pi) * wf[k] * (KG * S[k] * C).sum(-1)
+            dw[k] -= (KG * S[k] * S[k]).sum()
+    return dv, dx, dw, (0.5 * dos if need_dos else None)
 
 
 def _periodic_backward_reference(x1p, x2p, w, g, v, need_dv: bool = True, chunk: int = _CHUNK):
@@ -185,15 +190,18 @@ periodic_matvec_cuda = PeriodicMatvecCUDA()
 
 
 class PeriodicBwdFusedCUDA:
-    """Wrapper of the fused symmetric periodic backward kernel: returns (dv, dx, dw) as
-    ``_periodic_bwd_fused_reference`` does.  Allocates the outputs and the per-chunk raw
-    dx and dw partials, launches on the current stream, folds the partials with
-    ``torch.sum``, applies the constant factors and counts its launches in ``launches``."""
+    """Wrapper of the fused symmetric periodic backward kernel: returns (dv, dx, dw, dos)
+    as ``_periodic_bwd_fused_reference`` does.  Allocates the per-chunk raw per-row dx, dw
+    and dos partials (as many chunks as the library says), launches on the current
+    stream, folds the partials with ``torch.sum``, applies the constant factors and counts
+    its launches in ``launches``.  The kernel forms no dv: where it is asked for, dv = K·g
+    is one launch of the product kernel (counted by ``periodic_matvec_cuda``)."""
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, xp: torch.Tensor, w: torch.Tensor, g: torch.Tensor, v: torch.Tensor):
+    def __call__(self, xp: torch.Tensor, w: torch.Tensor, g: torch.Tensor, v: torch.Tensor, need_dv: bool = True,
+                 need_dos: bool = False):
         _check_shapes(xp, xp, w, v)
         if g.shape != v.shape:
             raise ValueError(f"g {tuple(g.shape)} and v {tuple(v.shape)} differ")
@@ -204,32 +212,34 @@ class PeriodicBwdFusedCUDA:
             raise ValueError(f"the fused backward kernel takes at most {FUSED_BWD_MAX_D} input dims, got {d}")
         dev = xp.device
         if n == 0 or t == 0:
-            return torch.zeros_like(v), torch.zeros_like(xp), torch.zeros(d, dtype=torch.float32, device=dev)
-        chunks = 1 if t == 1 else -(-t // _BWD_COLS)
-        dv = torch.empty((n, t), dtype=torch.float32, device=dev)
+            dos = torch.zeros((), dtype=torch.float32, device=dev) if need_dos else None
+            return (torch.zeros_like(v) if need_dv else None), torch.zeros_like(xp), torch.zeros_like(w.reshape(-1)), dos
+        lib = load_library()
+        chunks = lib.gp_periodic_bwd_fused_chunks(t)
         dx_part = torch.empty((chunks, n, d), dtype=torch.float32, device=dev)
         dw_part = torch.empty((chunks, n, d), dtype=torch.float32, device=dev)
-        lib = load_library()
+        dos_part = torch.empty((chunks, n), dtype=torch.float32, device=dev) if need_dos else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.gp_periodic_bwd_fused_f32(
-                xp.data_ptr(), w.data_ptr(), g.data_ptr(), v.data_ptr(), dv.data_ptr(), dx_part.data_ptr(),
-                dw_part.data_ptr(), n, d, t, chunks, stream,
+                xp.data_ptr(), w.data_ptr(), g.data_ptr(), v.data_ptr(), dx_part.data_ptr(), dw_part.data_ptr(),
+                dos_part.data_ptr() if need_dos else None, n, d, t, int(need_dos), stream,
             )
         if rc != 0:
             raise RuntimeError(f"periodic_bwd_fused launch failed: CUDA error {rc}")
         self.launches += 1
+        dv = periodic_matvec_cuda(xp, xp, w, g) if need_dv else None
         wf = w.reshape(-1)
         dx = (-4.0 * math.pi) * wf * (dx_part[0] if chunks == 1 else dx_part.sum(0))
-        dw = -2.0 * dw_part.sum((0, 1))
-        return dv, dx, dw
+        dw = -dw_part.sum((0, 1))
+        return dv, dx, dw, (0.5 * dos_part.sum() if need_dos else None)
 
 
 periodic_bwd_fused_cuda = PeriodicBwdFusedCUDA()
 
 
 # ----------------------------------------------------------------------------------------
-# dispatch and the differentiable product
+# dispatch and the differentiable products
 # ----------------------------------------------------------------------------------------
 
 def _periodic_product(x1p, x2p, w, v) -> torch.Tensor:
@@ -240,32 +250,40 @@ def _periodic_product(x1p, x2p, w, v) -> torch.Tensor:
     return _periodic_matvec_reference(x1p, x2p, w, v)
 
 
-def _periodic_bwd_fused(xp, w, g, v):
+def _periodic_bwd_fused(xp, w, g, v, need_dv, need_dos):
     if xp.is_cuda:
-        return periodic_bwd_fused_cuda(xp, w, g, v)
+        return periodic_bwd_fused_cuda(xp, w, g, v, need_dv, need_dos)
     if xp.device.type != "cpu":
         raise ValueError(f"unsupported device {xp.device}")
-    return _periodic_bwd_fused_reference(xp, w, g, v)
+    return _periodic_bwd_fused_reference(xp, w, g, v, need_dv, need_dos)
 
 
 class _PeriodicMatvec(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x1p, x2p, w, v, symmetric, grad_only):
-        ctx.save_for_backward(x1p, x2p, w, v)
+    def forward(ctx, x1p, x2p, w, v, outputscale, symmetric, grad_only):
+        ctx.save_for_backward(x1p, x2p, w, v, outputscale)
         ctx.symmetric = symmetric
-        return _zeros_out(x1p, v) if grad_only else _periodic_product(x1p, x2p, w, v)
+        if grad_only:
+            return _zeros_out(x1p, v)
+        return _periodic_product(x1p, x2p, w, v if outputscale is None else (outputscale * v).contiguous())
 
     @staticmethod
     def backward(ctx, g):
-        x1p, x2p, w, v = ctx.saved_tensors
-        need_dv = ctx.needs_input_grad[3]
+        x1p, x2p, w, v, os_ = ctx.saved_tensors
+        need_dv, need_dos = ctx.needs_input_grad[3:5]
         g = g.contiguous()
         if ctx.symmetric and x1p.shape[-1] <= FUSED_BWD_MAX_D:
-            # one fused pass; the whole cotangent of the one input tensor comes back in dx1
-            dv, dx, dw = _periodic_bwd_fused(x1p, w, g, v)
-            return dx, None, dw.reshape(w.shape), (dv if need_dv else None), None, None
-        dv, dx1, dx2, dw = _periodic_backward_reference(x1p, x2p, w, g, v, need_dv=need_dv)
-        return dx1, dx2, dw.reshape(w.shape), dv, None, None
+            # one fused pass gives dx (the whole cotangent of the one input tensor), dw and
+            # dos; dv = K g, which training never asks for, is one product besides
+            dv, dx1, dw, dos = _periodic_bwd_fused(x1p, w, g, v, need_dv, need_dos)
+            dx2 = None
+        else:
+            dv, dx1, dx2, dw = _periodic_backward_reference(x1p, x2p, w, g, v, need_dv=need_dv)
+            dos = (g * _periodic_product(x1p, x2p, w, v)).sum() if need_dos else None
+        if os_ is not None:
+            dx1, dx2, dw, dv = (None if t is None else os_ * t for t in (dx1, dx2, dw, dv))
+            dos = None if dos is None else dos.reshape(os_.shape).to(os_.dtype)
+        return dx1, dx2, dw.reshape(w.shape), dv, dos, None, None
 
 
 def fused_periodic_matvec(x1p: torch.Tensor, x2p: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -277,11 +295,28 @@ def fused_periodic_matvec(x1p: torch.Tensor, x2p: torch.Tensor, w: torch.Tensor,
     the CUDA kernels (float32, contiguous) or raise.
 
     ``symmetric``: x1p and x2p are one tensor, so the backward is the one fused pass
-    (``csrc/kernel_periodic_bwd_fused.cu``) that returns the whole cotangent of that tensor,
-    with dv and dw.  Otherwise the backward is the plain general one.  ``grad_only``: the
-    caller uses the product only for its gradient; the forward returns zeros and launches
-    nothing (the JAX package computes that unused value)."""
+    (``csrc/kernel_periodic_bwd_fused.cu``) that returns the whole cotangent of that tensor
+    and dw; dv, where asked for, is one more product K·g.  Otherwise the backward is the
+    plain general one.  ``grad_only``: the caller uses the product only for its gradient;
+    the forward returns zeros and launches nothing (the JAX package computes that unused
+    value)."""
     _check_shapes(x1p, x2p, w, v)
-    if symmetric and x2p is not x1p:
-        raise ValueError("symmetric=True needs x1p and x2p to be one tensor")
-    return _PeriodicMatvec.apply(x1p, x2p, w, v, bool(symmetric), bool(grad_only))
+    _check_symmetric(x1p, x2p, symmetric)
+    return _PeriodicMatvec.apply(x1p, x2p, w, v, None, bool(symmetric), bool(grad_only))
+
+
+def fused_scaled_periodic_matvec(x1p, x2p, w, v, outputscale, symmetric: bool = False,
+                                 grad_only: bool = False) -> torch.Tensor:
+    """out = outputscale · K(x1p, x2p) @ v, with the outputscale an operand of its own.
+
+    Its value is ``fused_periodic_matvec(x1p, x2p, w, outputscale · v)``.  Its gradient
+    reads the outputscale's cotangent ½ Σ_ij K_ij GG_ij out of the fused symmetric backward
+    (the general backward: Σ g ⊙ (K v), one product), and not through dv = K·g, which the
+    training backward never needs.  The JAX package folds the outputscale into the
+    right-hand side and takes its gradient through dv
+    (``gpytorch_tpu/linop/lazy_kernel.py:201-206``); the port does as the JAX package's RBF
+    path does (``fused_kernels.py::fused_scaled_kernel_matvec``)."""
+    _check_shapes(x1p, x2p, w, v)
+    _check_symmetric(x1p, x2p, symmetric)
+    outputscale = torch.as_tensor(outputscale, dtype=v.dtype, device=v.device)
+    return _PeriodicMatvec.apply(x1p, x2p, w, v, outputscale, bool(symmetric), bool(grad_only))

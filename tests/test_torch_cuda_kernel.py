@@ -192,34 +192,84 @@ def test_cuda_periodic_kernel_matches_plain(cuda_device, n, m, d, t):
     assert ((got.double() - want).abs().max() / scale).item() < 1e-5
 
 
+def _check_periodic_backward(got, x, w, g, v):
+    """The kernel's (dv, dx, dw, dos) against the float64 plain version, relative to the
+    sums of absolute terms (dx and dw of a single point are exactly 0); dv and dos only
+    where the kernel returned them."""
+    x64, w64, g64, v64 = x.double(), w.double(), g.double(), v.double()
+    want = ppk._periodic_bwd_fused_reference(x64, w64, g64, v64, True, True)
+    scales = cs._periodic_abs_terms(x64, x64, w64, v64, g64)
+    assert got[1] is not None and got[2] is not None
+    for a, b, scale, name in zip(got, want, scales, ("dv", "dx", "dw", "dos")):
+        if a is not None:
+            assert (a.double() - b).abs().max().item() <= 1e-5 * scale.max().item(), name
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,t", [(1537, 2, 64), (1537, 11, 20), (129, 3, 1), (300, 1, 33), (1, 1, 1)])
-def test_cuda_periodic_backward_kernel_matches_plain(cuda_device, n, d, t):
+@pytest.mark.parametrize("need_dv", [False, True])
+@pytest.mark.parametrize("n,d,t", [(1537, 2, 64), (1537, 11, 20), (129, 3, 1), (300, 1, 33), (1, 1, 1), (517, 2, 100)])
+def test_cuda_periodic_backward_kernel_matches_plain(cuda_device, n, d, t, need_dv):
+    # with dos: the FMA tier at t = 1, 20 and 100, the tensor-core tier at 33 and 64; dv,
+    # where asked for, is one launch of the product kernel besides
     x, _, w, g = _periodic_data(n, 1, d, t, seed=10 + d, device=cuda_device)
     g = g.new_tensor(np.random.default_rng(d).normal(size=(n, t)))
     v = g.new_tensor(np.random.default_rng(d + 1).normal(size=(n, t)))
-    before = ppk.periodic_bwd_fused_cuda.launches
-    got = ppk.periodic_bwd_fused_cuda(x, w, g, v)
+    before = (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
+    got = ppk.periodic_bwd_fused_cuda(x, w, g, v, need_dv, True)
     torch.cuda.synchronize()
-    assert ppk.periodic_bwd_fused_cuda.launches == before + 1
-    x64, w64, g64, v64 = x.double(), w.double(), g.double(), v.double()
-    want = ppk._periodic_bwd_fused_reference(x64, w64, g64, v64)
-    for a, b, scale, name in zip(got, want, cs._periodic_abs_terms(x64, x64, w64, v64, g64), ("dv", "dx", "dw")):
-        # float32 kernel against the float64 plain version, relative to the sums of absolute
-        # terms (dx and dw of a single point are exactly 0)
-        assert (a.double() - b).abs().max().item() <= 1e-5 * scale.max().item(), name
+    launched = (ppk.periodic_matvec_cuda.launches - before[0], ppk.periodic_bwd_fused_cuda.launches - before[1])
+    assert launched == (int(need_dv), 1)
+    assert (got[0] is not None) == need_dv and got[3] is not None
+    _check_periodic_backward(got, x, w, g, v)
+
+
+# the backward's tensor-core tier (t ∈ (32, 64], no dv): every register and staged tier of
+# d, n ragged against the block's rows and the staged tile's, and a single point
+PERIODIC_BWD_TC_CASES = [(n, d, t) for n in (1537, 77) for d in (1, 2, 3, 11, 64) for t in (33, 64)] + [(1, 2, 64)]
 
 
 @pytest.mark.cuda
-def test_symmetric_periodic_gradient_runs_the_backward_kernel(cuda_device):
-    x, _, w, v = _periodic_data(300, 300, 2, 4, seed=7, device=cuda_device)
-    g = torch.as_tensor(np.random.default_rng(8).normal(size=(300, 4)), dtype=torch.float32, device=cuda_device)
-    xs, ws, vs = (a.clone().requires_grad_(True) for a in (x, w, v))
+@pytest.mark.parametrize("need_dos", [True, False])
+@pytest.mark.parametrize("n,d,t", PERIODIC_BWD_TC_CASES)
+def test_cuda_periodic_backward_tc_tier_matches_plain(cuda_device, n, d, t, need_dos):
+    x, _, w, _ = _periodic_data(n, 1, d, t, seed=20 + d + t, device=cuda_device)
+    w = w / d if d > 11 else w  # keeps Σ_k w_k sin² O(1): K would underflow to 0 otherwise
+    g, v = (torch.as_tensor(np.random.default_rng(n + i).normal(size=(n, t)), dtype=torch.float32, device=cuda_device)
+            for i in range(2))
     before = (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
-    out = ppk.fused_periodic_matvec(xs, xs, ws, vs, symmetric=True, grad_only=True)
-    (out * g).sum().backward()
+    got = ppk.periodic_bwd_fused_cuda(x, w, g, v, False, need_dos)
     torch.cuda.synchronize()
-    assert (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches) == (before[0], before[1] + 1)
-    want_dv, want_dx, want_dw = ppk._periodic_bwd_fused_reference(x.double(), w.double(), g.double(), v.double())
-    for got, want in ((xs.grad, want_dx), (ws.grad, want_dw), (vs.grad, want_dv)):
-        torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+    assert (ppk.periodic_matvec_cuda.launches - before[0], ppk.periodic_bwd_fused_cuda.launches - before[1]) == (0, 1)
+    assert got[0] is None and (got[3] is not None) == need_dos
+    _check_periodic_backward(got, x, w, g, v)
+    # no atomics: a second launch repeats the first bit for bit
+    again = ppk.periodic_bwd_fused_cuda(x, w, g, v, False, need_dos)
+    for a, b in zip(got[1:], again[1:]):
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 64])
+def test_symmetric_periodic_gradient_runs_the_backward_kernel(cuda_device, t):
+    # the training call, σ² K v with v detached: one backward launch (the FMA tier at t = 1
+    # and 4, the tensor-core tier at t = 64) and no product; with v's gradient asked for,
+    # one product K·g besides
+    x, _, w, v = _periodic_data(300, 300, 2, t, seed=7, device=cuda_device)
+    g = torch.as_tensor(np.random.default_rng(8).normal(size=(300, t)), dtype=torch.float32, device=cuda_device)
+    want_dv, want_dx, want_dw, want_dos = ppk._periodic_bwd_fused_reference(x.double(), w.double(), g.double(),
+                                                                            v.double(), True, True)
+    os_ = 1.3
+    for need_v in (False, True):
+        xs, ws = (a.clone().requires_grad_(True) for a in (x, w))
+        vs = v.clone().requires_grad_(need_v)
+        o = torch.tensor(os_, device=cuda_device, requires_grad=True)
+        before = (ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
+        out = ppk.fused_scaled_periodic_matvec(xs, xs, ws, vs, o, symmetric=True, grad_only=True)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        launched = (ppk.periodic_matvec_cuda.launches - before[0], ppk.periodic_bwd_fused_cuda.launches - before[1])
+        assert launched == (int(need_v), 1)
+        pairs = [(xs.grad, os_ * want_dx), (ws.grad, os_ * want_dw), (o.grad, want_dos)]
+        pairs += [(vs.grad, os_ * want_dv)] if need_v else []
+        for got, want in pairs:
+            torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4 * want.abs().max().item())

@@ -1,8 +1,9 @@
 """The port's periodic kernel products (gpytorch_tpu_torch/ops/periodic_kernels.py) against
 the JAX package's: the plain product against its reference, the plain fused symmetric
-backward against the Pallas kernel in interpret mode and against jax.grad of the dense
-loss, the general backward against the VJP of the JAX package's custom-VJP product, and
-the autograd Function by gradcheck.
+backward against the Pallas kernel in interpret mode (float32: the Pallas kernel traces
+only in float32) and in float64 against jax.grad of the dense loss and jax.vjp of the JAX
+package's product, the general backward and the outputscale's gradient against the VJP of
+the JAX package's custom-VJP product, and the autograd Function by gradcheck.
 
 On the CPU everything takes the plain versions; the CUDA kernels themselves are checked
 against them on a GPU by tests/test_torch_cuda_kernel.py and chip_smoke.py.
@@ -76,6 +77,17 @@ def _jax_product_vjp(symmetric, g, x1, x2, w, v):
     return out, vjp(g)
 
 
+@functools.partial(jax.jit, static_argnums=0)
+def _jax_scaled_product_vjp(symmetric, g, x1, x2, w, os_, v):
+    """σ² K(x1, x2) v as the JAX package computes it, fused_periodic_matvec(x1, x2, w, σ² v),
+    and its VJP: the cotangents of (x1, w, σ², v) if symmetric, else of (x1, x2, w, σ², v)."""
+    if symmetric:
+        out, vjp = jax.vjp(lambda x, w_, o, v_: pk.fused_periodic_matvec(x, x, w_, o * v_), x1, w, os_, v)
+    else:
+        out, vjp = jax.vjp(lambda a, b, w_, o, v_: pk.fused_periodic_matvec(a, b, w_, o * v_), x1, x2, w, os_, v)
+    return out, vjp(g)
+
+
 @pytest.mark.parametrize("t", [1, 5, 33])
 @pytest.mark.parametrize("d", [1, 3])
 def test_plain_product_matches_jax_reference(d, t):
@@ -121,26 +133,34 @@ def test_plain_product_matches_pallas_kernel_interpret_at_path_arguments(t, pall
 
 @pytest.mark.parametrize("d", [1, 3])
 def test_plain_fused_backward_matches_pallas_kernel_interpret(d, pallas_interpret_small_tiles):
-    # float32, 150 rows = 2 row tiles, one ragged; the tolerance of tests/test_pallas_interpret.py
+    # float32 (the Pallas kernel's loop carries float32 sums, so it does not trace in
+    # float64), 150 rows = 2 row tiles, one ragged; the tolerance of tests/test_pallas_interpret.py.
+    # The twin's dw is the GG form, ½ of Σ K GG S², against the kernel's Σ K (g_i·v_j) S²
     rng = np.random.default_rng(20 + d)
     x = rng.normal(size=(150, d)).astype(np.float32)
     g, v = (rng.normal(size=(150, 4)).astype(np.float32) for _ in range(2))
     w = np.asarray([0.7, 1.3, 0.4][:d], dtype=np.float32)
     want = pk._periodic_bwd_fused_pallas(*(jnp.asarray(a) for a in (x, w, g, v)))
-    got = ppk._periodic_bwd_fused_reference(*_t(x, w, g, v))
+    got = ppk._periodic_bwd_fused_reference(*_t(x, w, g, v), need_dv=True, need_dos=True)
     for a, b, name in zip(got, want, ("dv", "dx", "dw")):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-4, atol=3e-4, err_msg=name)
+    # without dv and dos: none returned, and the same dx and dw
+    dv, dx, dw, dos = ppk._periodic_bwd_fused_reference(*_t(x, w, g, v), need_dv=False)
+    assert dv is None and dos is None
+    torch.testing.assert_close((dx, dw), got[1:3], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("chunk", [1, 37, 2048])
 def test_plain_fused_backward_matches_dense_gradient(chunk):
     # float64, against jax.grad of Σ g ⊙ (K(x, x) v) over (x, w, v), with row blocks that
-    # split the rows unevenly
+    # split the rows unevenly; dos against jax.vjp with respect to σ² of the JAX package's
+    # fused_periodic_matvec(x, x, w, σ² v) at σ² = 1
     x, _, w, _ = _inputs(30, 70, 1, 2, 3)
     g, v = np.random.default_rng(31).normal(size=(2, 70, 3))
     want_dx, want_dw, want_dv = _dense_grad(jnp.asarray(g), jnp.asarray(x), jnp.asarray(w), jnp.asarray(v))
-    dv, dx, dw = ppk._periodic_bwd_fused_reference(*_t(x, w, g, v), chunk=chunk)
-    for got, want, name in ((dv, want_dv, "dv"), (dx, want_dx, "dx"), (dw, want_dw, "dw")):
+    want_dos = _jax_scaled_product_vjp(True, *(jnp.asarray(a) for a in (g, x, x, w, 1.0, v)))[1][2]
+    dv, dx, dw, dos = ppk._periodic_bwd_fused_reference(*_t(x, w, g, v), need_dos=True, chunk=chunk)
+    for got, want, name in ((dv, want_dv, "dv"), (dx, want_dx, "dx"), (dw, want_dw, "dw"), (dos, want_dos, "dos")):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-10 * np.abs(want).max(),
                                    err_msg=name)
 
@@ -152,9 +172,9 @@ def test_fused_backward_of_far_apart_points_matches_float64():
     x = (rng.uniform(0.0, 355.0, size=(200, 2))).astype(np.float32)
     g, v = (rng.normal(size=(200, 3)).astype(np.float32) for _ in range(2))
     w = np.asarray([4.0, 4.0], dtype=np.float32)
-    got = ppk._periodic_bwd_fused_reference(*_t(x, w, g, v))
-    exact = ppk._periodic_bwd_fused_reference(*_t(*(a.astype(np.float64) for a in (x, w, g, v))))
-    for a, b, name in zip(got, exact, ("dv", "dx", "dw")):
+    got = ppk._periodic_bwd_fused_reference(*_t(x, w, g, v), need_dos=True)
+    exact = ppk._periodic_bwd_fused_reference(*_t(*(a.astype(np.float64) for a in (x, w, g, v))), need_dos=True)
+    for a, b, name in zip(got, exact, ("dv", "dx", "dw", "dos")):
         assert (a.double() - b).abs().max() <= 1e-5 * b.abs().max(), name
     out = ppk._periodic_matvec_reference(*_t(x, x, w, v))
     out64 = ppk._periodic_matvec_reference(*_t(*(a.astype(np.float64) for a in (x, x, w, v))))
@@ -180,6 +200,48 @@ def test_product_gradients_match_jax_vjp(symmetric):
         np.testing.assert_allclose(gt_.numpy(), np.asarray(wt), rtol=1e-10, atol=1e-10 * np.abs(wt).max())
 
 
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_scaled_product_gradients_match_jax_vjp(symmetric):
+    # the scaled product σ² K v with σ² an operand, against jax.vjp of the JAX package's
+    # fused_periodic_matvec(x1, x2, w, σ² v) (σ² folded into the right-hand side there):
+    # the same function, its gradients (x, w, σ², v) reached another way
+    x1, x2, w, v = _inputs(44, 50, 35, 2, 3)
+    os_ = 1.7
+    g = np.random.default_rng(45).normal(size=(50, 3))
+    if symmetric:
+        v = np.random.default_rng(46).normal(size=(50, 3))
+    out_j, want = _jax_scaled_product_vjp(symmetric, *(jnp.asarray(a) for a in (g, x1, x2, w, os_, v)))
+    a, w_t, v_t = _t(x1, w, v, grad=True)
+    o = torch.tensor(os_, dtype=torch.float64, requires_grad=True)
+    b = a if symmetric else torch.from_numpy(x2).requires_grad_(True)
+    out = ppk.fused_scaled_periodic_matvec(a, b, w_t, v_t, o, symmetric=symmetric)
+    out.backward(torch.from_numpy(g))
+    got = (a.grad, w_t.grad, o.grad, v_t.grad) if symmetric else (a.grad, b.grad, w_t.grad, o.grad, v_t.grad)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), rtol=1e-10, atol=1e-12)
+    for gt_, wt in zip(got, want):
+        np.testing.assert_allclose(gt_.numpy(), np.asarray(wt), rtol=1e-10, atol=1e-10 * np.abs(wt).max())
+
+
+@pytest.mark.parametrize("need_v", [False, True])
+def test_symmetric_scaled_backward_runs_one_fused_pass(need_v, monkeypatch):
+    # the training call: one fused backward asked for dos and not for dv; dv, where v's
+    # gradient is asked for, is one product K·g (the plain one here, on the CPU)
+    calls = []
+    for name in ("_periodic_product", "_periodic_bwd_fused", "_periodic_matvec_reference"):
+        fn = getattr(ppk, name)
+        monkeypatch.setattr(ppk, name, lambda *a, _fn=fn, _n=name: calls.append((_n, a[4:])) or _fn(*a))
+    x, _, w, v = _t(*_inputs(47, 40, 40, 2, 4), grad=True)
+    x.requires_grad_(True)
+    v = v.detach().requires_grad_(need_v)
+    o = torch.tensor(0.8, dtype=torch.float64, requires_grad=True)
+    out = ppk.fused_scaled_periodic_matvec(x, x, w, v, o, symmetric=True, grad_only=True)
+    assert torch.count_nonzero(out) == 0 and calls == []
+    out.backward(torch.ones_like(out))
+    want = [("_periodic_bwd_fused", (need_v, True))] + ([("_periodic_matvec_reference", (ppk._CHUNK,))] if need_v else [])
+    assert calls == want
+    assert (v.grad is not None) == need_v and o.grad is not None and w.grad is not None
+
+
 @pytest.mark.parametrize("grad_only", [False, True])
 @pytest.mark.parametrize("symmetric", [False, True])
 def test_gradcheck(symmetric, grad_only):
@@ -197,6 +259,27 @@ def test_gradcheck(symmetric, grad_only):
         if grad_only:
             assert torch.count_nonzero(out) == 0
             out = out + ppk._periodic_matvec_reference(x.detach(), y.detach(), w_.detach(), v_.detach())
+        return out
+
+    assert torch.autograd.gradcheck(f, args)
+
+
+@pytest.mark.parametrize("grad_only", [False, True])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_gradcheck_scaled(symmetric, grad_only):
+    # the scaled product's Function over (x, w, σ², v), as test_gradcheck does the unscaled
+    x1, x2, w, v = _inputs(62, 12, 9, 2, 3)
+    if symmetric:
+        v = np.random.default_rng(63).normal(size=(12, 3))
+    o = torch.tensor(1.3, dtype=torch.float64, requires_grad=True)
+    args = _t(x1, w, v, grad=True) + (o,) if symmetric else _t(x1, x2, w, v, grad=True) + (o,)
+
+    def f(*a):
+        x, y, w_, v_, o_ = (a[0], a[0], a[1], a[2], a[3]) if symmetric else a
+        out = ppk.fused_scaled_periodic_matvec(x, y, w_, v_, o_, symmetric=symmetric, grad_only=grad_only)
+        if grad_only:
+            assert torch.count_nonzero(out) == 0
+            out = out + o_.detach() * ppk._periodic_matvec_reference(x.detach(), y.detach(), w_.detach(), v_.detach())
         return out
 
     assert torch.autograd.gradcheck(f, args)
@@ -254,3 +337,21 @@ def test_periodic_matvec_tc_bound(n, m, d, t, want_ms, term):
     rbf_ms, rbf_by = cs.matvec_tc_bound(n, m, 1, t)
     if term == "tensor":
         assert (rbf_ms, rbf_by) == (pytest.approx(ms, rel=1e-12), "operations")
+
+
+# chip_smoke.py's least times of the fused periodic backward: the tensor-core tier's (the
+# score of depth 2t on the tensor cores against 15d + 4 CUDA-core operations a pair) and the
+# FP32 cores' for the same work (dx, dw, dos)
+@pytest.mark.parametrize(
+    "n,d,t,want_tc,term,want_fp32",
+    [(100_000, 2, 64, 15.515, "tensor", 43.284),  # the training call: the tensor cores decide
+     (100_000, 11, 33, 25.224, "cuda", 44.925)],  # d = 11: 169 CUDA-core operations against 396
+)
+def test_periodic_bwd_bounds(n, d, t, want_tc, term, want_fp32):
+    tc_ms, tc_by = cs.periodic_bwd_tc_bound(n, d, t)
+    assert tc_by == "operations" and tc_ms == pytest.approx(want_tc, abs=5e-4)
+    tensor_ms = 1e3 * 3 * 2 * (2 * t) * n * n / cs.H100_TF32_FLOPS
+    cuda_ms = 1e3 * (15 * d + 4) * n * n / cs.H100_FP32_FLOPS
+    assert tc_ms == pytest.approx(tensor_ms if term == "tensor" else cuda_ms, rel=1e-12)
+    fp32_ms, fp32_by = cs.periodic_bwd_bound(n, d, t)
+    assert fp32_by == "operations" and fp32_ms == pytest.approx(want_fp32, abs=5e-4)
