@@ -9,8 +9,8 @@ Counterpart of ``gpytorch_tpu/ops/pallas_kernels.py``.  What lives here:
   even at N=100k: the product ``_matvec_reference``, the cotangent of one input
   ``_grad_x_reference`` and the fused symmetric backward ``_bwd_fused_reference``;
 * the hand-written CUDA kernels ``csrc/kernel_matvec.cu`` (K·V), ``csrc/kernel_grad_x.cu``
-  (the cotangent of one input) and ``csrc/kernel_bwd_fused.cu`` (the symmetric
-  backward), bound by ctypes;
+  (the cotangent of one input) and ``csrc/kernel_bwd_fused.cu`` (the symmetric backward:
+  dx and dos; dv, where asked for, is one K·V), bound by ctypes;
 * the build of every CUDA source of the package (these three and the periodic pair of
   ``ops/periodic_kernels.py``) with nvcc at first use into one library;
 * the differentiable products ``fused_kernel_matvec`` and ``fused_scaled_kernel_matvec``
@@ -146,7 +146,10 @@ def _bwd_fused_reference(x, g, v, kernel_type: int, need_dv: bool = True, need_d
     dv = K g, dx = 2 Σ_j k′(d2_ij)(g_i·v_j + v_i·g_j)(x_i − x_j) (k′ zeroed on the exact
     diagonal) and dos = Σ_ij k(d2_ij)(g_i·v_j); dv and dos are ``None`` unless asked for.
     Streamed by blocks of rows, as ``gpytorch_tpu/ops/pallas_kernels.py::_bwd_fused_pallas``
-    computes it by tiles."""
+    computes it by tiles.  dv is K g from the same blocks of K, whose diagonal is exact, as
+    the CUDA product kernel's is (direct differences) where the CUDA wrapper takes dv from
+    it; ``_matvec_reference`` keeps the expansion's round-off there, which Matérn-½'s
+    e^(−√d2) turns into up to 1e-3 of K_ii in float32."""
     from .sq_dist import sq_dist_centered
 
     _check_shapes(x, x, v, kernel_type)
@@ -250,8 +253,10 @@ def load_library() -> ctypes.CDLL:
         lib.gp_kernel_matvec_f32.restype = ctypes.c_int
         lib.gp_kernel_grad_x_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.gp_kernel_grad_x_f32.restype = ctypes.c_int
-        lib.gp_kernel_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.gp_kernel_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gp_kernel_bwd_fused_f32.restype = ctypes.c_int
+        lib.gp_kernel_bwd_fused_chunks.argtypes = [ctypes.c_int] * 2
+        lib.gp_kernel_bwd_fused_chunks.restype = ctypes.c_int
         lib.gp_periodic_matvec_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.gp_periodic_matvec_f32.restype = ctypes.c_int
         lib.gp_periodic_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -361,16 +366,13 @@ class KernelGradXCUDA:
 
 kernel_grad_x_cuda = KernelGradXCUDA()
 
-# work split of csrc/kernel_bwd_fused.cu: rows per block, and columns per chunk for t > 1
-_BWD_ROWS = 128
-_BWD_COLS = 32
-
-
 class KernelBwdFusedCUDA:
     """Wrapper of the fused symmetric backward kernel: returns (dv, dx, dos) as
-    ``_bwd_fused_reference`` does.  Allocates the outputs and the per-chunk dx and
-    per-block dos partials, launches on the current stream, folds the partials with
-    ``torch.sum`` and counts its launches in ``launches``."""
+    ``_bwd_fused_reference`` does.  Allocates the per-chunk per-row dx and dos partials (as
+    many chunks as the library says), launches on the current stream, folds the partials
+    with ``torch.sum`` and counts its launches in ``launches``.  The kernel forms no dv:
+    where it is asked for, dv = K·g is one launch of the product kernel (counted by
+    ``kernel_matvec_cuda``)."""
 
     def __init__(self):
         self.launches = 0
@@ -386,22 +388,20 @@ class KernelBwdFusedCUDA:
         if n == 0 or t == 0:
             dos = torch.zeros((), dtype=torch.float32, device=dev) if need_dos else None
             return (torch.zeros_like(v) if need_dv else None), torch.zeros_like(x), dos
-        chunks = 1 if t == 1 else -(-t // _BWD_COLS)
-        blocks = -(-n // _BWD_ROWS)
-        dv = torch.empty((n, t), dtype=torch.float32, device=dev) if need_dv else None
-        dx_part = torch.empty((chunks, n, d), dtype=torch.float32, device=dev)
-        dos_part = torch.empty((chunks, blocks), dtype=torch.float32, device=dev) if need_dos else None
         lib = load_library()
+        chunks = lib.gp_kernel_bwd_fused_chunks(t, d)
+        dx_part = torch.empty((chunks, n, d), dtype=torch.float32, device=dev)
+        dos_part = torch.empty((chunks, n), dtype=torch.float32, device=dev) if need_dos else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.gp_kernel_bwd_fused_f32(
-                x.data_ptr(), g.data_ptr(), v.data_ptr(), dv.data_ptr() if need_dv else None, dx_part.data_ptr(),
-                dos_part.data_ptr() if need_dos else None, n, d, t, int(kernel_type), int(need_dv), int(need_dos),
-                chunks, blocks, stream,
+                x.data_ptr(), g.data_ptr(), v.data_ptr(), dx_part.data_ptr(), dos_part.data_ptr() if need_dos else None,
+                n, d, t, int(kernel_type), int(need_dos), stream,
             )
         if rc != 0:
             raise RuntimeError(f"kernel_bwd_fused launch failed: CUDA error {rc}")
         self.launches += 1
+        dv = kernel_matvec_cuda(x, x, g, kernel_type) if need_dv else None
         dx = dx_part[0] if chunks == 1 else dx_part.sum(0)
         return dv, dx, (dos_part.sum() if need_dos else None)
 

@@ -73,15 +73,22 @@ def test_cuda_wrapper_rejects_non_contiguous_and_mixed_devices(cuda_device):
 @pytest.mark.parametrize("need_dv", [True, False])
 @pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
 @pytest.mark.parametrize("n,d,t", [(1537, 3, 64), (1537, 11, 20), (129, 3, 1), (1, 1, 1),
-                                   (300, 65, 1), (517, 100, 40), (129, 200, 64)])
+                                   (300, 65, 1), (517, 100, 40), (129, 200, 64),
+                                   # the tensor-core tier, t ∈ (32, 64]: d = 3 and the
+                                   # padded d ≤ 64, ragged against the block's rows
+                                   (300, 3, 33), (517, 11, 64), (129, 64, 40)])
 def test_cuda_backward_kernel_matches_plain(cuda_device, ktype, need_dv, n, d, t):
+    # dv, where asked for, is one launch of the product kernel besides
     rng = np.random.default_rng(ktype)
     x, g, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((n, d), (n, t), (n, t)))
     x = x / d**0.5 if d > 64 else x
-    before = fk.kernel_bwd_fused_cuda.launches
+    before = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
     dv, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, ktype, need_dv=need_dv, need_dos=True)
     torch.cuda.synchronize()
-    assert fk.kernel_bwd_fused_cuda.launches == before + 1
+    assert (fk.kernel_matvec_cuda.launches - before[0], fk.kernel_bwd_fused_cuda.launches - before[1]) == (int(need_dv), 1)
+    # no atomics: a second launch repeats the first bit for bit
+    _, dx2, dos2 = fk.kernel_bwd_fused_cuda(x, g, v, ktype, need_dv=False, need_dos=True)
+    assert torch.equal(dx, dx2) and torch.equal(dos, dos2)
     x64, g64, v64 = x.double(), g.double(), v.double()
     want_dv, want_dx, want_dos = fk._bwd_fused_reference(x64, g64, v64, ktype, need_dv=need_dv, need_dos=True)
     bx, bdv, bdos = cs._bwd_abs_terms(x64, g64, v64, ktype)
@@ -96,11 +103,12 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, ktype, need_dv, n, d, t
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [3, 100])
-def test_symmetric_gradient_runs_the_backward_kernel(cuda_device, d):
-    # d = 100: a training gradient of a model with 100 inputs runs the wide-d tier
+@pytest.mark.parametrize("d,t", [pytest.param(3, 4, id="3"), pytest.param(100, 4, id="100"), pytest.param(3, 64, id="3-t64")])
+def test_symmetric_gradient_runs_the_backward_kernel(cuda_device, d, t):
+    # d = 100: a training gradient of a model with 100 inputs runs the wide-d tier; t = 64,
+    # the training call's width, the tensor-core tier
     rng = np.random.default_rng(5)
-    x, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((300, d), (300, 4), (300, 4)))
+    x, v, g = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=cuda_device) for s in ((300, d), (300, t), (300, t)))
     x = x / d**0.5 if d > 64 else x
     xs, os_ = x.clone().requires_grad_(True), torch.tensor(1.5, device=cuda_device, requires_grad=True)
     before = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 import gpytorch_tpu as gp
 from gpytorch_tpu.ops import pallas_kernels as pk
 from gpytorch_tpu_torch.ops import fused_kernels as fk
@@ -74,9 +75,13 @@ def _t(*arrays, grad=False):
 # ---------------------------------------------------------------------------------------
 
 @pytest.mark.parametrize("need_dv", [True, False])
-@pytest.mark.parametrize("ktype,d", [pytest.param(k, 3, id=str(k)) for k in KERNEL_TYPES]
-                         + [pytest.param(k, 100, id=f"{k}-d100") for k in KERNEL_TYPES])
-def test_plain_fused_backward_matches_pallas_kernel_interpret(ktype, d, need_dv, pallas_interpret_small_tiles):
+@pytest.mark.parametrize("ktype,d,t", [pytest.param(k, 3, 5, id=str(k)) for k in KERNEL_TYPES]
+                         + [pytest.param(k, 100, 5, id=f"{k}-d100") for k in KERNEL_TYPES]
+                         # t = 64: the training call's width (1 rhs + 63 probes), the CUDA
+                         # kernel's tensor-core tier at d = 3 and its wide-d tier at d = 100
+                         + [pytest.param(k, 3, 64, id=f"{k}-t64") for k in KERNEL_TYPES]
+                         + [pytest.param(k, 100, 64, id=f"{k}-d100-t64") for k in KERNEL_TYPES])
+def test_plain_fused_backward_matches_pallas_kernel_interpret(ktype, d, t, need_dv, pallas_interpret_small_tiles):
     # float32, ragged: 300 rows = 3 row tiles and 2 padded column tiles; the tolerances of
     # tests/test_pallas_interpret.py (3e-4) for dx and dv, and 2e-4 for dos.  d = 100 (the
     # Pallas kernel's quadratic-expansion path): 70 rows on the grid of eighths in [-1/4,
@@ -84,9 +89,9 @@ def test_plain_fused_backward_matches_pallas_kernel_interpret(ktype, d, need_dv,
     # its diagonal keeps the expansion's round-off (~1e-7), which Matérn-½'s k(d2) = e^(−√d2)
     # turns into 3e-4 of K_ii, where the port's d2_ii is exactly 0
     if d == 3:
-        x, g, v = _arrays(30 + ktype, (300, 3), (300, 5), (300, 5), dtype=np.float32)
+        x, g, v = _arrays(30 + ktype, (300, 3), (300, t), (300, t), dtype=np.float32)
     else:
-        g, v = _arrays(30 + ktype, (70, 5), (70, 5), dtype=np.float32)
+        g, v = _arrays(30 + ktype, (70, t), (70, t), dtype=np.float32)
         x = (np.random.default_rng(40 + ktype).integers(-2, 3, size=(70, d)) / 8).astype(np.float32)
     want_dv, want_dx, want_dos = pk._bwd_fused_pallas(jnp.asarray(x), jnp.asarray(g), jnp.asarray(v), ktype,
                                                       need_dv=need_dv, need_dos=True)
@@ -241,3 +246,21 @@ def test_cuda_backward_wrapper_rejects_what_the_kernel_does_not_take(args, error
     with pytest.raises(error):
         fk.kernel_bwd_fused_cuda(*args, fk.RBF, need_dv=False, need_dos=True)
     assert fk.kernel_bwd_fused_cuda.launches == before
+
+
+# chip_smoke.py's least times of the fused backward: the tensor-core tier's (the score of
+# depth 2t on the tensor cores against 5d + 9 CUDA-core operations a pair) and the FP32
+# cores' for the same work (dx and dos)
+@pytest.mark.parametrize(
+    "n,d,t,want_tc,term,want_fp32",
+    [(100_000, 3, 64, 15.515, "tensor", 41.791),  # the training call: the tensor cores decide
+     (100_000, 11, 33, 9.552, "cuda", 29.254)],  # d = 11: 64 CUDA-core operations against 396
+)
+def test_bwd_bounds(n, d, t, want_tc, term, want_fp32):
+    tc_ms, tc_by = cs.bwd_tc_bound(n, d, t)
+    assert tc_by == "operations" and tc_ms == pytest.approx(want_tc, abs=5e-4)
+    tensor_ms = 1e3 * 3 * 2 * (2 * t) * n * n / cs.H100_TF32_FLOPS
+    cuda_ms = 1e3 * (5 * d + 9) * n * n / cs.H100_FP32_FLOPS
+    assert tc_ms == pytest.approx(tensor_ms if term == "tensor" else cuda_ms, rel=1e-12)
+    fp32_ms, fp32_by = cs.bwd_bound(n, d, t)
+    assert fp32_by == "operations" and fp32_ms == pytest.approx(want_fp32, abs=5e-4)
