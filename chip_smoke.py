@@ -12,11 +12,14 @@ Phases, in order; any failed check exits non-zero before the result line is prin
 2. build    — builds the five csrc/*.cu kernels for sm_90a with nvcc, one process per
               source, into one library (or reuses the build).
 3. kernel   — the CUDA K·V kernel against its plain PyTorch version on the card, for the
-              four kernel types at ragged shapes, and both timed at the serving shapes
-              (with the 2048-row strip at t=1 and 100) and at the training CG shape (t=64,
-              the tensor-core tier, read against float64 beside the plain version and timed
-              against ``matvec_tc_bound``); the wide-d tier (d = 100) at ragged shapes and
-              timed at 16,384 × 16,384, t = 64.
+              four kernel types at ragged shapes, and both timed at the serving shapes and
+              at the training CG shape (t=64, the tensor-core tier, read against float64
+              beside the plain version and timed against ``matvec_tc_bound``); the strips of
+              2048 and 256 test rows against the 100k training rows at t=1 and 100, split
+              over the j range, each printed with its slab count, its bound and, at t=1, the
+              exp floor, the 2048-row ones gated against float64 at twice the plain float32
+              version's error; the wide-d tier (d = 100) at ragged shapes and timed at
+              16,384 × 16,384, t = 64.
 3b. bwd     — the CUDA fused backward kernel against its plain version on the card, for
               the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 33, 64} (the tensor-core tier
               at 33 and 64), with and without dv (the kernel forms no dv: the wrapper
@@ -34,12 +37,12 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               (ragged n ≠ m for the product, symmetric n for the backward: dx, dw and dos,
               without and with dv; at t = 64 the backward's tensor-core tier); at every
               shape of the path on the periodic task (N=100k, a = t / period up to 355: the
-              product at t = 64, 1 and 20 and on the 2048-row strip at t = 100, the
-              backward's training call at t = 64: dx, dw and dos) against the plain
-              versions in float64, the t=64 product and backward (the tensor-core tiers)
-              and the t=100 strip (32-column tiles summed per staged tile) gated at twice
-              the plain float32 version's error there; both timed; the product's wide-d
-              tier (d = 100) at ragged shapes and at 16,384 rows.
+              product at t = 64, 1 and 20 and on the strips of 2048 and 256 rows at t = 100
+              and 1, the backward's training call at t = 64: dx, dw and dos) against the
+              plain versions in float64, the t=64 product and backward (the tensor-core
+              tiers) and the 2048-row strips (split over the j range) gated at twice the
+              plain float32 version's error there; both timed, the strips as in phase 3;
+              the product's wide-d tier (d = 100) at ragged shapes and at 16,384 rows.
 4. slice    — serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel
               path), from the same data, parameters and Lanczos start.
 4c. grad-slice — the gradient of ΣUCB (UCB = μ + 2σ) with respect to 512 candidates at
@@ -53,8 +56,8 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               GaussianLikelihood) on its synthetic 3droad-shaped task, N=100,000 train,
               2,048 test, d=3, under bench.py's eval settings, from fixed parameters: one
               model refresh (mean cache by preconditioned CG, LOVE cache by block Lanczos),
-              then 8 requests of 256 test points and one of all 2,048.  Checks RMSE,
-              variances and that the path launched the CUDA kernel.
+              then 8 requests of 256 test points and one of all 2,048 (request_ms).  Checks
+              RMSE, variances and that the path launched the CUDA kernel.
 6. train    — training at N=2000 on CPU tensors against CUDA tensors under bench.py's
               training recipe: the same data, initial parameters and injected probe base
               samples; 3 Adam steps, compared at step 1 (loss, gradients) and after step 3.
@@ -92,17 +95,20 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               same caches, beside the float32 plain path's.
 
 9. acquisition — on phase 7's trained flagship, the 2,048 test points as candidates: the
-              kernel path's ∇ΣUCB against the float64 plain path from the same caches; central
+              latent (LOVE) variances against the float64 plain path from the same caches
+              (read, not gated); the kernel path's ∇ΣUCB against that path; central
               differences of single candidates' UCB in float64; one gradient evaluation
               launches 2 kernel_matvec + 2 kernel_grad_x with the parameters frozen, 4 + 4
-              with them live; 20 Adam steps of ascent on the candidates (the UCB must rise);
+              with them live; 20 Adam steps of ascent on the candidates (the UCB must rise;
+              acq_grad_ms, the median gradient evaluation);
               the float64 check and the launches again for Scale(Matérn-5/2 ARD) with the
               fitted hyperparameters, and its RMSE (no gate).
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
 
-``period_witness`` and ``sass_witness`` are not part of the run (see their docstrings).
+``period_witness``, ``sass_witness`` and ``slab_sweep`` are not part of the run (see their
+docstrings).
 """
 
 from __future__ import annotations
@@ -161,6 +167,8 @@ TRAIN_NLPD_DROP = 0.1       # N=100k: marginal NLPD of the trained model at leas
 H100_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores, at 700 W
 H100_TF32_FLOPS = 495e12    # H100 SXM, TF32 on the tensor cores, dense, at 700 W
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+H100_EXPS_PER_S = 132 * 16 * 1.98e9  # H100 SXM: 132 SMs × 16 exp2 a clock on the special-function
+                            # units (sm_90) × 1.98 GHz, the largest SM clock (nvidia-smi clocks.max.sm)
 SLICE_CG_TOL = 1e-4         # N=2000 slice: tighter than eval's 1e-3, so that where the two
                             # float32 runs stop CG does not dominate their difference
 SLICE_MEAN_TOL = 1e-3       # N=2000 CPU vs CUDA: max |Δmean| / max |mean|
@@ -563,24 +571,32 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    """The least time the card could take: the larger of the FP32 operations over the FP32
-    peak and the bytes over the memory rate; and which of the two it is."""
-    t_ops, t_bytes = flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S
+def exp_floor_ms(exps: float) -> float:
+    """The least time for ``exps`` exps on the special-function units."""
+    return 1e3 * exps / H100_EXPS_PER_S
+
+
+def bound_ms(flops: float, nbytes: float, exps: float):
+    """The least time the card could take on its CUDA cores: the larger of the FP32
+    operations over the FP32 peak, the exps (one a pair in every kernel here) over the
+    special-function units' rate and the bytes over the memory rate; and which of them it
+    is ("operations" for the first two).  The exps bind the t = 1 products."""
+    t_ops = max(flops / H100_FP32_FLOPS, 1e-3 * exp_floor_ms(exps))
+    t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def matvec_bound(n: int, m: int, d: int, t: int):
-    """K·V: 2t FLOP for the product and 3d for the distance per (i, j) pair (one exp per
-    pair besides); x1, x2 and v read once, the output written once."""
-    return bound_ms(n * m * (2 * t + 3 * d), 4 * (n * d + m * d + m * t + n * t))
+    """K·V: 2t FLOP for the product and 3d for the distance per (i, j) pair, and one exp;
+    x1, x2 and v read once, the output written once.  At t = 1 the exps bind."""
+    return bound_ms(n * m * (2 * t + 3 * d), 4 * (n * d + m * d + m * t + n * t), n * m)
 
 
 def tc_bound(pairs: int, t: int, cuda_ops: int, nbytes: int):
     """A K·V tier on the tensor cores in 3xTF32: the larger of three passes of 2t operations
     per (i, j) pair over the dense TF32 peak, ``cuda_ops`` operations per pair on the CUDA
     cores (forming K and its hi/lo split) over the FP32 peak, and ``nbytes`` over the memory
-    rate (one exp per pair besides)."""
+    rate (one exp per pair besides, which binds neither t ∈ (32, 64] tier)."""
     times = {"operations": max(3 * 2 * t * pairs / H100_TF32_FLOPS, cuda_ops * pairs / H100_FP32_FLOPS),
              "bytes": nbytes / H100_BYTES_PER_S}
     by = max(times, key=times.get)
@@ -595,16 +611,16 @@ def matvec_tc_bound(n: int, m: int, d: int, t: int):
 
 def grad_x_bound(n: int, m: int, d: int, t: int):
     """The cotangent of x1: per (i, j) pair 2t FLOP for g_i·v_j, 5d for the distance and the
-    moment, and 4 for k′ and the weight (one exp per pair besides); x1, x2, g and v read
-    once, dx1 written once."""
-    return bound_ms(n * m * (2 * t + 5 * d + 4), 4 * (2 * n * d + m * d + n * t + m * t))
+    moment, 4 for k′ and the weight, and one exp; x1, x2, g and v read once, dx1 written
+    once."""
+    return bound_ms(n * m * (2 * t + 5 * d + 4), 4 * (2 * n * d + m * d + n * t + m * t), n * m)
 
 
 def bwd_bound(n: int, d: int, t: int):
     """Fused backward on the FP32 cores (dx and dos): per (i, j) pair 4t FLOP for g_i·v_j
-    and v_i·g_j, 5d for the distance and the dx update, and about 9 for k, k′, the weight
-    and dos (one exp per pair besides); x, g and v read once, dx written once."""
-    return bound_ms(n * n * (4 * t + 5 * d + 9), 4 * (2 * n * d + 2 * n * t))
+    and v_i·g_j, 5d for the distance and the dx update, about 9 for k, k′, the weight and
+    dos, and one exp; x, g and v read once, dx written once."""
+    return bound_ms(n * n * (4 * t + 5 * d + 9), 4 * (2 * n * d + 2 * n * t), n * n)
 
 
 def bwd_tc_bound(n: int, d: int, t: int):
@@ -616,10 +632,10 @@ def bwd_tc_bound(n: int, d: int, t: int):
 
 def periodic_matvec_bound(n: int, m: int, d: int, t: int):
     """Periodic K·V: per (i, j) pair 2t FLOP for the product, 6d for the weighted sin² from
-    the per-point half-angle tables (s_i c_j − c_i s_j, its square and weight) and 1 for
-    the exponent (one exp per pair besides; the tables' sines are O((n + m) d)); x1, x2, w
-    and v read once, the output written once."""
-    return bound_ms(n * m * (2 * t + 6 * d + 1), 4 * (n * d + m * d + d + m * t + n * t))
+    the per-point half-angle tables (s_i c_j − c_i s_j, its square and weight), 1 for the
+    exponent, and one exp (the tables' sines are O((n + m) d)); x1, x2, w and v read once,
+    the output written once.  At t = 1 the exps bind."""
+    return bound_ms(n * m * (2 * t + 6 * d + 1), 4 * (n * d + m * d + d + m * t + n * t), n * m)
 
 
 def periodic_matvec_tc_bound(n: int, m: int, d: int, t: int):
@@ -632,9 +648,9 @@ def periodic_matvec_tc_bound(n: int, m: int, d: int, t: int):
 def periodic_bwd_bound(n: int, d: int, t: int):
     """Fused periodic backward on the FP32 cores: per (i, j) pair 4t FLOP for the score
     g_i·v_j + v_i·g_j, 15d for the sine and cosine of the difference from the tables, the
-    weighted sin² and the dx and dw updates, and 4 for the exponent, the score's weight and
-    dos (one exp per pair besides); x, w, g and v read once, dx, dw and dos written once."""
-    return bound_ms(n * n * (4 * t + 15 * d + 4), 4 * (2 * n * d + 2 * d + 2 * n * t + 1))
+    weighted sin² and the dx and dw updates, 4 for the exponent, the score's weight and dos,
+    and one exp; x, w, g and v read once, dx, dw and dos written once."""
+    return bound_ms(n * n * (4 * t + 15 * d + 4), 4 * (2 * n * d + 2 * d + 2 * n * t + 1), n * n)
 
 
 def periodic_bwd_tc_bound(n: int, d: int, t: int):
@@ -676,8 +692,22 @@ def _rel_err(got, want, x1, x2, v, kt):
     return err / fk._matvec_reference(x1, x2, v.abs(), kt).abs().max().item(), err
 
 
+def strip_entry(n: int, m: int, t: int, slabs: int, ms: float, plain_ms: float, bound) -> dict:
+    """One strip's reading for the report line: ``slabs`` is the count of the timed launch
+    (the wrapper's ``last_slabs``)."""
+    return {"n": n, "m": m, "t": t, "slabs": slabs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
+def print_strip(tag: str, e: dict) -> None:
+    floor = f", exp floor {exp_floor_ms(e['n'] * e['m']):.4f} ms" if e["t"] == 1 else ""
+    print(f"[{tag}] strip {e['n']}x{e['m']} t={e['t']}: {e['slabs']} slabs of the j range; kernel {e['ms']:.4f} ms, "
+          f"plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}{floor})", flush=True)
+
+
 def phase_kernel():
-    """Kernel against plain on the card; returns (max_abs_err, {(n, m, t): (ms, plain_ms)})."""
+    """Kernel against plain on the card; returns (max_abs_err, {(n, m, t): (ms, plain_ms)},
+    [strip readings])."""
     import torch
 
     from gpytorch_tpu_torch.ops import fused_kernels as fk
@@ -699,10 +729,13 @@ def phase_kernel():
               f"(worst so far {worst_rel:.3e})", flush=True)
 
     # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100)
-    # and K(test, train)·α (t=1, the mean); training shape: mBCG over [y, 63 probes] (t=64)
-    timed = {}
+    # and K(test, train)·α (t=1, the mean); training shape: mBCG over [y, 63 probes] (t=64);
+    # then the strips of a request of 256 points.  The strips (fewer rows than the card has
+    # SMs) split the j range into slabs (fk.product_slabs); the 2048-row ones are gated
+    # against float64 at twice the plain float32 version's error
+    timed, strips = {}, []
     for n, m, t in ((N_TRAIN, N_TRAIN, 1), (N_TRAIN, N_TRAIN, 20), (N_TEST, N_TRAIN, 100), (N_TEST, N_TRAIN, 1),
-                    (N_TRAIN, N_TRAIN, 64)):
+                    (N_TRAIN, N_TRAIN, 64), (REQUEST_ROWS, N_TRAIN, 100), (REQUEST_ROWS, N_TRAIN, 1)):
         x2 = torch.as_tensor(rng.uniform(size=(m, D)) / 0.3, dtype=torch.float32, device=dev)
         x1 = x2 if n == m else torch.as_tensor(rng.uniform(size=(n, D)) / 0.3, dtype=torch.float32, device=dev)
         v = torch.as_tensor(rng.normal(size=(m, t)), dtype=torch.float32, device=dev)
@@ -717,15 +750,19 @@ def phase_kernel():
             plain64 = _rel_err(plain, exact, x1, x2, v, fk.RBF)[0]
             del exact
             print(f"[kernel] {n}x{m} t={t} against float64: kernel {rel64:.3e}, plain float32 {plain64:.3e}", flush=True)
-            if t == 64:  # the training product, on the tensor cores in 3xTF32
-                check(rel64 <= min(2.0 * plain64, KERNEL_REL_TOL), f"the t=64 product against float64: {rel64:.3e}, "
-                      f"more than twice the plain version's {plain64:.3e} or over {KERNEL_REL_TOL}")
+            if t == 64 or n == N_TEST:  # the training product (3xTF32) and the 2048-row strips
+                check(rel64 <= min(2.0 * plain64, KERNEL_REL_TOL), f"the product {n}x{m} t={t} against float64: "
+                      f"{rel64:.3e}, more than twice the plain version's {plain64:.3e} or over {KERNEL_REL_TOL}")
         ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), 10)
+        slabs = fk.kernel_matvec_cuda.last_slabs
         plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, fk.RBF), 3)
         timed[(n, m, t)] = (ms, plain_ms)
-        bms, by = matvec_tc_bound(n, m, D, t) if 32 < t <= 64 else matvec_bound(n, m, D, t)
-        print(f"[kernel] {n}x{m} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
-              f"({by}; {n * m:.3e} exp), max abs err {err:.3e} (rel {rel:.3e})", flush=True)
+        bound = matvec_tc_bound(n, m, D, t) if 32 < t <= 64 else matvec_bound(n, m, D, t)
+        print(f"[kernel] {n}x{m} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
+              f"({bound[1]}; {n * m:.3e} exp), max abs err {err:.3e} (rel {rel:.3e})", flush=True)
+        if n < m:
+            strips.append(strip_entry(n, m, t, slabs, ms, plain_ms, bound))
+            print_strip("kernel", strips[-1])
 
     # the wide-d tier (d > 64): the four kernel types at ragged shapes, t = 1 and 64 (two
     # column tiles of 32); then timed at WIDE_N × WIDE_N, t = 64.  Inputs scaled by 1/√d, so
@@ -755,7 +792,7 @@ def phase_kernel():
     bms, by = matvec_bound(n, n, WIDE_D, t)
     print(f"[kernel] wide tier {n}x{n} d={WIDE_D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
           f"({by}), max abs err {err:.3e} (rel {rel:.3e})", flush=True)
-    return max_abs, timed
+    return max_abs, timed, strips
 
 
 def _bwd_abs_terms(x, g, v, kt):
@@ -1000,7 +1037,7 @@ def phase_periodic_kernels():
     float32 over the grid (ragged n ≠ m for the product, symmetric n for the backward), and
     at the path's shapes on the task (N=100k, a = t / period up to 355) against float64;
     both timed at the path's shapes.  Returns (product max_abs_err, {(n, m, t): (ms,
-    plain_ms)}, backward max_abs_err, ms, plain_ms)."""
+    plain_ms)}, [strip readings], backward max_abs_err, ms, plain_ms)."""
     import torch
 
     from gpytorch_tpu_torch.ops import periodic_kernels as ppk
@@ -1045,17 +1082,26 @@ def phase_periodic_kernels():
               f"{worst_bwd:.3e})", flush=True)
 
     # the path's shapes on the task: training CG (t=64), serving CG (t=1), Lanczos (t=20),
-    # K(test, train)·R (t=100); one backward per training step (t=64)
+    # K(test, train)·R (t=100); then the forecast's mean K(test, train)·α (t=1) and the
+    # strips of a request of 256 points, whose v come from a generator of their own; one
+    # backward per training step (t=64).  The strips split the j range into slabs
+    # (fk.product_slabs); the 2048-row ones are gated against float64 at twice the plain
+    # float32 version's error
     train_x, _, test_x, _ = make_periodic_task(P_N_TRAIN, P_N_TEST)
     per = torch.tensor(P_PERIODS, dtype=torch.float32, device=dev)
     xp = torch.as_tensor(train_x, dtype=torch.float32, device=dev) / per
     xq = torch.as_tensor(test_x, dtype=torch.float32, device=dev) / per
     w = torch.full((P_D,), 4.0, dtype=torch.float32, device=dev)  # lengthscale 0.5
     N = P_N_TRAIN
-    timed = {}
-    for x1, t in ((xp, 64), (xp, 1), (xp, 20), (xq, 100)):
+    timed, strips = {}, []
+    strip_rng = np.random.default_rng(16)
+    xr = xq[:REQUEST_ROWS].contiguous()
+    for x1, t in ((xp, 64), (xp, 1), (xp, 20), (xq, 100), (xq, 1), (xr, 100), (xr, 1)):
         n = x1.shape[0]
-        (v,) = data((N, t))
+        if n < N and (n, t) != (P_N_TEST, 100):
+            v = torch.as_tensor(strip_rng.normal(size=(N, t)), dtype=torch.float32, device=dev)
+        else:
+            (v,) = data((N, t))
         got = ppk.periodic_matvec_cuda(x1, xp, w, v)
         exact = ppk._periodic_matvec_reference(x1.double(), xp.double(), w.double(), v.double())
         scale = exact.abs().max().item()
@@ -1063,8 +1109,8 @@ def phase_periodic_kernels():
         rel = err / scale
         mv_abs = max(mv_abs, err)
         check(rel <= P_PATH_TOL, f"periodic product {n}x{N} t={t} against float64: {rel:.3e} > {P_PATH_TOL}")
-        if t in (64, 100):  # the training product (tensor cores) and the LOVE root (32-column tiles summed
-            # per staged tile): both float32 versions against float64
+        if t == 64 or n == P_N_TEST:  # the training product (tensor cores) and the 2048-row strips (the
+            # LOVE root in 32-column tiles summed per staged tile, the mean): both float32 versions against float64
             plain64 = (ppk._periodic_matvec_reference(x1, xp, w, v).double() - exact).abs().max().item() / scale
             print(f"[periodic-kernel] product {n}x{N} t={t} against float64, max |Δ| / max |·|: kernel {rel:.3e}, "
                   f"plain float32 {plain64:.3e}", flush=True)
@@ -1072,11 +1118,16 @@ def phase_periodic_kernels():
                   f"more than twice the plain version's {plain64:.3e} or over {P_PATH_TOL}")
         del exact
         ms = cuda_time_ms(lambda: ppk.periodic_matvec_cuda(x1, xp, w, v), 10 if t < 64 else 5)
+        slabs = ppk.periodic_matvec_cuda.last_slabs
         plain_ms = cuda_time_ms(lambda: ppk._periodic_matvec_reference(x1, xp, w, v), 2)
         timed[(n, N, t)] = (ms, plain_ms)
-        bms, by = periodic_matvec_tc_bound(n, N, P_D, t) if 32 < t <= 64 else periodic_matvec_bound(n, N, P_D, t)
+        bound = periodic_matvec_tc_bound(n, N, P_D, t) if 32 < t <= 64 else periodic_matvec_bound(n, N, P_D, t)
         print(f"[periodic-kernel] product {n}x{N} d={P_D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bms:.3f} ms ({by}), against float64 max |Δ| / max |·| {rel:.3e} (tol {P_PATH_TOL})", flush=True)
+              f"{bound[0]:.3f} ms ({bound[1]}), against float64 max |Δ| / max |·| {rel:.3e} (tol {P_PATH_TOL})",
+              flush=True)
+        if n < N:
+            strips.append(strip_entry(n, N, t, slabs, ms, plain_ms, bound))
+            print_strip("periodic-kernel", strips[-1])
 
     bwd_err, bwd_ms, bwd_plain_ms = periodic_bwd_at_path(xp, w)
     bwd_abs = max(bwd_abs, bwd_err)
@@ -1115,7 +1166,7 @@ def phase_periodic_kernels():
           f"float32 plain version (worst product so far {worst_mv:.3e}); {n}x{n} t={t}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}), against float64 max |Δ| / max |·| {rel:.3e} (tol {P_PATH_TOL})",
           flush=True)
-    return mv_abs, timed, bwd_abs, bwd_ms, bwd_plain_ms
+    return mv_abs, timed, strips, bwd_abs, bwd_ms, bwd_plain_ms
 
 
 def periodic_bwd_at_path(xp=None, w=None):
@@ -1295,6 +1346,7 @@ def phase_serve():
         print(f"[serve] request {i}: {mean.shape[0]} points in {secs * 1e3:.2f} ms", flush=True)
         check(bool(torch.isfinite(mean).all()), f"request {i}: non-finite mean")
         check(bool(torch.isfinite(var).all()) and bool((var > 0).all()), f"request {i}: variance not finite and > 0")
+    print_request_ms("serve", [a[3] for a in answers])
     pred, mean, var, _ = answers[-1]
     rmse = gt.metrics.mean_squared_error(pred, ty, squared=False).item()
     noise = model.likelihood.noise.reshape(-1)[0]
@@ -1322,6 +1374,14 @@ def phase_serve():
     check(rmse <= RMSE_LIMIT, f"rmse {rmse:.4f} > {RMSE_LIMIT}")
     check(true_res <= TRUE_RES_LIMIT, f"mean cache true residual {true_res:.3e} > {TRUE_RES_LIMIT}")
     return launches
+
+
+def print_request_ms(tag: str, secs) -> None:
+    """request_ms: the median of the requests of REQUEST_ROWS points and the last request
+    (all the test points)."""
+    small = sorted(secs[:-1])
+    median = f"{REQUEST_ROWS} points median {small[len(small) // 2] * 1e3:.3f} ms (of {len(small)}), " if small else ""
+    print(f"[{tag}] request_ms: {median}{N_TEST} points {secs[-1] * 1e3:.3f} ms", flush=True)
 
 
 def marginal_nlpd(mean, var, y, noise) -> float:
@@ -1526,6 +1586,7 @@ def phase_flagship():
     # one per Lanczos block (5 blocks of 20), and two for the request (mean and LOVE)
     expected_mv = sum(iters) + cg.num_iters + 5 + 2
     loss_end = sum(losses[-10:]) / 10
+    print_request_ms("flagship", [secs])
     print(f"[flagship] serving the trained model: refresh {refresh_s:.3f} s (CG {cg.num_iters} iterations, relative "
           f"residual {cg.residual_norm.max().item():.3e}), {N_TEST} points in {secs * 1e3:.2f} ms; rmse {rmse:.4f} "
           f"(limit {RMSE_LIMIT}; initial {rmse0:.4f}), marginal nlpd {nlpd:.4f} (initial {nlpd0:.4f}, limit "
@@ -1683,6 +1744,66 @@ def sass_witness():
     check(others == 0, "HMMA.1688.F32.TF32 outside the tensor-core tiers")
 
 
+def slab_sweep():
+    """The two K·V kernels' strips (2048 and 256 rows against the 100k training rows of both
+    tasks, t = 1, 20, 64 and 100) at the wrappers' slab count and at a sweep of counts
+    through the C entries, each with its time and its error against float64.  Not part of
+    ``main`` (≈ 1 min after the build):
+
+        python3 -c 'import chip_smoke; chip_smoke.slab_sweep()'
+    """
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    phase_device()
+    lib, dev = fk.load_library(), "cuda"
+
+    def launch(kind, x1, x2, w, v, slabs):
+        (n, d), (m, t) = x1.shape, v.shape
+        out = torch.empty((slabs, n, t), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        if kind == "rbf":
+            rc = lib.gp_kernel_matvec_f32(x1.data_ptr(), x2.data_ptr(), v.data_ptr(), out.data_ptr(), n, m, d, t,
+                                          fk.RBF, slabs, stream)
+        else:
+            rc = lib.gp_periodic_matvec_f32(x1.data_ptr(), x2.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                            n, m, d, t, slabs, stream)
+        check(rc == 0, f"{kind} launch failed")
+        return out.sum(0)
+
+    rng = np.random.default_rng(1)
+    train_x, _, test_x, _ = make_periodic_task(P_N_TRAIN, P_N_TEST)
+    per = torch.tensor(P_PERIODS, dtype=torch.float32, device=dev)
+    w4 = torch.full((P_D,), 4.0, dtype=torch.float32, device=dev)
+    tasks = {"rbf": (torch.as_tensor(rng.uniform(size=(N_TRAIN, D)) / 0.3, dtype=torch.float32, device=dev),
+                     torch.as_tensor(rng.uniform(size=(N_TEST, D)) / 0.3, dtype=torch.float32, device=dev), None,
+                     lambda x1, x2, w, v: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), fk.kernel_matvec_cuda),
+             "periodic": (torch.as_tensor(train_x, dtype=torch.float32, device=dev) / per,
+                          torch.as_tensor(test_x, dtype=torch.float32, device=dev) / per, w4,
+                          ppk.periodic_matvec_cuda, ppk.periodic_matvec_cuda)}
+    for kind, (xt, xs, w, product, wrapper) in tasks.items():
+        m = xt.shape[0]
+        for n in (N_TEST, REQUEST_ROWS):
+            x1 = xs[:n].contiguous()
+            for t in (1, 20, 64, 100):
+                v = torch.as_tensor(rng.normal(size=(m, t)), dtype=torch.float32, device=dev)
+                product(x1, xt, w, v)
+                slabs = wrapper.last_slabs
+                ref = (fk._matvec_reference(x1.double(), xt.double(), v.double(), fk.RBF) if kind == "rbf" else
+                       ppk._periodic_matvec_reference(x1.double(), xt.double(), w.double(), v.double()))
+                scale = ref.abs().max().item()
+                sweep = []
+                for s in sorted({1, 2, 4, 8, 16, 17, 33, 66, 99, 131, 196, 262, slabs} & set(range(1, m // 256 + 1))):
+                    err = (launch(kind, x1, xt, w, v, s).double() - ref).abs().max().item() / scale
+                    ms = cuda_time_ms(lambda s=s: launch(kind, x1, xt, w, v, s), 10)
+                    sweep.append(f"{s}: {ms:.4f} ms {err:.2e}")
+                del ref
+                print(f"[slab-sweep] {kind} {n}x{m} t={t}: the wrapper takes {slabs} slabs; by slab count (ms, "
+                      f"max |Δ| / max |·| against float64): {sweep}", flush=True)
+
+
 def phase_periodic():
     """The periodic model at N=100k: the initial parameters served on the forecast week; 120
     steps of training under the flagship's recipe with the periods at their own learning
@@ -1768,6 +1889,7 @@ def phase_periodic():
     # one per Lanczos block (5 blocks of 20), and two per request (mean and LOVE)
     expected_mv = sum(iters) + cg.num_iters + 5 + 2 * len(batches)
     loss_end = sum(losses[-10:]) / 10
+    print_request_ms("periodic", secs)
     print(f"[periodic] serving the trained model: refresh {refresh_s:.3f} s (CG {cg.num_iters} iterations, relative "
           f"residual {cg.residual_norm.max().item():.3e}); requests {[round(x * 1e3, 2) for x in secs]} ms; forecast "
           f"rmse {rmse:.4f} (limit {P_RMSE_LIMIT}; initial {rmse0:.4f}), marginal nlpd {nlpd:.4f} (initial "
@@ -1902,6 +2024,7 @@ def phase_acquisition(model):
     with eval_settings():
         model.refresh()
     ref = _float64_twin(model, train_x, train_y)
+    _variances_against_float64(model, ref, cand, "acquisition")
     grad64 = _gradient_against_float64(model, ref, cand, "RBF")
 
     # central differences of single candidates' UCB (which depends on that candidate alone)
@@ -1958,6 +2081,8 @@ def phase_acquisition(model):
         with torch.no_grad():
             end = ucb(model, x)[0].mean().item()
     median = sorted(times)[len(times) // 2]
+    print(f"[acquisition] acq_grad_ms: median {median * 1e3:.3f} ms over the {ACQ_STEPS} gradient evaluations of the "
+          f"ascent", flush=True)
     print(f"[acquisition] ascent, {ACQ_STEPS} Adam steps (lr {ACQ_LR}) on {N_TEST} candidates: mean UCB "
           f"{means[0]:.5f} → {end:.5f}; per step {[round(m_, 5) for m_ in means]}; median "
           f"{median * 1e3:.3f} ms per gradient evaluation (first {times[0] * 1e3:.3f}); launches kernel_matvec, "
@@ -1990,10 +2115,10 @@ def main() -> int:
 
         phase_device()
         phase_build()
-        mv_err, mv_timed = phase_kernel()
+        mv_err, mv_timed, mv_strips = phase_kernel()
         bwd_err, bwd_ms, bwd_plain_ms = phase_bwd()
         gx_err, gx_timed = phase_grad_x()
-        pmv_err, pmv_timed, pbwd_err, pbwd_ms, pbwd_plain_ms = phase_periodic_kernels()
+        pmv_err, pmv_timed, pmv_strips, pbwd_err, pbwd_ms, pbwd_plain_ms = phase_periodic_kernels()
         phase_slice()
         phase_grad_slice()
         phase_grad_slice(periodic=True)
@@ -2020,7 +2145,8 @@ def main() -> int:
         "kernels": [
             entry("kernel_matvec", "kernel_matvec.cu", 230, mv_launches, mv_err, *mv_timed[(N_TRAIN, N_TRAIN, 64)],
                   matvec_tc_bound(N_TRAIN, N_TRAIN, D, 64))
-            | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound"},
+            | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound",
+               "strips": mv_strips},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_bound(N_TEST, N_TRAIN, D, 100)),
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
@@ -2030,7 +2156,7 @@ def main() -> int:
             entry("periodic_matvec", "kernel_periodic_matvec.cu", 806, pmv_launches, pmv_err,
                   *pmv_timed[(P_N_TRAIN, P_N_TRAIN, 64)], periodic_matvec_tc_bound(P_N_TRAIN, P_N_TRAIN, P_D, 64))
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
-                       "periodic_matvec_tc_bound"},
+                       "periodic_matvec_tc_bound", "strips": pmv_strips},
             entry("periodic_bwd_fused", "kernel_periodic_bwd_fused.cu", 872, pbwd_launches, pbwd_err, pbwd_ms,
                   pbwd_plain_ms, periodic_bwd_tc_bound(P_N_TRAIN, P_D, 64))
             | {"tier": "t in (32, 64] (dx, dw, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "

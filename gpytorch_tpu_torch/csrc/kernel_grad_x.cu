@@ -25,7 +25,7 @@
 // shared memory with v.  A block of 128 threads owns 128 rows, one column chunk
 // (blockIdx.y) and one slab of the j range (blockIdx.z).  The path's shape is a strip:
 // 2,048 test rows make only 16 blocks of 128, so the wrapper splits the j range into
-// slabs until the grid fills the card (ops/fused_kernels.py::_grad_x_slabs).  Each
+// slabs until the grid fills the card (ops/fused_kernels.py::grad_x_slabs).  Each
 // (slab, chunk) writes its own dx partial (slabs * chunks, n, d), which the wrapper folds
 // with torch.sum: no atomics, so the result is deterministic.  Within a thread dx is summed
 // per staged tile and then added to the running sum, which keeps the float32 summation

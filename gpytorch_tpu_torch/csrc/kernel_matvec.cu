@@ -13,7 +13,8 @@
 // accumulated in registers (for t = 1 and t > 64 in two levels, one sum per staged tile:
 // CG's residual stays honest, and so do the LOVE variances K** - |K*x R|^2, which cancel
 // to 1e-5 of K**).  A block of 128 threads owns 128 rows and one tile of TC columns
-// (blockIdx.y), and walks over all of x2 and v in tiles of TJ rows staged in shared memory.
+// (blockIdx.y), and walks over its slab of x2 and v (blockIdx.z, below) in tiles of TJ rows
+// staged in shared memory.
 // Every output element is written once, by one thread, with no atomics, so the result is
 // deterministic.  Ragged n, m and t are masked: out-of-range x2 rows and v entries are
 // staged as zeros, so the inner loop needs no branch; out-of-range output rows and columns
@@ -25,10 +26,22 @@
 // through shared memory once per 128 rows).  For t = 20 and 100 the TC accumulating FMAs
 // dominate; at t = 64 the product moves to the tensor cores, where three TF32 passes of
 // 2t operations per pair and the B fragments' shared-memory reads bound it (see the tier's
-// note).  Known gaps, left to later work: a cross-covariance strip of 2048 test rows fills
-// only 16 of the 132 SMs per column tile (no split over j, which would need a second
-// reduction pass); column tiles are 1, 32 or 64 wide (t = 20 runs 32 FMAs per element,
-// t = 100 runs four tiles of 32 summed per staged tile), and each column tile recomputes k.
+// note).
+//
+// Strips: a cross-covariance product of 2048 test rows makes 16 row blocks (2 for a request
+// of 256), which would leave most of the 132 SMs idle while each block walked all 100k rows
+// j alone.  Every tier therefore takes a slab of the j range per blockIdx.z: block z walks
+// the rows j in [z L, min(m, (z + 1) L)), L a multiple of kSlabTile, as if they were all of
+// x2, and writes its own partial out[z, i, c]; the wrapper folds the partials with
+// torch.sum (no atomics, so a rerun repeats bit for bit) and chooses the slab count from
+// the card's SM count and the grid and occupancy of the tier that gp_kernel_matvec_plan
+// reports (ops/fused_kernels.py::product_slabs).  Within a slab each tier keeps its sums.
+// A grid that fills the card alone (n = 100k: 782 row blocks) takes one slab, and a launch
+// of one slab runs each kernel's SLABS = false instance, the kernel without the split, so
+// that the training and refresh products run the code they ran before it (narrowing the
+// operands in registers cost the t = 64 tier 3 % on an H100).  Known gaps, left to later
+// work: column tiles are 1, 32 or 64 wide (t = 20 runs 32 FMAs per element, t = 100 runs
+// four tiles of 32 summed per staged tile), and each column tile recomputes k.
 // Input dims: d = 3 exact, any other d <= 64 padded to 64 dims, and d > 64 through the
 // wide-d tier (csrc/wide_d.cuh), which walks the dims in slabs.  The template tiers are
 // the ones the paths use (d = 3; t = 1, 20, 64, 100); a finer tier waits for a measured
@@ -46,6 +59,9 @@ namespace {
 
 constexpr int kRows = 128;  // threads per block = output rows per block
 constexpr int kTJ = 64;     // x2 / v rows staged per shared-memory tile
+// a slab of the j range is a multiple of this, and so of every tier's staged tile
+constexpr int kSlabTile = kTJ;
+static_assert(kSlabTile % tc::kTJ == 0, "slabs of whole tensor-core tiles");
 
 enum KernelType { kRBF = 0, kMatern05 = 1, kMatern15 = 2, kMatern25 = 3 };
 
@@ -72,16 +88,24 @@ __device__ __forceinline__ float kernel_fn(float d2) {
 // up to a multiple of 4 for 16-byte shared loads.
 // TILED: sum each staged tile's kTJ terms apart before adding them to the running sum
 // (always so for TC = 1).
-template <int KT, int DP, int TC, bool TILED>
+template <int KT, int DP, int TC, bool TILED, bool SLABS>
 __global__ void __launch_bounds__(kRows)
 kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ v,
-                  float* __restrict__ out, int n, int m, int d, int t) {
+                  float* __restrict__ out, int n, int m, int d, int t, int slab_len) {
     constexpr int DS = (DP + 3) / 4 * 4;
     __shared__ __align__(16) float xs[kTJ * DS];
     __shared__ __align__(16) float vs[kTJ * TC];
 
     const int row = blockIdx.x * kRows + threadIdx.x;
     const int c0 = blockIdx.y * TC;
+    if constexpr (SLABS) {  // this block's slab of the j range (blockIdx.z) as operands of
+        // their own: rows of x2 and v from z L on, m of them at most L, its partial out[z]
+        const int64_t j_slab = (int64_t)blockIdx.z * slab_len;
+        x2 += j_slab * d;
+        v += j_slab * t;
+        out += (int64_t)blockIdx.z * n * t;
+        m = min(m - (int)j_slab, slab_len);
+    }
 
     float xi[DP];
 #pragma unroll
@@ -213,10 +237,10 @@ using tc::split_tf32;
 // tile's x2 rows and V entries are loaded into registers while the current tile is
 // computed, and split and stored after the tile's barrier, so that the global loads'
 // latency hides behind the tensor-core work (without it the tier took twice as long).
-template <int KT, int DP, int WARPS>
+template <int KT, int DP, int WARPS, bool SLABS>
 __global__ void __launch_bounds__(WARPS * 32)
 kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ v,
-                 float* __restrict__ out, int n, int m, int d, int t) {
+                 float* __restrict__ out, int n, int m, int d, int t, int slab_len) {
     constexpr int kThreads = WARPS * 32;
     constexpr int kBRows = WARPS * 16;
     constexpr bool kRegX1 = DP <= 4;
@@ -233,6 +257,14 @@ kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, con
     const int lrow = (threadIdx.x >> 5) * 16 + g;  // this lane's first row within the block
     const int row0 = blockIdx.x * kBRows;
     const int c0 = blockIdx.y * tc::kCols;
+    if constexpr (SLABS) {  // this block's slab of the j range (blockIdx.z) as operands of
+        // their own: rows of x2 and v from z L on, m of them at most L, its partial out[z]
+        const int64_t j_slab = (int64_t)blockIdx.z * slab_len;
+        x2 += j_slab * d;
+        v += j_slab * t;
+        out += (int64_t)blockIdx.z * n * t;
+        m = min(m - (int)j_slab, slab_len);
+    }
 
     // this lane's rows: row0 + lrow + 8 h, for h = 0, 1
     float xr[2][kRegX1 ? DP : 1];
@@ -367,28 +399,60 @@ kernel_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, con
     }
 }
 
+// A launch's operands: out is (num_slabs, n, t), one partial per slab of slab_len rows j.
+// With `plan` set, the dispatch below launches nothing and reports the grid of the tier it
+// would launch instead (Plan), from which the wrapper chooses the slab count.
+struct Plan {
+    int row_blocks, chunks;
+    int blocks_per_sm;  // of this tier's kernel, by its registers and shared memory
+    int slab_tile;      // rows j: a slab is a multiple of it
+};
+
+struct Args {
+    const float *x1, *x2, *v;
+    float* out;
+    int n, m, d, t, num_slabs, slab_len;
+    cudaStream_t stream;
+    Plan* plan;
+};
+
+using Kernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int, int);
+
+// launches a tier on blocks of `rows` rows and `cols` columns by the slabs (`slabbed`, its
+// SLABS = true instance, or `whole` for one slab), or plans it
+cudaError_t run(const Args& a, Kernel slabbed, Kernel whole, int rows, int cols, int threads) {
+    const dim3 grid((a.n + rows - 1) / rows, (a.t + cols - 1) / cols, a.num_slabs);
+    if (a.plan) {
+        *a.plan = Plan{(int)grid.x, (int)grid.y, 0, kSlabTile};
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.plan->blocks_per_sm, slabbed, threads, 0);
+    }
+    const Kernel kernel = a.num_slabs > 1 ? slabbed : whole;
+    kernel<<<grid, threads, 0, a.stream>>>(a.x1, a.x2, a.v, a.out, a.n, a.m, a.d, a.t, a.slab_len);
+    return cudaSuccess;
+}
+
 // the tensor-core tier's blocks: 8 warps (128 rows) for d = 3; 4 warps (64 rows) for the
 // padded tier, whose staged x1 rows take 17 KB.  On an H100 at 100k x 100k, d = 3, t = 64,
 // every shape tried read 27.3-28.0 ms (8 warps of one or two m-tiles, tiles of 32 or 64 rows
 // j) but fewer warps (4 warps of two m-tiles 30-32 ms, of four 46 ms): the tensor cores'
 // mma.sync rate, not the shared-memory reads, sets the time once the loads are prefetched
 template <int KT, int DP>
-void launch_tc(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
-               cudaStream_t stream) {
+cudaError_t launch_tc(const Args& a) {
     constexpr int kWarps = DP <= 4 ? 8 : 4;
-    const dim3 grid((n + kWarps * 16 - 1) / (kWarps * 16), (t + tc::kCols - 1) / tc::kCols);
-    kernel_matvec_tc<KT, DP, kWarps><<<grid, kWarps * 32, 0, stream>>>(x1, x2, v, out, n, m, d, t);
+    return run(a, kernel_matvec_tc<KT, DP, kWarps, true>, kernel_matvec_tc<KT, DP, kWarps, false>, kWarps * 16,
+               tc::kCols, kWarps * 32);
 }
 
 // The wide-d tier (d > 64; csrc/wide_d.cuh): one thread per output row as above, the
 // distances of each staged tile of kWideTJ rows summed over slabs of the input dims, and
 // TC = 1 or 32 columns per block, summed per staged tile.
 constexpr int kWideTJ = 32;
+static_assert(kSlabTile % kWideTJ == 0, "slabs of whole wide-tier tiles");
 
-template <int KT, int TC>
+template <int KT, int TC, bool SLABS>
 __global__ void __launch_bounds__(kRows)
 kernel_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ v,
-                       float* __restrict__ out, int n, int m, int d, int t) {
+                       float* __restrict__ out, int n, int m, int d, int t, int slab_len) {
     __shared__ float x1s[kRows * wide::kRowStride];
     __shared__ float x2s[kWideTJ * wide::kSlab];
     __shared__ __align__(16) float vs[kWideTJ * TC];
@@ -396,6 +460,14 @@ kernel_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__ x
     const int row0 = blockIdx.x * kRows;
     const int row = row0 + threadIdx.x;
     const int c0 = blockIdx.y * TC;
+    if constexpr (SLABS) {  // this block's slab of the j range (blockIdx.z) as operands of
+        // their own: rows of x2 and v from z L on, m of them at most L, its partial out[z]
+        const int64_t j_slab = (int64_t)blockIdx.z * slab_len;
+        x2 += j_slab * d;
+        v += j_slab * t;
+        out += (int64_t)blockIdx.z * n * t;
+        m = min(m - (int)j_slab, slab_len);
+    }
     float acc[TC];
 #pragma unroll
     for (int c = 0; c < TC; ++c) acc[c] = 0.0f;
@@ -431,59 +503,76 @@ kernel_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__ x
 }
 
 template <int KT, int TC>
-void launch_wide(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
-                 cudaStream_t stream) {
-    const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
-    kernel_matvec_wide_f32<KT, TC><<<grid, kRows, 0, stream>>>(x1, x2, v, out, n, m, d, t);
+cudaError_t launch_wide(const Args& a) {
+    return run(a, kernel_matvec_wide_f32<KT, TC, true>, kernel_matvec_wide_f32<KT, TC, false>, kRows, TC, kRows);
 }
 
 template <int KT, int DP, int TC, bool TILED = false>
-void launch(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
-            cudaStream_t stream) {
-    const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
-    kernel_matvec_f32<KT, DP, TC, TILED><<<grid, kRows, 0, stream>>>(x1, x2, v, out, n, m, d, t);
+cudaError_t launch(const Args& a) {
+    return run(a, kernel_matvec_f32<KT, DP, TC, TILED, true>, kernel_matvec_f32<KT, DP, TC, TILED, false>, kRows, TC,
+               kRows);
 }
 
 template <int KT, int DP>
-int dispatch_tc(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
-                cudaStream_t s) {
-    if (t == 1) launch<KT, DP, 1>(x1, x2, v, out, n, m, d, t, s);
-    else if (t <= 32) launch<KT, DP, 32>(x1, x2, v, out, n, m, d, t, s);
-    else if (t <= 64) launch_tc<KT, DP>(x1, x2, v, out, n, m, d, t, s);
-    else launch<KT, DP, 32, true>(x1, x2, v, out, n, m, d, t, s);
-    return 0;
+cudaError_t dispatch_tc(const Args& a) {
+    if (a.t == 1) return launch<KT, DP, 1>(a);
+    if (a.t <= 32) return launch<KT, DP, 32>(a);
+    if (a.t <= 64) return launch_tc<KT, DP>(a);
+    return launch<KT, DP, 32, true>(a);
 }
 
 template <int KT>
-int dispatch_d(const float* x1, const float* x2, const float* v, float* out, int n, int m, int d, int t,
-               cudaStream_t s) {
-    if (d == 3) return dispatch_tc<KT, 3>(x1, x2, v, out, n, m, d, t, s);
-    if (d <= 64) return dispatch_tc<KT, 64>(x1, x2, v, out, n, m, d, t, s);
-    if (t == 1) launch_wide<KT, 1>(x1, x2, v, out, n, m, d, t, s);
-    else launch_wide<KT, 32>(x1, x2, v, out, n, m, d, t, s);
-    return 0;
+cudaError_t dispatch_d(const Args& a) {
+    if (a.d == 3) return dispatch_tc<KT, 3>(a);
+    if (a.d <= 64) return dispatch_tc<KT, 64>(a);
+    if (a.t == 1) return launch_wide<KT, 1>(a);
+    return launch_wide<KT, 32>(a);
 }
+
+cudaError_t dispatch(int kernel_type, const Args& a) {
+    switch (kernel_type) {
+        case kRBF: return dispatch_d<kRBF>(a);
+        case kMatern05: return dispatch_d<kMatern05>(a);
+        case kMatern15: return dispatch_d<kMatern15>(a);
+        case kMatern25: return dispatch_d<kMatern25>(a);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+bool valid_sizes(int n, int m, int d, int t) { return n > 0 && t > 0 && m >= 0 && d > 0 && (t + 31) / 32 <= 65535; }
 
 }  // namespace
 
 // Launches the matvec on `stream` and returns cudaGetLastError() (0 on success).
-// x1 (n, d), x2 (m, d), v (m, t), out (n, t): float32, row-major, contiguous, on one device.
+// x1 (n, d), x2 (m, d), v (m, t): float32, row-major, contiguous, on one device.
+// out (num_slabs, n, t): slab s covers rows j of x2 in [s L, (s + 1) L) with
+// L = ceil(m / num_slabs) rounded up to a multiple of 64 (a slab past m writes zeros); the
+// caller sums out over its first axis (num_slabs = 1: out is the product itself).  Sizes
+// that the grid cannot hold are refused.
 extern "C" int gp_kernel_matvec_f32(const void* x1, const void* x2, const void* v, void* out, int n, int m,
-                                    int d, int t, int kernel_type, void* stream) {
-    if (n <= 0 || t <= 0 || m < 0 || d <= 0 || (t + 31) / 32 > 65535) return (int)cudaErrorInvalidValue;
-    const float* a = static_cast<const float*>(x1);
-    const float* b = static_cast<const float*>(x2);
-    const float* w = static_cast<const float*>(v);
-    float* o = static_cast<float*>(out);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    int rc;
-    switch (kernel_type) {
-        case kRBF: rc = dispatch_d<kRBF>(a, b, w, o, n, m, d, t, s); break;
-        case kMatern05: rc = dispatch_d<kMatern05>(a, b, w, o, n, m, d, t, s); break;
-        case kMatern15: rc = dispatch_d<kMatern15>(a, b, w, o, n, m, d, t, s); break;
-        case kMatern25: rc = dispatch_d<kMatern25>(a, b, w, o, n, m, d, t, s); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
-    if (rc != 0) return rc;
-    return (int)cudaGetLastError();
+                                    int d, int t, int kernel_type, int num_slabs, void* stream) {
+    if (!valid_sizes(n, m, d, t)) return (int)cudaErrorInvalidValue;
+    if (num_slabs < 1 || num_slabs > 65535 || num_slabs > (m > 0 ? m : 1)) return (int)cudaErrorInvalidValue;
+    const int per_slab = (m + num_slabs - 1) / num_slabs;
+    const Args a{static_cast<const float*>(x1), static_cast<const float*>(x2), static_cast<const float*>(v),
+                 static_cast<float*>(out), n, m, d, t, num_slabs, (per_slab + kSlabTile - 1) / kSlabTile * kSlabTile,
+                 static_cast<cudaStream_t>(stream), nullptr};
+    const cudaError_t rc = dispatch(kernel_type, a);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+// The grid of the tier that gp_kernel_matvec_f32 launches at these sizes, on the current
+// device: plan[0..3] = row blocks, column chunks, the tier's blocks that fit on an SM at
+// once, and the staged tile of rows j that a slab is a multiple of.  Returns 0 on success.
+extern "C" int gp_kernel_matvec_plan(int n, int d, int t, int kernel_type, int* plan) {
+    if (!valid_sizes(n, 0, d, t)) return (int)cudaErrorInvalidValue;
+    Plan p{};
+    const Args a{nullptr, nullptr, nullptr, nullptr, n, 0, d, t, 1, 0, nullptr, &p};
+    const cudaError_t rc = dispatch(kernel_type, a);
+    if (rc != cudaSuccess) return (int)rc;
+    plan[0] = p.row_blocks;
+    plan[1] = p.chunks;
+    plan[2] = p.blocks_per_sm;
+    plan[3] = p.slab_tile;
+    return 0;
 }

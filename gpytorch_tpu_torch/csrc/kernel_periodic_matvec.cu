@@ -17,7 +17,7 @@
 //
 // Design of the FMA tiers (as csrc/kernel_matvec.cu): each thread owns one output row and
 // TC output columns accumulated in registers.  A block of 128 threads owns 128 rows and one
-// tile of TC columns (blockIdx.y) and walks over all of x2 and v in tiles of kTJ rows: the
+// tile of TC columns (blockIdx.y) and walks over its slab of x2 and v in tiles of kTJ rows: the
 // tile's half-angle tables are formed once per block as it is staged into shared memory
 // (O(m d) sincospif per 128 rows, against O(128 m d) pair terms).  Sums: t = 1 and t > 64
 // in two levels, each staged tile's kTJ terms summed apart and then added to the running
@@ -32,8 +32,16 @@
 //
 // What bounds the FMA tiers on the H100: per (i, j) pair about 5 FP32 instructions per
 // input dim, one MUFU exp, and TC FMAs with their shared-memory loads, so the FP32
-// instruction rate, not memory.  Known gaps, as for kernel_matvec.cu: a 2048-row
-// cross-covariance strip fills few SMs, and each column tile recomputes K.  Tiers: DP
+// instruction rate, not memory.
+//
+// Strips, as in kernel_matvec.cu: the forecast's 2048-row cross-covariance products would
+// fill 16-64 of the 132 SMs, so every tier takes a slab of the j range per blockIdx.z (rows
+// j in [z L, min(m, (z + 1) L)), L a multiple of kSlabTile) and writes its own partial
+// out[z, i, c], which the wrapper folds with torch.sum; the slab count comes from the grid
+// and occupancy that gp_periodic_matvec_plan reports (ops/fused_kernels.py::product_slabs).
+// Within a slab each tier keeps its sums, the tensor-core tier its three levels.  A
+// 100k-row product takes one slab and runs each kernel's SLABS = false instance, the
+// kernel without the split.  Known gap: each column tile recomputes K.  Tiers: DP
 // input dims (periodic::dispatch_dp); column tiles of 1 and 32, and 64 on the tensor cores.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; loaded with ctypes.
@@ -51,19 +59,30 @@ using periodic::sin_diff;
 
 constexpr int kRows = 128;  // threads per block = output rows per block
 constexpr int kTJ = 64;     // x2 / v rows staged per shared-memory tile
+// a slab of the j range is a multiple of this, and so of every tier's staged tile
+constexpr int kSlabTile = kTJ;
+static_assert(kSlabTile % tc::kTJ == 0, "slabs of whole tensor-core tiles");
 
 // TILED: sum each staged tile's kTJ terms apart before adding them to the running sums
 // (always so for TC = 1)
-template <int DP, int TC, bool TILED>
+template <int DP, int TC, bool TILED, bool SLABS>
 __global__ void __launch_bounds__(kRows)
 periodic_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ w,
-                    const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t) {
+                    const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t, int slab_len) {
     __shared__ float ss[kTJ * DP];
     __shared__ float cs[kTJ * DP];
     __shared__ __align__(16) float vs[kTJ * TC];
 
     const int row = blockIdx.x * kRows + threadIdx.x;
     const int c0 = blockIdx.y * TC;
+    if constexpr (SLABS) {  // this block's slab of the j range (blockIdx.z) as operands of
+        // their own: rows of x2 and v from z L on, m of them at most L, its partial out[z]
+        const int64_t j_slab = (int64_t)blockIdx.z * slab_len;
+        x2 += j_slab * d;
+        v += j_slab * t;
+        out += (int64_t)blockIdx.z * n * t;
+        m = min(m - (int)j_slab, slab_len);
+    }
 
     float si[DP], ci[DP], wk[DP];
 #pragma unroll
@@ -209,10 +228,10 @@ struct TcLayout {
 // FP32 operations and one exp per pair on the CUDA cores (2.1 ms at d = 2 at 67 TFLOP/s).
 constexpr int kTcBlockTiles = 64;  // staged tiles per block sum: 2048 rows j
 
-template <int DP, int WARPS>
+template <int DP, int WARPS, bool SLABS>
 __global__ void __launch_bounds__(WARPS * 32, 2)
 periodic_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ w,
-                   const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t) {
+                   const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t, int slab_len) {
     constexpr int kThreads = WARPS * 32;
     constexpr int kBRows = WARPS * 16;
     constexpr bool kRegX1 = DP <= 4;
@@ -230,6 +249,14 @@ periodic_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, c
     const int lrow = (threadIdx.x >> 5) * 16 + g;  // this lane's first row within the block
     const int row0 = blockIdx.x * kBRows;
     const int c0 = blockIdx.y * tc::kCols;
+    if constexpr (SLABS) {  // this block's slab of the j range (blockIdx.z) as operands of
+        // their own: rows of x2 and v from z L on, m of them at most L, its partial out[z]
+        const int64_t j_slab = (int64_t)blockIdx.z * slab_len;
+        x2 += j_slab * d;
+        v += j_slab * t;
+        out += (int64_t)blockIdx.z * n * t;
+        m = min(m - (int)j_slab, slab_len);
+    }
 
     // this lane's rows row0 + lrow + 8 h (h = 0, 1): their tables (s, c) and the weights
     float sr[2][kRegX1 ? DP : 1], cr[2][kRegX1 ? DP : 1], wk[kRegX1 ? DP : 1];
@@ -413,11 +440,13 @@ periodic_matvec_tc(const float* __restrict__ x1, const float* __restrict__ x2, c
 constexpr int kWideSlab = 32;
 constexpr int kWideStride = kWideSlab + 1;  // the rows i's tables, padded against bank conflicts
 constexpr int kWideTJ = 16;
+static_assert(kSlabTile % kWideTJ == 0, "slabs of whole wide-tier tiles");
 
-template <int TC>
+template <int TC, bool SLABS>
 __global__ void __launch_bounds__(kRows)
 periodic_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ w,
-                         const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t) {
+                         const float* __restrict__ v, float* __restrict__ out, int n, int m, int d, int t,
+                         int slab_len) {
     __shared__ float s1[kRows * kWideStride];
     __shared__ float c1[kRows * kWideStride];
     __shared__ float s2[kWideTJ * kWideSlab];
@@ -428,6 +457,14 @@ periodic_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__
     const int row0 = blockIdx.x * kRows;
     const int row = row0 + threadIdx.x;
     const int c0 = blockIdx.y * TC;
+    if constexpr (SLABS) {  // this block's slab of the j range (blockIdx.z) as operands of
+        // their own: rows of x2 and v from z L on, m of them at most L, its partial out[z]
+        const int64_t j_slab = (int64_t)blockIdx.z * slab_len;
+        x2 += j_slab * d;
+        v += j_slab * t;
+        out += (int64_t)blockIdx.z * n * t;
+        m = min(m - (int)j_slab, slab_len);
+    }
     float acc[TC];
 #pragma unroll
     for (int c = 0; c < TC; ++c) acc[c] = 0.0f;
@@ -494,68 +531,113 @@ periodic_matvec_wide_f32(const float* __restrict__ x1, const float* __restrict__
     }
 }
 
+// A launch's operands: out is (num_slabs, n, t), one partial per slab of slab_len rows j.
+// With `plan` set, the dispatch below launches nothing and reports the grid of the tier it
+// would launch instead (Plan), from which the wrapper chooses the slab count.
+struct Plan {
+    int row_blocks, chunks;
+    int blocks_per_sm;  // of this tier's kernel, by its registers and shared memory
+    int slab_tile;      // rows j: a slab is a multiple of it
+};
+
+struct Args {
+    const float *x1, *x2, *w, *v;
+    float* out;
+    int n, m, d, t, num_slabs, slab_len;
+    cudaStream_t stream;
+    Plan* plan;
+};
+
+using Kernel = void (*)(const float*, const float*, const float*, const float*, float*, int, int, int, int, int);
+
+// launches a tier on blocks of `rows` rows and `cols` columns by the slabs (`slabbed`, its
+// SLABS = true instance, or `whole` for one slab), or plans it
+cudaError_t run(const Args& a, Kernel slabbed, Kernel whole, int rows, int cols, int threads, size_t smem) {
+    const dim3 grid((a.n + rows - 1) / rows, (a.t + cols - 1) / cols, a.num_slabs);
+    if (a.plan) {
+        *a.plan = Plan{(int)grid.x, (int)grid.y, 0, kSlabTile};
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a.plan->blocks_per_sm, slabbed, threads, smem);
+    }
+    const Kernel kernel = a.num_slabs > 1 ? slabbed : whole;
+    kernel<<<grid, threads, smem, a.stream>>>(a.x1, a.x2, a.w, a.v, a.out, a.n, a.m, a.d, a.t, a.slab_len);
+    return cudaSuccess;
+}
+
 template <int TC>
-void launch_wide(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m, int d,
-                 int t, cudaStream_t stream) {
-    const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
-    periodic_matvec_wide_f32<TC><<<grid, kRows, 0, stream>>>(x1, x2, w, v, out, n, m, d, t);
+cudaError_t launch_wide(const Args& a) {
+    return run(a, periodic_matvec_wide_f32<TC, true>, periodic_matvec_wide_f32<TC, false>, kRows, TC, kRows, 0);
 }
 
 template <int DP, int TC, bool TILED = false>
-void launch(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m, int d,
-            int t, cudaStream_t stream) {
-    const dim3 grid((n + kRows - 1) / kRows, (t + TC - 1) / TC);
-    periodic_matvec_f32<DP, TC, TILED><<<grid, kRows, 0, stream>>>(x1, x2, w, v, out, n, m, d, t);
+cudaError_t launch(const Args& a) {
+    return run(a, periodic_matvec_f32<DP, TC, TILED, true>, periodic_matvec_f32<DP, TC, TILED, false>, kRows, TC,
+               kRows, 0);
 }
 
 // the tensor-core tier's blocks: 8 warps (128 rows) with the rows' tables in registers
 // (DP <= 4), 4 warps (64 rows) with them staged (DP = 16, 64), as kernel_matvec.cu's launch_tc
 template <int DP>
-cudaError_t launch_tc(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m,
-                      int d, int t, cudaStream_t stream) {
+cudaError_t launch_tc(const Args& a) {
     constexpr int kWarps = DP <= 4 ? 8 : 4;
     constexpr size_t kBytes = TcLayout<DP, kWarps>::kBytes;
+    const Kernel slabbed = periodic_matvec_tc<DP, kWarps, true>, whole = periodic_matvec_tc<DP, kWarps, false>;
     if constexpr (kBytes > 48 * 1024) {
-        const cudaError_t rc = cudaFuncSetAttribute(periodic_matvec_tc<DP, kWarps>,
-                                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+        cudaError_t rc = cudaFuncSetAttribute(slabbed, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+        if (rc == cudaSuccess) rc = cudaFuncSetAttribute(whole, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
         if (rc != cudaSuccess) return rc;
     }
-    const dim3 grid((n + kWarps * 16 - 1) / (kWarps * 16), (t + tc::kCols - 1) / tc::kCols);
-    periodic_matvec_tc<DP, kWarps><<<grid, kWarps * 32, kBytes, stream>>>(x1, x2, w, v, out, n, m, d, t);
-    return cudaSuccess;
+    return run(a, slabbed, whole, kWarps * 16, tc::kCols, kWarps * 32, kBytes);
 }
 
 template <int DP>
-cudaError_t dispatch_tc(const float* x1, const float* x2, const float* w, const float* v, float* out, int n, int m,
-                        int d, int t, cudaStream_t s) {
-    if (t == 1) launch<DP, 1>(x1, x2, w, v, out, n, m, d, t, s);
-    else if (t <= 32) launch<DP, 32>(x1, x2, w, v, out, n, m, d, t, s);
-    else if (t <= 64) return launch_tc<DP>(x1, x2, w, v, out, n, m, d, t, s);
-    else launch<DP, 32, true>(x1, x2, w, v, out, n, m, d, t, s);
-    return cudaSuccess;
+cudaError_t dispatch_tc(const Args& a) {
+    if (a.t == 1) return launch<DP, 1>(a);
+    if (a.t <= 32) return launch<DP, 32>(a);
+    if (a.t <= 64) return launch_tc<DP>(a);
+    return launch<DP, 32, true>(a);
 }
+
+cudaError_t dispatch(const Args& a) {
+    if (a.d > periodic::kMaxDP) return a.t == 1 ? launch_wide<1>(a) : launch_wide<32>(a);
+    cudaError_t rc = cudaSuccess;
+    periodic::dispatch_dp(a.d, [&](auto dp) { rc = dispatch_tc<decltype(dp)::value>(a); });
+    return rc;
+}
+
+bool valid_sizes(int n, int m, int d, int t) { return n > 0 && t > 0 && m >= 0 && d > 0 && (t + 31) / 32 <= 65535; }
 
 }  // namespace
 
 // Launches the periodic matvec on `stream` and returns cudaGetLastError() (0 on success).
-// x1 (n, d), x2 (m, d), w (d,), v (m, t), out (n, t): float32, row-major, contiguous, on
-// one device; any d >= 1.
+// x1 (n, d), x2 (m, d), w (d,), v (m, t): float32, row-major, contiguous, on one device;
+// any d >= 1.  out (num_slabs, n, t): slab s covers rows j of x2 in [s L, (s + 1) L) with
+// L = ceil(m / num_slabs) rounded up to a multiple of 64 (a slab past m writes zeros); the
+// caller sums out over its first axis (num_slabs = 1: out is the product itself).  Sizes
+// that the grid cannot hold are refused.
 extern "C" int gp_periodic_matvec_f32(const void* x1, const void* x2, const void* w, const void* v, void* out,
-                                      int n, int m, int d, int t, void* stream) {
-    if (n <= 0 || t <= 0 || m < 0 || d <= 0 || (t + 31) / 32 > 65535) return (int)cudaErrorInvalidValue;
-    const float* a = static_cast<const float*>(x1);
-    const float* b = static_cast<const float*>(x2);
-    const float* ww = static_cast<const float*>(w);
-    const float* vv = static_cast<const float*>(v);
-    float* o = static_cast<float*>(out);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (d > periodic::kMaxDP) {
-        if (t == 1) launch_wide<1>(a, b, ww, vv, o, n, m, d, t, s);
-        else launch_wide<32>(a, b, ww, vv, o, n, m, d, t, s);
-    } else {
-        cudaError_t rc = cudaSuccess;
-        periodic::dispatch_dp(d, [&](auto dp) { rc = dispatch_tc<decltype(dp)::value>(a, b, ww, vv, o, n, m, d, t, s); });
-        if (rc != cudaSuccess) return (int)rc;
-    }
-    return (int)cudaGetLastError();
+                                      int n, int m, int d, int t, int num_slabs, void* stream) {
+    if (!valid_sizes(n, m, d, t)) return (int)cudaErrorInvalidValue;
+    if (num_slabs < 1 || num_slabs > 65535 || num_slabs > (m > 0 ? m : 1)) return (int)cudaErrorInvalidValue;
+    const int per_slab = (m + num_slabs - 1) / num_slabs;
+    const Args a{static_cast<const float*>(x1), static_cast<const float*>(x2), static_cast<const float*>(w),
+                 static_cast<const float*>(v), static_cast<float*>(out), n, m, d, t, num_slabs,
+                 (per_slab + kSlabTile - 1) / kSlabTile * kSlabTile, static_cast<cudaStream_t>(stream), nullptr};
+    const cudaError_t rc = dispatch(a);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+// The grid of the tier that gp_periodic_matvec_f32 launches at these sizes, on the current
+// device: plan[0..3] = row blocks, column chunks, the tier's blocks that fit on an SM at
+// once, and the staged tile of rows j that a slab is a multiple of.  Returns 0 on success.
+extern "C" int gp_periodic_matvec_plan(int n, int d, int t, int* plan) {
+    if (!valid_sizes(n, 0, d, t)) return (int)cudaErrorInvalidValue;
+    Plan p{};
+    const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, n, 0, d, t, 1, 0, nullptr, &p};
+    const cudaError_t rc = dispatch(a);
+    if (rc != cudaSuccess) return (int)rc;
+    plan[0] = p.row_blocks;
+    plan[1] = p.chunks;
+    plan[2] = p.blocks_per_sm;
+    plan[3] = p.slab_tile;
+    return 0;
 }

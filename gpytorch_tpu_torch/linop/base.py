@@ -2,7 +2,8 @@
 
 Counterpart of ``gpytorch_tpu/linop/base.py``, ported as far as exact-GP serving and
 training need: ``matmul``, ``solve`` by preconditioned CG, ``inv_quad_logdet`` by mBCG
-with stochastic Lanczos quadrature, ``root_inv_decomposition`` by block Lanczos, diagonal
+with stochastic Lanczos quadrature (by a dense Cholesky factor up to
+``settings.max_cholesky_size``), ``root_inv_decomposition`` by block Lanczos, diagonal
 and row access (for the pivoted-Cholesky preconditioner), and the structure hooks
 ``evaluate_kernel``, ``_eig_lower_bound`` and ``_is_known_psd``.
 
@@ -11,8 +12,9 @@ function that rebuilds the operator from them (the counterpart of the JAX packag
 ``tree_map``): a backward rebuilds the operator from copies that require grad and
 differentiates through its products.
 
-The dense-Cholesky branch that the JAX package takes for N ≤ ``max_cholesky_size`` is not
-ported yet: those calls raise, so use ``settings.max_cholesky_size(0)``.
+Of the dense-Cholesky branches that the JAX package takes for N ≤ ``max_cholesky_size``,
+only ``inv_quad_logdet``'s is ported: ``solve`` and ``root_inv_decomposition`` raise there,
+so serve with ``settings.max_cholesky_size(0)``.
 """
 
 from __future__ import annotations
@@ -168,13 +170,31 @@ class LinearOperator:
     def inv_quad_logdet(self, inv_quad_rhs: Optional[torch.Tensor] = None, logdet: bool = False,
                         reduce_inv_quad: bool = True, base_samples: ProbeSource = None,
                         solver_state: Optional[torch.Tensor] = None, return_state: bool = False):
-        """(rhsᵀ self⁻¹ rhs, log|self|) in one mBCG pass, differentiable by the BBMM
-        backward (``solvers/inv_quad.py``).  ``base_samples`` is where the probe vectors'
-        base samples come from; ``solver_state``/``return_state`` carry the warm start of
-        the rhs solve across training steps."""
+        """(rhsᵀ self⁻¹ rhs, log|self|), differentiable.  Up to ``max_cholesky_size`` from a
+        dense Cholesky factor L with escalating jitter (``psd_safe_cholesky``): log|self| =
+        2 Σ log diag L and rhsᵀ self⁻¹ rhs = |L⁻¹ rhs|², as the JAX package computes it
+        (``gpytorch_tpu/linop/base.py::inv_quad_logdet``); the solver state passes through
+        untouched.  Above it, in one mBCG pass with the BBMM backward
+        (``solvers/inv_quad.py``): ``base_samples`` is where the probe vectors' base samples
+        come from, and ``solver_state``/``return_state`` carry the warm start of the rhs
+        solve across training steps."""
+        if self._use_cholesky():
+            from ..solvers.cholesky import psd_safe_cholesky
+
+            # symmetrised, as jnp.linalg.cholesky does with its input (torch's reads one
+            # triangle): a covariance formed by subtraction is symmetric only to round-off
+            A = self.to_dense()
+            L = psd_safe_cholesky(0.5 * (A + A.mT))
+            logdet_term = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1) if logdet else None
+            iq_term = None
+            if inv_quad_rhs is not None:
+                rhs = inv_quad_rhs if inv_quad_rhs.ndim > 1 else inv_quad_rhs.unsqueeze(-1)
+                iq_term = torch.linalg.solve_triangular(L, rhs, upper=False).square().sum(-2)
+                if reduce_inv_quad:
+                    iq_term = iq_term.sum(-1)
+            return ((iq_term, logdet_term), solver_state) if return_state else (iq_term, logdet_term)
         from ..solvers.inv_quad import inv_quad_logdet_mbcg
 
-        self._check_iterative("inv_quad_logdet")
         return inv_quad_logdet_mbcg(
             self.evaluate_kernel(), inv_quad_rhs, logdet=logdet, reduce_inv_quad=reduce_inv_quad,
             base_samples=base_samples, solver_state=solver_state, return_state=return_state,

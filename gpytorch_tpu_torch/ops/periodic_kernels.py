@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from .fused_kernels import _check_cuda_f32, _check_symmetric, _zeros_out, load_library
+from .fused_kernels import _check_cuda_f32, _check_symmetric, _zeros_out, load_library, product_slabs
 
 # rows per block of the plain streamed versions (the JAX package's general periodic
 # backward chunks by 2048 rows: gpytorch_tpu/ops/pallas_kernels.py::_fpm_bwd)
@@ -160,30 +160,36 @@ def _periodic_backward_reference(x1p, x2p, w, g, v, need_dv: bool = True, chunk:
 # ----------------------------------------------------------------------------------------
 
 class PeriodicMatvecCUDA:
-    """Wrapper of the periodic K·V kernel: checks its inputs, allocates the output,
-    launches on the current stream and counts its launches in ``launches``."""
+    """Wrapper of the periodic K·V kernel: checks its inputs, chooses the slab split
+    (``fused_kernels.product_slabs``), allocates the output (the per-slab partials where
+    there is more than one slab, folded with ``torch.sum``), launches on the current
+    stream, counts its launches in ``launches`` and keeps the last launch's slab count in
+    ``last_slabs``."""
 
     def __init__(self):
         self.launches = 0
+        self.last_slabs = 0
 
     def __call__(self, x1p: torch.Tensor, x2p: torch.Tensor, w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         _check_shapes(x1p, x2p, w, v)
         _check_cuda_f32(x1p=x1p, x2p=x2p, w=w, v=v)
         n, d = x1p.shape
         m, t = v.shape
-        out = torch.empty((n, t), dtype=torch.float32, device=x1p.device)
         if n == 0 or t == 0:
-            return out
+            return torch.empty((n, t), dtype=torch.float32, device=x1p.device)
+        slabs = product_slabs("gp_periodic_matvec_plan", x1p.device, m, n, d, t)
+        out = torch.empty((slabs, n, t), dtype=torch.float32, device=x1p.device)
         lib = load_library()
         with torch.cuda.device(x1p.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.gp_periodic_matvec_f32(
-                x1p.data_ptr(), x2p.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(), n, m, d, t, stream
+                x1p.data_ptr(), x2p.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(), n, m, d, t, slabs, stream
             )
         if rc != 0:
             raise RuntimeError(f"periodic_matvec launch failed: CUDA error {rc}")
         self.launches += 1
-        return out
+        self.last_slabs = slabs
+        return out[0] if slabs == 1 else out.sum(0)
 
 
 periodic_matvec_cuda = PeriodicMatvecCUDA()

@@ -81,8 +81,9 @@ class _dtype_value_context:
 
 
 class max_cholesky_size(_value_context):
-    """N at or below which dense Cholesky would replace CG.  The port has no dense
-    Cholesky path yet: serve with ``max_cholesky_size(0)``."""
+    """N at or below which dense Cholesky replaces CG.  The port has it for
+    ``inv_quad_logdet`` (log densities and the NLPD); ``solve`` and
+    ``root_inv_decomposition`` raise there, so serve with ``max_cholesky_size(0)``."""
 
     _global_value = 800
 

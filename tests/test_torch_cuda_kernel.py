@@ -40,24 +40,71 @@ def _wide_data(n, m, d, t, seed, device):
 # the wide-d tier (d > 64), ragged n ≠ m, t = 1, a column tile and a half, and two tiles
 WIDE_CASES = [(300, 517, 65, 1), (517, 300, 100, 40), (129, 300, 200, 64)]
 
+# strips, whose j range the wrappers split into slabs: serving's and acquisition's row
+# counts against a ragged m that no slab length divides, at every tier of t
+STRIP_N = (1, 100, 256, 2048)
+STRIP_M = 20_011
+STRIP_T = (1, 20, 33, 64, 100)
+STRIP_CASES = [(n, STRIP_M, d, t) for n in STRIP_N for d in (3, 11, 100) for t in STRIP_T]
+PERIODIC_STRIP_CASES = [(n, STRIP_M, d, t) for n in STRIP_N for d in (2, 100) for t in STRIP_T]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
 @pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 3, 1), (1000, 1537, 11, 20), (129, 65, 3, 100), (1, 1, 1, 1),
                                      # the tensor-core tier, t ∈ (32, 64]
                                      (1000, 1537, 3, 33), (1000, 1537, 3, 64), (1000, 1537, 11, 33),
-                                     (1000, 1537, 11, 64), *WIDE_CASES])
+                                     (1000, 1537, 11, 64), *WIDE_CASES, *STRIP_CASES])
 def test_cuda_kernel_matches_plain(cuda_device, ktype, n, m, d, t):
     x1, x2, v = (_wide_data if d > 64 else _data)(n, m, d, t, seed=ktype, device=cuda_device)
     before = fk.kernel_matvec_cuda.launches
     got = fk.fused_kernel_matvec(x1, x2, v, ktype)
     torch.cuda.synchronize()
     assert fk.kernel_matvec_cuda.launches == before + 1
+    if (n, m, d, t) in STRIP_CASES:  # its grid is below the SM count: the j range is split
+        assert fk.kernel_matvec_cuda.last_slabs > 1
+    # the slabs' partials are folded without atomics: a second launch repeats the first
+    assert torch.equal(got, fk.fused_kernel_matvec(x1, x2, v, ktype))
     want = fk._matvec_reference(x1.double(), x2.double(), v.double(), ktype)
     # float32 kernel against the float64 plain version, relative to K|v| (K ≥ 0): the sum
     # of absolute terms, which bounds the float32 summation error
     scale = fk._matvec_reference(x1.double(), x2.double(), v.double().abs(), ktype).abs().max()
     assert ((got.double() - want).abs().max() / scale).item() < 1e-5
+
+
+def _one_slab_product(kernel, x1, x2, v, w=None):
+    """The product by one direct launch of the kernel's C entry with one slab."""
+    lib = fk.load_library()
+    n, d = x1.shape
+    m, t = v.shape
+    out = torch.empty((n, t), dtype=torch.float32, device=x1.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "rbf":
+        rc = lib.gp_kernel_matvec_f32(x1.data_ptr(), x2.data_ptr(), v.data_ptr(), out.data_ptr(), n, m, d, t, fk.RBF,
+                                      1, stream)
+    else:
+        rc = lib.gp_periodic_matvec_f32(x1.data_ptr(), x2.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(), n, m,
+                                        d, t, 1, stream)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rbf", "periodic"])
+@pytest.mark.parametrize("t", [1, 20, 64, 100])
+def test_full_width_product_takes_one_slab(cuda_device, kernel, t):
+    # a 100k-row product fills the card alone: the wrapper launches one slab, which sums as
+    # the kernel did before the split (the same bits as one direct launch of one slab)
+    n = 100_000
+    if kernel == "rbf":
+        x, _, v = _data(n, n, 3, t, seed=t, device=cuda_device)
+        got, w = fk.kernel_matvec_cuda(x, x, v, fk.RBF), None
+        assert fk.kernel_matvec_cuda.last_slabs == 1
+    else:
+        x, _, w, v = _periodic_data(n, n, 2, t, seed=t, device=cuda_device)
+        got = ppk.periodic_matvec_cuda(x, x, w, v)
+        assert ppk.periodic_matvec_cuda.last_slabs == 1
+    assert torch.equal(got, _one_slab_product(kernel, x, x, v, w))
 
 
 @pytest.mark.cuda
@@ -185,7 +232,7 @@ PERIODIC_TC_CASES = [(n, m, d, t) for n, m in ((1000, 1537), (77, 19)) for d in 
 @pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 2, 1), (1000, 1537, 1, 64), (129, 65, 3, 100), (300, 200, 11, 20),
                                      (1, 1, 1, 1), *WIDE_CASES, *PERIODIC_TC_CASES,
                                      # t > 64: three 32-column tiles and a ragged one, summed per staged tile
-                                     (1000, 1537, 2, 100), (77, 1537, 64, 100)])
+                                     (1000, 1537, 2, 100), (77, 1537, 64, 100), *PERIODIC_STRIP_CASES])
 def test_cuda_periodic_kernel_matches_plain(cuda_device, n, m, d, t):
     x1, x2, w, v = _periodic_data(n, m, d, t, seed=d + t, device=cuda_device)
     w = w / d if d > 11 else w  # keeps Σ_k w_k sin² O(1): K would underflow to 0 otherwise
@@ -193,6 +240,10 @@ def test_cuda_periodic_kernel_matches_plain(cuda_device, n, m, d, t):
     got = ppk.fused_periodic_matvec(x1, x2, w, v)
     torch.cuda.synchronize()
     assert ppk.periodic_matvec_cuda.launches == before + 1
+    if (n, m, d, t) in PERIODIC_STRIP_CASES:  # its grid is below the SM count: the j range is split
+        assert ppk.periodic_matvec_cuda.last_slabs > 1
+    # the slabs' partials are folded without atomics: a second launch repeats the first
+    assert torch.equal(got, ppk.fused_periodic_matvec(x1, x2, w, v))
     x1d, x2d, wd, vd = x1.double(), x2.double(), w.double(), v.double()
     want = ppk._periodic_matvec_reference(x1d, x2d, wd, vd)
     # relative to K|v| (K ≥ 0), the sum of absolute terms

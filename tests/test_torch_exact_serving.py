@@ -124,11 +124,13 @@ def _served(fast_pred_var, m):
             with _serving_settings(gp.settings, fast_pred_var):
                 jpred = jm.likelihood(jm(tx))
                 return (jpred.mean, jpred.variance, gp.metrics.mean_squared_error(jpred, ty, squared=False),
-                        gp.metrics.negative_log_predictive_density(jpred, ty, eig_floor=jm.likelihood.noise))
+                        gp.metrics.negative_log_predictive_density(jpred, ty, eig_floor=jm.likelihood.noise),
+                        jpred.covariance_matrix)
 
-        mean, var, rmse, nlpd = jax_serve({k: jnp.asarray(v) for k, v in PARAMS.items()}, jnp.asarray(test_x),
-                                          jnp.asarray(test_y))
-        out["jax"] = dict(mean=np.asarray(mean), var=np.asarray(var), rmse=float(rmse), nlpd=float(nlpd))
+        mean, var, rmse, nlpd, cov = jax_serve({k: jnp.asarray(v) for k, v in PARAMS.items()}, jnp.asarray(test_x),
+                                               jnp.asarray(test_y))
+        out["jax"] = dict(mean=np.asarray(mean), var=np.asarray(var), rmse=float(rmse), nlpd=float(nlpd),
+                          cov=np.asarray(cov))
 
     tm = TorchModel(torch.from_numpy(train_x), torch.from_numpy(train_y), gt.likelihoods.GaussianLikelihood(),
                     lanczos_init=torch.from_numpy(block)).double()
@@ -141,6 +143,7 @@ def _served(fast_pred_var, m):
             mean=tpred.mean.numpy(), var=tpred.variance.numpy(),
             rmse=gt.metrics.mean_squared_error(tpred, ty, squared=False).item(),
             nlpd=gt.metrics.negative_log_predictive_density(tpred, ty, eig_floor=tm.likelihood.noise).item(),
+            cov=tpred.covariance_matrix.numpy(),
         )
     out["cg_iters"] = tm.prediction_strategy().lik_train_train_covar.last_cg_result.num_iters
     return out
@@ -165,6 +168,106 @@ def test_metrics_match_jax_package(fast_pred_var, m):
     assert np.isfinite([t["rmse"], t["nlpd"]]).all()
     np.testing.assert_allclose(t["rmse"], j["rmse"], rtol=1e-9)
     np.testing.assert_allclose(t["nlpd"], j["nlpd"], rtol=1e-9, atol=1e-9)
+
+
+# the NLPD without eig_floor: −log p(y*) / n, by a dense Cholesky factor with escalating
+# jitter up to max_cholesky_size (800) test points, by mBCG with SLQ above it
+NLPD_PROBES = 16
+# mBCG against mBCG on the same probes: the two packages' CG iterations round differently
+# in float64, and SLQ's tridiagonals carry it into the log-determinant (read 2.3e-13 at 400
+# test points and 2.5e-11 at 40, where the exact covariance is less well conditioned)
+NLPD_MBCG_RTOL = 1e-9
+
+
+def _probe_draw(shape):
+    """Injected standard-normal probe base samples, fixed by their shape."""
+    return np.random.default_rng([11, *shape]).normal(size=shape)
+
+
+def _mbcg_settings(mod):
+    stack = contextlib.ExitStack()
+    for ctx in (mod.max_cholesky_size(0), mod.max_preconditioner_size(0), mod.num_trace_samples(NLPD_PROBES),
+                mod.cg_tolerance(1e-6), mod.max_cg_iterations(400), mod.max_lanczos_quadrature_iterations(100)):
+        stack.enter_context(ctx)
+    return stack
+
+
+@functools.lru_cache(maxsize=None)
+def _nlpds_without_floor(fast_pred_var, m):
+    """Each package's NLPD of its own served predictive distribution (mean and dense
+    covariance), by the dense Cholesky branch and by mBCG with injected probes."""
+    served = _served(fast_pred_var, m)
+    test_y = _task(N, m)[3]
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys.modules["gpytorch_tpu.linop.base"], "probe_base_samples",
+                   lambda key, shape, dtype: jnp.asarray(_probe_draw(tuple(shape)), dtype=dtype))
+
+        @jax.jit
+        def jax_nlpds(mean, cov, y):
+            dist = gp.distributions.MultivariateNormal(mean, cov)
+            with gp.settings.max_cholesky_size(800):
+                chol = gp.metrics.negative_log_predictive_density(dist, y)
+            with _mbcg_settings(gp.settings):
+                mbcg = gp.metrics.negative_log_predictive_density(dist, y)
+            return chol, mbcg
+
+        j = served["jax"]
+        out["jax"] = [float(x) for x in jax_nlpds(jnp.asarray(j["mean"]), jnp.asarray(j["cov"]), jnp.asarray(test_y))]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys.modules["gpytorch_tpu_torch.linop.base"], "probe_base_samples",
+                   lambda shape, dtype, device, source=None: torch.as_tensor(_probe_draw(tuple(shape)), dtype=dtype,
+                                                                             device=device))
+        t = served["torch"]
+        dist = gt.distributions.MultivariateNormal(torch.from_numpy(t["mean"]), torch.from_numpy(t["cov"]))
+        y = torch.from_numpy(test_y)
+        with gt.settings.max_cholesky_size(800):
+            chol = gt.metrics.negative_log_predictive_density(dist, y).item()
+        with _mbcg_settings(gt.settings):
+            mbcg = gt.metrics.negative_log_predictive_density(dist, y).item()
+        out["torch"] = [chol, mbcg]
+    return out
+
+
+@pytest.mark.parametrize("fast_pred_var,m", [(True, M), (False, 40)])
+def test_nlpd_without_floor_matches_jax_package(fast_pred_var, m):
+    # at most 800 test points: the dense Cholesky branch of both packages' log_prob
+    (want, _), (got, _) = (_nlpds_without_floor(fast_pred_var, m)[k] for k in ("jax", "torch"))
+    assert np.isfinite(got)
+    np.testing.assert_allclose(got, want, rtol=1e-8)
+
+
+@pytest.mark.parametrize("fast_pred_var,m", [(True, M), (False, 40)])
+def test_nlpd_without_floor_by_mbcg_matches_jax_package(fast_pred_var, m):
+    # max_cholesky_size(0): mBCG with stochastic Lanczos quadrature, the same probes in both
+    (chol, want), (_, got) = (_nlpds_without_floor(fast_pred_var, m)[k] for k in ("jax", "torch"))
+    assert np.isfinite(got)
+    np.testing.assert_allclose(got, want, rtol=NLPD_MBCG_RTOL)
+    assert abs(got - chol) < 0.05 * abs(chol)  # an estimate of the same density
+
+
+@pytest.mark.parametrize("neg", [1e-9, 3e-8])
+def test_nlpd_of_a_slightly_indefinite_covariance_matches_jax_package(neg):
+    # one eigenvalue at −neg of the largest (1): an eigendecomposition's log is NaN there;
+    # psd_safe_cholesky adds its base jitter 1e-8 (neg = 1e-9) or escalates to 1e-7
+    # (neg = 3e-8), and both packages return the same finite value.  The residual lies
+    # outside the near-null direction, so the value does not hang on its round-off.
+    n = 300
+    rng = np.random.default_rng(3)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    w = rng.uniform(0.05, 1.0, size=n)
+    w[0], w[1] = 1.0, -neg
+    cov = (q * w) @ q.T
+    cov = 0.5 * (cov + cov.T)
+    assert np.linalg.eigvalsh(cov)[0] < 0
+    mean = 0.1 * rng.normal(size=n)
+    y = mean + q[:, 2:] @ (0.3 * rng.normal(size=n - 2))
+    want = float(jax.jit(lambda a, c, b: gp.metrics.negative_log_predictive_density(
+        gp.distributions.MultivariateNormal(a, c), b))(jnp.asarray(mean), jnp.asarray(cov), jnp.asarray(y)))
+    dist = gt.distributions.MultivariateNormal(torch.from_numpy(mean), torch.from_numpy(cov))
+    got = gt.metrics.negative_log_predictive_density(dist, torch.from_numpy(y)).item()
+    assert np.isfinite(got) and np.isfinite(want)
+    np.testing.assert_allclose(got, want, rtol=1e-8)
 
 
 def test_load_jax_params_carries_the_constrained_values():

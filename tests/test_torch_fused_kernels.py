@@ -122,3 +122,107 @@ def test_unknown_kernel_type_raises(ktype):
 def test_dispatch_rejects_mismatched_shapes():
     with pytest.raises(ValueError):
         fk.fused_kernel_matvec(*_f32((4, 3), (5, 3), (6, 2)), fk.RBF)
+
+
+# ---------------------------------------------------------------------------------------
+# the slab split of the j range (ops/fused_kernels.py::_slab_count): the rule on its own,
+# with an H100's 132 SMs; the kernels themselves are checked on a GPU
+# ---------------------------------------------------------------------------------------
+
+H100_SMS = 132
+N_PATH = 100_000
+
+
+def _slab_len(m, slabs, tile=64):
+    """The slab length of the C entries of the K·V kernels: ceil(m / slabs) rounded up to a
+    multiple of the 64-row staged tile."""
+    return -(-(-(-m // slabs)) // tile) * tile
+
+
+def _cols(t):
+    """The column tile of the K·V tier at t: 1, 64 on the tensor cores, else 32."""
+    return 1 if t == 1 else 64 if 32 < t <= 64 else 32
+
+
+def _product_slabs(n, m, t, rows, per_sm):
+    """``fk.product_slabs`` for a plan of the kind the K·V tiers report on the card
+    (``gp_kernel_matvec_plan``, ``gp_periodic_matvec_plan``): blocks of ``rows`` rows (128,
+    or 64 in the padded tensor-core tier), column tiles of 1 (t = 1), 64 (t ∈ (32, 64], the
+    tensor cores) or 32, ``per_sm`` blocks an SM, a 64-row staged tile."""
+    return fk._slab_count(-(-n // rows), -(-t // _cols(t)), m, H100_SMS, per_sm, fk._MV_MIN_SLAB, 64, one_wave=True)
+
+
+# (t, rows a block) of every tier: 64-row blocks only in the padded tensor-core tier
+TIER_ROWS = [(t, rows) for t in (1, 20, 33, 64, 100) for rows in ((128, 64) if 32 < t <= 64 else (128,))]
+BLOCKS_PER_SM = [1, 2, 3, 4, 6, 8, 12, 16]
+
+
+@pytest.mark.parametrize("per_sm", BLOCKS_PER_SM)
+@pytest.mark.parametrize("t,rows", TIER_ROWS)
+@pytest.mark.parametrize("n", [1, 100, 256, 2048])
+def test_product_strips_split_over_j(n, t, rows, per_sm):
+    # a serving or acquisition strip against 100k training rows fills fewer SMs than the
+    # card has, so its j range is split, as far as one wave; each slab holds whole staged
+    # tiles and is not empty
+    slabs = _product_slabs(n, N_PATH, t, rows, per_sm)
+    assert 1 < slabs <= 65535
+    grid = -(-n // rows) * -(-t // _cols(t))
+    assert grid * slabs <= max(per_sm * H100_SMS, grid)
+    length = _slab_len(N_PATH, slabs)
+    assert length >= fk._MV_MIN_SLAB and length % 64 == 0
+    assert (slabs - 1) * length < N_PATH <= slabs * length  # the last slab is not empty
+
+
+@pytest.mark.parametrize("per_sm", BLOCKS_PER_SM)
+@pytest.mark.parametrize("t,rows", TIER_ROWS)
+def test_product_at_full_width_keeps_one_slab(t, rows, per_sm):
+    # every 100k × 100k launch (training CG, the refresh's CG, Lanczos, dv) fills the card
+    # alone and keeps one slab: it sums in the same order as without the split
+    assert _product_slabs(N_PATH, N_PATH, t, rows, per_sm) == 1
+
+
+@pytest.mark.parametrize("per_sm", [1, 4, 16])
+@pytest.mark.parametrize("n,m,t", [(2048, 20_011, 1), (256, 20_011, 100), (1, 300, 1), (7, 255, 20), (2048, 0, 1)])
+def test_product_slabs_bounded_by_the_least_length(per_sm, n, m, t):
+    # ragged m, not a multiple of the slab length: at least _MV_MIN_SLAB rows a slab (one slab
+    # where m is shorter), whole staged tiles, grid.z within 65535
+    slabs = _product_slabs(n, m, t, 128, per_sm)
+    assert 1 <= slabs <= max(1, m // fk._MV_MIN_SLAB)
+    if slabs > 1:
+        length = _slab_len(m, slabs)
+        assert length >= fk._MV_MIN_SLAB and length % 64 == 0 and slabs * length >= m
+
+
+@pytest.mark.parametrize("n,m,t,slabs", [(2048, N_PATH, 1, 66), (2048, N_PATH, 100, 17), (N_PATH, 2048, 1, 2),
+                                         (N_PATH, 2048, 100, 1)])
+def test_grad_x_slab_counts_unchanged(n, m, t, slabs):
+    # the counts that the grad_x kernel was tuned at (the 2048-row strip both ways)
+    assert fk.grad_x_slabs(n, m, t, H100_SMS) == slabs
+
+
+@pytest.mark.parametrize("one_wave,want", [(False, 2), (True, 1)])
+def test_slab_rule_splits_a_full_grid_only_when_asked(one_wave, want):
+    # 782 row blocks fill 132 SMs; eight blocks an SM would still take two slabs
+    assert fk._slab_count(782, 1, N_PATH, H100_SMS, 8, 256, 64, one_wave=one_wave) == want
+    # grid.z is at most 65535, and slabs past m are trimmed
+    assert fk._slab_count(1, 1, 65535 * 1000, H100_SMS, 10**4, 1, 1, one_wave=one_wave) == 65535
+    assert fk._slab_count(1, 1, 300, H100_SMS, 10**4, 1, 64, one_wave=one_wave) == 5
+
+
+@pytest.mark.parametrize("one_wave,want", [(False, 17), (True, 16)])
+def test_slab_rule_rounds_down_to_one_wave(one_wave, want):
+    # 16 row blocks, two blocks an SM: 16.5 slabs would fill the card; one wave holds 16
+    assert fk._slab_count(16, 1, N_PATH, H100_SMS, 2, 256, 64, one_wave=one_wave) == want
+
+
+@pytest.mark.parametrize("n,t,want_ms,exps_bind", [(2048, 1, 0.04897, True), (N_PATH, 1, 2.39134, True),
+                                                   (2048, 100, 0.63885, False), (N_PATH, 20, 7.31343, False)])
+def test_matvec_bound_takes_the_exp_floor(n, t, want_ms, exps_bind):
+    # chip_smoke.py's least time of a K·V product on the CUDA cores: at t = 1 the one exp a
+    # pair on the special-function units (132 SMs × 16 a clock × 1.98 GHz) binds above the
+    # 2t + 3d FP32 operations
+    import chip_smoke as cs
+
+    ms, by = cs.matvec_bound(n, N_PATH, 3, t)
+    assert by == "operations" and ms == pytest.approx(want_ms, abs=5e-5)
+    assert (ms == pytest.approx(cs.exp_floor_ms(n * N_PATH), rel=1e-12)) == exps_bind
