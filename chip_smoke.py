@@ -28,10 +28,14 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               version, gated at twice its error, and both timed; the wide-d tier (d = 100)
               likewise, at n = 517 and at 16,384 rows.
 3d. grad_x  — the CUDA grad_x kernel (the cotangent of one input of K·V) against its
-              float32 plain version for the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 100}
-              at ragged n ≪ m and n ≫ m; at the path's shapes (2,048 candidates against the
-              100k training points both ways, t = 1 and 100) against float64, timed there;
-              the wide-d tier (d = 100) at ragged shapes and on a 2048 × 16,384 strip.
+              float32 plain version for the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 33,
+              64, 100, 128, 129} (the tensor-core tier at 33-128) at ragged n ≪ m and n ≫ m,
+              each tensor-core launch rerun bit for bit; at the path's shapes (2,048
+              candidates against the 100k training points both ways, t = 1 and 100) against
+              float64, the t=100 ones (the tensor-core tier) gated at twice the plain float32
+              version's error, timed there beside both bounds, with the tier's staging (one
+              staged tile of rows j) and t = 128 (all 16 k-steps) timed beside them; the
+              wide-d tier (d = 100) at ragged shapes and on a 2048 × 16,384 strip.
 3c. periodic kernels — the CUDA periodic K·V and fused periodic backward kernels against
               their float32 plain versions for d ∈ {1, 2, 3, 11}, t ∈ {1, 20, 64, 100}
               (ragged n ≠ m for the product, symmetric n for the backward: dx, dw and dos,
@@ -211,6 +215,7 @@ GX_REL_TOL = 1e-5           # grad_x kernel against its float32 plain version, r
                             # absolute terms 2 Σ_j |k′||g_i·v_j||x1_i − x2_j|, which bounds float32 summation
 GX_PATH_TOL = 1e-4          # grad_x kernel at the path's shapes (2048 × 100k both ways) against the plain
                             # version in float64: max |Δ| / max |·|
+GX_TIER_T = (1, 20, 33, 64, 100, 128, 129)  # grad_x's ragged checks: the tensor-core tier's edges (33-128)
 GX_SLICE_TOL = 3e-3         # N=2000 CPU vs CUDA: max |Δ∇| / max |∇| of the UCB gradient, for the candidates
                             # and (parameters live) for the parameters, each over its own largest.  A float32
                             # run is up to ~1e-3 off float64 (CPU float32 read 2.6e-4 frozen, 9.8e-4 live): the
@@ -616,6 +621,13 @@ def grad_x_bound(n: int, m: int, d: int, t: int):
     return bound_ms(n * m * (2 * t + 5 * d + 4), 4 * (2 * n * d + m * d + n * t + m * t), n * m)
 
 
+def grad_x_tc_bound(n: int, m: int, d: int, t: int):
+    """grad_x's t ∈ (32, 128] tier: ``tc_bound`` with the score g_i·v_j of depth t on the
+    tensor cores, the 5d + 4 CUDA-core operations per pair of the distance, the moment, k′
+    and the weight, and the bytes of ``grad_x_bound``."""
+    return tc_bound(n * m, t, 5 * d + 4, 4 * (2 * n * d + m * d + n * t + m * t))
+
+
 def bwd_bound(n: int, d: int, t: int):
     """Fused backward on the FP32 cores (dx and dos): per (i, j) pair 4t FLOP for g_i·v_j
     and v_i·g_j, 5d for the distance and the dx update, about 9 for k, k′, the weight and
@@ -924,10 +936,11 @@ def _grad_x_abs_terms(x1, x2, g, v, kt):
 
 def phase_grad_x():
     """The grad_x kernel against its plain version on the card: float32 against float32 for
-    the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 100}, at ragged n ≪ m and n ≫ m; at the
-    path's shapes on the flagship task (2,048 candidates against the 100k training points,
-    scaled by the fitted lengthscales, both ways: dx1 and dx2, at t = 1 and 100) against
-    float64, and timed there.  Returns (max_abs_err, {(n, m, t): (ms, plain_ms)})."""
+    the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 33, 64, 100, 128, 129} (the tensor-core
+    tier's edges), at ragged n ≪ m and n ≫ m; at the path's shapes on the flagship task
+    (2,048 candidates against the 100k training points, scaled by the fitted lengthscales,
+    both ways: dx1 and dx2, at t = 1 and 100) against float64, and timed there.  Returns
+    (max_abs_err, {(n, m, t): (ms, plain_ms)})."""
     import torch
 
     from gpytorch_tpu_torch.ops import fused_kernels as fk
@@ -941,7 +954,7 @@ def phase_grad_x():
     max_abs, worst = 0.0, 0.0
     for kt in fk.KERNEL_TYPES:
         for d in (3, 11):
-            for t in (1, 20, 100):
+            for t in GX_TIER_T:
                 for n, m in ((300, 1537), (1537, 300)):
                     x1, x2, g, v = data((n, d), (m, d), (n, t), (m, t))
                     got = fk.kernel_grad_x_cuda(x1, x2, g, v, kt)
@@ -950,8 +963,12 @@ def phase_grad_x():
                     max_abs, worst = max(max_abs, err), max(worst, rel)
                     check(rel <= GX_REL_TOL, f"grad_x kernel type {kt}, d={d}, t={t}, {n}x{m}: relative error "
                                              f"{rel:.3e} > {GX_REL_TOL}")
-        print(f"[grad-x] type {kt}: 300x1537 and 1537x300, d∈{{3,11}} t∈{{1,20,100}} within {GX_REL_TOL} of the "
-              f"float32 plain version (worst so far {worst:.3e})", flush=True)
+                    if 32 < t <= 128:  # the tensor-core tier: no atomics, so a rerun repeats it
+                        check(torch.equal(got, fk.kernel_grad_x_cuda(x1, x2, g, v, kt)),
+                              f"grad_x kernel type {kt}, d={d}, t={t}, {n}x{m}: a rerun differs")
+        ts = ",".join(map(str, GX_TIER_T))
+        print(f"[grad-x] type {kt}: 300x1537 and 1537x300, d∈{{3,11}} t∈{{{ts}}} within {GX_REL_TOL} of the float32 "
+              f"plain version, the tensor-core tier rerun bit for bit (worst so far {worst:.3e})", flush=True)
 
     # the path's shapes: dx1 of K(candidates, train)·v for v = the mean cache (t=1) and the
     # LOVE root (t=100), and dx2 (the training side, with the parameters live)
@@ -965,6 +982,7 @@ def phase_grad_x():
         for t in (1, 100):
             g, v = data((n, t), (m, t))
             got = fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF)
+            slabs = fk.kernel_grad_x_cuda.last_slabs
             exact = fk._grad_x_reference(x1.double(), x2.double(), g.double(), v.double(), fk.RBF)
             err = (got.double() - exact).abs().max().item()
             rel = err / exact.abs().max().item()
@@ -972,13 +990,30 @@ def phase_grad_x():
             max_abs = max(max_abs, err)
             del exact
             check(rel <= GX_PATH_TOL, f"grad_x kernel {n}x{m} t={t} against float64: {rel:.3e} > {GX_PATH_TOL}")
+            if t > 32:  # the tensor-core tier
+                check(rel <= 2 * plain_rel, f"grad_x kernel {n}x{m} t={t} against float64: {rel:.3e}, over twice the "
+                                            f"plain float32 version's {plain_rel:.3e}")
+                check(torch.equal(got, fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF)),
+                      f"grad_x {n}x{m} t={t}: a rerun differs")
             ms = cuda_time_ms(lambda: fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF), 10)
             plain_ms = cuda_time_ms(lambda: fk._grad_x_reference(x1, x2, g, v, fk.RBF), 3)
             timed[(n, m, t)] = (ms, plain_ms)
             bms, by = grad_x_bound(n, m, D, t)
-            print(f"[grad-x] {n}x{m} d={D} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
-                  f"({by}; {n * m:.3e} pairs); against float64 max |Δ| / max |·|: kernel {rel:.3e}, plain float32 "
-                  f"{plain_rel:.3e} (tol {GX_PATH_TOL})", flush=True)
+            tc = ""
+            if t > 32:
+                tms, tby = grad_x_tc_bound(n, m, D, t)
+                # the tier's staging of the block's rows and its epilogue, alone: one staged tile
+                # of rows j; and t = 128, which runs all 16 k-steps where t = 100 runs 13
+                stage_ms = cuda_time_ms(lambda: fk.kernel_grad_x_cuda(x1, x2[:32], g, v[:32], fk.RBF), 10)
+                g128, v128 = data((n, 128), (m, 128))
+                ms128 = cuda_time_ms(lambda: fk.kernel_grad_x_cuda(x1, x2, g128, v128, fk.RBF), 10)
+                del g128, v128
+                tc = (f", tensor-core bound {tms:.3f} ms ({tby}, {tms / ms:.0%}); one staged tile of rows j (staging "
+                      f"and epilogue) {stage_ms:.4f} ms; t=128 (16 k-steps) {ms128:.3f} ms")
+            print(f"[grad-x] {n}x{m} d={D} t={t}: {slabs} slabs of the j range; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, FP32 bound {bms:.3f} ms ({by}, {bms / ms:.0%}){tc}; {n * m:.3e} pairs; against "
+                  f"float64 max |Δ| / max |·|: kernel {rel:.3e}, plain float32 {plain_rel:.3e} (tol {GX_PATH_TOL})",
+                  flush=True)
 
     # the wide-d tier (d > 64): the four kernel types at ragged n ≪ m and n ≫ m, t = 1 and
     # 40, against the float32 plain version; then a 2048-row strip against WIDE_N rows at
@@ -1707,8 +1742,9 @@ def sass_witness():
     """Which functions of the built kernel library run on the tensor cores: the count of
     ``HMMA.1688.F32.TF32`` in each function's SASS (``cuobjdump -sass``), printed for every
     function that has one.  Fails unless every ``kernel_matvec_tc``, ``kernel_bwd_tc``,
-    ``periodic_matvec_tc`` and ``periodic_bwd_tc`` function has them and no other function
-    does.  Not part of ``main`` (the disassembly is over 64 MiB and takes a minute):
+    ``kernel_grad_x_tc``, ``periodic_matvec_tc`` and ``periodic_bwd_tc`` function has them
+    and no other function does.  Not part of ``main`` (the disassembly is over 64 MiB and
+    takes a minute):
 
         python3 -c 'import chip_smoke; chip_smoke.sass_witness()'
     """
@@ -1732,7 +1768,7 @@ def sass_witness():
     check(proc.wait() == 0, "cuobjdump failed")
     demangled = (subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True, text=True).stdout.split("\n")
                  if shutil.which("c++filt") else list(counts))
-    tc_names = ("kernel_matvec_tc", "kernel_bwd_tc", "periodic_matvec_tc", "periodic_bwd_tc")
+    tc_names = ("kernel_matvec_tc", "kernel_bwd_tc", "kernel_grad_x_tc", "periodic_matvec_tc", "periodic_bwd_tc")
     for (mangled, hmma), pretty in zip(counts.items(), demangled):
         if hmma or any(k in mangled for k in tc_names):
             print(f"[sass] {pretty[:120]}: {hmma} HMMA.1688.F32.TF32", flush=True)
@@ -1746,7 +1782,8 @@ def sass_witness():
 
 def slab_sweep():
     """The two K·V kernels' strips (2048 and 256 rows against the 100k training rows of both
-    tasks, t = 1, 20, 64 and 100) at the wrappers' slab count and at a sweep of counts
+    tasks, t = 1, 20, 64 and 100) and grad_x's (2048 candidates against the 100k training
+    rows both ways, t = 1 and 100) at the wrappers' slab count and at a sweep of counts
     through the C entries, each with its time and its error against float64.  Not part of
     ``main`` (≈ 1 min after the build):
 
@@ -1802,6 +1839,36 @@ def slab_sweep():
                 del ref
                 print(f"[slab-sweep] {kind} {n}x{m} t={t}: the wrapper takes {slabs} slabs; by slab count (ms, "
                       f"max |Δ| / max |·| against float64): {sweep}", flush=True)
+
+    # grad_x: dx1 over the candidates (a strip) and dx2 over the training rows, on the
+    # flagship's task as phase 3d scales it
+    def launch_gx(x1, x2, g, v, slabs):
+        (n, d), (m, t) = x1.shape, v.shape
+        chunks = fk._launch_plan("gp_kernel_grad_x_plan", x1.device.index, n, d, t, fk.RBF)[1]
+        dx = torch.empty((slabs * chunks, n, d), dtype=torch.float32, device=dev)
+        rc = lib.gp_kernel_grad_x_f32(x1.data_ptr(), x2.data_ptr(), g.data_ptr(), v.data_ptr(), dx.data_ptr(), n, m,
+                                      d, t, fk.RBF, slabs, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, "grad_x launch failed")
+        return dx.sum(0)
+
+    xt, xq = tasks["rbf"][0], tasks["rbf"][1]
+    for x1, x2 in ((xq, xt), (xt, xq)):
+        n, m = x1.shape[0], x2.shape[0]
+        for t in (1, 100):
+            g = torch.as_tensor(rng.normal(size=(n, t)), dtype=torch.float32, device=dev)
+            v = torch.as_tensor(rng.normal(size=(m, t)), dtype=torch.float32, device=dev)
+            fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF)
+            slabs = fk.kernel_grad_x_cuda.last_slabs
+            ref = fk._grad_x_reference(x1.double(), x2.double(), g.double(), v.double(), fk.RBF)
+            scale = ref.abs().max().item()
+            sweep = []
+            for s in sorted({1, 2, 3, 4, 8, 16, 17, 33, 66, 82, 99, 131, 196, slabs} & set(range(1, m // 256 + 1))):
+                err = (launch_gx(x1, x2, g, v, s).double() - ref).abs().max().item() / scale
+                ms = cuda_time_ms(lambda s=s: launch_gx(x1, x2, g, v, s), 10)
+                sweep.append(f"{s}: {ms:.4f} ms {err:.2e}")
+            del ref
+            print(f"[slab-sweep] grad_x {n}x{m} t={t}: the wrapper takes {slabs} slabs; by slab count (ms, max |Δ| / "
+                  f"max |·| against float64): {sweep}", flush=True)
 
 
 def phase_periodic():
@@ -2148,7 +2215,9 @@ def main() -> int:
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound",
                "strips": mv_strips},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
-                  grad_x_bound(N_TEST, N_TRAIN, D, 100)),
+                  grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
+            | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
+                       "grad_x_tc_bound"},
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
                   bwd_tc_bound(N_TRAIN, D, 64))
             | {"tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "

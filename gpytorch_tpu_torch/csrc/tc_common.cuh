@@ -1,6 +1,7 @@
-// What the tensor-core tiers of kernel_matvec.cu, kernel_periodic_matvec.cu and
-// kernel_periodic_bwd_fused.cu share: the 3xTF32 split and the m16n8k8 product, the staged
-// tile's shape, V's B fragments, and the operands of a fused backward's score tiles.
+// What the tensor-core tiers of kernel_matvec.cu, kernel_periodic_matvec.cu,
+// kernel_bwd_fused.cu, kernel_periodic_bwd_fused.cu and kernel_grad_x.cu share: the 3xTF32
+// split and the m16n8k8 product, the staged tile's shape, V's B fragments, and the operands
+// of a score tile (a fused backward's, and grad_x's).
 //
 // A block's K.V over one staged tile of kTJ rows j is a small matrix product, K_tile
 // (rows x kTJ) times V_tile (kTJ x 64), the shape of mma.sync.m16n8k8 on TF32 operands.
@@ -84,40 +85,48 @@ struct VStage {
 };
 
 // ---------------------------------------------------------------------------------------
-// The score tiles of a fused symmetric backward: GG_ij = g_i . v_j + v_i . g_j is one dot
-// product of depth 2 kScoreHalf, [g_i | v_i] . [v_j | g_j], with t <= kScoreHalf columns of
-// g and v zero-padded to kScoreHalf on each side.  For a warp's 16 rows i against a staged
-// tile of kTJ rows j that is an m16 x n32 product of depth 128 on mma.sync.m16n8k8: the
-// block's own rows are the A operand and the staged rows the B operand.  The block's rows'
-// [g_i | v_i] are staged once, as floats in A-fragment order (hi and lo of 128 rows would
-// take 128 KB), and a lane splits its fragment as it reads it, once per k-step for kJTiles
-// n-tiles.  [v_j | g_j] is staged per tile, split into hi and lo once as it is stored, in
-// B-fragment order, so that a lane reads one (b0, b1) hi and lo with one 16-byte load.
-constexpr int kScoreHalf = 64;                   // columns of g and of v on each side
+// Score tiles: S_ij = a_i . b_j for a warp's 16 rows i against a staged tile of kTJ rows j,
+// an m16 x n32 product of depth 8 kScoreSteps = 128 on mma.sync.m16n8k8: the block's own
+// rows are the A operand and the staged rows the B operand.  Two operand layouts:
+//   kPair (a fused symmetric backward): GG_ij = g_i . v_j + v_i . g_j is one dot product,
+//     [g_i | v_i] . [v_j | g_j], with t <= kScoreHalf columns of g and v zero-padded to
+//     kScoreHalf on each side;
+//   kSingle (grad_x): g_i . v_j, with t <= 128 columns zero-padded to the depth (a kernel
+//     may stop its k-steps at ceil(t / 8): the steps past t are zero).
+// The block's rows (g, or [g | v]) are staged once, as floats in A-fragment order (hi and lo
+// of 128 rows would take 128 KB), and a lane splits its fragment as it reads it, once per
+// k-step for kJTiles n-tiles.  The tile's rows (v, or [v | g]) are staged per tile, split
+// into hi and lo once as they are stored, in B-fragment order, so that a lane reads one
+// (b0, b1) hi and lo with one 16-byte load.
+constexpr int kScoreHalf = 64;                   // kPair: columns of g and of v on each side
 constexpr int kScoreSteps = 2 * kScoreHalf / 8;  // k-steps of 8 over the depth: 16
 constexpr int kJTiles = kTJ / 8;                 // n-tiles of 8 rows j in a staged tile
+
+enum ScoreLayout { kPair, kSingle };
 
 // A warp's A fragments: [k-step][lane] holds (a0, a1, a2, a3) = A(r, f), A(r + 8, f),
 // A(r, f + 4), A(r + 8, f + 4) with r = lane / 4 and f = 8 s + lane % 4, as floats
 using ScoreAFrags = float4[kScoreSteps][32];
 
-// [g_r | v_r][f]: g[r, f] for f < kScoreHalf, v[r, f - kScoreHalf] above; 0 past n and t
+// A(r, f): kPair [g_r | v_r][f], g[r, f] for f < kScoreHalf and v[r, f - kScoreHalf] above;
+// kSingle g[r, f].  0 past n and t
+template <ScoreLayout LAYOUT = kPair>
 __device__ __forceinline__ float score_a(const float* __restrict__ g, const float* __restrict__ v, int n, int t,
                                          int r, int f) {
-    const float* src = f < kScoreHalf ? g : v;
-    const int c = f % kScoreHalf;
+    const float* src = LAYOUT == kPair ? (f < kScoreHalf ? g : v) : g;
+    const int c = LAYOUT == kPair ? f % kScoreHalf : f;
     return (r < n && c < t) ? src[(int64_t)r * t + c] : 0.0f;
 }
 
 // The block's THREADS threads stage the A fragments of its WARPS warps of 16 rows from row0
-template <int WARPS, int THREADS>
+template <int WARPS, int THREADS, ScoreLayout LAYOUT = kPair>
 __device__ __forceinline__ void stage_score_a(ScoreAFrags* af, const float* __restrict__ g,
                                               const float* __restrict__ v, int n, int t, int row0) {
     for (int idx = threadIdx.x; idx < WARPS * kScoreSteps * 32; idx += THREADS) {
         const int L = idx & 31, s = (idx >> 5) % kScoreSteps, wp = idx / (32 * kScoreSteps);
         const int r = row0 + 16 * wp + (L >> 2), f = 8 * s + (L & 3);
-        af[wp][s][L] = make_float4(score_a(g, v, n, t, r, f), score_a(g, v, n, t, r + 8, f),
-                                   score_a(g, v, n, t, r, f + 4), score_a(g, v, n, t, r + 8, f + 4));
+        af[wp][s][L] = make_float4(score_a<LAYOUT>(g, v, n, t, r, f), score_a<LAYOUT>(g, v, n, t, r + 8, f),
+                                   score_a<LAYOUT>(g, v, n, t, r, f + 4), score_a<LAYOUT>(g, v, n, t, r + 8, f + 4));
     }
 }
 
@@ -133,14 +142,15 @@ __device__ __forceinline__ void split_a(const float4& a, uint32_t (&hi)[4], uint
 // lo, b0 = [v_j | g_j][8 s + L % 4] of row j = j0 + 8 nt + L / 4 and b1 four features on
 using ScoreBFrags = uint32_t[kScoreSteps][kJTiles][32][4];
 
-// A block of THREADS threads stages [v_j | g_j]: one item of 8 features (one k-step) of one
-// row j per thread and round, consecutive threads on consecutive rows.  fetch loads the
-// next tile's items into registers (two 16-byte loads each where `vec`: t % 4 == 0 and
-// g, v 16-byte aligned; else 8 masked loads), so that their latency hides behind the
-// current tile's mma; store splits each item into the hi and lo of the four lanes' (b0, b1)
-// it holds and writes them as 16-byte words, each thread starting at another of its four so
-// that a store instruction spreads over more banks.  Out-of-range rows and columns are 0.
-template <int THREADS>
+// A block of THREADS threads stages the tile's rows ([v_j | g_j], or v_j: g is not read):
+// one item of 8 features (one k-step) of one row j per thread and round, consecutive
+// threads on consecutive rows.  fetch loads the next tile's items into registers (two
+// 16-byte loads each where `vec`: t % 4 == 0 and the rows read 16-byte aligned; else 8
+// masked loads), so that their latency hides behind the current tile's mma; store splits
+// each item into the hi and lo of the four lanes' (b0, b1) it holds and writes them as
+// 16-byte words, each thread starting at another of its four so that a store instruction
+// spreads over more banks.  Out-of-range rows and columns are 0.
+template <int THREADS, ScoreLayout LAYOUT = kPair>
 struct ScoreBStage {
     static constexpr int kItems = kTJ * kScoreSteps;
     static_assert(kItems % THREADS == 0, "whole items per thread");
@@ -153,8 +163,8 @@ struct ScoreBStage {
         for (int i = 0; i < kPer; ++i) {
             const int item = threadIdx.x + i * THREADS;
             const int j = j0 + item % kTJ, s = item / kTJ;
-            const float* src = s < kScoreSteps / 2 ? v : g;  // [v_j | g_j]
-            const int c0 = 8 * (s % (kScoreSteps / 2));
+            const float* src = LAYOUT == kPair ? (s < kScoreSteps / 2 ? v : g) : v;  // [v_j | g_j], or v_j
+            const int c0 = 8 * (LAYOUT == kPair ? s % (kScoreSteps / 2) : s);
             const float* row = src + (int64_t)j * t;
             if (vec) {
 #pragma unroll

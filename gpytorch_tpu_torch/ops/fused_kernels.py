@@ -252,8 +252,10 @@ def load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.gp_kernel_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.gp_kernel_matvec_f32.restype = ctypes.c_int
-        lib.gp_kernel_grad_x_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.gp_kernel_grad_x_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.gp_kernel_grad_x_f32.restype = ctypes.c_int
+        lib.gp_kernel_grad_x_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.gp_kernel_grad_x_plan.restype = ctypes.c_int
         lib.gp_kernel_bwd_fused_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gp_kernel_bwd_fused_f32.restype = ctypes.c_int
         lib.gp_kernel_bwd_fused_chunks.argtypes = [ctypes.c_int] * 2
@@ -291,24 +293,20 @@ def _check_cuda_f32(**tensors) -> None:
 # ----------------------------------------------------------------------------------------
 
 def _slab_count(row_blocks: int, chunks: int, m: int, sm_count: int, blocks_per_sm: int, min_slab: int,
-                tile: int, one_wave: bool = False) -> int:
-    """How many slabs of the j range (the rows of x2) a kernel's grid is split into: enough
-    that row blocks × column chunks × slabs gives each of the card's ``sm_count`` SMs
-    ``blocks_per_sm`` blocks (rounded up), with at least ``min_slab`` rows j in a slab and
-    at most 65535 slabs (grid.z).  The kernel's C entry makes each slab ceil(m / slabs) rows
-    rounded up to a multiple of its staged ``tile``; the count is trimmed so that no slab
-    lies past m.  Each slab writes its own partial, which the wrapper folds with
-    ``torch.sum``.
-
-    ``one_wave``: split only a grid of fewer blocks than the card has SMs (a strip), so that
-    a grid that fills the card alone keeps one slab and its sums, and only as far as one
-    wave of ``blocks_per_sm`` blocks on every SM (rounded down: a block past the wave costs
-    a whole block's time; ``chip_smoke.slab_sweep`` times the strips by slab count)."""
+                tile: int) -> int:
+    """How many slabs of the j range (the rows of x2) a kernel's grid is split into.  Only a
+    grid of fewer row blocks × column chunks than the card's ``sm_count`` SMs (a strip) is
+    split, so that a grid that fills the card alone keeps one slab and its sums; it is split
+    as far as one wave of ``blocks_per_sm`` blocks on every SM (rounded down: a block past
+    the wave costs a whole block's time; ``chip_smoke.slab_sweep`` times the strips by slab
+    count), with at least ``min_slab`` rows j in a slab and at most 65535 slabs (grid.z).
+    The kernel's C entry makes each slab ceil(m / slabs) rows rounded up to a multiple of its
+    staged ``tile``; the count is trimmed so that no slab lies past m.  Each slab writes its
+    own partial, which the wrapper folds with ``torch.sum``."""
     grid = row_blocks * chunks
-    if one_wave and grid >= sm_count:
+    if grid >= sm_count:
         return 1
-    want = blocks_per_sm * sm_count // grid if one_wave else -(-blocks_per_sm * sm_count // grid)
-    slabs = max(1, min(want, m // min_slab, 65535))
+    slabs = max(1, min(blocks_per_sm * sm_count // grid, m // min_slab, 65535))
     per_slab = -(-m // slabs)
     length = -(-per_slab // tile) * tile
     return -(-m // length) if length else 1
@@ -318,16 +316,16 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# least rows j in a slab of a K·V product
-_MV_MIN_SLAB = 256
+# least rows j in a slab of a split launch
+_MIN_SLAB = 256
 
 
 @functools.lru_cache(maxsize=1024)
-def _product_plan(entry: str, device_index: int, *sizes: int) -> tuple[int, int, int, int]:
-    """What a K·V kernel's C entry would launch at these sizes (``gp_kernel_matvec_plan`` or
-    ``gp_periodic_matvec_plan``): row blocks, column chunks, the tier's blocks that fit on an
-    SM at once (CUDA's occupancy calculator, from the kernel's registers and shared memory)
-    and the staged tile of rows j that a slab is a multiple of."""
+def _launch_plan(entry: str, device_index: int, *sizes: int) -> tuple[int, int, int, int]:
+    """What a streaming kernel's C entry would launch at these sizes (``gp_kernel_matvec_plan``,
+    ``gp_periodic_matvec_plan`` or ``gp_kernel_grad_x_plan``): row blocks, column chunks, the
+    tier's blocks that fit on an SM at once (CUDA's occupancy calculator, from the kernel's
+    registers and shared memory) and the staged tile of rows j that a slab is a multiple of."""
     plan = (ctypes.c_int * 4)()
     with torch.cuda.device(device_index):
         rc = getattr(load_library(), entry)(*sizes, plan)
@@ -337,12 +335,12 @@ def _product_plan(entry: str, device_index: int, *sizes: int) -> tuple[int, int,
 
 
 def product_slabs(entry: str, device: torch.device, m: int, *sizes: int) -> int:
-    """The slab count of one K·V launch: ``_slab_count`` of the grid that ``entry`` plans at
-    ``sizes``, splitting only a grid below the card's SM count (one wave), with at least
-    ``_MV_MIN_SLAB`` rows j a slab.  A strip of 2048 or 256 rows against 100k splits; a
-    100k-row product (782 row blocks) keeps one slab."""
-    row_blocks, chunks, per_sm, tile = _product_plan(entry, device.index, *sizes)
-    return _slab_count(row_blocks, chunks, m, _sm_count(device), per_sm, _MV_MIN_SLAB, tile, one_wave=True)
+    """The slab count of one launch of a streaming kernel: ``_slab_count`` of the grid that
+    ``entry`` plans at ``sizes``, splitting only a grid below the card's SM count (one wave),
+    with at least ``_MIN_SLAB`` rows j a slab.  A strip of 2048 or 256 rows against 100k
+    splits; a 100k-row launch (782 row blocks) keeps one slab."""
+    row_blocks, chunks, per_sm, tile = _launch_plan(entry, device.index, *sizes)
+    return _slab_count(row_blocks, chunks, m, _sm_count(device), per_sm, _MIN_SLAB, tile)
 
 
 class KernelMatvecCUDA:
@@ -379,33 +377,23 @@ class KernelMatvecCUDA:
 
 kernel_matvec_cuda = KernelMatvecCUDA()
 
-# work split of csrc/kernel_grad_x.cu: rows per block, columns per chunk for t > 1, and the
-# least number of rows j in a slab of the split
-_GX_ROWS = 128
-_GX_COLS = 32
-_GX_MIN_SLAB = 256
-_GX_TILE = 32  # rows j per staged tile: a slab is a multiple of it
-# blocks per SM that the slab split aims for: at d=3 a thread holds 80 registers at 32
-# columns and 43 at t=1 (ptxas on sm_90a), so 6 and 11 blocks of 128 fit on an SM at once
-_GX_BLOCKS_PER_SM = 8
-
-
-def grad_x_slabs(n: int, m: int, t: int, sm_count: int) -> int:
-    """The slab count of one grad_x launch (``_slab_count``, splitting any grid): a
-    2048-row strip (16 row blocks) against 100k rows takes 66 slabs at t=1; a 100k-row
-    side takes 1 or 2."""
-    chunks = 1 if t == 1 else -(-t // _GX_COLS)
-    return _slab_count(-(-n // _GX_ROWS), chunks, m, sm_count, _GX_BLOCKS_PER_SM, _GX_MIN_SLAB, _GX_TILE)
+def grad_x_slabs(device: torch.device, n: int, m: int, d: int, t: int, kernel_type: int) -> int:
+    """The slab count of one grad_x launch: ``product_slabs`` of the tier that
+    ``gp_kernel_grad_x_plan`` reports.  A 2048-row strip against 100k rows splits as far as
+    one wave; a 100k-row side (dx2) keeps one slab."""
+    return product_slabs("gp_kernel_grad_x_plan", device, m, n, d, t, int(kernel_type))
 
 
 class KernelGradXCUDA:
     """Wrapper of the asymmetric backward kernel: returns dx1 as ``_grad_x_reference``
-    does.  Chooses the slab split from the card's SM count (``grad_x_slabs``), allocates
-    the per-(slab, chunk) partials, launches on the current stream, folds them with
-    ``torch.sum`` and counts its launches in ``launches``."""
+    does.  Takes the column chunks of the tier and the slab split (``grad_x_slabs``) from the
+    kernel's C plan, allocates the per-(slab, chunk) partials, launches on the current
+    stream, folds them with ``torch.sum``, counts its launches in ``launches`` and keeps the
+    last launch's slab count in ``last_slabs``."""
 
     def __init__(self):
         self.launches = 0
+        self.last_slabs = 0
 
     def __call__(self, x1, x2, g, v, kernel_type: int) -> torch.Tensor:
         _check_shapes(x1, x2, v, kernel_type)
@@ -416,19 +404,20 @@ class KernelGradXCUDA:
         m, t = v.shape
         if n == 0 or m == 0 or t == 0:
             return torch.zeros_like(x1)
-        chunks = 1 if t == 1 else -(-t // _GX_COLS)
-        slabs = grad_x_slabs(n, m, t, _sm_count(x1.device))
+        chunks = _launch_plan("gp_kernel_grad_x_plan", x1.device.index, n, d, t, int(kernel_type))[1]
+        slabs = grad_x_slabs(x1.device, n, m, d, t, kernel_type)
         dx_part = torch.empty((slabs * chunks, n, d), dtype=torch.float32, device=x1.device)
         lib = load_library()
         with torch.cuda.device(x1.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.gp_kernel_grad_x_f32(
                 x1.data_ptr(), x2.data_ptr(), g.data_ptr(), v.data_ptr(), dx_part.data_ptr(), n, m, d, t,
-                int(kernel_type), chunks, slabs, stream,
+                int(kernel_type), slabs, stream,
             )
         if rc != 0:
             raise RuntimeError(f"kernel_grad_x launch failed: CUDA error {rc}")
         self.launches += 1
+        self.last_slabs = slabs
         return dx_part[0] if slabs * chunks == 1 else dx_part.sum(0)
 
 

@@ -168,26 +168,70 @@ def test_symmetric_gradient_runs_the_backward_kernel(cuda_device, d, t):
     torch.testing.assert_close(os_.grad.double(), want_dos, rtol=1e-4, atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
-@pytest.mark.parametrize("n,m,d,t", [(300, 1537, 3, 1), (1537, 300, 3, 100), (129, 65, 11, 20), (1, 1, 1, 1),
-                                     (2048, 100_000, 3, 1), *WIDE_CASES])
-def test_cuda_grad_x_kernel_matches_plain(cuda_device, ktype, n, m, d, t):
-    # ragged n ≪ m and n ≫ m, several column chunks, the path's strip (2,048 candidates
-    # against 100k training points, split into slabs of the j range), and the wide-d tier
-    x1, x2, v = (_wide_data if d > 64 else _data)(n, m, d, t, seed=10 + ktype, device=cuda_device)
-    g = torch.as_tensor(np.random.default_rng(ktype).normal(size=(n, t)), dtype=torch.float32, device=cuda_device)
-    before = fk.kernel_grad_x_cuda.launches
-    got = fk.kernel_grad_x_cuda(x1, x2, g, v, ktype)
-    torch.cuda.synchronize()
-    assert fk.kernel_grad_x_cuda.launches == before + 1
+# grad_x's tensor-core tier (t ∈ (32, 128], d ≤ 64) at its edges and past them (t = 129, the
+# FMA tier), d = 3 in registers and d = 11 padded, at ragged n ≪ m and n ≫ m and at a partial
+# staged tile (m < 32) under one m-tile's rows (n < 16 rows of a warp)
+GX_TC_CASES = [(n, m, d, t) for n, m in ((300, 1537), (1537, 300), (13, 19)) for d in (3, 11)
+               for t in (33, 64, 100, 128, 129)]
+
+
+def _grad_x_data(n, m, d, t, ktype, device):
+    x1, x2, v = (_wide_data if d > 64 else _data)(n, m, d, t, seed=10 + ktype, device=device)
+    g = torch.as_tensor(np.random.default_rng(ktype).normal(size=(n, t)), dtype=torch.float32, device=device)
+    return x1, x2, g, v
+
+
+def _check_grad_x(got, x1, x2, g, v, ktype):
     want = fk._grad_x_reference(x1.double(), x2.double(), g.double(), v.double(), ktype)
-    if n * m <= 1537 * 300:
+    assert torch.isfinite(got).all()
+    if x1.shape[0] * x2.shape[0] <= 1537 * 300:
         # relative to the sum of absolute terms, which bounds the float32 summation error
         scale = cs._grad_x_abs_terms(x1.double(), x2.double(), g.double(), v.double(), ktype).max().item()
         assert (got.double() - want).abs().max().item() <= 1e-5 * scale
     else:
         assert (got.double() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ktype", fk.KERNEL_TYPES)
+@pytest.mark.parametrize("n,m,d,t", [(300, 1537, 3, 1), (129, 65, 11, 20), (1, 1, 1, 1), (2048, 100_000, 3, 1),
+                                     (2048, 100_000, 3, 100), (100_000, 2048, 3, 100), *GX_TC_CASES, *WIDE_CASES])
+def test_cuda_grad_x_kernel_matches_plain(cuda_device, ktype, n, m, d, t):
+    # ragged n ≪ m and n ≫ m, several column chunks, the tensor-core tier, the path's strip
+    # (2,048 candidates against 100k training points, split into slabs of the j range) and
+    # its training side, and the wide-d tier
+    x1, x2, g, v = _grad_x_data(n, m, d, t, ktype, cuda_device)
+    before = fk.kernel_grad_x_cuda.launches
+    got = fk.kernel_grad_x_cuda(x1, x2, g, v, ktype)
+    torch.cuda.synchronize()
+    assert fk.kernel_grad_x_cuda.launches == before + 1
+    _check_grad_x(got, x1, x2, g, v, ktype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d,t", [(2048, 100_000, 3, 100), (2048, 100_000, 3, 1), (100_000, 2048, 3, 100),
+                                     (1537, 300, 11, 64), (300, 1537, 3, 129)])
+def test_cuda_grad_x_kernel_repeats_bit_for_bit(cuda_device, n, m, d, t):
+    # every tier writes per-slab partials folded by torch.sum, with no atomics: a second
+    # launch repeats the first
+    x1, x2, g, v = _grad_x_data(n, m, d, t, fk.RBF, cuda_device)
+    first = fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF)
+    if n < m:  # a strip: its j range is split
+        assert fk.kernel_grad_x_cuda.last_slabs > 1
+    assert torch.equal(first, fk.kernel_grad_x_cuda(x1, x2, g, v, fk.RBF))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t", [(3, 1), (3, 100), (11, 64), (3, 129)])
+def test_cuda_grad_x_coincident_points_matern05(cuda_device, d, t):
+    # x1's rows are rows of x2: Matérn-½'s k′(0) = −0.5 / √1e-30 ≈ −5e14 meets a difference
+    # of exactly 0, so each coincident pair adds 0 and the output stays finite and equal to
+    # the plain version's
+    x1, x2, g, v = _grad_x_data(300, 1537, d, t, fk.MATERN05, cuda_device)
+    x2[100:400] = x1
+    got = fk.kernel_grad_x_cuda(x1, x2, g, v, fk.MATERN05)
+    torch.cuda.synchronize()
+    _check_grad_x(got, x1, x2, g, v, fk.MATERN05)
 
 
 @pytest.mark.cuda

@@ -149,7 +149,7 @@ def _product_slabs(n, m, t, rows, per_sm):
     (``gp_kernel_matvec_plan``, ``gp_periodic_matvec_plan``): blocks of ``rows`` rows (128,
     or 64 in the padded tensor-core tier), column tiles of 1 (t = 1), 64 (t ∈ (32, 64], the
     tensor cores) or 32, ``per_sm`` blocks an SM, a 64-row staged tile."""
-    return fk._slab_count(-(-n // rows), -(-t // _cols(t)), m, H100_SMS, per_sm, fk._MV_MIN_SLAB, 64, one_wave=True)
+    return fk._slab_count(-(-n // rows), -(-t // _cols(t)), m, H100_SMS, per_sm, fk._MIN_SLAB, 64)
 
 
 # (t, rows a block) of every tier: 64-row blocks only in the padded tensor-core tier
@@ -169,7 +169,7 @@ def test_product_strips_split_over_j(n, t, rows, per_sm):
     grid = -(-n // rows) * -(-t // _cols(t))
     assert grid * slabs <= max(per_sm * H100_SMS, grid)
     length = _slab_len(N_PATH, slabs)
-    assert length >= fk._MV_MIN_SLAB and length % 64 == 0
+    assert length >= fk._MIN_SLAB and length % 64 == 0
     assert (slabs - 1) * length < N_PATH <= slabs * length  # the last slab is not empty
 
 
@@ -184,35 +184,92 @@ def test_product_at_full_width_keeps_one_slab(t, rows, per_sm):
 @pytest.mark.parametrize("per_sm", [1, 4, 16])
 @pytest.mark.parametrize("n,m,t", [(2048, 20_011, 1), (256, 20_011, 100), (1, 300, 1), (7, 255, 20), (2048, 0, 1)])
 def test_product_slabs_bounded_by_the_least_length(per_sm, n, m, t):
-    # ragged m, not a multiple of the slab length: at least _MV_MIN_SLAB rows a slab (one slab
+    # ragged m, not a multiple of the slab length: at least _MIN_SLAB rows a slab (one slab
     # where m is shorter), whole staged tiles, grid.z within 65535
     slabs = _product_slabs(n, m, t, 128, per_sm)
-    assert 1 <= slabs <= max(1, m // fk._MV_MIN_SLAB)
+    assert 1 <= slabs <= max(1, m // fk._MIN_SLAB)
     if slabs > 1:
         length = _slab_len(m, slabs)
-        assert length >= fk._MV_MIN_SLAB and length % 64 == 0 and slabs * length >= m
+        assert length >= fk._MIN_SLAB and length % 64 == 0 and slabs * length >= m
 
 
-@pytest.mark.parametrize("n,m,t,slabs", [(2048, N_PATH, 1, 66), (2048, N_PATH, 100, 17), (N_PATH, 2048, 1, 2),
-                                         (N_PATH, 2048, 100, 1)])
-def test_grad_x_slab_counts_unchanged(n, m, t, slabs):
-    # the counts that the grad_x kernel was tuned at (the 2048-row strip both ways)
-    assert fk.grad_x_slabs(n, m, t, H100_SMS) == slabs
+def _grad_x_plan(n, d, t, per_sm):
+    """A plan of the kind ``gp_kernel_grad_x_plan`` reports on the card: the tensor-core tier
+    (t ∈ (32, 128], d ≤ 64) on blocks of 128 rows (d = 3) or 64 (padded d) and one column
+    chunk, the FMA tier on 128 rows and chunks of 32 columns (one at t = 1), the wide-d tier
+    (d > 64) on 128 rows times slabs of 32 output dims; ``per_sm`` blocks an SM; a 32-row
+    staged tile."""
+    tc = 32 < t <= 128 and d <= 64
+    rows = 64 if tc and d != 3 else 128
+    chunks = 1 if t == 1 or tc else -(-t // 32)
+    return -(-n // rows) * (-(-d // 32) if d > 64 else 1), chunks, per_sm, 32
 
 
-@pytest.mark.parametrize("one_wave,want", [(False, 2), (True, 1)])
-def test_slab_rule_splits_a_full_grid_only_when_asked(one_wave, want):
-    # 782 row blocks fill 132 SMs; eight blocks an SM would still take two slabs
-    assert fk._slab_count(782, 1, N_PATH, H100_SMS, 8, 256, 64, one_wave=one_wave) == want
+@pytest.fixture
+def grad_x_plan(monkeypatch):
+    """``fk.grad_x_slabs`` on an H100's 132 SMs, with the C plan replaced by ``_grad_x_plan``
+    at ``per_sm`` blocks an SM (the entry point is checked; the plan itself runs on a GPU)."""
+    def use(per_sm):
+        def plan(entry, device_index, n, d, t, kernel_type):
+            assert entry == "gp_kernel_grad_x_plan" and kernel_type in KERNEL_TYPES
+            return _grad_x_plan(n, d, t, per_sm)
+
+        monkeypatch.setattr(fk, "_launch_plan", plan)
+        monkeypatch.setattr(fk, "_sm_count", lambda device: H100_SMS)
+
+    return use
+
+
+# (d, t) of every grad_x tier: the FMA tier at t = 1, 20 and 129, the tensor cores at its
+# edges 33, 64, 100 and 128 (d = 3 in registers, d = 11 padded), the wide-d tier at d = 100
+GX_TIERS = [(d, t) for d in (3, 11) for t in (1, 20, 33, 64, 100, 128, 129)] + [(100, 1), (100, 40)]
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 10])
+@pytest.mark.parametrize("d,t", GX_TIERS)
+@pytest.mark.parametrize("n", [256, 2048])
+def test_grad_x_strip_splits_within_one_wave(grad_x_plan, n, d, t, per_sm):
+    # an acquisition strip (2,048 candidates, or a request of 256) against 100k training rows
+    # splits its j range as far as one wave, rounded down; each slab holds whole staged tiles
+    # of 32 rows, at least _MIN_SLAB of them, and none is empty
+    grad_x_plan(per_sm)
+    slabs = fk.grad_x_slabs(torch.device("cuda", 0), n, N_PATH, d, t, fk.RBF)
+    row_blocks, chunks, _, tile = _grad_x_plan(n, d, t, per_sm)
+    grid = row_blocks * chunks
+    if grid >= H100_SMS:  # the wide-d tier's 2048-row strip fills the card alone
+        assert slabs == 1
+        return
+    assert 1 <= slabs <= 65535 and grid * slabs <= max(per_sm * H100_SMS, grid)
+    assert slabs > 1 or per_sm * H100_SMS < 2 * grid  # splits wherever one wave holds two slabs
+    length = _slab_len(N_PATH, slabs, tile)
+    assert length >= fk._MIN_SLAB and length % 32 == 0
+    assert (slabs - 1) * length < N_PATH <= slabs * length  # the last slab is not empty
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 10])
+@pytest.mark.parametrize("d,t", GX_TIERS)
+def test_grad_x_training_side_keeps_one_slab(grad_x_plan, d, t, per_sm):
+    # dx2, the 100k training rows against 2,048 candidates (782 row blocks of 128, or 1,563
+    # of 64), fills the card alone: one slab, summed as without the split
+    grad_x_plan(per_sm)
+    assert fk.grad_x_slabs(torch.device("cuda", 0), N_PATH, 2048, d, t, fk.RBF) == 1
+
+
+@pytest.mark.parametrize("row_blocks,chunks", [(782, 1), (132, 1), (33, 4)])
+def test_slab_rule_splits_a_full_grid_only_when_asked(row_blocks, chunks):
+    # a grid of at least the SM count (782 row blocks of a 100k launch, or 33 × 4 chunks)
+    # keeps one slab, however many blocks an SM would hold
+    assert fk._slab_count(row_blocks, chunks, N_PATH, H100_SMS, 8, 256, 64) == 1
     # grid.z is at most 65535, and slabs past m are trimmed
-    assert fk._slab_count(1, 1, 65535 * 1000, H100_SMS, 10**4, 1, 1, one_wave=one_wave) == 65535
-    assert fk._slab_count(1, 1, 300, H100_SMS, 10**4, 1, 64, one_wave=one_wave) == 5
+    assert fk._slab_count(1, 1, 65535 * 1000, H100_SMS, 10**4, 1, 1) == 65535
+    assert fk._slab_count(1, 1, 300, H100_SMS, 10**4, 1, 64) == 5
 
 
-@pytest.mark.parametrize("one_wave,want", [(False, 17), (True, 16)])
-def test_slab_rule_rounds_down_to_one_wave(one_wave, want):
-    # 16 row blocks, two blocks an SM: 16.5 slabs would fill the card; one wave holds 16
-    assert fk._slab_count(16, 1, N_PATH, H100_SMS, 2, 256, 64, one_wave=one_wave) == want
+@pytest.mark.parametrize("per_sm,want", [(2, 16), (3, 24)])
+def test_slab_rule_rounds_down_to_one_wave(per_sm, want):
+    # 16 row blocks, two blocks an SM: 16.5 slabs would fill the card, one wave holds 16;
+    # three an SM: 24.75 slabs, one wave holds 24
+    assert fk._slab_count(16, 1, N_PATH, H100_SMS, per_sm, 256, 64) == want
 
 
 @pytest.mark.parametrize("n,t,want_ms,exps_bind", [(2048, 1, 0.04897, True), (N_PATH, 1, 2.39134, True),
