@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of gpytorch_tpu_torch on one NVIDIA GPU: exact-GP training and serving at
-N=100k, for the flagship RBF model and for a periodic model, and gradients of the
-flagship's predictions with respect to the test inputs.
+N=100k, for the flagship RBF model (bench.py's default and honest recipes) and for a
+periodic model, gradients of the flagship's predictions with respect to the test inputs,
+LOVE posterior sampling, iterative refinement of the mean cache, and the dense-Cholesky
+path on a 1D toy.
 
     python3 chip_smoke.py
 
@@ -19,7 +21,9 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               over the j range, each printed with its slab count, its bound and, at t=1, the
               exp floor, the 2048-row ones gated against float64 at twice the plain float32
               version's error; the wide-d tier (d = 100) at ragged shapes and timed at
-              16,384 × 16,384, t = 64.
+              16,384 × 16,384, t = 64; a Lanczos block of the LOVE sample root (2048 × 2048,
+              t = 20, symmetric), gated as the 2048-row strips and timed beside the launch
+              floor (a 64 × 64 product at t = 1).
 3b. bwd     — the CUDA fused backward kernel against its plain version on the card, for
               the four kernel types, d ∈ {3, 11}, t ∈ {1, 20, 33, 64} (the tensor-core tier
               at 33 and 64), with and without dv (the kernel forms no dv: the wrapper
@@ -48,7 +52,15 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               plain float32 version's error there; both timed, the strips as in phase 3;
               the product's wide-d tier (d = 100) at ragged shapes and at 16,384 rows.
 4. slice    — serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel
-              path), from the same data, parameters and Lanczos start.
+              path), from the same data, parameters and Lanczos start; then LOVE sampling
+              (``fast_pred_samples``) of the 512 points on both devices from the same base
+              samples and start block: the sample root R_s R_sᵀ and the mean gated, the
+              draws read beside a CPU float32-against-float64 run.
+1k. cholesky — BASELINE.json config 1: an exact GP on a 1D toy (N=1,000, y = sin 2πx + 0.1
+              noise), 50 Adam steps through the dense-Cholesky MLL and the mean and exact
+              variance of 200 points, under ``fast_computations(False, False, False)``: CPU
+              float32 against CUDA float32 (a CPU float64 run for the RMSE); no kernel may
+              launch.
 4c. grad-slice — the gradient of ΣUCB (UCB = μ + 2σ) with respect to 512 candidates at
               N=2000, CPU tensors against CUDA tensors, with the parameters frozen and live;
               the gate sits above a CPU float32-vs-float64 reading and below a planted fault
@@ -62,6 +74,10 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               model refresh (mean cache by preconditioned CG, LOVE cache by block Lanczos),
               then 8 requests of 256 test points and one of all 2,048 (request_ms).  Checks
               RMSE, variances and that the path launched the CUDA kernel.
+5b. refine  — phase 5's mean cache built again under ``solve_iterative_refinements`` 1
+              and 2: the float64 true residual of each beside the unrefined one's (gated:
+              no higher), the CG iterations, the refresh time, the launches (one a CG
+              iteration and one residual product a pass) and the RMSE change.
 6. train    — training at N=2000 on CPU tensors against CUDA tensors under bench.py's
               training recipe: the same data, initial parameters and injected probe base
               samples; 3 Adam steps, compared at step 1 (loss, gradients) and after step 3.
@@ -83,6 +99,12 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               asked for all 2,048 test points under the eval settings.  Checks finite
               losses and gradients, RMSE, that training lowered the loss and the
               marginal NLPD, and the launches of both kernels.
+7b. honest  — the same with bench.py's honest recipe (BENCH_HONEST=1): noise ≥ 1e-4 with a
+              LogNormal(−4, 1) noise prior in the MLL, CG at tolerance 0.05 with a stall
+              window of 50; phase 7's data, initial values, probes and optimizer.  Prints
+              the noise trajectory and the prior term, and phase 7's readings beside its
+              own; gated as phase 7, with its own CG limit and RMSE band.  Alone:
+              ``python3 -c 'import chip_smoke; chip_smoke.phase_honest()'``.
 8. periodic — the periodic model on 347 days of 5-minute readings (N=100,000, x = [t, t],
               periods starting at 1 and 7 days): the initial parameters served on the
               forecast week (the next 2,048 readings); the sources of the gradients' noise
@@ -107,6 +129,11 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               acq_grad_ms, the median gradient evaluation);
               the float64 check and the launches again for Scale(Matérn-5/2 ARD) with the
               fitted hyperparameters, and its RMSE (no gate).
+9b. sampling — on phase 7's trained flagship under ``fast_pred_samples``: 16 draws of all
+              2,048 test points from a seeded generator; one draw launches kernel_matvec 7
+              times (the mean, K*x R, and 5 Lanczos blocks on K** at 2048², t = 20); the
+              sample root's diagonal against the float64 plain path from the same caches
+              and start block; love_samp_ms, the median of 10 synchronised draws.
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -229,6 +256,31 @@ ACQ_FD_H = 1e-4             # central differences of one candidate's UCB, float6
 ACQ_FD_TOL = 1e-6           # … against the float64 autograd gradient, max |Δ| / max |∇| over 6 coordinates
 ACQ_STEPS, ACQ_LR = 20, 0.02  # Adam ascent of ΣUCB over the candidates, clamped to the unit cube
 PC_NOISE_BUDGET = 1e-3      # bench.py's preconditioner noise budget: τ = λ_max(LLᵀ)·eps/budget
+# bench.py's honest recipe (BENCH_HONEST=1, bench.py:90-100, 256-266; phase 7b): a noise floor
+# of 1e-4 plus a LogNormal(−4, 1) noise prior, and CG at tolerance 0.05 with a stall window of 50
+HONEST_NOISE_FLOOR = 1e-4
+HONEST_CG_TOL, HONEST_STALL = 0.05, 50
+HONEST_CG_LIMIT = 1070      # phase 7b: CG iterations over the 120 steps.  The trajectory read 1,010 on an
+                            # H100, bit for bit over reruns (PERF.md, PR 13); the limit leaves 6 %, as
+                            # FLAGSHIP_CG_LIMIT does over phase 7's 752
+HONEST_RMSE = 0.1839        # … and the trained model's RMSE, which that trajectory read
+HONEST_RMSE_TOL = 3e-3      # … within this of it (as FLAGSHIP_RMSE_TOL)
+# LOVE sampling (phases 4 and 9b): draws of all test points under fast_pred_samples
+SAMPLES, SAMPLE_SEED, SAMPLE_REPS = 16, 11, 10
+SAMPLE_DIAG_TOL = 2e-2      # phase 9b: diag(R_s R_sᵀ) of the kernel path against the float64 plain path
+                            # from the same caches, max |Δ| / max diag.  The float32 plain path read
+                            # 6.802e-03 there (the kernel path 6.999e-03; PERF.md, PR 13): K** − CCᵀ
+                            # cancels to 2.4e-5 at the smallest against an outputscale of 0.71
+SLICE_SAMPLE_TOL = 1e-2     # phase 4: R_s R_sᵀ, CPU against CUDA, max |Δ| / max |R_s R_sᵀ|
+REFINE_PASSES = (1, 2)      # phase 5b: the mean cache rebuilt under these solve_iterative_refinements
+# BASELINE.json config 1 (phase 1k): a 1D toy on the dense-Cholesky path
+TOY_N, TOY_TEST, TOY_STEPS, TOY_LR = 1000, 200, 50, 0.1
+TOY_LOSS_TOL = 1e-3         # CPU against CUDA, float32: max over the steps of |Δloss| / max(|loss|, 1)
+TOY_MEAN_TOL = 1e-3         # … max |Δ| / max |·| of the served mean (CPU float32 against float64: 1.5e-4)
+TOY_VAR_TOL = 2e-2          # … and of the exact variances, K** − K*x K̂⁻¹ Kx* ≈ 5e-5-3e-4 against an
+                            # outputscale of ≈ 1, which cancels in float32 (CPU float32 against float64:
+                            # 4.5e-3), so two float32 runs may differ by twice that
+TOY_RMSE_TOL = 1e-3         # … and |RMSE(float32, CUDA) − RMSE(float64, CPU)|
 # the budget under which a float64 run's τ is the float32 run's, so that a float32 and a
 # float64 run precondition alike and draw the same probes z ~ N(0, P)
 PC_NOISE_BUDGET_F64 = PC_NOISE_BUDGET * float(np.finfo(np.float64).eps / np.finfo(np.float32).eps)
@@ -281,12 +333,14 @@ def make_wide_task(n_train: int, n_test: int, d: int = WIDE_D, seed: int = 0):
     return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
 
 
-def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS, nu=None):
+def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS, nu=None, honest=False):
     """The flagship model on ``device``: from the raw parameters ``params`` in eval mode, or
     with ``params=None`` at bench.py's initial values (noise 0.1, lengthscale 0.5) in
     train mode.  ``nu`` swaps the RBF kernel for a Matérn kernel of that smoothness.  Its
     ARD width is that of ``train_x``; past d = 3 the initial lengthscale is 0.5·√(d/3),
-    which keeps the typical squared distance of points in the unit cube at the flagship's."""
+    which keeps the typical squared distance of points in the unit cube at the flagship's.
+    ``honest``: the likelihood of bench.py's honest recipe, noise ≥ 1e-4 with a
+    LogNormal(−4, 1) prior, in place of noise ≥ 2e-2."""
     import torch
 
     import gpytorch_tpu_torch as gt
@@ -305,7 +359,11 @@ def build_model(train_x, train_y, device, dtype, params=JAX_PARAMS, nu=None):
 
     tx = torch.as_tensor(train_x, dtype=dtype, device=device)
     ty = torch.as_tensor(train_y, dtype=dtype, device=device)
-    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    if honest:
+        likelihood = gt.likelihoods.GaussianLikelihood(noise_prior=gt.priors.LogNormalPrior(-4.0, 1.0),
+                                                       noise_constraint=gt.constraints.GreaterThan(HONEST_NOISE_FLOOR))
+    else:
+        likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
     model = FlagshipGP(tx, ty, likelihood).to(device=device, dtype=dtype)
     if params is None:
         model.likelihood.noise = 0.1
@@ -342,9 +400,10 @@ def build_periodic_model(train_x, train_y, device, dtype):
     return model.train()
 
 
-def train_settings(budget: float = PC_NOISE_BUDGET):
-    """bench.py's default training recipe (bench.py:103-209, no BENCH_* variable set); a
-    float64 run that is to match a float32 one takes ``budget=PC_NOISE_BUDGET_F64``."""
+def train_settings(budget: float = PC_NOISE_BUDGET, honest: bool = False):
+    """bench.py's default training recipe (bench.py:103-209, no BENCH_* variable set), or
+    with ``honest`` its honest recipe's CG (tolerance 0.05, stall window 50); a float64 run
+    that is to match a float32 one takes ``budget=PC_NOISE_BUDGET_F64``."""
     from gpytorch_tpu_torch import settings
 
     stack = contextlib.ExitStack()
@@ -363,6 +422,9 @@ def train_settings(budget: float = PC_NOISE_BUDGET):
         settings.skip_logdet_forward(False),
     ):
         stack.enter_context(ctx)
+    if honest:
+        stack.enter_context(settings.cg_tolerance(HONEST_CG_TOL))
+        stack.enter_context(settings.cg_stall_window(HONEST_STALL))
     return stack
 
 
@@ -389,22 +451,23 @@ def make_periodic_optimizer(model):
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, cosine)
 
 
-def mll_loss(model, base_samples, state, budget: float = PC_NOISE_BUDGET):
-    """−MLL per datum by mBCG with the rhs-only warm state, under the training recipe;
-    returns (loss, state)."""
+def mll_loss(model, base_samples, state, budget: float = PC_NOISE_BUDGET, honest: bool = False):
+    """−MLL per datum (with the priors' log-densities, where the model has priors) by mBCG
+    with the rhs-only warm state, under the training recipe; returns (loss, state)."""
     import gpytorch_tpu_torch as gt
 
     tx, ty = model.train_inputs[0], model.train_targets
-    with train_settings(budget):
+    with train_settings(budget, honest):
         mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
         value, state = mll(model(tx), ty, base_samples=base_samples, solver_state=state, return_state=True)
     return -value, state
 
 
-def train_step(model, optimizer, scheduler, base_samples, state, budget: float = PC_NOISE_BUDGET):
+def train_step(model, optimizer, scheduler, base_samples, state, budget: float = PC_NOISE_BUDGET,
+               honest: bool = False):
     """One step of −MLL by mBCG with the rhs-only warm state; returns (loss, state)."""
     optimizer.zero_grad()
-    loss, state = mll_loss(model, base_samples, state, budget)
+    loss, state = mll_loss(model, base_samples, state, budget, honest)
     loss.backward()
     optimizer.step()
     scheduler.step()
@@ -742,12 +805,14 @@ def phase_kernel():
 
     # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100)
     # and K(test, train)·α (t=1, the mean); training shape: mBCG over [y, 63 probes] (t=64);
-    # then the strips of a request of 256 points.  The strips (fewer rows than the card has
-    # SMs) split the j range into slabs (fk.product_slabs); the 2048-row ones are gated
-    # against float64 at twice the plain float32 version's error
+    # then the strips of a request of 256 points, and a Lanczos block of the LOVE sample
+    # root on K(test, test) (2048 × 2048, t=20, symmetric).  The strips (fewer rows than the
+    # card has SMs) split the j range into slabs (fk.product_slabs); the 2048-row ones are
+    # gated against float64 at twice the plain float32 version's error
     timed, strips = {}, []
     for n, m, t in ((N_TRAIN, N_TRAIN, 1), (N_TRAIN, N_TRAIN, 20), (N_TEST, N_TRAIN, 100), (N_TEST, N_TRAIN, 1),
-                    (N_TRAIN, N_TRAIN, 64), (REQUEST_ROWS, N_TRAIN, 100), (REQUEST_ROWS, N_TRAIN, 1)):
+                    (N_TRAIN, N_TRAIN, 64), (REQUEST_ROWS, N_TRAIN, 100), (REQUEST_ROWS, N_TRAIN, 1),
+                    (N_TEST, N_TEST, 20)):
         x2 = torch.as_tensor(rng.uniform(size=(m, D)) / 0.3, dtype=torch.float32, device=dev)
         x1 = x2 if n == m else torch.as_tensor(rng.uniform(size=(n, D)) / 0.3, dtype=torch.float32, device=dev)
         v = torch.as_tensor(rng.normal(size=(m, t)), dtype=torch.float32, device=dev)
@@ -772,9 +837,16 @@ def phase_kernel():
         bound = matvec_tc_bound(n, m, D, t) if 32 < t <= 64 else matvec_bound(n, m, D, t)
         print(f"[kernel] {n}x{m} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
               f"({bound[1]}; {n * m:.3e} exp), max abs err {err:.3e} (rel {rel:.3e})", flush=True)
-        if n < m:
+        if n < m or n == N_TEST:
             strips.append(strip_entry(n, m, t, slabs, ms, plain_ms, bound))
             print_strip("kernel", strips[-1])
+    # what a launch costs at the least: a 64 × 64 product at t=1 through the same wrapper
+    # (argument checks, the slab plan, the launch and the fold), back to back
+    x = torch.as_tensor(rng.uniform(size=(64, D)), dtype=torch.float32, device=dev)
+    v = torch.ones(64, 1, dtype=torch.float32, device=dev)
+    strips[-1]["launch_floor_ms"] = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x, x, v, fk.RBF), 100)
+    print(f"[kernel] launch floor: a 64x64 t=1 product {strips[-1]['launch_floor_ms']:.4f} ms a launch, back to back; "
+          f"the sample root's 2048x2048 t=20 block {strips[-1]['ms']:.4f} ms", flush=True)
 
     # the wide-d tier (d > 64): the four kernel types at ragged shapes, t = 1 and 64 (two
     # column tiles of 32); then timed at WIDE_N × WIDE_N, t = 64.  Inputs scaled by 1/√d, so
@@ -1257,7 +1329,10 @@ def periodic_bwd_at_path(xp=None, w=None):
 
 def phase_slice(periodic=False):
     """Serving at N=2000 on CPU tensors (plain path) against CUDA tensors (kernel path):
-    the flagship from JAX_PARAMS, or the periodic model at its initial values."""
+    the flagship from JAX_PARAMS, or the periodic model at its initial values.  For the
+    flagship, also LOVE sampling (``fast_pred_samples``) of the 512 points on both devices
+    from the same base samples (``InjectedProbes``) and Lanczos start block, with a CPU
+    float64 run beside them."""
     import torch
 
     tag = "periodic-slice" if periodic else "slice"
@@ -1265,7 +1340,7 @@ def phase_slice(periodic=False):
     task = make_periodic_task if periodic else make_task
     train_x, train_y, test_x, _ = task(n, n_test, seed=2)
     batches = [slice(0, n_test)]
-    out = {}
+    out, drawn = {}, {}
     from gpytorch_tpu_torch import settings
 
     with eval_settings(min_preconditioning_size=1000), settings.eval_cg_tolerance(SLICE_CG_TOL):
@@ -1278,6 +1353,11 @@ def phase_slice(periodic=False):
             cg, _, answers = serve(model, tx, device, batches)
             _, mean, var, _ = answers[0]
             out[device] = (mean.cpu().double(), var.cpu().double(), cg.num_iters)
+            if not periodic:
+                drawn[device] = _love_samples(model, tx)
+        if not periodic:
+            drawn["float64"] = _love_samples(build_model(train_x, train_y, "cpu", torch.float64),
+                                             torch.as_tensor(test_x, dtype=torch.float64))
     (m_cpu, v_cpu, it_cpu), (m_gpu, v_gpu, it_gpu) = out["cpu"], out["cuda"]
     dm = ((m_cpu - m_gpu).abs().max() / m_cpu.abs().max()).item()
     dv = ((v_cpu - v_gpu).abs().max() / v_cpu.abs().max()).item()
@@ -1285,6 +1365,37 @@ def phase_slice(periodic=False):
           f"(tol {SLICE_MEAN_TOL}), var rel diff {dv:.3e} (tol {SLICE_VAR_TOL})", flush=True)
     check(dm <= SLICE_MEAN_TOL, f"{tag} mean differs: {dm:.3e}")
     check(dv <= SLICE_VAR_TOL, f"{tag} variance differs: {dv:.3e}")
+    if periodic:
+        return
+
+    def gaps(ref, got):
+        return [((a - b).abs().max() / a.abs().max()).item() for a, b in zip(ref, got)]
+
+    (dd, dc, dmean), (fd, fc, fmean) = gaps(drawn["cpu"], drawn["cuda"]), gaps(drawn["float64"], drawn["cpu"])
+    print(f"[{tag}] LOVE sampling, {SAMPLES} draws of the {n_test} points: CPU against CUDA, max |Δ| / max |·| of "
+          f"R_s R_sᵀ {dc:.3e} (tol {SLICE_SAMPLE_TOL}), of the mean {dmean:.3e} (tol {SLICE_MEAN_TOL}), of the draws "
+          f"{dd:.3e} (read, not gated); CPU float32 against float64: R_s R_sᵀ {fc:.3e}, mean {fmean:.3e}, draws {fd:.3e}",
+          flush=True)
+    check(all(bool(torch.isfinite(drawn[k][0]).all()) for k in drawn), f"{tag}: LOVE samples not finite")
+    check(dc <= SLICE_SAMPLE_TOL, f"{tag}: the sample root differs between CPU and CUDA: {dc:.3e}")
+    check(dmean <= SLICE_MEAN_TOL, f"{tag}: the sampled posterior's mean differs between CPU and CUDA: {dmean:.3e}")
+
+
+def _love_samples(model, x):
+    """(draws, R_s R_sᵀ, mean) of the eval-mode ``model`` at ``x`` under
+    ``fast_pred_samples``: SAMPLES draws from ``InjectedProbes`` base samples, on the CPU in
+    float64.  The sample root's Lanczos run starts from the seeded CPU block, the same on
+    every device."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    with settings.fast_pred_samples(True), torch.no_grad():
+        model.refresh()
+        post = model(x)
+        draws = post.rsample((SAMPLES,), base_samples=InjectedProbes(0, SAMPLE_SEED))
+        root = post.lazy_covariance_matrix.root.double().cpu()
+        return draws.double().cpu(), root @ root.mT, post.mean.double().cpu()
 
 
 def _per_key_gap(ref, got):
@@ -1392,22 +1503,82 @@ def phase_serve():
     print(f"[serve] rmse {rmse:.4f} (limit {RMSE_LIMIT}), marginal nlpd {nlpd:.4f}, noise {noise.item():.4f}, "
           f"variance range [{var.min().item():.4e}, {var.max().item():.4e}]", flush=True)
     print(f"[serve] peak device memory {peak / 2**20:.1f} MiB, kernel launches {launches} (expected {expected})", flush=True)
-    # true residual ‖K̂α − (y − μ)‖ / ‖y − μ‖ of the mean cache α, in float64 through the
-    # plain version on the card (after the launch count was read)
-    with torch.no_grad():
-        kern = model.covar_module
-        x64 = model.train_inputs[0].double() / kern.base_kernel.lengthscale.double()
-        alpha = model.prediction_strategy().mean_cache.double()
-        diff = torch.as_tensor(train_y, dtype=torch.float64, device=dev) - model.mean_module.constant.double()
-        khat_alpha = (kern.outputscale.double() * fk._matvec_reference(x64, x64, alpha.unsqueeze(-1), fk.RBF).squeeze(-1)
-                      + noise.double() * alpha)
-        true_res = ((khat_alpha - diff).norm() / diff.norm()).item()
+    # true residual of the mean cache, in float64 (after the launch count was read)
+    true_res = mean_cache_residual(model, train_y)
     print(f"[serve] true relative residual of the mean cache (float64): {true_res:.3e} (limit {TRUE_RES_LIMIT})",
           flush=True)
     check(launches > 0, "the main path launched the CUDA kernel no time")
     check(launches == expected, f"kernel launches {launches} != expected {expected}")
     check(rmse <= RMSE_LIMIT, f"rmse {rmse:.4f} > {RMSE_LIMIT}")
     check(true_res <= TRUE_RES_LIMIT, f"mean cache true residual {true_res:.3e} > {TRUE_RES_LIMIT}")
+    return launches
+
+
+def mean_cache_residual(model, train_y) -> float:
+    """‖(y − μ) − (K + σ²I)α‖ / ‖y − μ‖ of the eval-mode flagship ``model``'s mean cache α,
+    in float64, K·α through the plain version on the model's device."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    with torch.no_grad():
+        kern = model.covar_module
+        x64 = model.train_inputs[0].double() / kern.base_kernel.lengthscale.double()
+        alpha = model.prediction_strategy().mean_cache.double()
+        diff = torch.as_tensor(train_y, dtype=torch.float64, device=alpha.device) - model.mean_module.constant.double()
+        khat_alpha = (kern.outputscale.double() * fk._matvec_reference(x64, x64, alpha.unsqueeze(-1), fk.RBF).squeeze(-1)
+                      + model.likelihood.noise.reshape(-1)[0].double() * alpha)
+        return ((khat_alpha - diff).norm() / diff.norm()).item()
+
+
+def phase_refine():
+    """Phase 5's mean cache built again under ``solve_iterative_refinements`` 1 and 2 (and
+    0, phase 5's own solve, as the reference): each refresh's CG iterations over all
+    passes, its time, its kernel_matvec launches (one a CG iteration and one residual
+    product a pass), the float64 true residual and the RMSE of the 2,048 test means.
+    Returns the launches of the refined refreshes."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST, seed=0)
+    dev = "cuda"
+    model = build_model(train_x, train_y, dev, torch.float32)
+    tx = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
+    readings, launches = {}, 0
+    for passes in (0, *REFINE_PASSES):
+        model.clear_caches()
+        # the mean cache alone: no LOVE cache, and the request reads only the means
+        with eval_settings(), settings.fast_pred_var(False), settings.skip_posterior_variances(True), \
+                settings.solve_iterative_refinements(passes):
+            fk.kernel_matvec_cuda.launches = 0
+            sync(dev)
+            t0 = time.perf_counter()
+            strategy = model.refresh()
+            sync(dev)
+            secs = time.perf_counter() - t0
+            count = fk.kernel_matvec_cuda.launches
+            with torch.no_grad():
+                rmse = gt.metrics.mean_squared_error(model(tx), ty, squared=False).item()
+        cg = strategy.lik_train_train_covar.last_cg_result
+        res = mean_cache_residual(model, train_y)
+        readings[passes] = (res, cg.num_iters, secs, rmse)
+        launches += count if passes else 0
+        print(f"[refine] solve_iterative_refinements({passes}): refresh {secs:.3f} s, CG {cg.num_iters} iterations over "
+              f"{passes + 1} solve(s), kernel_matvec {count} launches (expected {cg.num_iters + passes}); true relative "
+              f"residual (float64) {res:.3e}, CG's estimate {cg.residual_norm.max().item():.3e}; rmse {rmse:.6f}",
+              flush=True)
+        check(count == cg.num_iters + passes, f"refinement {passes}: kernel_matvec launched {count} times, expected "
+                                              f"{cg.num_iters + passes}")
+    base = readings[0]
+    for passes in REFINE_PASSES:
+        res, iters, secs, rmse = readings[passes]
+        print(f"[refine] {passes} pass(es) against none: residual {base[0]:.3e} → {res:.3e}, CG {base[1]} → {iters}, "
+              f"refresh {base[2]:.3f} → {secs:.3f} s, rmse change {rmse - base[3]:+.3e}", flush=True)
+        check(res <= base[0], f"refinement {passes}: true residual {res:.3e} above the unrefined {base[0]:.3e}")
     return launches
 
 
@@ -1551,9 +1722,14 @@ def phase_train_slice(periodic=False, wide=False):
     check(dv <= SLICE_VAR_TOL, f"{tag} served variance differs: {dv:.3e}")
 
 
-def phase_flagship():
-    """bench.py's training at full width, then serving from the trained model; returns the
-    launches of (kernel_matvec, kernel_bwd_fused) over the whole path, and the model."""
+def train_flagship(tag: str, honest: bool = False) -> dict:
+    """bench.py's training at full width (with ``honest``, its honest recipe), then serving
+    from the trained model: the initial parameters served on all 2,048 test points, 120
+    steps of cosine Adam with the launch counts set to 0 before the first, the trained
+    model refreshed and asked for all 2,048 points.  Returns the readings: the model, the
+    launches of (kernel_matvec, kernel_bwd_fused) from the first step to the request, the
+    CG iterations, losses, noise and seconds of each step, and the served model's
+    quality beside the initial parameters'."""
     import torch
 
     import gpytorch_tpu_torch as gt
@@ -1561,7 +1737,7 @@ def phase_flagship():
 
     train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST, seed=0)
     dev = "cuda"
-    model = build_model(train_x, train_y, dev, torch.float32, params=None)
+    model = build_model(train_x, train_y, dev, torch.float32, params=None, honest=honest)
     tx = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
     ty = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
 
@@ -1572,73 +1748,131 @@ def phase_flagship():
         with eval_settings():
             cg, refresh_s, answers = serve(model, tx, dev, [slice(0, N_TEST)])
         pred, mean_, var, secs = answers[0]
-        check(bool(torch.isfinite(mean_).all()) and bool((var > 0).all()), "flagship predictions not finite or variance ≤ 0")
+        check(bool(torch.isfinite(mean_).all()) and bool((var > 0).all()), f"{tag} predictions not finite or variance ≤ 0")
         rmse = gt.metrics.mean_squared_error(pred, ty, squared=False).item()
         return rmse, marginal_nlpd(mean_, var, ty, model.likelihood.noise.reshape(-1)[0]), cg, refresh_s, secs
 
     # the initial parameters, served before the launch counts are set to 0: the reading
     # that training has to improve on
     rmse0, nlpd0, _, _, _ = quality()
-    print(f"[flagship] serving the initial parameters: rmse {rmse0:.4f}, marginal nlpd {nlpd0:.4f}", flush=True)
+    print(f"[{tag}] serving the initial parameters: rmse {rmse0:.4f}, marginal nlpd {nlpd0:.4f}", flush=True)
     model.train()
     optimizer, scheduler = make_optimizer(model)
     generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
     state = torch.zeros(N_TRAIN, 1, dtype=torch.float32, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    times, iters, losses = [], [], []
+    times, iters, losses, noises = [], [], [], []
     fk.kernel_matvec_cuda.launches = 0
     fk.kernel_bwd_fused_cuda.launches = 0
     for step in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, state = train_step(model, optimizer, scheduler, generator, state)
+        loss, state = train_step(model, optimizer, scheduler, generator, state, honest=honest)
         ok = finite_step(loss, model)  # reads the device, so the step has ended
         times.append(time.perf_counter() - t0)
         iters.append(state.num_iters)
         losses.append(loss.item())
-        check(ok, f"flagship training step {step}: non-finite loss or gradient")
+        noises.append(model.likelihood.noise.item())
+        check(ok, f"{tag} training step {step}: non-finite loss or gradient")
         if step % 10 == 0 or step == TRAIN_STEPS - 1:
-            print(f"[flagship] step {step}: loss {losses[-1]:.5f}, CG iterations {state.num_iters}, "
+            print(f"[{tag}] step {step}: loss {losses[-1]:.5f}, CG iterations {state.num_iters}, "
                   f"{times[-1]:.3f} s", flush=True)
     train_launches = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
     train_peak = torch.cuda.max_memory_allocated()
     median = sorted(times[1 : 1 + TRAIN_TIMED])[TRAIN_TIMED // 2]
     mean = sum(times[1:]) / (TRAIN_STEPS - 1)
     kern = model.covar_module
-    print(f"[flagship] {TRAIN_STEPS} steps: median {median:.4f} s/step over steps 1-{TRAIN_TIMED} (synchronised), "
+    print(f"[{tag}] {TRAIN_STEPS} steps: median {median:.4f} s/step over steps 1-{TRAIN_TIMED} (synchronised), "
           f"mean {mean:.4f} s/step over steps 1-{TRAIN_STEPS - 1}, first step {times[0]:.3f} s", flush=True)
-    print(f"[flagship] CG iterations per step: {iters} ({sum(iters)} in all, limit {FLAGSHIP_CG_LIMIT})", flush=True)
-    print(f"[flagship] loss per step: {[round(x, 6) for x in losses]}", flush=True)
-    print(f"[flagship] lengthscale {kern.base_kernel.lengthscale.detach().cpu().numpy().round(5).tolist()}, "
+    print(f"[{tag}] CG iterations per step: {iters} ({sum(iters)} in all)", flush=True)
+    print(f"[{tag}] loss per step: {[round(x, 6) for x in losses]}", flush=True)
+    print(f"[{tag}] lengthscale {kern.base_kernel.lengthscale.detach().cpu().numpy().round(5).tolist()}, "
           f"outputscale {kern.outputscale.item():.5f}, noise {model.likelihood.noise.item():.5f}, "
           f"mean {model.mean_module.constant.item():.5f}", flush=True)
-    print(f"[flagship] training launches: kernel_matvec {train_launches[0]}, kernel_bwd_fused {train_launches[1]}; "
+    print(f"[{tag}] training launches: kernel_matvec {train_launches[0]}, kernel_bwd_fused {train_launches[1]}; "
           f"peak device memory {train_peak / 2**20:.1f} MiB", flush=True)
 
     rmse, nlpd, cg, refresh_s, secs = quality()
     launches = (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
-    # one K·V per CG iteration of training; then one per CG iteration of the mean cache,
-    # one per Lanczos block (5 blocks of 20), and two for the request (mean and LOVE)
-    expected_mv = sum(iters) + cg.num_iters + 5 + 2
-    loss_end = sum(losses[-10:]) / 10
-    print_request_ms("flagship", [secs])
-    print(f"[flagship] serving the trained model: refresh {refresh_s:.3f} s (CG {cg.num_iters} iterations, relative "
+    print_request_ms(tag, [secs])
+    print(f"[{tag}] serving the trained model: refresh {refresh_s:.3f} s (CG {cg.num_iters} iterations, relative "
           f"residual {cg.residual_norm.max().item():.3e}), {N_TEST} points in {secs * 1e3:.2f} ms; rmse {rmse:.4f} "
           f"(limit {RMSE_LIMIT}; initial {rmse0:.4f}), marginal nlpd {nlpd:.4f} (initial {nlpd0:.4f}, limit "
           f"{nlpd0 - TRAIN_NLPD_DROP:.4f})", flush=True)
-    print(f"[flagship] loss at step 0 {losses[0]:.5f}, mean of the last 10 steps {loss_end:.5f} (limit "
+    return dict(model=model, launches=launches, iters=iters, losses=losses, noises=noises, median=median, mean=mean,
+                rmse=rmse, nlpd=nlpd, rmse0=rmse0, nlpd0=nlpd0, refresh_iters=cg.num_iters,
+                loss_end=sum(losses[-10:]) / 10)
+
+
+def check_training(tag: str, r: dict, cg_limit: int) -> None:
+    """The gates of a full-width flagship run (``train_flagship``'s readings): the launches
+    of both kernels, the RMSE limit, the CG iterations, and that training lowered the loss
+    and the marginal NLPD."""
+    # one K·V per CG iteration of training; then one per CG iteration of the mean cache,
+    # one per Lanczos block (5 blocks of 20), and two for the request (mean and LOVE)
+    launches, iters, losses = r["launches"], r["iters"], r["losses"]
+    expected_mv = sum(iters) + r["refresh_iters"] + 5 + 2
+    print(f"[{tag}] loss at step 0 {losses[0]:.5f}, mean of the last 10 steps {r['loss_end']:.5f} (limit "
           f"{losses[0] - TRAIN_LOSS_DROP:.5f})", flush=True)
-    print(f"[flagship] launches: kernel_matvec {launches[0]} (expected {expected_mv}), kernel_bwd_fused {launches[1]} "
-          f"(expected {TRAIN_STEPS})", flush=True)
-    check(launches[1] == TRAIN_STEPS, f"kernel_bwd_fused launched {launches[1]} times, expected {TRAIN_STEPS}")
-    check(launches[0] == expected_mv, f"kernel_matvec launched {launches[0]} times, expected {expected_mv}")
-    check(rmse <= RMSE_LIMIT, f"flagship rmse {rmse:.4f} > {RMSE_LIMIT}")
-    check(abs(rmse - FLAGSHIP_RMSE) <= FLAGSHIP_RMSE_TOL, f"flagship rmse {rmse:.4f} is more than {FLAGSHIP_RMSE_TOL} "
-                                                          f"from {FLAGSHIP_RMSE}")
-    check(sum(iters) <= FLAGSHIP_CG_LIMIT, f"flagship training took {sum(iters)} CG iterations > {FLAGSHIP_CG_LIMIT}")
-    check(loss_end <= losses[0] - TRAIN_LOSS_DROP, f"training loss fell from {losses[0]:.5f} only to {loss_end:.5f}")
-    check(nlpd <= nlpd0 - TRAIN_NLPD_DROP, f"training took the marginal nlpd from {nlpd0:.4f} only to {nlpd:.4f}")
-    return launches, model
+    print(f"[{tag}] launches: kernel_matvec {launches[0]} (expected {expected_mv}), kernel_bwd_fused {launches[1]} "
+          f"(expected {TRAIN_STEPS}); CG iterations {sum(iters)} (limit {cg_limit})", flush=True)
+    check(launches[1] == TRAIN_STEPS, f"{tag}: kernel_bwd_fused launched {launches[1]} times, expected {TRAIN_STEPS}")
+    check(launches[0] == expected_mv, f"{tag}: kernel_matvec launched {launches[0]} times, expected {expected_mv}")
+    check(r["rmse"] <= RMSE_LIMIT, f"{tag} rmse {r['rmse']:.4f} > {RMSE_LIMIT}")
+    check(sum(iters) <= cg_limit, f"{tag} training took {sum(iters)} CG iterations > {cg_limit}")
+    check(r["loss_end"] <= losses[0] - TRAIN_LOSS_DROP, f"{tag}: training loss fell from {losses[0]:.5f} only to "
+                                                        f"{r['loss_end']:.5f}")
+    check(r["nlpd"] <= r["nlpd0"] - TRAIN_NLPD_DROP, f"{tag}: training took the marginal nlpd from {r['nlpd0']:.4f} "
+                                                      f"only to {r['nlpd']:.4f}")
+
+
+def phase_flagship():
+    """bench.py's training at full width, then serving from the trained model; returns
+    ``train_flagship``'s readings."""
+    r = train_flagship("flagship")
+    check_training("flagship", r, FLAGSHIP_CG_LIMIT)
+    check(abs(r["rmse"] - FLAGSHIP_RMSE) <= FLAGSHIP_RMSE_TOL, f"flagship rmse {r['rmse']:.4f} is more than "
+                                                                f"{FLAGSHIP_RMSE_TOL} from {FLAGSHIP_RMSE}")
+    return r
+
+
+def phase_honest(default=None):
+    """Phase 7b: bench.py's honest recipe at full width (a noise floor of 1e-4 with a
+    LogNormal(−4, 1) noise prior, CG at tolerance 0.05 with a stall window of 50), from
+    phase 7's data, initial values, probe seed and optimizer, 120 steps, then served.
+    Prints the noise trajectory and the prior term beside the readings, and phase 7's
+    readings (``default``, ``train_flagship``'s) beside them: which recipe wins on this
+    card.  Alone (≈ 1.5 min with the build):
+
+        python3 -c 'import chip_smoke; chip_smoke.phase_honest()'
+
+    Returns its readings."""
+    import torch
+
+    if default is None:  # called alone
+        phase_device()
+        phase_build()
+    r = train_flagship("honest", honest=True)
+    model = r["model"]
+    with torch.no_grad():
+        prior = model.likelihood.prior_log_prob_sum().item()
+    noises = r["noises"]
+    print(f"[honest] noise per step (every 10th): {[round(x, 5) for x in noises[::10]]} → {noises[-1]:.5f} (floor "
+          f"{HONEST_NOISE_FLOOR}; not gated); the noise prior's log-density at the end {prior:.4f}, "
+          f"{prior / N_TRAIN:.3e} of the loss per datum", flush=True)
+    rows = [("honest", r)] + ([("default (phase 7)", default)] if default is not None else [])
+    for name, x in rows:
+        print(f"[honest] {name}: median {x['median']:.4f} s/step, mean {x['mean']:.4f} s/step, CG {sum(x['iters'])} "
+              f"iterations, final loss {x['losses'][-1]:.5f}, rmse {x['rmse']:.4f}, marginal nlpd {x['nlpd']:.4f}, "
+              f"noise {x['noises'][-1]:.5f}", flush=True)
+    if default is not None:
+        best = min(rows, key=lambda row: row[1]["nlpd"])[0]
+        faster = min(rows, key=lambda row: row[1]["mean"])[0]
+        print(f"[honest] on this card: the lower marginal nlpd is {best}'s, the faster training {faster}'s", flush=True)
+    check_training("honest", r, HONEST_CG_LIMIT)
+    check(abs(r["rmse"] - HONEST_RMSE) <= HONEST_RMSE_TOL, f"honest rmse {r['rmse']:.4f} is more than "
+                                                            f"{HONEST_RMSE_TOL} from {HONEST_RMSE}")
+    return r
 
 
 def period_gradient_sources(model):
@@ -2173,6 +2407,209 @@ def phase_acquisition(model):
     return launches[:2]
 
 
+def phase_sampling(model):
+    """Phase 9b: LOVE posterior sampling (``fast_pred_samples``) on phase 7's trained
+    flagship: SAMPLES draws of all 2,048 test points from a seeded CUDA generator.  One
+    draw (a request and its samples) launches kernel_matvec 7 times: the mean strip
+    (t=1), K(test, train)·R (t=100) and the sample root's 5 Lanczos blocks on K(test,
+    test) (2048 × 2048, t=20), and nothing else.  The sample root's diagonal
+    diag(R_s R_sᵀ) is held against the float64 plain path's from the same caches and the
+    same start block, beside the float32 plain path's; love_samp_ms is the median of
+    SAMPLE_REPS synchronised draws.  Returns the launches of one draw."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, test_x, _ = make_task(N_TRAIN, N_TEST, seed=0)
+    dev = "cuda"
+    cand = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    model.eval()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    with eval_settings(), settings.fast_pred_samples(True), torch.no_grad():
+        model.refresh()
+        generator = torch.Generator(device=dev).manual_seed(SAMPLE_SEED)
+        sync(dev)
+        fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+        t0 = time.perf_counter()
+        post = model(cand)
+        draws = post.rsample((SAMPLES,), base_samples=generator)
+        sync(dev)
+        first = time.perf_counter() - t0
+        launches = (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches, fk.kernel_bwd_fused_cuda.launches)
+        times = []
+        for _ in range(SAMPLE_REPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            again = model(cand).rsample((SAMPLES,), base_samples=generator)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+        diag = post.lazy_covariance_matrix._diagonal().double()
+        with plain_kernels():
+            plain = model(cand).lazy_covariance_matrix._diagonal().double()
+            diag64 = _float64_twin(model, train_x, train_y)(cand.double()).lazy_covariance_matrix._diagonal()
+    rank = post.lazy_covariance_matrix.root.shape[-1]
+    scale = diag64.abs().max().item()
+    err, plain_err = ((diag - diag64).abs().max().item() / scale, (plain - diag64).abs().max().item() / scale)
+    finite = bool(torch.isfinite(draws).all()) and bool(torch.isfinite(again).all())
+    median = sorted(times)[len(times) // 2]
+    print(f"[sampling] love_samp_ms: median {median * 1e3:.3f} ms over {SAMPLE_REPS} synchronised draws of {SAMPLES} "
+          f"samples x {N_TEST} points (first draw {first * 1e3:.3f} ms); sample root rank {rank}", flush=True)
+    print(f"[sampling] one draw launched kernel_matvec, kernel_grad_x, kernel_bwd_fused {launches} (expected (7, 0, 0): "
+          f"the mean, K*x R and 5 Lanczos blocks on K**)", flush=True)
+    print(f"[sampling] diag(R_s R_sᵀ) against the float64 plain path from the same caches: kernel path max |Δ| / max "
+          f"{err:.3e} (tol {SAMPLE_DIAG_TOL}), plain float32 {plain_err:.3e}; diag {diag64.min().item():.3e} to "
+          f"{scale:.3e}; the smallest 1 %: kernel path max |Δ| / diag "
+          f"{((diag - diag64).abs() / diag64)[diag64.argsort()[: N_TEST // 100]].max().item():.3e}; draws finite "
+          f"{finite}", flush=True)
+    check(launches == (7, 0, 0), f"one LOVE draw launched {launches}, expected (7, 0, 0)")
+    check(finite, "LOVE samples not finite")
+    check(err <= SAMPLE_DIAG_TOL, f"the sample root's diagonal differs from float64 by {err:.3e}")
+    return launches[0]
+
+
+def sampling_profile():
+    """Where the time of one LOVE draw goes: phase 9b's request of 2,048 points and its
+    SAMPLES samples, on phase 5's model from fixed parameters (caches built first).
+    Prints the wall time of SAMPLE_REPS synchronised draws, then ``torch.profiler`` over
+    as many: the device time by kernel and by host operation per draw, and the device's
+    busy share of the profiled wall time.  Not part of ``main`` (≈ 30 s after the build):
+
+        python3 -c 'import chip_smoke; chip_smoke.sampling_profile()'
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpytorch_tpu_torch import settings
+
+    phase_device()
+    phase_build()
+    train_x, train_y, test_x, _ = make_task(N_TRAIN, N_TEST, seed=0)
+    model = build_model(train_x, train_y, "cuda", torch.float32)
+    cand = torch.as_tensor(test_x, dtype=torch.float32, device="cuda")
+    generator = torch.Generator(device="cuda").manual_seed(SAMPLE_SEED)
+
+    def draws():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SAMPLE_REPS):
+            model(cand).rsample((SAMPLES,), base_samples=generator)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SAMPLE_REPS
+
+    with eval_settings(), settings.fast_pred_samples(True), torch.no_grad():
+        model.refresh()
+        draws()
+        plain_s = draws()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled_s = draws()
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(device_us(e) for e in events) / SAMPLE_REPS
+    print(f"[sampling-profile] one draw: {plain_s * 1e3:.3f} ms (profiled {profiled_s * 1e3:.3f} ms); device busy "
+          f"{busy / 1e3:.3f} ms of it ({busy / 1e3 / (profiled_s * 1e3):.1%} of the profiled wall time)", flush=True)
+    for e in sorted(events, key=device_us, reverse=True)[:15]:
+        if device_us(e) > 0:
+            print(f"[sampling-profile] device {device_us(e) / SAMPLE_REPS / 1e3:8.4f} ms/draw, {e.count // SAMPLE_REPS:4d} "
+                  f"calls/draw: {e.key[:90]}", flush=True)
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]:
+        print(f"[sampling-profile] host {e.self_cpu_time_total / SAMPLE_REPS / 1e3:8.4f} ms/draw, "
+              f"{e.count // SAMPLE_REPS:4d} calls/draw: {e.key[:90]}", flush=True)
+
+
+def make_toy_task(n_train: int, n_test: int, seed: int = 0):
+    """BASELINE.json config 1: x uniform on [0, 1], y = sin 2πx + 0.1 noise, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n_train + n_test, 1))
+    y = np.sin(2 * np.pi * x[:, 0]) + 0.1 * rng.normal(size=n_train + n_test)
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
+def phase_cholesky():
+    """Phase 1k: BASELINE.json config 1, the exact GP (ConstantMean + Scale(RBF) +
+    GaussianLikelihood) on a 1D toy of TOY_N points, trained for TOY_STEPS Adam steps
+    through the dense-Cholesky MLL and served (mean and exact variance of TOY_TEST points)
+    under ``fast_computations(False, False, False)``: CPU float32 against CUDA float32,
+    and a CPU float64 run for the RMSE.  No Pallas kernel lies on this path: the CUDA run
+    must launch none."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, test_x, test_y = make_toy_task(TOY_N, TOY_TEST)
+
+    class ToyGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel())
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    runs = {}
+    counts = lambda: (fk.kernel_matvec_cuda.launches, fk.kernel_bwd_fused_cuda.launches,  # noqa: E731
+                      fk.kernel_grad_x_cuda.launches)
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
+        tx, ty, sx = (torch.as_tensor(a, dtype=dtype, device=device) for a in (train_x, train_y, test_x))
+        model = ToyGP(tx, ty, gt.likelihoods.GaussianLikelihood()).to(device=device, dtype=dtype).train()
+        optimizer = torch.optim.Adam(model.parameters(), lr=TOY_LR)
+        before, losses, times = counts(), [], []
+        with gt.settings.fast_computations(False, False, False):
+            mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
+            for _ in range(TOY_STEPS):
+                sync(device)
+                t0 = time.perf_counter()
+                optimizer.zero_grad()
+                loss = -mll(model(tx), ty)
+                loss.backward()
+                optimizer.step()
+                losses.append(loss.item())
+                times.append(time.perf_counter() - t0)
+            model.eval()
+            with torch.no_grad():
+                sync(device)
+                t0 = time.perf_counter()
+                pred = model(sx)
+                mean, var = pred.mean.double().cpu(), pred.variance.double().cpu()
+                serve_s = time.perf_counter() - t0
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        rmse = (mean - torch.as_tensor(test_y)).square().mean().sqrt().item()
+        runs[(device, dtype)] = dict(losses=losses, mean=mean, var=var, rmse=rmse, launched=launched,
+                                     step_s=sorted(times[1:])[len(times[1:]) // 2], serve_s=serve_s,
+                                     noise=model.likelihood.noise.item())
+    f64, cpu, gpu = runs[("cpu", torch.float64)], runs[("cpu", torch.float32)], runs[("cuda", torch.float32)]
+
+    def gaps(a, b):
+        return (max(abs(x - y) / max(abs(x), 1.0) for x, y in zip(a["losses"], b["losses"])),
+                ((a["mean"] - b["mean"]).abs().max() / a["mean"].abs().max()).item(),
+                ((a["var"] - b["var"]).abs().max() / a["var"].abs().max()).item())
+
+    (d_loss, d_mean, d_var), floor = gaps(cpu, gpu), gaps(f64, cpu)
+    d_rmse = abs(gpu["rmse"] - f64["rmse"])
+    for name, r in (("cpu float64", f64), ("cpu float32", cpu), ("cuda float32", gpu)):
+        print(f"[cholesky] {name}: {TOY_STEPS} steps at a median {r['step_s'] * 1e3:.2f} ms/step, loss "
+              f"{r['losses'][0]:.5f} → {r['losses'][-1]:.5f}, noise {r['noise']:.5f}; {TOY_TEST} points served in "
+              f"{r['serve_s'] * 1e3:.2f} ms, rmse {r['rmse']:.5f}", flush=True)
+    print(f"[cholesky] N={TOY_N} 1D toy, fast_computations(False, False, False): CPU against CUDA (float32) loss "
+          f"max rel diff {d_loss:.3e} (tol {TOY_LOSS_TOL}), mean {d_mean:.3e} (tol {TOY_MEAN_TOL}), variance "
+          f"{d_var:.3e} (tol {TOY_VAR_TOL}); CPU float32 against float64: loss {floor[0]:.3e}, mean {floor[1]:.3e}, "
+          f"variance {floor[2]:.3e}; rmse against float64 {d_rmse:.3e} (tol {TOY_RMSE_TOL}); CUDA launched "
+          f"kernel_matvec, kernel_bwd_fused, kernel_grad_x {gpu['launched']} (expected (0, 0, 0))", flush=True)
+    check(gpu["launched"] == (0, 0, 0), f"the Cholesky path launched {gpu['launched']}")
+    check(all(math.isfinite(x) for x in gpu["losses"]) and bool((gpu["var"] > 0).all()),
+          "the Cholesky path's losses not finite or variances ≤ 0")
+    check(d_loss <= TOY_LOSS_TOL, f"the Cholesky path's losses differ between CPU and CUDA: {d_loss:.3e}")
+    check(d_mean <= TOY_MEAN_TOL and d_var <= TOY_VAR_TOL, f"the Cholesky path's predictions differ between CPU and "
+                                                           f"CUDA: mean {d_mean:.3e}, variance {d_var:.3e}")
+    check(d_rmse <= TOY_RMSE_TOL, f"the Cholesky path's rmse {gpu['rmse']:.5f} is {d_rmse:.3e} from float64's")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2187,21 +2624,28 @@ def main() -> int:
         gx_err, gx_timed = phase_grad_x()
         pmv_err, pmv_timed, pmv_strips, pbwd_err, pbwd_ms, pbwd_plain_ms = phase_periodic_kernels()
         phase_slice()
+        phase_cholesky()
         phase_grad_slice()
         phase_grad_slice(periodic=True)
         serve_launches = phase_serve()
+        refine_launches = phase_refine()
         phase_train_slice()
         phase_slice(periodic=True)
         phase_train_slice(periodic=True)
         phase_train_slice(wide=True)
-        (mv_launches, bwd_launches), flagship = phase_flagship()
+        flagship = phase_flagship()
+        mv_launches, bwd_launches = flagship["launches"]
+        honest = phase_honest(flagship)
         pmv_launches, pbwd_launches = phase_periodic()
-        _, gx_launches = phase_acquisition(flagship)
+        _, gx_launches = phase_acquisition(flagship["model"])
+        sample_launches = phase_sampling(flagship["model"])
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
-    print(f"[report] kernel_matvec launches: serving from fixed parameters {serve_launches}, "
-          f"training and serving {mv_launches}; whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    by_path = {"flagship": mv_launches, "honest": honest["launches"][0], "serving": serve_launches,
+               "refinement": refine_launches, "sampling draw": sample_launches}
+    print(f"[report] kernel_matvec launches by path: {by_path}; whole script {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda", "source": f"gpytorch_tpu_torch/csrc/{source}",
@@ -2213,14 +2657,15 @@ def main() -> int:
             entry("kernel_matvec", "kernel_matvec.cu", 230, mv_launches, mv_err, *mv_timed[(N_TRAIN, N_TRAIN, 64)],
                   matvec_tc_bound(N_TRAIN, N_TRAIN, D, 64))
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound",
-               "strips": mv_strips},
+               "strips": mv_strips, "launches_by_path": by_path},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
             | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
                        "grad_x_tc_bound"},
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
                   bwd_tc_bound(N_TRAIN, D, 64))
-            | {"tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
+            | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1]},
+               "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
                        "bound_ms from bwd_tc_bound"},
             entry("periodic_matvec", "kernel_periodic_matvec.cu", 806, pmv_launches, pmv_err,
                   *pmv_timed[(P_N_TRAIN, P_N_TRAIN, 64)], periodic_matvec_tc_bound(P_N_TRAIN, P_N_TRAIN, P_D, 64))

@@ -1,17 +1,21 @@
 """gpytorch_tpu_torch — the PyTorch and CUDA port of gpytorch_tpu.
 
 Module paths mirror ``gpytorch_tpu/`` so that each counterpart is easy to find.  This
-package imports ``torch`` and never ``jax``.  What is ported so far is exact-GP serving
-and training.  Serving: the posterior mean from a CG-solved cache and LOVE variances from
-a block-Lanczos inverse root.  Training: the exact marginal log likelihood by mBCG with
-stochastic Lanczos quadrature, differentiated by the BBMM backward.  Every product with
+package imports ``torch`` and never ``jax``.  What is ported so far is exact-GP serving,
+sampling and training.  Serving: the posterior mean from a CG-solved cache (optionally
+refined) and LOVE variances from a block-Lanczos inverse root; LOVE posterior samples from
+the Lanczos root of the predictive covariance.  Training: the exact marginal log
+likelihood by mBCG with stochastic Lanczos quadrature, differentiated by the BBMM
+backward, plus the log-densities of the parameters' priors.  Up to
+``settings.max_cholesky_size`` points, each of these takes a dense Cholesky factor.  Every product with
 the kernel matrix, and its gradient, goes through the fused kernel products
 (``ops/fused_kernels.py``): hand-written CUDA kernels on the GPU.
 """
 
 from __future__ import annotations
 
-from . import constraints, distributions, kernels, likelihoods, linop, means, metrics, mlls, models, ops, settings, solvers
+from . import (constraints, distributions, kernels, likelihoods, linop, means, metrics, mlls, models, ops, priors,
+               settings, solvers)
 from .core.module import Module
 from .utils import load_jax_params
 
@@ -28,6 +32,7 @@ __all__ = [
     "mlls",
     "models",
     "ops",
+    "priors",
     "settings",
     "solvers",
 ]

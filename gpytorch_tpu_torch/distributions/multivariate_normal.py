@@ -1,18 +1,23 @@
 """MultivariateNormal backed by a lazy covariance operator.
 
-Counterpart of ``gpytorch_tpu/distributions/multivariate_normal.py`` as far as serving
-and training need it: ``mean``, ``variance`` (the lazy diagonal, floored at
-``settings.min_variance``), ``lazy_covariance_matrix`` and ``log_prob`` by mBCG.
+Counterpart of ``gpytorch_tpu/distributions/multivariate_normal.py`` as far as serving,
+training and sampling need it: ``mean``, ``variance`` (the lazy diagonal, floored at
+``settings.min_variance``), ``lazy_covariance_matrix``, ``log_prob`` (by mBCG, or by a
+dense Cholesky factor at most ``settings.max_cholesky_size`` points or with
+``settings.fast_computations.log_prob`` off), and samples from the covariance's root
+decomposition, whose base samples come from a ``torch.Generator`` or are injected, in
+place of a JAX key.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 
 from .. import settings
-from ..linop import LinearOperator, to_linear_operator
+from ..linop import LinearOperator, ProbeSource, probe_base_samples, to_linear_operator
 
 
 class MultivariateNormal:
@@ -59,3 +64,26 @@ class MultivariateNormal:
         n = covar.shape[-1]
         lp = -0.5 * (inv_quad + logdet + n * math.log(2 * math.pi))
         return (lp, state) if return_state else lp
+
+    def rsample(self, sample_shape: Sequence[int] = (), base_samples: ProbeSource = None) -> torch.Tensor:
+        """Samples of shape ``sample_shape`` + (n,): μ + R u from the covariance's root
+        decomposition R, with u from ``base_samples`` (a ``torch.Generator``, or a callable
+        that returns them for a shape)."""
+        num = math.prod(sample_shape)
+        samples = self._covar.evaluate_kernel().zero_mean_mvn_samples(num, base_samples) + self.loc
+        return samples.reshape(tuple(sample_shape) + tuple(self.event_shape))
+
+    def sample(self, sample_shape: Sequence[int] = (), base_samples: ProbeSource = None) -> torch.Tensor:
+        with torch.no_grad():
+            return self.rsample(sample_shape, base_samples)
+
+    def get_base_samples(self, sample_shape: Sequence[int] = (), base_samples: ProbeSource = None) -> torch.Tensor:
+        """Standard-normal draws of shape ``sample_shape`` + (k,), k the rank of the
+        covariance's root decomposition, for ``rsample_from_base_samples``."""
+        root = self._covar.evaluate_kernel().root_decomposition().root
+        return probe_base_samples(tuple(sample_shape) + (root.shape[-1],), root.dtype, root.device, base_samples)
+
+    def rsample_from_base_samples(self, base_samples: torch.Tensor) -> torch.Tensor:
+        """μ + R u for base samples u of shape (..., k)."""
+        root = self._covar.evaluate_kernel().root_decomposition().root
+        return (root @ base_samples.unsqueeze(-1)).squeeze(-1) + self.loc

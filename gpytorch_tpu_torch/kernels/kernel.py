@@ -25,13 +25,16 @@ from ..ops.sq_dist import sq_dist
 class Kernel(Module):
     has_lengthscale = False
 
-    def __init__(self, ard_num_dims: Optional[int] = None, lengthscale_constraint=None):
+    def __init__(self, ard_num_dims: Optional[int] = None, lengthscale_prior=None, lengthscale_constraint=None):
         super().__init__()
         self.ard_num_dims = ard_num_dims
         if self.has_lengthscale:
             num_dims = 1 if ard_num_dims is None else ard_num_dims
             self.register_parameter("raw_lengthscale", torch.nn.Parameter(torch.zeros(1, num_dims)))
             self.register_constraint("raw_lengthscale", lengthscale_constraint or Positive())
+            if lengthscale_prior is not None:
+                self.register_prior("lengthscale_prior", lengthscale_prior, lambda m: m.lengthscale,
+                                    lambda m, v: m._set_constrained("raw_lengthscale", v))
 
     @property
     def lengthscale(self) -> Optional[torch.Tensor]:

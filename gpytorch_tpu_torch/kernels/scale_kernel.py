@@ -14,11 +14,14 @@ from .kernel import Kernel
 
 
 class ScaleKernel(Kernel):
-    def __init__(self, base_kernel: Kernel, outputscale_constraint=None):
+    def __init__(self, base_kernel: Kernel, outputscale_prior=None, outputscale_constraint=None):
         super().__init__()
         self.base_kernel = base_kernel
         self.register_parameter("raw_outputscale", torch.nn.Parameter(torch.zeros(())))
         self.register_constraint("raw_outputscale", outputscale_constraint or Positive())
+        if outputscale_prior is not None:
+            self.register_prior("outputscale_prior", outputscale_prior, lambda m: m.outputscale,
+                                lambda m, v: m._set_constrained("raw_outputscale", v))
 
     @property
     def outputscale(self) -> torch.Tensor:

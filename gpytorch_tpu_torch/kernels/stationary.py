@@ -33,10 +33,10 @@ class MaternKernel(Kernel):
 
     has_lengthscale = True
 
-    def __init__(self, nu: float = 2.5, ard_num_dims=None, lengthscale_constraint=None):
+    def __init__(self, nu: float = 2.5, **kwargs):
         if nu not in (0.5, 1.5, 2.5):
             raise RuntimeError("nu must be one of 0.5, 1.5, 2.5")
-        super().__init__(ard_num_dims=ard_num_dims, lengthscale_constraint=lengthscale_constraint)
+        super().__init__(**kwargs)
         self.nu = nu
 
     def evaluate(self, hypers, x1, x2, diag: bool = False):
@@ -50,11 +50,14 @@ class PeriodicKernel(Kernel):
 
     has_lengthscale = True
 
-    def __init__(self, ard_num_dims=None):
-        super().__init__(ard_num_dims=ard_num_dims)
-        num_dims = 1 if ard_num_dims is None else ard_num_dims
+    def __init__(self, period_length_prior=None, period_length_constraint=None, **kwargs):
+        super().__init__(**kwargs)
+        num_dims = 1 if self.ard_num_dims is None else self.ard_num_dims
         self.register_parameter("raw_period_length", torch.nn.Parameter(torch.zeros(1, num_dims)))
-        self.register_constraint("raw_period_length", Positive())
+        self.register_constraint("raw_period_length", period_length_constraint or Positive())
+        if period_length_prior is not None:
+            self.register_prior("period_length_prior", period_length_prior, lambda m: m.period_length,
+                                lambda m, v: m._set_constrained("raw_period_length", v))
 
     @property
     def period_length(self) -> torch.Tensor:

@@ -11,9 +11,9 @@ from .noise_models import HomoskedasticNoise
 
 
 class GaussianLikelihood(Likelihood):
-    def __init__(self, noise_constraint=None):
+    def __init__(self, noise_prior=None, noise_constraint=None):
         super().__init__()
-        self.noise_covar = HomoskedasticNoise(noise_constraint)
+        self.noise_covar = HomoskedasticNoise(noise_prior, noise_constraint)
 
     @property
     def noise(self) -> torch.Tensor:

@@ -11,10 +11,13 @@ from ..linop import ConstantDiagLinearOperator
 
 
 class HomoskedasticNoise(Module):
-    def __init__(self, noise_constraint=None):
+    def __init__(self, noise_prior=None, noise_constraint=None):
         super().__init__()
         self.register_parameter("raw_noise", torch.nn.Parameter(torch.zeros(1)))
         self.register_constraint("raw_noise", noise_constraint or GreaterThan(1e-4))
+        if noise_prior is not None:
+            self.register_prior("noise_prior", noise_prior, lambda m: m.noise,
+                                lambda m, v: m._set_constrained("raw_noise", v))
 
     @property
     def noise(self) -> torch.Tensor:

@@ -1,12 +1,14 @@
-from .base import DenseLinearOperator, LinearOperator, probe_base_samples, to_linear_operator
+from .base import DenseLinearOperator, LinearOperator, ProbeSource, probe_base_samples, to_linear_operator
 from .diag import ConstantDiagLinearOperator, DiagLinearOperator
 from .added_diag import AddedDiagLinearOperator
 from .composition import ConstantMulLinearOperator, SumLinearOperator
 from .lazy_kernel import LazyEvaluatedKernelOperator, join_rows
 from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
+from .triangular import CholLinearOperator, TriangularLinearOperator
 
 __all__ = [
     "AddedDiagLinearOperator",
+    "CholLinearOperator",
     "ConstantDiagLinearOperator",
     "ConstantMulLinearOperator",
     "DenseLinearOperator",
@@ -14,8 +16,10 @@ __all__ = [
     "LazyEvaluatedKernelOperator",
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
+    "ProbeSource",
     "RootLinearOperator",
     "SumLinearOperator",
+    "TriangularLinearOperator",
     "join_rows",
     "probe_base_samples",
     "to_linear_operator",

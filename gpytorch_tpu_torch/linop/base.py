@@ -1,20 +1,19 @@
 """LinearOperator — lazy matrices whose inference goes through matrix products.
 
-Counterpart of ``gpytorch_tpu/linop/base.py``, ported as far as exact-GP serving and
-training need: ``matmul``, ``solve`` by preconditioned CG, ``inv_quad_logdet`` by mBCG
-with stochastic Lanczos quadrature (by a dense Cholesky factor up to
-``settings.max_cholesky_size``), ``root_inv_decomposition`` by block Lanczos, diagonal
-and row access (for the pivoted-Cholesky preconditioner), and the structure hooks
-``evaluate_kernel``, ``_eig_lower_bound`` and ``_is_known_psd``.
+Counterpart of ``gpytorch_tpu/linop/base.py``, ported as far as exact-GP serving, training
+and sampling need: ``matmul``; ``solve`` by preconditioned CG (with
+``settings.solve_iterative_refinements``); ``inv_quad_logdet`` by mBCG with stochastic
+Lanczos quadrature; ``root_decomposition`` and ``root_inv_decomposition`` by block Lanczos;
+``zero_mean_mvn_samples`` from the root; diagonal and row access (for the pivoted-Cholesky
+preconditioner), and the structure hooks ``evaluate_kernel``, ``_eig_lower_bound`` and
+``_is_known_psd``.  As in the JAX package, each of these takes a dense Cholesky factor
+instead up to ``settings.max_cholesky_size``, or at any size when its
+``settings.fast_computations`` flag is off (``linop/triangular.py``).
 
 ``_flatten`` hands an operator's tensors to a ``torch.autograd.Function`` together with a
 function that rebuilds the operator from them (the counterpart of the JAX package's pytree
 ``tree_map``): a backward rebuilds the operator from copies that require grad and
 differentiates through its products.
-
-Of the dense-Cholesky branches that the JAX package takes for N ≤ ``max_cholesky_size``,
-only ``inv_quad_logdet``'s is ported: ``solve`` and ``root_inv_decomposition`` raise there,
-so serve with ``settings.max_cholesky_size(0)``.
 """
 
 from __future__ import annotations
@@ -146,45 +145,78 @@ class LinearOperator:
         return None
 
     def _use_cholesky(self) -> bool:
-        return self.shape[-1] <= settings.max_cholesky_size.value()
+        return self.shape[-1] <= settings.max_cholesky_size.value() or settings.fast_computations.solves.off()
 
-    def _check_iterative(self, what: str) -> None:
-        if self._use_cholesky():
-            raise NotImplementedError(
-                f"{what}: the dense Cholesky path (N <= settings.max_cholesky_size) is not ported; "
-                "use settings.max_cholesky_size(0)"
-            )
+    def _dense_cholesky(self) -> torch.Tensor:
+        """Lower Cholesky factor of the dense matrix with escalating jitter
+        (``psd_safe_cholesky``), of its symmetrised part, as ``jnp.linalg.cholesky`` takes
+        it (torch's reads one triangle): a covariance formed by subtraction is symmetric
+        only to round-off."""
+        from ..solvers.cholesky import psd_safe_cholesky
+
+        A = self.to_dense()
+        return psd_safe_cholesky(0.5 * (A + A.mT))
 
     # -- decompositions and solves ------------------------------------------------------
-    def root_inv_decomposition(self, initial_vectors: Optional[torch.Tensor] = None) -> "LinearOperator":
-        """R Rᵀ ≈ self⁻¹ by block Lanczos (the LOVE cache).  The Lanczos start block is
+    def cholesky(self, upper: bool = False) -> "LinearOperator":
+        from .triangular import TriangularLinearOperator
+
+        L = self._dense_cholesky()
+        return TriangularLinearOperator(L.mT, upper=True) if upper else TriangularLinearOperator(L)
+
+    def _root_method(self, method: Optional[str]) -> str:
+        if method is not None:
+            return method
+        dense = self._use_cholesky() or settings.fast_computations.covar_root_decomposition.off()
+        return "cholesky" if dense else "lanczos"
+
+    def root_decomposition(self, method: Optional[str] = None) -> "LinearOperator":
+        """R Rᵀ ≈ self: the Cholesky factor, or a Lanczos root of rank
+        ``max_root_decomposition_size`` (``method`` "cholesky" or "lanczos"; by default
+        as ``root_inv_decomposition`` chooses).  The Lanczos start block is drawn from a
+        CPU generator seeded with 0."""
+        from ..solvers.lanczos import lanczos_root
+        from .root import RootLinearOperator
+        from .triangular import CholLinearOperator
+
+        if self._root_method(method) == "cholesky":
+            return CholLinearOperator(self._dense_cholesky()).root_decomposition()
+        max_rank = min(self.shape[-1], settings.max_root_decomposition_size.value())
+        return RootLinearOperator(lanczos_root(self, max_rank))
+
+    def root_inv_decomposition(self, initial_vectors: Optional[torch.Tensor] = None,
+                               method: Optional[str] = None) -> "LinearOperator":
+        """R Rᵀ ≈ self⁻¹ (the LOVE cache): R = L⁻ᵀ from the Cholesky factor L up to
+        ``max_cholesky_size``, else by block Lanczos, whose start block is
         ``initial_vectors`` where given, the rest drawn from a CPU generator seeded with 0
         and moved to the operator's device."""
         from ..solvers.lanczos import lanczos_inv_root
         from .root import RootLinearOperator
+        from .triangular import CholLinearOperator
 
-        self._check_iterative("root_inv_decomposition")
+        if self._root_method(method) == "cholesky":
+            return CholLinearOperator(self._dense_cholesky()).root_inv_decomposition()
         max_rank = min(self.shape[-1], settings.max_root_decomposition_size.value())
         return RootLinearOperator(lanczos_inv_root(self, max_rank, initial_vectors))
+
+    def zero_mean_mvn_samples(self, num_samples: int, base_samples: ProbeSource = None) -> torch.Tensor:
+        """(num_samples, n) draws of N(0, self) from its root decomposition; the base
+        samples come from ``base_samples`` (``probe_base_samples``), always Gaussian."""
+        return self.root_decomposition().zero_mean_mvn_samples(num_samples, base_samples)
 
     def inv_quad_logdet(self, inv_quad_rhs: Optional[torch.Tensor] = None, logdet: bool = False,
                         reduce_inv_quad: bool = True, base_samples: ProbeSource = None,
                         solver_state: Optional[torch.Tensor] = None, return_state: bool = False):
-        """(rhsᵀ self⁻¹ rhs, log|self|), differentiable.  Up to ``max_cholesky_size`` from a
-        dense Cholesky factor L with escalating jitter (``psd_safe_cholesky``): log|self| =
-        2 Σ log diag L and rhsᵀ self⁻¹ rhs = |L⁻¹ rhs|², as the JAX package computes it
-        (``gpytorch_tpu/linop/base.py::inv_quad_logdet``); the solver state passes through
-        untouched.  Above it, in one mBCG pass with the BBMM backward
+        """(rhsᵀ self⁻¹ rhs, log|self|), differentiable.  Up to ``max_cholesky_size`` (or
+        with ``fast_computations.log_prob`` off) from the dense Cholesky factor L:
+        log|self| = 2 Σ log diag L and rhsᵀ self⁻¹ rhs = |L⁻¹ rhs|², as the JAX package
+        computes it (``gpytorch_tpu/linop/base.py::inv_quad_logdet``); the solver state
+        passes through untouched.  Above it, in one mBCG pass with the BBMM backward
         (``solvers/inv_quad.py``): ``base_samples`` is where the probe vectors' base samples
         come from, and ``solver_state``/``return_state`` carry the warm start of the rhs
         solve across training steps."""
-        if self._use_cholesky():
-            from ..solvers.cholesky import psd_safe_cholesky
-
-            # symmetrised, as jnp.linalg.cholesky does with its input (torch's reads one
-            # triangle): a covariance formed by subtraction is symmetric only to round-off
-            A = self.to_dense()
-            L = psd_safe_cholesky(0.5 * (A + A.mT))
+        if self._use_cholesky() or settings.fast_computations.log_prob.off():
+            L = self._dense_cholesky()
             logdet_term = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1) if logdet else None
             iq_term = None
             if inv_quad_rhs is not None:
@@ -201,14 +233,19 @@ class LinearOperator:
         )
 
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
-        """self⁻¹ rhs by preconditioned CG; the CGResult is kept in ``last_cg_result``.
+        """self⁻¹ rhs: by ``torch.cholesky_solve`` on the dense Cholesky factor up to
+        ``max_cholesky_size`` (differentiable in both), else by preconditioned CG with
+        ``settings.solve_iterative_refinements`` passes of refinement, its CGResult kept in
+        ``last_cg_result``.
 
-        Differentiable with respect to ``rhs`` (the backward is one more CG solve, self
-        being symmetric), for an operator that carries no gradient itself; raises if it
-        does."""
+        CG is differentiable with respect to ``rhs`` (the backward is one more CG solve,
+        unrefined, self being symmetric), for an operator that carries no gradient itself;
+        it raises if the operator does."""
         from ..solvers.cg import linear_solve_cg
+        from .triangular import CholLinearOperator
 
-        self._check_iterative("solve")
+        if self._use_cholesky():
+            return CholLinearOperator(self._dense_cholesky()).solve(rhs)
         squeeze = rhs.ndim == 1
         if squeeze:
             rhs = rhs.unsqueeze(-1)
@@ -226,17 +263,18 @@ class LinearOperator:
 class _RHSSolve(torch.autograd.Function):
     """op⁻¹ rhs, differentiable in rhs: the backward solves op⁻¹ g (op is symmetric) with
     the forward's preconditioner, tolerance and iteration limit, since it runs after the
-    caller's settings have gone out of scope."""
+    caller's settings have gone out of scope, and without refinement, as the JAX package's
+    custom VJP."""
 
     @staticmethod
     def forward(ctx, owner, op, rhs):
-        from ..solvers.cg import linear_cg
+        from ..solvers.cg import linear_cg, refined_solve
 
         precond = op._preconditioner()[0]
         ctx.solve = functools.partial(linear_cg, op._matmul, precond_fn=precond,
                                       max_iter=settings.max_cg_iterations.value(),
                                       tolerance=settings.cg_tolerance.value())
-        owner.last_cg_result = ctx.solve(rhs)
+        owner.last_cg_result = refined_solve(ctx.solve, op._matmul, rhs)
         return owner.last_cg_result.solution
 
     @staticmethod

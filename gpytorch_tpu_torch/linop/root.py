@@ -1,6 +1,11 @@
 """Root operators.  Counterpart of ``gpytorch_tpu/linop/root.py``: ``RootLinearOperator``
-A = R Rᵀ (the LOVE caches) and ``LowRankRootAddedDiagLinearOperator`` R Rᵀ + D (the
-pivoted-Cholesky preconditioner P, from which training draws its probe vectors)."""
+A = R Rᵀ (the LOVE caches, and the posterior covariance that LOVE sampling draws from) and
+``LowRankRootAddedDiagLinearOperator`` R Rᵀ + D (the pivoted-Cholesky preconditioner P,
+from which training draws its probe vectors).
+
+Samples are drawn from Gaussian base samples (``probe_base_samples``), never Rademacher
+ones: the JAX package's ``rademacher_probes`` reaches user sampling through this module,
+and the port does not copy that."""
 
 from __future__ import annotations
 
@@ -39,6 +44,20 @@ class RootLinearOperator(LinearOperator):
 
     def to_dense(self):
         return self.root @ self.root.mT
+
+    def root_decomposition(self, method=None) -> "RootLinearOperator":
+        return self
+
+    def add_low_rank(self, new_root) -> "RootLinearOperator":
+        """R Rᵀ + S Sᵀ as the root [R | S]."""
+        new_root = new_root.to_dense() if isinstance(new_root, LinearOperator) else new_root
+        return RootLinearOperator(torch.cat([self.root, new_root], dim=-1))
+
+    def zero_mean_mvn_samples(self, num_samples: int, base_samples: ProbeSource = None) -> torch.Tensor:
+        """(num_samples, n) draws R u of N(0, R Rᵀ), u of shape (num_samples, k, 1) from
+        ``base_samples``."""
+        u = probe_base_samples((num_samples, self.root.shape[-1], 1), self.dtype, self.device, base_samples)
+        return (self.root @ u)[..., 0]
 
 
 class LowRankRootAddedDiagLinearOperator(LinearOperator):

@@ -8,9 +8,13 @@ from ..core.module import Module
 
 
 class ConstantMean(Module):
-    def __init__(self):
+    def __init__(self, constant_prior=None):
         super().__init__()
         self.register_parameter("raw_constant", torch.nn.Parameter(torch.zeros(())))
+        if constant_prior is not None:
+            # the JAX package's (and GPyTorch's) name for this prior
+            self.register_prior("mean_prior", constant_prior, lambda m: m.constant,
+                                lambda m, v: m._set_constrained("raw_constant", v))
 
     @property
     def constant(self) -> torch.Tensor:

@@ -56,12 +56,12 @@ class ExactGP(Module):
 
     def refresh(self):
         """Build the prediction caches now rather than at the first request: the mean
-        cache (one CG solve) and, under ``fast_pred_var``, the LOVE cache.  Returns the
-        prediction strategy that holds them."""
+        cache (one CG solve) and, under ``fast_pred_var`` or ``fast_pred_samples``, the
+        LOVE cache.  Returns the prediction strategy that holds them."""
         with torch.no_grad(), settings.cg_tolerance(settings.eval_cg_tolerance.value()):
             strategy = self.prediction_strategy()
             strategy.mean_cache
-            if settings.fast_pred_var.on():
+            if settings.fast_pred_var.on() or settings.fast_pred_samples.on():
                 strategy.covar_cache
         return strategy
 

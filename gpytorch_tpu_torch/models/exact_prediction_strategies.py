@@ -6,7 +6,12 @@ Counterpart of ``DefaultPredictionStrategy`` in
 * ``mean_cache`` = (K + σ²I)⁻¹(y − μ), one CG solve;
 * ``covar_cache`` = R with R Rᵀ ≈ (K + σ²I)⁻¹, the LOVE inverse root (block Lanczos);
 * the predictive mean K*x·mean_cache + μ*, and under ``fast_pred_var`` the predictive
-  covariance K** − (K*x R)(K*x R)ᵀ.
+  covariance K** − (K*x R)(K*x R)ᵀ; under ``fast_pred_samples`` that covariance as its
+  own Lanczos root R_s (R_s R_sᵀ ≈ K** − (K*x R)(K*x R)ᵀ), so that each draw is one
+  product R_s u.
+
+Up to ``settings.max_cholesky_size`` training points both caches come from a dense
+Cholesky factor instead (``LinearOperator.solve``, ``root_inv_decomposition``).
 
 Both caches are plain tensors built at first use, without gradients, and kept until the
 model's caches are cleared.  The predictive mean and covariance are differentiable with
@@ -90,6 +95,12 @@ class DefaultPredictionStrategy:
         if settings.skip_posterior_variances.on():
             m = test_test_covar.shape[-1]
             return DiagLinearOperator(torch.zeros(m, dtype=self.train_labels.dtype, device=self.train_labels.device))
+        if settings.fast_pred_samples.on():
+            # LOVE sampling: the Lanczos root of Σ* = K** − (K*x R)(K*x R)ᵀ, built once a
+            # request and without gradients (the JAX package detaches it)
+            with torch.no_grad():
+                posterior = test_test_covar + RootLinearOperator(test_train_covar.matmul(self.covar_cache)) * -1.0
+                return RootLinearOperator(posterior.evaluate_kernel().root_decomposition(method="lanczos").root)
         if settings.fast_pred_var.on():
             # LOVE: Σ* = K** − (K*x R)(K*x R)ᵀ
             covar_inv_quad_form_root = test_train_covar.matmul(self.covar_cache)

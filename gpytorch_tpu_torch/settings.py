@@ -32,6 +32,10 @@ class _feature_flag:
     def on(cls) -> bool:
         return cls._default if cls._state is None else cls._state
 
+    @classmethod
+    def off(cls) -> bool:
+        return not cls.on()
+
     def __enter__(self):
         self.prev = type(self)._state
         type(self)._state = self.state
@@ -81,11 +85,17 @@ class _dtype_value_context:
 
 
 class max_cholesky_size(_value_context):
-    """N at or below which dense Cholesky replaces CG.  The port has it for
-    ``inv_quad_logdet`` (log densities and the NLPD); ``solve`` and
-    ``root_inv_decomposition`` raise there, so serve with ``max_cholesky_size(0)``."""
+    """N at or below which a dense Cholesky factor replaces CG and Lanczos: in ``solve``,
+    ``inv_quad_logdet`` and both root decompositions."""
 
     _global_value = 800
+
+
+class solve_iterative_refinements(_value_context):
+    """Passes of iterative refinement after each CG solve: x ← x + CG(A, b − A x), each
+    against the residual of the solution so far.  One more CG solve a pass."""
+
+    _global_value = 0
 
 
 class cg_tolerance(_value_context):
@@ -212,6 +222,50 @@ class fast_pred_var(_feature_flag):
     """LOVE predictive variances from the cached Lanczos inverse root."""
 
     _default = False
+
+
+class fast_pred_samples(_feature_flag):
+    """LOVE posterior sampling: the predictive covariance is returned as the Lanczos root
+    of K** − (K*x R)(K*x R)ᵀ, so that each draw is one product with that root."""
+
+    _default = False
+
+
+class _fast_covar_root_decomposition(_feature_flag):
+    _default = True
+
+
+class _fast_log_prob(_feature_flag):
+    _default = True
+
+
+class _fast_solves(_feature_flag):
+    _default = True
+
+
+class fast_computations:
+    """The three iterative-method flags: with one off, its operation takes the dense
+    Cholesky branch at any N — root decompositions (``covar_root_decomposition``), log
+    densities (``log_prob``), and solves, log densities and root decompositions
+    (``solves``)."""
+
+    covar_root_decomposition = _fast_covar_root_decomposition
+    log_prob = _fast_log_prob
+    solves = _fast_solves
+
+    def __init__(self, covar_root_decomposition: bool = True, log_prob: bool = True, solves: bool = True):
+        self._ctxs = [_fast_covar_root_decomposition(covar_root_decomposition), _fast_log_prob(log_prob),
+                      _fast_solves(solves)]
+
+    def __enter__(self):
+        for ctx in self._ctxs:
+            ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for ctx in reversed(self._ctxs):
+            ctx.__exit__(*exc)
+        return False
 
 
 class skip_posterior_variances(_feature_flag):

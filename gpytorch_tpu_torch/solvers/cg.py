@@ -158,7 +158,26 @@ def tridiag_from_coeffs(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tens
     return torch.diag_embed(diag) + torch.diag_embed(off, offset=1) + torch.diag_embed(off, offset=-1)
 
 
+def refined_solve(solve: Callable[[torch.Tensor], CGResult], matmul_fn: Callable[[torch.Tensor], torch.Tensor],
+                  rhs: torch.Tensor) -> CGResult:
+    """``solve(rhs)``, then ``settings.solve_iterative_refinements`` passes of iterative
+    refinement, x ← x + solve(rhs − A x), each against the residual of the solution so far
+    (one product and one more solve a pass; ``gpytorch_tpu/solvers/cg.py:305-316``).  The
+    result counts every pass's iterations, and its residual is the last pass's relative
+    residual scaled to rhs: |b − A x| / |b| by CG's own recursion."""
+    result = solve(rhs)
+    x, iters, resid = result.solution, result.num_iters, result.residual_norm
+    rhs_norm = torch.clamp_min(_col_norm(rhs), _EPS)
+    for _ in range(int(settings.solve_iterative_refinements.value())):
+        r = rhs - matmul_fn(x)
+        corr = solve(r)
+        x, iters = x + corr.solution, iters + corr.num_iters
+        resid = corr.residual_norm * _col_norm(r) / rhs_norm
+    return CGResult(x, iters, resid)
+
+
 def linear_solve_cg(linop, rhs: torch.Tensor) -> CGResult:
     """CG solve of ``linop`` x = rhs, preconditioned by ``linop._preconditioner()``, at
-    ``settings.cg_tolerance``."""
-    return linear_cg(linop._matmul, rhs, precond_fn=linop._preconditioner()[0])
+    ``settings.cg_tolerance``, refined ``settings.solve_iterative_refinements`` times."""
+    precond = linop._preconditioner()[0]
+    return refined_solve(lambda b: linear_cg(linop._matmul, b, precond_fn=precond), linop._matmul, rhs)

@@ -1,7 +1,7 @@
-"""Block-Krylov Rayleigh–Ritz root decompositions (the LOVE caches).
+"""Block-Krylov Rayleigh–Ritz root decompositions (the LOVE caches and sampling root).
 
-Counterpart of ``gpytorch_tpu/solvers/lanczos.py`` (``block_lanczos_ritz``,
-``_ritz_root`` and ``lanczos_inv_root``, here folded into one function).  The start block
+Counterpart of ``gpytorch_tpu/solvers/lanczos.py`` (``block_lanczos_ritz``, ``_ritz_root``,
+``lanczos_root`` and ``lanczos_inv_root``).  The start block
 is explicit: ``initial_vectors`` where given, the rest drawn from a seeded
 ``torch.Generator`` on the CPU and then moved to the operator's device, so that a CPU run
 and a CUDA run start from the same block.
@@ -64,8 +64,8 @@ def _block_plan(max_rank: int, n: int) -> Tuple[int, int]:
     return b, -(-max_rank // b)
 
 
-def lanczos_inv_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """R with R Rᵀ ≈ linop⁻¹, of rank ``max_rank``."""
+def _ritz_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor], inverse: bool) -> torch.Tensor:
+    """R = Q V Λ^{∓1/2} from the top ``max_rank`` Ritz pairs (Λ, V) of T = Qᵀ A Q."""
     n = linop.shape[-1]
     b, m = _block_plan(max_rank, n)
     Q, T = block_lanczos_ritz(linop._matmul, _block_init(linop, initial_vectors, b), m)
@@ -78,4 +78,15 @@ def lanczos_inv_root(linop, max_rank: int, initial_vectors: Optional[torch.Tenso
     bound = linop._eig_lower_bound()
     if bound is not None:
         lam = torch.maximum(lam, torch.as_tensor(bound, dtype=lam.dtype, device=lam.device))
-    return Q @ (V[:, -max_rank:] / torch.sqrt(lam))
+    V = V[:, -max_rank:]
+    return Q @ (V / torch.sqrt(lam) if inverse else V * torch.sqrt(lam))
+
+
+def lanczos_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """R with R Rᵀ ≈ linop, of rank ``max_rank``."""
+    return _ritz_root(linop, max_rank, initial_vectors, inverse=False)
+
+
+def lanczos_inv_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """R with R Rᵀ ≈ linop⁻¹, of rank ``max_rank``."""
+    return _ritz_root(linop, max_rank, initial_vectors, inverse=True)

@@ -204,3 +204,146 @@ def test_preconditioner_logdet_and_gradient(fast):
         val_t.backward()
     np.testing.assert_allclose(val_t.item(), float(val_j), rtol=1e-10)
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(grad_j), rtol=1e-8)
+
+
+# ---------------------------------------------------------------------------------------
+# iterative refinement of the CG solve (settings.solve_iterative_refinements)
+# ---------------------------------------------------------------------------------------
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_refined_solve_matches_jax_package(passes):
+    # x ← x + CG(A, b − A x), each pass a short preconditioned solve as in
+    # test_preconditioned_cg, so that both packages take the same iterations
+    from gpytorch_tpu.solvers.cg import linear_solve_cg as jax_linear_solve_cg
+
+    n, noise, tol = 300, 0.1, 1e-2
+    K = _kernel_matrix(n, seed=1)
+    rhs = np.random.default_rng(2).normal(size=(n, 2))
+    settings_kw = dict(min_preconditioning_size=0, max_preconditioner_size=30, preconditioner_noise_budget=1e-3,
+                       cg_stall_window=50, cg_tolerance=tol)
+    with _both(settings_kw):
+        op_j = gp.linop.DenseLinearOperator(jnp.asarray(K)).add_diagonal(jnp.asarray(noise))
+        op_t = gt.linop.DenseLinearOperator(torch.from_numpy(K)).add_diagonal(torch.tensor(noise, dtype=torch.float64))
+        once_t = gt.solvers.linear_solve_cg(op_t, torch.from_numpy(rhs))
+        with _both(dict(solve_iterative_refinements=passes)):
+            x_j = np.asarray(jax_linear_solve_cg(op_j, jnp.asarray(rhs)))
+            res_t = gt.solvers.linear_solve_cg(op_t, torch.from_numpy(rhs))
+    np.testing.assert_allclose(res_t.solution.numpy(), x_j, rtol=1e-8, atol=1e-8 * np.abs(x_j).max())
+    A = K + noise * np.eye(n)
+
+    def resid(x):
+        return np.linalg.norm(A @ x - rhs, axis=0) / np.linalg.norm(rhs, axis=0)
+
+    # each pass shrinks the true residual, which the result's residual estimates
+    assert (resid(res_t.solution.numpy()) < 0.5 * tol ** passes).all()
+    assert (resid(res_t.solution.numpy()) < resid(once_t.solution.numpy())).all()
+    assert res_t.num_iters > once_t.num_iters
+    np.testing.assert_allclose(res_t.residual_norm.numpy(), resid(res_t.solution.numpy()), rtol=1e-3)
+
+
+def test_refined_mean_cache_matches_jax_package(monkeypatch):
+    # the flagship model's mean cache (K + σ²I)⁻¹(y − μ) at N=300 under the serving
+    # settings and two passes of refinement, through both packages' models
+    import sys
+
+    from gpytorch_tpu.models import ExactGP as JaxExactGP
+
+    n, d = 300, 3
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(n, d))
+    y = np.sin(4 * x[:, 0]) * np.cos(3 * x[:, 1]) + 0.1 * rng.normal(size=n)
+    y = (y - y.mean()) / y.std()
+    params = {"covar_module.base_kernel.raw_lengthscale": np.array([[-1.0, -0.5, -1.2]]),
+              "covar_module.raw_outputscale": np.array(0.3), "likelihood.noise_covar.raw_noise": np.array([-3.5]),
+              "mean_module.raw_constant": np.array(0.05)}
+    serving = dict(max_cholesky_size=0, min_preconditioning_size=0, max_preconditioner_size=50,
+                   preconditioner_noise_budget=1e-3, eval_cg_tolerance=1e-3, cg_stall_window=50,
+                   solve_iterative_refinements=2)
+
+    def sq_dist64(x1, x2, x1_eq_x2=False):
+        # gpytorch_tpu's sq_dist forms its distance product in float32 even under x64
+        adj = jnp.mean(x1, axis=-2, keepdims=True)
+        x1, x2 = x1 - adj, x2 - adj
+        res = (-2.0 * jnp.matmul(x1, x2.T, precision=jax.lax.Precision.HIGHEST) + jnp.sum(x1 * x1, -1, keepdims=True)
+               + jnp.sum(x2 * x2, -1, keepdims=True).T)
+        return jnp.maximum(res * (1.0 - jnp.eye(res.shape[-1])) if x1_eq_x2 else res, 0.0)
+
+    monkeypatch.setattr(sys.modules["gpytorch_tpu.ops.sq_dist"], "sq_dist", sq_dist64)
+    monkeypatch.setattr(sys.modules["gpytorch_tpu.kernels.kernel"], "_sq_dist_op", sq_dist64)
+
+    class JaxModel(JaxExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gp.means.ConstantMean()
+            self.covar_module = gp.kernels.ScaleKernel(gp.kernels.RBFKernel(ard_num_dims=d))
+
+        def forward(self, x):
+            return gp.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    class TorchModel(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=d))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    @jax.jit
+    def jax_cache(p):
+        jm = JaxModel(jnp.asarray(x), jnp.asarray(y), gp.likelihoods.GaussianLikelihood()).with_params(p).eval()
+        with _settings_of(gp, serving):
+            jm(jnp.asarray(x[:5]))
+            return jm._cache["prediction_strategy"].mean_cache
+
+    want = np.asarray(jax_cache({k: jnp.asarray(v) for k, v in params.items()}))
+    tm = TorchModel(torch.from_numpy(x), torch.from_numpy(y), gt.likelihoods.GaussianLikelihood()).double()
+    gt.load_jax_params(tm, params).eval()
+    with _settings_of(gt, serving):
+        strategy = tm.refresh()
+    got = strategy.mean_cache.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-8 * np.abs(want).max())
+    assert strategy.lik_train_train_covar.last_cg_result.num_iters > 0
+
+
+def _settings_of(package, settings_kw):
+    """Enter the settings in one package."""
+    stack = contextlib.ExitStack()
+    for name, value in settings_kw.items():
+        stack.enter_context(getattr(package.settings, name)(value))
+    return stack
+
+
+def test_refinement_counts_one_product_a_pass(monkeypatch):
+    # float32, N=600 (every product streams): a pass is one residual product and the
+    # iterations of its correction solve, as chip_smoke.py gates the launches on the card
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    calls = []
+    plain = fk.fused_kernel_matvec
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(fk, "fused_kernel_matvec", counted)
+    n = 600
+    x = torch.from_numpy(np.random.default_rng(3).uniform(size=(n, 3))).float()
+    kernel = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=3))
+    kernel.base_kernel.lengthscale = 0.3
+    noise = torch.tensor([0.02])
+    op = (kernel(x) + gt.linop.ConstantDiagLinearOperator(noise, n)).evaluate_kernel()
+    rhs = torch.from_numpy(np.random.default_rng(4).normal(size=(n, 1))).float()
+    results = {}
+    with torch.no_grad(), gt.settings.cg_tolerance(1e-3), gt.settings.cg_stall_window(50):
+        for passes in (0, 2):
+            calls.clear()
+            with gt.settings.solve_iterative_refinements(passes):
+                results[passes] = gt.solvers.linear_solve_cg(op, rhs)
+            assert len(calls) == results[passes].num_iters + passes
+    K = op.to_dense().double()
+
+    def true_resid(res):
+        return ((K @ res.solution.double() - rhs.double()).norm() / rhs.double().norm()).item()
+
+    assert true_resid(results[2]) < true_resid(results[0])
