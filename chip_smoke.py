@@ -2,8 +2,9 @@
 """Smoke test of gpytorch_tpu_torch on one NVIDIA GPU: exact-GP training and serving at
 N=100k, for the flagship RBF model (bench.py's default and honest recipes) and for a
 periodic model, gradients of the flagship's predictions with respect to the test inputs,
-LOVE posterior sampling, iterative refinement of the mean cache, and the dense-Cholesky
-path on a 1D toy.
+LOVE posterior sampling, iterative refinement of the mean cache, the dense-Cholesky path on
+a 1D toy, fantasy updates with a knowledge-gradient step through the caches, and missing
+targets.
 
     python3 chip_smoke.py
 
@@ -134,6 +135,25 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               times (the mean, K*x R, and 5 Lanczos blocks on K** at 2048², t = 20); the
               sample root's diagonal against the float64 plain path from the same caches
               and start block; love_samp_ms, the median of 10 synchronised draws.
+
+10. fantasy — on phase 7's trained flagship: 16 fantasy points (every 128th test point, a
+              LOVE draw at them as targets); ``get_fantasy_model`` with the old strategy built
+              (fantasy_ms; one 16-column CG), against a refit on the n + 16 points (the mean
+              gated, with a float64 bracket and a planted fault; the LOVE variances from the
+              same joint operator); the one-shot knowledge-gradient step, ∇Σμ* over the 2,048
+              test points with respect to the fantasy inputs and the hyperparameters under
+              ``detach_test_caches(False)`` at eval tolerance 1e-6 (kg_grad_s, the time of a
+              gradient unresolved at N=100k; kernel_bwd_fused at t=1 and t=16); at N=4096 that
+              step's directional derivative against central differences on the float64 plain
+              path, and its CUDA float32 gradient against a CPU float64 plain run, each gate
+              bracketed by planted faults; kernel_bwd_fused at t=1 and 16 and kernel_matvec
+              at t=16 on the 100k training rows against float64.  Alone:
+              ``python3 -c 'import chip_smoke; chip_smoke.phase_fantasy()'`` (phase 5's model).
+10b. missing — the flagship's data with 1 % of the targets NaN: one loss and gradient under
+              the NaN policies "fill" and "mask" at N=100k (CG iterations, seconds), both
+              policies at N=4096 through the kernels against their plain versions on the card
+              and CUDA float32 against CPU float64, and "mask" against the
+              observed subset's MLL in float64 at N=1000.
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -281,6 +301,48 @@ TOY_VAR_TOL = 2e-2          # … and of the exact variances, K** − K*x K̂⁻
                             # outputscale of ≈ 1, which cancels in float32 (CPU float32 against float64:
                             # 4.5e-3), so two float32 runs may differ by twice that
 TOY_RMSE_TOL = 1e-3         # … and |RMSE(float32, CUDA) − RMSE(float64, CPU)|
+# fantasy updates and the one-shot knowledge-gradient path (phase 10) on phase 7's model
+FANT_Q, FANT_SEED, FANT_REPS = 16, 17, 3   # fantasy points (every 128th test point), the LOVE draw's seed
+FANT_MEAN_TOL = 1e-2        # N=100k: the fantasy model's 2,048-point mean against a refit's (a new CG solve
+                            # of the joint system), max |Δ| / max |μ|.  Both caches solve to eval's tolerance
+                            # 1e-3; the float64 bracket (true residuals, means from the same caches by the
+                            # float64 plain path) and a planted fault (the update without its −(A⁻¹B)v
+                            # term) are printed beside it
+KG_FD_TOL, KG_FD_H = 1e-10, 5e-2  # N=KG_SLICE_N, float64 plain path on the card: the directional derivative of Σμ*
+                            # along its gradient (X_f and the raw hyperparameters) against central differences,
+                            # both at eval tolerance KG_FD_TOL, the step KG_FD_H along the unit vector
+KG_FD_GATE = 1e-2           # … |Δ| / |derivative| (at N=3000 on the CPU: 4e-3, the step's truncation)
+KG_WITNESS_TOL = 1e-9       # kg_float64_witness: the float64 plain path's eval tolerance
+KG_SLICE_N = 4096           # the gradient at N=4096 on the card (the kernels launch above 512²) against a
+KG_SLICE_TOL = (0.1, 0.3)   # CPU float64 plain run with pinned pivots, max |Δ∇| / max |∇| of X_f and of the
+                            # hyperparameters.  Both gradients are differences of terms far larger than they
+                            # are, so float32 round-off moves them far: on an H100 CUDA read 4.2e-2 and 0.147,
+                            # CPU float32 1.9e-2 and 0.134 (PERF.md).  A relative error of KG_FAULT_EPS
+                            # in a kernel's cotangents reads 0.253 (grad_x, on ∇X_f) and 0.837 (the symmetric
+                            # backward, on ∇θ)
+KG_FAULT_EPS = 1e-4         # the planted faults: grad_x's output, and the symmetric backward's dx and dos,
+                            # each × (1 − KG_FAULT_EPS), in a float64 run
+KG_TOL = 1e-6               # the knowledge-gradient step's eval tolerance (timed at N=100k, gated at
+                            # N=KG_SLICE_N): the Schur complement S = D − BᵀA⁻¹B cancels (≈ 0.05 against an
+                            # outputscale of 1.9), so the gradient through it needs tight solves.  Against the
+                            # float64 plain path (kg_float64_witness on a CPU, PERF.md) the float32 ∇X_f
+                            # at eval's 1e-3 has cosine −0.27 (N=3000) and −0.52 (N=8192), at 1e-6 0.9999 and
+                            # 0.9994
+NAN_FRACTION, NAN_SEED = 0.01, 19  # phase 10b: the share of targets set to NaN
+NAN_KERNEL_TOL = 1e-3       # N=4096: the CUDA kernels against their plain versions on the card, both float32
+                            # with the same pinned pivots: loss (|Δ| / max(|loss|, 1)) and gradients (max |Δ| /
+                            # max |∇|).  On an H100 "fill" read 3.4e-5 in gradients, "mask" 4.2e-6, and the
+                            # fault below 3.1e-3 and 1.0e-2 (PERF.md)
+NAN_FAULT_EPS = 1e-2        # … bracketed by the symmetric backward kernel's dx and dos × (1 − NAN_FAULT_EPS)
+NAN_SLICE_TOL = 5e-3        # … and CUDA float32 against CPU float64 (phase 5's parameters, the training
+                            # recipe's CG at tolerance 0.3).  Under "fill" the plain versions on the card read
+                            # 2.237e-3 in gradients there, as the kernels do (2.243e-3; CPU float32 2.873e-4):
+                            # the card's float32 arithmetic outside the kernels sets that floor; the float64
+                            # fault (the backward × 15/16) reads 1.982e-2 (PERF.md)
+NAN_SUBSET_N = 1000         # float64 CPU: "mask" × N against the observed subset's MLL × N_obs at N=1000
+NAN_SUBSET_TOL = 1e-6       # (above max_cholesky_size: mBCG), relative, at CG tolerance 1e-10 and 100 Lanczos
+                            # steps, unpreconditioned (as tests/test_torch_nan_policies.py; 40 steps read 3.6e-4
+                            # at N=600, 100 steps 6.5e-8)
 # the budget under which a float64 run's τ is the float32 run's, so that a float32 and a
 # float64 run precondition alike and draw the same probes z ~ N(0, P)
 PC_NOISE_BUDGET_F64 = PC_NOISE_BUDGET * float(np.finfo(np.float64).eps / np.finfo(np.float32).eps)
@@ -546,6 +608,26 @@ def plain_kernels():
             setattr(module, name, kernel)
 
 
+@contextlib.contextmanager
+def counted_products():
+    """Counts the kernel products K·V of a run, on either device and through either the
+    kernel or its plain version (the CG iterations of a training loss, one product each);
+    yields a one-element list that holds the count."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    product, count = fk._product, [0]
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return product(*args, **kwargs)
+
+    fk._product = counted
+    try:
+        yield count
+    finally:
+        fk._product = product
+
+
 def finite_step(loss, model) -> bool:
     import torch
 
@@ -802,6 +884,17 @@ def phase_kernel():
                 check(rel <= KERNEL_REL_TOL, f"kernel type {kt}, d={d}, t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
         print(f"[kernel] type {kt}: n=1000 m=1537 d∈{{3,11}} t∈{{1,20,100}} within {KERNEL_REL_TOL} "
               f"(worst so far {worst_rel:.3e})", flush=True)
+    # the tiled tier of 16 columns (t ∈ (1, 16], a fantasy update's solves), on its own draws
+    rng16 = np.random.default_rng(16)
+    for kt in fk.KERNEL_TYPES:
+        for d, t in ((3, 16), (11, 5)):
+            x1, x2 = (torch.as_tensor(rng16.normal(size=(r, d)), dtype=torch.float32, device=dev) for r in (1000, 1537))
+            v = torch.as_tensor(rng16.normal(size=(1537, t)), dtype=torch.float32, device=dev)
+            rel, err = _rel_err(fk.kernel_matvec_cuda(x1, x2, v, kt), fk._matvec_reference(x1, x2, v, kt), x1, x2, v, kt)
+            max_abs, worst_rel = max(max_abs, err), max(worst_rel, rel)
+            check(rel <= KERNEL_REL_TOL, f"kernel type {kt}, d={d}, t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
+    print(f"[kernel] the tiled tier of 16 columns: n=1000 m=1537 (d, t) ∈ {{(3, 16), (11, 5)}}, four kernel types, "
+          f"within {KERNEL_REL_TOL} (worst so far {worst_rel:.3e})", flush=True)
 
     # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100)
     # and K(test, train)·α (t=1, the mean); training shape: mBCG over [y, 63 probes] (t=64);
@@ -2610,6 +2703,633 @@ def phase_cholesky():
     check(d_rmse <= TOY_RMSE_TOL, f"the Cholesky path's rmse {gpu['rmse']:.5f} is {d_rmse:.3e} from float64's")
 
 
+def _fantasy_points(model, cand):
+    """The fantasy points of phase 10: X_f, every (N_TEST / FANT_Q)-th candidate, and y_f,
+    one LOVE draw of the latent posterior at X_f (``fast_pred_samples``, the phase 9b path)
+    from a generator seeded with FANT_SEED."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    xf = cand[:: len(cand) // FANT_Q][:FANT_Q].contiguous()
+    generator = torch.Generator(device=cand.device).manual_seed(FANT_SEED)
+    with eval_settings(), settings.fast_pred_samples(True), torch.no_grad():
+        yf = model(xf).rsample((1,), base_samples=generator)[0]
+    return xf, yf
+
+
+def kg_gradient(model, xf, yf, cand, split=None):
+    """The one-shot knowledge-gradient step: Σμ* over ``cand`` of ``model`` conditioned on
+    (``xf``, ``yf``), under ``detach_test_caches(False)`` and ``skip_posterior_variances``,
+    with the fantasy's solves at eval's tolerance, and its gradient with respect to the
+    fantasy inputs and to the hyperparameters (the sum of the model's and its copy's: the
+    copy's parameters are new leaves).  The model must hold a prediction strategy, so that
+    the fantasy is its rank-m update.  ``split``, a list, receives the launches of the three
+    kernels after the forward pass.  Returns (value, ∇X_f, {name: ∇}, the fantasy model)."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    xg = xf.detach().clone().requires_grad_(True)
+    with settings.detach_test_caches(False), settings.skip_posterior_variances(True), \
+            settings.cg_tolerance(settings.eval_cg_tolerance.value()):
+        fantasy = model.get_fantasy_model(xg, yf)
+        value = fantasy(cand).mean.sum()
+    if split is not None:
+        split.extend((fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches, fk.kernel_bwd_fused_cuda.launches))
+    own, copied = dict(model.named_parameters()), dict(fantasy.named_parameters())
+    names = list(own)
+    grads = torch.autograd.grad(value, [xg] + [own[k] for k in names] + [copied[k] for k in names], allow_unused=True)
+    by_name = {}
+    for k, a, b in zip(names, grads[1:1 + len(names)], grads[1 + len(names):]):
+        by_name[k] = sum((g for g in (a, b) if g is not None), torch.zeros_like(own[k])).detach()
+    return value.detach(), grads[0], by_name, fantasy
+
+
+def kg_value(model, xf, yf, cand):
+    """Σμ* of ``model`` conditioned on (``xf``, ``yf``) as ``kg_gradient`` computes it, without
+    gradients: the model's mean cache is rebuilt (its parameters may have moved), then
+    updated by the rank-m Schur step at eval's tolerance."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    with torch.no_grad(), settings.skip_posterior_variances(True), \
+            settings.cg_tolerance(settings.eval_cg_tolerance.value()):
+        model.clear_caches()
+        model.prediction_strategy().mean_cache
+        return model.get_fantasy_model(xf, yf)(cand).mean.sum().item()
+
+
+@contextlib.contextmanager
+def planted_bwd_fault(scale: float):
+    """The symmetric backward's dx and dos (CUDA kernel and plain version) scaled by
+    ``scale``: 0 drops the solves' operator cotangents, as a port that differentiated its
+    solves only through the right-hand side would."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    kernel, plain = fk.kernel_bwd_fused_cuda, fk._bwd_fused_reference
+
+    def faulty(fn):
+        def run(*args, **kwargs):
+            dv, dx, dos = fn(*args, **kwargs)
+            return dv, dx * scale, (None if dos is None else dos * scale)
+        return run
+
+    fk.kernel_bwd_fused_cuda, fk._bwd_fused_reference = faulty(kernel), faulty(plain)
+    try:
+        yield
+    finally:
+        fk.kernel_bwd_fused_cuda, fk._bwd_fused_reference = kernel, plain
+
+
+@contextlib.contextmanager
+def planted_grad_x_fault(scale: float):
+    """grad_x's cotangents (CUDA kernel and plain version) scaled by ``scale``: the
+    asymmetric backward through which the fantasy inputs' gradient leaves the mean strip."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    kernel, plain = fk.kernel_grad_x_cuda, fk._grad_x_reference
+    fk.kernel_grad_x_cuda = lambda *args, **kwargs: kernel(*args, **kwargs) * scale
+    fk._grad_x_reference = lambda *args, **kwargs: plain(*args, **kwargs) * scale
+    try:
+        yield
+    finally:
+        fk.kernel_grad_x_cuda, fk._grad_x_reference = kernel, plain
+
+
+def _fantasy_kernel_shapes(model):
+    """Step 5 of phase 10: the shapes that the fantasy path gives the kernels at N=100k and
+    no main path timed before: the symmetric backward at d=3, t=1 (the mean cache's solve)
+    and t=16 (the 16 solves A⁻¹B), dx and dos on the FMA tier, and the product at t=16 (the
+    16-column CG), on the model's scaled training inputs, each held against the plain
+    version in float64 and gated at twice the plain float32 version's error, timed beside
+    its bound and the plain version.  Returns {name: report entry}."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    tx = model.train_inputs[0]
+    ls = model.covar_module.base_kernel.lengthscale.detach()
+    x = ((tx - tx.mean(0, keepdim=True)) / ls).contiguous()
+    rng = np.random.default_rng(21)
+    out = {}
+    for t in (1, FANT_Q):
+        g, v = (torch.as_tensor(rng.normal(size=(N_TRAIN, t)), dtype=torch.float32, device="cuda") for _ in range(2))
+        _, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True)
+        _, pdx, pdos = fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True)
+        _, edx, edos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, need_dv=False, need_dos=True)
+        rel = {name: ((a.double() - edx).abs().max().item() / edx.abs().max().item(),
+                      abs(b.double() - edos).item() / abs(edos.item())) for name, (a, b) in
+               (("kernel", (dx, dos)), ("plain", (pdx, pdos)))}
+        err = max((dx.double() - edx).abs().max().item(), abs(dos.double() - edos).item())
+        ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True), 5)
+        plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True), 2)
+        bms, by = bwd_bound(N_TRAIN, D, t)
+        print(f"[fantasy] kernel_bwd_fused {N_TRAIN}x{N_TRAIN} d={D} t={t} (dx, dos, no dv; the FMA tier): kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {bms / ms:.0%}); against float64 max "
+              f"|Δdx| / max |dx| and |Δdos| / |dos|: kernel {rel['kernel'][0]:.3e}, {rel['kernel'][1]:.3e}; plain "
+              f"float32 {rel['plain'][0]:.3e}, {rel['plain'][1]:.3e} (gate: twice the plain version's)", flush=True)
+        for name, r, p in zip(("dx", "dos"), rel["kernel"], rel["plain"]):
+            check(r <= 2.0 * p, f"kernel_bwd_fused at N={N_TRAIN}, t={t}, {name} against float64: {r:.3e}, more "
+                                f"than twice the plain version's {p:.3e}")
+        out[f"bwd_t{t}"] = {"t": t, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                            "max_abs_err": err, "rel_err": rel["kernel"], "plain_rel_err": rel["plain"]}
+    v = torch.as_tensor(rng.normal(size=(N_TRAIN, FANT_Q)), dtype=torch.float32, device="cuda")
+    got = fk.kernel_matvec_cuda(x, x, v, fk.RBF)
+    plain = fk._matvec_reference(x, x, v, fk.RBF)
+    exact = fk._matvec_reference(x.double(), x.double(), v.double(), fk.RBF)
+    scale = exact.abs().max().item()
+    rel, prel = ((a.double() - exact).abs().max().item() / scale for a in (got, plain))
+    ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x, x, v, fk.RBF), 5)
+    plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x, x, v, fk.RBF), 2)
+    bms, by = matvec_bound(N_TRAIN, N_TRAIN, D, FANT_Q)
+    print(f"[fantasy] kernel_matvec {N_TRAIN}x{N_TRAIN} d={D} t={FANT_Q} (the tiled tier of 16 columns): kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {bms / ms:.0%}); against float64 max |Δ| / max |·|: "
+          f"kernel {rel:.3e}, plain float32 {prel:.3e} (gate: twice the plain version's)", flush=True)
+    check(rel <= 2.0 * prel, f"kernel_matvec at N={N_TRAIN}, t={FANT_Q} against float64: {rel:.3e}, more than twice "
+                             f"the plain version's {prel:.3e}")
+    out[f"matvec_t{FANT_Q}"] = {"t": FANT_Q, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                                "max_abs_err": (got.double() - exact).abs().max().item(), "rel_err": rel,
+                                "plain_rel_err": prel}
+    return out
+
+
+def _kg_slice_run(device, dtype):
+    """The knowledge-gradient step at N=KG_SLICE_N from JAX_PARAMS: its X_f, every 32nd of
+    512 candidates, y_f their targets.  Returns (value, ∇X_f, {name: ∇}) on the CPU in
+    float64."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    train_x, train_y, test_x, test_y = make_task(KG_SLICE_N, 512, seed=5)
+    model = build_model(train_x, train_y, device, dtype)
+    cand = torch.as_tensor(test_x, dtype=dtype, device=device)
+    xf, yf = cand[::32][:FANT_Q], torch.as_tensor(test_y[::32][:FANT_Q], dtype=dtype, device=device)
+    budget = PC_NOISE_BUDGET_F64 if dtype == torch.float64 else PC_NOISE_BUDGET
+    for p in model.parameters():
+        p.requires_grad_(True)
+    with eval_settings(min_preconditioning_size=1000), settings.eval_cg_tolerance(KG_TOL), \
+            settings.preconditioner_noise_budget(budget):
+        model.prediction_strategy()
+        value, gxf, grads, _ = kg_gradient(model, xf, yf, cand)
+    return value.item(), gxf.detach().cpu().double(), {k: g.cpu().double() for k, g in grads.items()}
+
+
+def _kg_fd_check():
+    """The knowledge-gradient step's directional derivative against central differences at
+    N=KG_SLICE_N, float64 on the card through the plain path, along the gradient's own
+    direction over X_f and the raw hyperparameters, bracketed by a planted fault (the
+    symmetric backward's dx and dos dropped: the solves differentiated through their
+    right-hand sides only)."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    train_x, train_y, test_x, test_y = make_task(KG_SLICE_N, 512, seed=5)
+    model = build_model(train_x, train_y, "cuda", torch.float64)
+    cand = torch.as_tensor(test_x, dtype=torch.float64, device="cuda")
+    xf, yf = cand[::32][:FANT_Q], torch.as_tensor(test_y[::32][:FANT_Q], dtype=torch.float64, device="cuda")
+    params = list(model.parameters())
+    names = [k for k, _ in model.named_parameters()]
+    for p in params:
+        p.requires_grad_(True)
+
+    def along(direction):
+        _, g_x, g_p, _ = kg_gradient(model, xf, yf, cand)
+        return float((g_x * direction[0]).sum()) + sum(float((g_p[k] * d_).sum()) for k, d_ in
+                                                         zip(names, direction[1:]))
+
+    def shifted(direction, h):
+        with torch.no_grad():
+            for p, d_ in zip(params, direction[1:]):
+                p.add_(h * d_)
+        try:
+            return kg_value(model, xf + h * direction[0], yf, cand)
+        finally:
+            with torch.no_grad():
+                for p, d_ in zip(params, direction[1:]):
+                    p.sub_(h * d_)
+
+    with eval_settings(min_preconditioning_size=1000), plain_kernels(), settings.eval_cg_tolerance(KG_FD_TOL), \
+            settings.preconditioner_noise_budget(PC_NOISE_BUDGET_F64):
+        model.prediction_strategy()
+        _, g_x, g_p, _ = kg_gradient(model, xf, yf, cand)
+        direction = [g_x.detach()] + [g_p[k] for k in names]
+        dd = math.sqrt(sum(float((d_ * d_).sum()) for d_ in direction))  # the derivative along it
+        direction = [d_ / dd for d_ in direction]
+        fd = (shifted(direction, KG_FD_H) - shifted(direction, -KG_FD_H)) / (2 * KG_FD_H)
+        model.prediction_strategy()
+        with planted_bwd_fault(0.0):
+            dd_fault = along(direction)
+    fd_err, fault_err = abs(dd - fd) / abs(fd), abs(dd_fault - fd) / abs(fd)
+    print(f"[fantasy] N={KG_SLICE_N}, float64 plain path (eval tolerance {KG_FD_TOL}): the directional derivative of Σμ* "
+          f"along its gradient over X_f and the raw hyperparameters, autograd {dd:.6e}, central difference "
+          f"(h={KG_FD_H}) {fd:.6e}, |Δ| / |fd| {fd_err:.3e} (tol {KG_FD_GATE}); planted fault (the solves' operator "
+          f"cotangents dropped) {dd_fault:.6e}, {fault_err:.3e}", flush=True)
+    check(fd_err <= KG_FD_GATE, f"the knowledge-gradient derivative differs from central differences by {fd_err:.3e}")
+    check(fault_err > KG_FD_GATE, f"the central-difference gate does not see a planted fault: {fault_err:.3e}")
+
+
+def _kg_gaps(ref, got):
+    """(|Δvalue| / |value|, max |Δ∇X_f| / max |∇X_f|, max |Δ∇θ| / max |∇θ|) of two
+    ``_kg_slice_run`` results."""
+    dv = abs(ref[0] - got[0]) / abs(ref[0])
+    dx = (ref[1] - got[1]).abs().max().item() / ref[1].abs().max().item()
+    return dv, dx, _grad_gap(ref[2], got[2])[0]
+
+
+def phase_fantasy(model=None):
+    """Phase 10: fantasy updates and the one-shot knowledge-gradient path on phase 7's
+    trained flagship (alone, ``python3 -c 'import chip_smoke; chip_smoke.phase_fantasy()'``,
+    on phase 5's model from JAX_PARAMS).  Returns the readings for the report."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, test_x, _ = make_task(N_TRAIN, N_TEST, seed=0)
+    if model is None:
+        phase_device()
+        phase_build()
+        model = build_model(train_x, train_y, "cuda", torch.float32)
+    dev = "cuda"
+    cand = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    model.eval()
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(False)
+    shapes = _fantasy_kernel_shapes(model)
+
+    # 1-2: the fantasy points, then conditioning on them (the old strategy built), timed
+    with eval_settings():
+        model.refresh()
+    xf, yf = _fantasy_points(model, cand)
+    counts = lambda: (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches,  # noqa: E731
+                      fk.kernel_bwd_fused_cuda.launches)
+    times = []
+    with eval_settings(), torch.no_grad(), settings.cg_tolerance(settings.eval_cg_tolerance.value()):
+        for _ in range(FANT_REPS):
+            fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+            sync(dev)
+            t0 = time.perf_counter()
+            fantasy = model.get_fantasy_model(xf, yf)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            launches = counts()
+        cg = model.prediction_strategy().lik_train_train_covar.last_cg_result
+    fantasy_ms = 1e3 * sorted(times)[len(times) // 2]
+    print(f"[fantasy] fantasy_ms: median {fantasy_ms:.3f} ms over {FANT_REPS} get_fantasy_model calls "
+          f"({[round(1e3 * t_, 3) for t_ in times]}); {FANT_Q} fantasy points; the {FANT_Q}-column CG against the old "
+          f"K + σ²I took {cg.num_iters} iterations (relative residual {cg.residual_norm.max().item():.3e}); launches "
+          f"kernel_matvec, kernel_grad_x, kernel_bwd_fused {launches} (expected ({cg.num_iters}, 0, 0))", flush=True)
+    check(launches == (cg.num_iters, 0, 0), f"conditioning launched {launches}, expected ({cg.num_iters}, 0, 0)")
+
+    # 3: against a refit on the n + 16 points (a new mean cache by CG); the LOVE variances
+    # of both come from the same joint operator and start block
+    refit = build_model(train_x, train_y, dev, torch.float32)
+    refit.load_state_dict(model.state_dict())
+    refit.set_train_data(fantasy.train_inputs[0], fantasy.train_targets, strict=False)
+    refit.eval()
+    with eval_settings(), torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        fantasy.refresh()
+        sync(dev)
+        fantasy_love_s = time.perf_counter() - t0
+        refit_cg = refit.refresh().lik_train_train_covar.last_cg_result
+        post_f, post_r = fantasy(cand), refit(cand)
+        mean_f, mean_r = post_f.mean.double(), post_r.mean.double()
+        var_f, var_r = post_f.variance.double(), post_r.variance.double()
+        u_f, u_r = fantasy.prediction_strategy().mean_cache, refit.prediction_strategy().mean_cache
+        old_u = model.prediction_strategy().mean_cache
+        # the planted fault: the update without its −(A⁻¹B)v term
+        u_fault = torch.cat([old_u, u_f[N_TRAIN:]])
+        full_x = fantasy.train_inputs[0]
+        kern = fantasy.covar_module
+        cross = kern(cand, full_x)
+        mean_fault = (cross.matmul(u_fault.unsqueeze(-1)).squeeze(-1) + fantasy.mean_module(cand)).double()
+        # float64 bracket: the means from both caches by the float64 plain path, and each
+        # cache's true residual against the joint system
+        with plain_kernels():
+            ref = _float64_twin(refit, full_x.cpu().numpy(), fantasy.train_targets.cpu().numpy())
+            k64 = ref.covar_module
+            x64, c64 = full_x.double(), cand.double()
+            mean64 = {name: (k64(c64, x64).matmul(u.double().unsqueeze(-1)).squeeze(-1) + ref.mean_module(c64))
+                      for name, u in (("fantasy", u_f), ("refit", u_r))}
+            y64 = fantasy.train_targets.double() - ref.mean_module(x64)
+            joint = ref.likelihood(ref.forward(x64)).lazy_covariance_matrix.evaluate_kernel()
+            res = y64.unsqueeze(-1) - joint.matmul(torch.stack([u_f, u_r], -1).double())
+            true_res = (res.norm(dim=0) / y64.norm()).tolist()
+    scale = mean_r.abs().max().item()
+    gap, gap64 = ((a - b).abs().max().item() / scale for a, b in ((mean_f, mean_r), (mean64["fantasy"], mean64["refit"])))
+    fault_gap = (mean_fault - mean_r).abs().max().item() / scale
+    var_gap = ((var_f - var_r).abs() / var_r).max().item()
+    print(f"[fantasy] against a refit on {N_TRAIN + FANT_Q} points (refresh CG {refit_cg.num_iters} iterations): mean "
+          f"max |Δ| / max |μ| {gap:.3e} (tol {FANT_MEAN_TOL}); float64 bracket: the same caches through the float64 "
+          f"plain path {gap64:.3e}, their float64 true residuals |y − μ − K̂u| / |y − μ| fantasy {true_res[0]:.3e}, "
+          f"refit {true_res[1]:.3e}; planted fault (no −(A⁻¹B)v) {fault_gap:.3e}; LOVE variances max |Δ| / σ² "
+          f"{var_gap:.3e} ({var_r.min().item():.6e} to {var_r.max().item():.6e}); the fantasy's LOVE cache on the "
+          f"joint operator {fantasy_love_s:.3f} s", flush=True)
+    finite = bool(torch.isfinite(mean_f).all()) and bool((var_f > 0).all())
+    check(finite, "the fantasy model's mean not finite or a variance ≤ 0")
+    check(gap <= FANT_MEAN_TOL, f"the fantasy mean differs from a refit's by {gap:.3e}")
+    check(fault_gap > FANT_MEAN_TOL, f"the fantasy gate does not see a planted fault: {fault_gap:.3e}")
+    check(var_gap <= 1e-6, f"the fantasy's LOVE variances differ from a refit's by {var_gap:.3e}")
+
+    # 4: the gradient of Σμ* with respect to X_f, the hyperparameters live, at eval tolerance
+    # KG_TOL (the configuration that step 4b gates at N=KG_SLICE_N), timed
+    for p in params:
+        p.requires_grad_(True)
+    kg_times, kg_launches, forward = [], [], []
+    with eval_settings(), settings.eval_cg_tolerance(KG_TOL):
+        for _ in range(FANT_REPS):
+            model.prediction_strategy()
+            fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+            forward.clear()
+            sync(dev)
+            t0 = time.perf_counter()
+            value, gxf, grads, _ = kg_gradient(model, xf, yf, cand, forward)
+            sync(dev)
+            kg_times.append(time.perf_counter() - t0)
+            kg_launches.append(counts())
+    kg_grad_s = sorted(kg_times)[len(kg_times) // 2]
+    finite = bool(torch.isfinite(gxf).all()) and all(bool(torch.isfinite(g).all()) for g in grads.values())
+    backward = tuple(a - b for a, b in zip(kg_launches[-1], forward))
+    print(f"[fantasy] kg_grad_s (eval tolerance {KG_TOL}; its gradient unresolved at N={N_TRAIN}, see below): median "
+          f"{kg_grad_s:.3f} s over {FANT_REPS} evaluations of ∇Σμ* (X_f and the hyperparameters; "
+          f"{[round(t_, 3) for t_ in kg_times]}); Σμ* {value.item():.6f}; launches kernel_matvec, kernel_grad_x, "
+          f"kernel_bwd_fused {kg_launches[-1]}: forward {tuple(forward)} (the CG of the mean cache, the {FANT_Q}-column "
+          f"CG and the mean strip), backward {backward} (two CG solves, the strip's dv and dos, its dx and dx2, and the "
+          f"symmetric backward at t=1 and t={FANT_Q}); max |∇X_f| {gxf.abs().max().item():.4e}; gradients finite "
+          f"{finite}", flush=True)
+    check(finite, "the knowledge-gradient step's gradient is not finite")
+    check(backward[1:] == (2, 2), f"the knowledge-gradient step's backward launched kernel_grad_x, kernel_bwd_fused "
+                                  f"{backward[1:]}, expected (2, 2)")
+
+    # Read, not gated: the step at eval's own tolerance 1e-3, and a float32 central
+    # difference in X_f along the timed step's gradient.  At N=100k the fantasy's effect on
+    # Σμ* is carried by the posterior covariance Σ(x*, X_f) = K(x*, X_f) − K*x A⁻¹B, ≈ 1e-3
+    # of the outputscale, near the float32 caches' true residuals (1.2e-3-1.6e-3, the refit
+    # check above); the float32 CG hardly reaches KG_TOL there (the step's forward took
+    # 1,712 products on an H100), and no float64 reference at this size ends in the time limit
+    # (``kg_float64_witness``), so neither float32 gradient is known to be right here.
+    direction = gxf / gxf.norm()
+    with eval_settings(), settings.eval_cg_tolerance(KG_TOL):
+        fd = _kg_xf_central_difference(model, xf, yf, cand, direction, KG_FD_H)
+    with eval_settings():
+        _, g_loose, g_theta, _ = kg_gradient(model, xf, yf, cand)
+    theta = [math.sqrt(sum(float((g_ * g_).sum()) for g_ in gs.values())) for gs in (grads, g_theta)]
+    print(f"[fantasy] float32 at N={N_TRAIN}, not gated: ∇X_f along its own direction {gxf.norm().item():.6e} at eval "
+          f"tolerance {KG_TOL}, {float((g_loose * direction).sum()):.6e} at 1e-3; a central difference (h={KG_FD_H}) "
+          f"{fd:.6e}; max |∇X_f| {gxf.abs().max().item():.4e} and "
+          f"{g_loose.abs().max().item():.4e}; |∇θ| {theta[0]:.4e} and {theta[1]:.4e}", flush=True)
+    for p in params:
+        p.requires_grad_(False)
+
+    # 4b: at N=KG_SLICE_N, the directional derivative against central differences (float64,
+    # the plain path on the card), then CUDA float32 against a CPU float64 plain run
+    _kg_fd_check()
+    pins = PinnedPivots()
+    with pins.record():
+        cuda_run = _kg_slice_run("cuda", torch.float32)
+    with pins.replay():
+        cpu64 = _kg_slice_run("cpu", torch.float64)
+    with pins.replay():
+        cpu32 = _kg_slice_run("cpu", torch.float32)
+    with pins.replay(), planted_grad_x_fault(1 - KG_FAULT_EPS):
+        fault_x = _kg_gaps(cpu64, _kg_slice_run("cpu", torch.float64))
+    with pins.replay(), planted_bwd_fault(1 - KG_FAULT_EPS):
+        fault_theta = _kg_gaps(cpu64, _kg_slice_run("cpu", torch.float64))
+    gaps, floor = _kg_gaps(cpu64, cuda_run), _kg_gaps(cpu64, cpu32)
+    print(f"[fantasy] N={KG_SLICE_N}: CUDA float32 against CPU float64 (pinned pivots, eval tolerance "
+          f"{KG_TOL}): Σμ* {gaps[0]:.3e}, ∇X_f {gaps[1]:.3e}, ∇θ {gaps[2]:.3e} (tol {KG_SLICE_TOL}); CPU "
+          f"float32 against float64 {floor[0]:.3e}, {floor[1]:.3e}, {floor[2]:.3e}; planted faults, float64: grad_x's "
+          f"dx1 and dx2 × (1 − {KG_FAULT_EPS}) {fault_x[0]:.3e}, {fault_x[1]:.3e}, {fault_x[2]:.3e}; the symmetric "
+          f"backward's dx and dos × (1 − {KG_FAULT_EPS}) {fault_theta[0]:.3e}, {fault_theta[1]:.3e}, "
+          f"{fault_theta[2]:.3e}", flush=True)
+    check(gaps[1] <= KG_SLICE_TOL[0] and gaps[2] <= KG_SLICE_TOL[1],
+          f"N={KG_SLICE_N} knowledge-gradient gradients differ: {gaps}")
+    check(fault_x[1] > KG_SLICE_TOL[0], f"the N={KG_SLICE_N} ∇X_f gate does not see a planted grad_x fault: {fault_x}")
+    check(fault_theta[2] > KG_SLICE_TOL[1], f"the N={KG_SLICE_N} ∇θ gate does not see a planted backward fault: "
+                                            f"{fault_theta}")
+    return {"fantasy_ms": fantasy_ms, "kg_grad_s": kg_grad_s, "launches": kg_launches[-1], "shapes": shapes,
+            "conditioning_launches": launches}
+
+
+def _kg_xf_gradient(model, xf, yf, cand):
+    """Σμ* of ``model`` conditioned on (``xf``, ``yf``) and its gradient with respect to
+    ``xf`` alone, as ``kg_gradient`` computes them with the hyperparameters frozen."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    xg = xf.detach().clone().requires_grad_(True)
+    with settings.detach_test_caches(False), settings.skip_posterior_variances(True), \
+            settings.cg_tolerance(settings.eval_cg_tolerance.value()):
+        value = model.get_fantasy_model(xg, yf)(cand).mean.sum()
+    return value.item(), torch.autograd.grad(value, xg)[0].detach().double().cpu()
+
+
+def _kg_xf_central_difference(model, xf, yf, cand, direction, h):
+    """(Σμ*(xf + h d) − Σμ*(xf − h d)) / 2h on ``model``'s mean cache, built once."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    d = direction.to(dtype=xf.dtype, device=xf.device)
+    with torch.no_grad(), settings.skip_posterior_variances(True), \
+            settings.cg_tolerance(settings.eval_cg_tolerance.value()):
+        model.prediction_strategy().mean_cache
+        up, down = (model.get_fantasy_model(xf + s_ * h * d, yf)(cand).mean.sum().item() for s_ in (1, -1))
+    return (up - down) / (2 * h)
+
+
+def kg_float64_witness(n: int = N_TRAIN, device: str = "cuda"):
+    """A witness, not in ``main``: the knowledge-gradient step's ∇X_f at ``n`` training
+    points from JAX_PARAMS (``python3 -c 'import chip_smoke; chip_smoke.kg_float64_witness(8192,
+    "cpu")'``), in float32 at eval tolerances 1e-3 and KG_TOL (through the kernels on the
+    card, the plain versions on the CPU), against the float64 plain path at KG_WITNESS_TOL,
+    whose own directional derivative is read beside a central difference along it.  Reads,
+    and gates nothing.  On an H100 the float64 step at n=100k did not end in 950 s."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    if device == "cuda":
+        phase_device()
+        phase_build()
+    train_x, train_y, test_x, _ = make_task(n, N_TEST, seed=0)
+    model = build_model(train_x, train_y, device, torch.float32)
+    model.eval()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    cand = torch.as_tensor(test_x, dtype=torch.float32, device=device)
+    xf, yf = _fantasy_points(model, cand)
+    runs = {}
+    for tol in (1e-3, KG_TOL):
+        with eval_settings(), settings.eval_cg_tolerance(tol):
+            model.clear_caches()
+            model.prediction_strategy()
+            sync(device)
+            t0 = time.perf_counter()
+            runs[tol] = _kg_xf_gradient(model, xf, yf, cand) + (time.perf_counter() - t0,)
+        print(f"[kg-witness] N={n}, float32 at eval tolerance {tol}: Σμ* {runs[tol][0]:.6f}, max |∇X_f| "
+              f"{runs[tol][1].abs().max().item():.4e}, the step {runs[tol][2]:.3f} s", flush=True)
+    ref = build_model(train_x, train_y, device, torch.float64)
+    ref.eval()
+    for p in ref.parameters():
+        p.requires_grad_(False)
+    xf64, yf64, cand64 = xf.double(), yf.double(), cand.double()
+    with eval_settings(), plain_kernels(), settings.eval_cg_tolerance(KG_WITNESS_TOL), \
+            settings.preconditioner_noise_budget(PC_NOISE_BUDGET_F64), counted_products() as count:
+        ref.prediction_strategy()
+        t0 = time.perf_counter()
+        value, grad = _kg_xf_gradient(ref, xf64, yf64, cand64)
+        secs, products = time.perf_counter() - t0, count[0]
+        exact = grad.norm().item()
+        direction = grad / exact
+        fd = _kg_xf_central_difference(ref, xf64, yf64, cand64, direction, KG_FD_H)
+    print(f"[kg-witness] N={n}, float64 plain path (eval tolerance {KG_WITNESS_TOL}): Σμ* {value:.9f}; ∇X_f along its "
+          f"own direction {exact:.6e}, central difference (h={KG_FD_H}) {fd:.6e}, |Δ| / |fd| "
+          f"{abs(exact - fd) / abs(fd):.3e}; the step (its mean cache included) {products} products, {secs:.1f} s",
+          flush=True)
+    for tol, (v, g, _) in runs.items():
+        gap = (g - grad).abs().max().item() / grad.abs().max().item()
+        cos = float((g * grad).sum()) / (g.norm().item() * exact)
+        print(f"[kg-witness] float32 at {tol} against float64: Σμ* Δ {v - value:.3e}; max |Δ∇X_f| / max |∇X_f| "
+              f"{gap:.3e}, cosine {cos:.4f}", flush=True)
+
+
+def _nan_targets(train_y, seed=NAN_SEED):
+    y = np.array(train_y, dtype=np.float64)
+    y[np.random.default_rng(seed).choice(len(y), int(NAN_FRACTION * len(y)), replace=False)] = np.nan
+    return y
+
+
+def _nan_loss(model, policy, probes, budget=PC_NOISE_BUDGET, extra=()):
+    """−MLL and its gradient under the training recipe's CG (cold, max_cg_iterations 1000)
+    with NaN targets treated by ``policy``; returns (loss, {name: ∇})."""
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch import settings
+
+    model.train()
+    model.zero_grad()
+    with train_settings(budget), settings.max_cg_iterations(1000), settings.observation_nan_policy(policy), \
+            contextlib.ExitStack() as stack:
+        for ctx in extra:
+            stack.enter_context(ctx)
+        mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
+        loss = -mll(model(model.train_inputs[0]), model.train_targets, base_samples=probes)
+    loss.backward()
+    return loss.detach(), {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
+
+
+def phase_missing():
+    """Phase 10b: the flagship's data with NAN_FRACTION of the targets NaN.  At N=100k one
+    loss and gradient under "fill" and one under "mask" (the masked operator has no
+    preconditioner, as in the JAX package), with their CG iterations and seconds; at
+    N=KG_SLICE_N both policies CUDA float32 against CPU float64 (pinned pivots), and "mask"
+    against the ordinary MLL on the observed subset in float64 on the CPU."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, _, _ = make_task(N_TRAIN, N_TEST, seed=0)
+    dev = "cuda"
+    model = build_model(train_x, _nan_targets(train_y), dev, torch.float32)
+    readings = {}
+    for policy in ("fill", "mask"):
+        secs = []
+        for _ in range(2):  # the first call also loads the solvers' libraries
+            fk.kernel_matvec_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+            sync(dev)
+            t0 = time.perf_counter()
+            loss, grads = _nan_loss(model, policy, InjectedProbes(0))
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+        finite = math.isfinite(loss.item()) and all(bool(torch.isfinite(g).all()) for g in grads.values())
+        readings[policy] = (fk.kernel_matvec_cuda.launches, secs[1])
+        print(f"[missing] N={N_TRAIN}, {int(NAN_FRACTION * N_TRAIN)} targets NaN, policy {policy!r}: loss "
+              f"{loss.item():.6f}, one loss and gradient {secs[1]:.3f} s (the first call {secs[0]:.3f} s), CG "
+              f"iterations {fk.kernel_matvec_cuda.launches} (one t=64 product each), kernel_bwd_fused "
+              f"{fk.kernel_bwd_fused_cuda.launches}; finite {finite}", flush=True)
+        check(finite, f"policy {policy}: the loss or a gradient is not finite")
+        check(fk.kernel_bwd_fused_cuda.launches == 1, f"policy {policy}: kernel_bwd_fused launched "
+                                                      f"{fk.kernel_bwd_fused_cuda.launches} times, expected 1")
+
+    sx, sy, _, _ = make_task(KG_SLICE_N, 0, seed=7)
+    sy = _nan_targets(sy)
+    for policy in ("fill", "mask"):
+        pins, products, runs = PinnedPivots(), {}, {}
+        for name, device, dtype, budget, fault, plain in (
+                ("kernels", dev, torch.float32, PC_NOISE_BUDGET, 1.0, False),
+                ("plain", dev, torch.float32, PC_NOISE_BUDGET, 1.0, True),
+                ("kernel fault", dev, torch.float32, PC_NOISE_BUDGET, 1 - NAN_FAULT_EPS, False),
+                ("float64", "cpu", torch.float64, PC_NOISE_BUDGET_F64, 1.0, False),
+                ("float32", "cpu", torch.float32, PC_NOISE_BUDGET, 1.0, False),
+                ("fault", "cpu", torch.float64, PC_NOISE_BUDGET_F64, 15 / 16, False)):
+            with (pins.replay() if runs else pins.record()), planted_bwd_fault(fault), \
+                    (plain_kernels() if plain else contextlib.nullcontext()), counted_products() as count:
+                runs[name] = _nan_loss(build_model(sx, sy, device, dtype), policy, InjectedProbes(1), budget)
+            products[name] = count[0]
+
+        def gaps(a, b):
+            return abs(a[0].item() - b[0].item()) / max(abs(b[0].item()), 1.0), _grad_gap(b[1], a[1])[0]
+
+        (d_loss, d_grad), plain, floor, fault = (gaps(runs[r], runs["float64"]) for r in
+                                                 ("kernels", "plain", "float32", "fault"))
+        k_loss, k_grad = gaps(runs["kernels"], runs["plain"])
+        k_fault = gaps(runs["kernel fault"], runs["plain"])
+        worst = {name: max(_grad_gap(runs["float64"][1], runs[name][1])[1].items(), key=lambda kv: kv[1])[0]
+                 for name in ("kernels", "float32")}
+        print(f"[missing] N={KG_SLICE_N} policy {policy!r}: the kernels against their plain versions on the card "
+              f"(float32 both) loss {k_loss:.3e}, gradients {k_grad:.3e} (tol {NAN_KERNEL_TOL}; the backward's dx and "
+              f"dos × (1 − {NAN_FAULT_EPS}) {k_fault[0]:.3e}, {k_fault[1]:.3e}); CUDA float32 against CPU float64 loss "
+              f"{d_loss:.3e}, gradients {d_grad:.3e} (tol {NAN_SLICE_TOL}); the plain versions on the card against "
+              f"float64 {plain[0]:.3e}, {plain[1]:.3e}; CPU float32 against float64 {floor[0]:.3e}, {floor[1]:.3e}; "
+              f"planted fault (float64, the backward's dx and dos × 15/16) {fault[1]:.3e}; products (CG iterations) "
+              f"{products}; the largest gradient gap from float64 in {worst['kernels']} (CUDA), {worst['float32']} "
+              f"(CPU float32)", flush=True)
+        check(k_loss <= NAN_KERNEL_TOL and k_grad <= NAN_KERNEL_TOL, f"N={KG_SLICE_N} policy {policy}: the kernels "
+              f"against their plain versions on the card: loss {k_loss:.3e}, grads {k_grad:.3e}")
+        check(k_fault[1] > NAN_KERNEL_TOL, f"N={KG_SLICE_N} policy {policy}: the kernel gate does not see a planted fault")
+        check(d_loss <= NAN_SLICE_TOL and d_grad <= NAN_SLICE_TOL, f"N={KG_SLICE_N} policy {policy}: CUDA against "
+                                                                    f"CPU float64 loss {d_loss:.3e}, grads {d_grad:.3e}")
+        check(fault[1] > NAN_SLICE_TOL, f"N={KG_SLICE_N} policy {policy}: the gate does not see a planted fault")
+
+    # "mask" against the observed subset, float64 on the CPU, the subset's probes the masked
+    # run's restricted to the observed rows (the masked rows scaled so that each probe's
+    # squared norm per row is the same over the observed rows as over all)
+    sx, sy, _, _ = make_task(NAN_SUBSET_N, 0, seed=9)
+    sy = _nan_targets(sy)
+    observed = ~np.isnan(sy)
+    n_obs = int(observed.sum())
+    draws = {}
+
+    def masked_draw(shape):
+        z = InjectedProbes(2)(shape)
+        z[~observed] *= np.sqrt((z[observed] ** 2).sum(0) * (NAN_SUBSET_N - n_obs)
+                                / (n_obs * (z[~observed] ** 2).sum(0)))
+        draws[shape] = z
+        return z
+
+    tight = (settings.cg_tolerance(1e-10), settings.max_lanczos_quadrature_iterations(100),
+             settings.num_trace_samples(8), settings.max_preconditioner_size(0), settings.cg_stall_window(50),
+             settings.max_cg_iterations(2 * NAN_SUBSET_N + 10), settings.cg_lagged_rhs(False))
+    masked = _nan_loss(build_model(sx, sy, "cpu", torch.float64), "mask", masked_draw, PC_NOISE_BUDGET_F64, tight)[0]
+    subset = _nan_loss(build_model(sx[observed], sy[observed], "cpu", torch.float64), "ignore",
+                       lambda shape: draws[(NAN_SUBSET_N,) + tuple(shape[1:])][observed], PC_NOISE_BUDGET_F64, tight)[0]
+    gap = abs(masked.item() * NAN_SUBSET_N - subset.item() * n_obs) / abs(subset.item() * n_obs)
+    print(f"[missing] N={NAN_SUBSET_N} float64: \"mask\" MLL × N {-masked.item() * NAN_SUBSET_N:.6f} against the observed "
+          f"subset's MLL × N_obs {-subset.item() * n_obs:.6f}: relative gap {gap:.3e} (tol {NAN_SUBSET_TOL})",
+          flush=True)
+    check(gap <= NAN_SUBSET_TOL, f"the masked MLL differs from the observed subset's by {gap:.3e}")
+    return readings
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2639,13 +3359,19 @@ def main() -> int:
         pmv_launches, pbwd_launches = phase_periodic()
         _, gx_launches = phase_acquisition(flagship["model"])
         sample_launches = phase_sampling(flagship["model"])
+        fantasy = phase_fantasy(flagship["model"])
+        missing = phase_missing()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
     by_path = {"flagship": mv_launches, "honest": honest["launches"][0], "serving": serve_launches,
-               "refinement": refine_launches, "sampling draw": sample_launches}
-    print(f"[report] kernel_matvec launches by path: {by_path}; whole script {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+               "refinement": refine_launches, "sampling draw": sample_launches,
+               "fantasy conditioning": fantasy["conditioning_launches"][0], "fantasy gradient": fantasy["launches"][0],
+               "missing fill": missing["fill"][0], "missing mask": missing["mask"][0]}
+    print(f"[report] kernel_matvec launches by path: {by_path}; fantasy_ms {fantasy['fantasy_ms']:.3f}, kg_grad_s "
+          f"{fantasy['kg_grad_s']:.3f} (unresolved at N={N_TRAIN}); missing targets, one loss and gradient at N={N_TRAIN}: fill "
+          f"{missing['fill'][1]:.3f} s, mask {missing['mask'][1]:.3f} s; whole script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda", "source": f"gpytorch_tpu_torch/csrc/{source}",
@@ -2657,16 +3383,20 @@ def main() -> int:
             entry("kernel_matvec", "kernel_matvec.cu", 230, mv_launches, mv_err, *mv_timed[(N_TRAIN, N_TRAIN, 64)],
                   matvec_tc_bound(N_TRAIN, N_TRAIN, D, 64))
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound",
-               "strips": mv_strips, "launches_by_path": by_path},
+               "strips": mv_strips, "launches_by_path": by_path,
+               "fantasy_shape": fantasy["shapes"][f"matvec_t{FANT_Q}"]},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
             | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
-                       "grad_x_tc_bound"},
+                       "grad_x_tc_bound", "launches_by_path": {"acquisition": gx_launches,
+                                                               "fantasy gradient": fantasy["launches"][1]}},
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
                   bwd_tc_bound(N_TRAIN, D, 64))
-            | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1]},
+            | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1],
+                                    "fantasy": fantasy["launches"][2]},
                "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
-                       "bound_ms from bwd_tc_bound"},
+                       "bound_ms from bwd_tc_bound",
+               "fantasy_shapes": [fantasy["shapes"]["bwd_t1"], fantasy["shapes"][f"bwd_t{FANT_Q}"]]},
             entry("periodic_matvec", "kernel_periodic_matvec.cu", 806, pmv_launches, pmv_err,
                   *pmv_timed[(P_N_TRAIN, P_N_TRAIN, 64)], periodic_matvec_tc_bound(P_N_TRAIN, P_N_TRAIN, P_D, 64))
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "

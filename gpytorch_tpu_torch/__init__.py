@@ -6,7 +6,9 @@ sampling and training.  Serving: the posterior mean from a CG-solved cache (opti
 refined) and LOVE variances from a block-Lanczos inverse root; LOVE posterior samples from
 the Lanczos root of the predictive covariance.  Training: the exact marginal log
 likelihood by mBCG with stochastic Lanczos quadrature, differentiated by the BBMM
-backward, plus the log-densities of the parameters' priors.  Up to
+backward, plus the log-densities of the parameters' priors, with NaN targets masked or
+filled.  Fantasy models conditioned on new points, and predictions differentiated through
+their caches (``settings.detach_test_caches(False)``).  Up to
 ``settings.max_cholesky_size`` points, each of these takes a dense Cholesky factor.  Every product with
 the kernel matrix, and its gradient, goes through the fused kernel products
 (``ops/fused_kernels.py``): hand-written CUDA kernels on the GPU.
@@ -14,8 +16,8 @@ the kernel matrix, and its gradient, goes through the fused kernel products
 
 from __future__ import annotations
 
-from . import (constraints, distributions, kernels, likelihoods, linop, means, metrics, mlls, models, ops, priors,
-               settings, solvers)
+from . import (constraints, distributions, kernels, likelihoods, linop, means, metrics, mlls, models, ops, optim,
+               priors, settings, solvers)
 from .core.module import Module
 from .utils import load_jax_params
 
@@ -32,6 +34,7 @@ __all__ = [
     "mlls",
     "models",
     "ops",
+    "optim",
     "priors",
     "settings",
     "solvers",

@@ -135,9 +135,12 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
         // and then added to the running sum, which cuts the float32 summation error about
         // tenfold.  CG needs it: with one running sum it took 10 more iterations at N=100k
         // on an H100 and ended with its true residual 2.4 times over the tolerance.  The
-        // t <= 32 tier (t = 20, a Lanczos block) keeps one level, because a second set of
-        // TC accumulators made it 40-60 % slower there (t in (32, 64] runs the tensor-core
-        // tier, in two levels).  t > 64 (the LOVE root, t = 100) runs TILED tiles
+        // t in (16, 32] tier (t = 20, a Lanczos block) keeps one level, because a second set
+        // of TC accumulators made it 40-60 % slower there (t in (32, 64] runs the tensor-core
+        // tier, in two levels).  t in (1, 16] (the 16 solves of a fantasy update) runs TILED
+        // tiles of 16 columns: in the t <= 32 tier's one level the t = 16 product at N=100k
+        // read 2.2e-5 of max |.| from float64 on an H100, 4 times the plain float32
+        // version's error.  t > 64 (the LOVE root, t = 100) runs TILED tiles
         // of 32: with one level over 100k terms the smallest LOVE variances of the trained
         // flagship (N=100k, on an H100) were 90 % off float64 (5 % through cuBLAS), and their input gradients
         // 2.3e-3 of the largest gradient (1.4e-4).
@@ -516,6 +519,7 @@ cudaError_t launch(const Args& a) {
 template <int KT, int DP>
 cudaError_t dispatch_tc(const Args& a) {
     if (a.t == 1) return launch<KT, DP, 1>(a);
+    if (a.t <= 16) return launch<KT, DP, 16, true>(a);
     if (a.t <= 32) return launch<KT, DP, 32>(a);
     if (a.t <= 64) return launch_tc<KT, DP>(a);
     return launch<KT, DP, 32, true>(a);

@@ -1,7 +1,7 @@
 from .base import DenseLinearOperator, LinearOperator, ProbeSource, probe_base_samples, to_linear_operator
 from .diag import ConstantDiagLinearOperator, DiagLinearOperator
 from .added_diag import AddedDiagLinearOperator
-from .composition import ConstantMulLinearOperator, SumLinearOperator
+from .composition import ConstantMulLinearOperator, MaskedLinearOperator, SumLinearOperator
 from .lazy_kernel import LazyEvaluatedKernelOperator, join_rows
 from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
 from .triangular import CholLinearOperator, TriangularLinearOperator
@@ -16,6 +16,7 @@ __all__ = [
     "LazyEvaluatedKernelOperator",
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
+    "MaskedLinearOperator",
     "ProbeSource",
     "RootLinearOperator",
     "SumLinearOperator",

@@ -238,9 +238,8 @@ class LinearOperator:
         ``settings.solve_iterative_refinements`` passes of refinement, its CGResult kept in
         ``last_cg_result``.
 
-        CG is differentiable with respect to ``rhs`` (the backward is one more CG solve,
-        unrefined, self being symmetric), for an operator that carries no gradient itself;
-        it raises if the operator does."""
+        CG is differentiable with respect to ``rhs`` and to the operator's tensors
+        (``_Solve``)."""
         from ..solvers.cg import linear_solve_cg
         from .triangular import CholLinearOperator
 
@@ -250,36 +249,64 @@ class LinearOperator:
         if squeeze:
             rhs = rhs.unsqueeze(-1)
         op = self.evaluate_kernel()
-        if torch.is_grad_enabled() and rhs.requires_grad:
-            if any(t.requires_grad for t in op._flatten()[0]):
-                raise NotImplementedError("solve is differentiated only through its right-hand side")
-            solution = _RHSSolve.apply(self, op, rhs)
+        tensors, rebuild = (), None
+        if torch.is_grad_enabled():
+            try:
+                tensors, rebuild = op._flatten()
+            except NotImplementedError:
+                if rhs.requires_grad:  # an operator without _flatten is solved without gradients
+                    raise
+        if rebuild is not None and (rhs.requires_grad or any(t.requires_grad for t in tensors)):
+            solution = _Solve.apply(self, rebuild, rhs, *tensors)
         else:
             self.last_cg_result = linear_solve_cg(op, rhs)
             solution = self.last_cg_result.solution
         return solution.squeeze(-1) if squeeze else solution
 
 
-class _RHSSolve(torch.autograd.Function):
-    """op⁻¹ rhs, differentiable in rhs: the backward solves op⁻¹ g (op is symmetric) with
-    the forward's preconditioner, tolerance and iteration limit, since it runs after the
-    caller's settings have gone out of scope, and without refinement, as the JAX package's
-    custom VJP."""
+class _Solve(torch.autograd.Function):
+    """op⁻¹ rhs, differentiable in rhs and in the operator's tensors (``_flatten``): the
+    JAX package's custom VJP (``gpytorch_tpu/solvers/cg.py::_linear_solve_cg``).  The
+    backward solves u = op⁻¹ g (op is symmetric) by the same refined CG as the forward, so
+    rhs̄ = u, and takes the operator's cotangents as those of −Σ u ⊙ (op · sol), a product
+    whose value is never read (``_matmul_grad_only``: for a lazy kernel operator the fused
+    backward kernel at t = sol's columns, and no forward product).  The tolerance, the
+    iteration limit, the stall window, the refinement passes and the preconditioner are
+    the forward's: a backward runs after the caller's settings have gone out of scope."""
 
     @staticmethod
-    def forward(ctx, owner, op, rhs):
+    def forward(ctx, owner, rebuild, rhs, *tensors):
         from ..solvers.cg import linear_cg, refined_solve
 
-        precond = op._preconditioner()[0]
-        ctx.solve = functools.partial(linear_cg, op._matmul, precond_fn=precond,
-                                      max_iter=settings.max_cg_iterations.value(),
-                                      tolerance=settings.cg_tolerance.value())
-        owner.last_cg_result = refined_solve(ctx.solve, op._matmul, rhs)
-        return owner.last_cg_result.solution
+        op = rebuild(tensors)
+        cg = functools.partial(linear_cg, op._matmul, precond_fn=op._preconditioner()[0],
+                               max_iter=settings.max_cg_iterations.value(), tolerance=settings.cg_tolerance.value())
+        stall, passes = settings.cg_stall_window.value(), settings.solve_iterative_refinements.value()
+
+        def solve(b):
+            with settings.cg_stall_window(stall), settings.solve_iterative_refinements(passes):
+                return refined_solve(cg, op._matmul, b)
+
+        owner.last_cg_result = solve(rhs)
+        sol = owner.last_cg_result.solution
+        ctx.solve, ctx.rebuild = solve, rebuild
+        ctx.save_for_backward(sol, *tensors)
+        return sol
 
     @staticmethod
     def backward(ctx, g):
-        return None, None, ctx.solve(g.contiguous()).solution
+        sol, *tensors = ctx.saved_tensors
+        u = ctx.solve(g.contiguous()).solution
+        needs = ctx.needs_input_grad[3:]
+        grads = iter(())
+        if any(needs):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(need) for t, need in zip(tensors, needs)]
+                quad = -(u * ctx.rebuild(leaves)._matmul_grad_only(sol)).sum()
+                grads = iter(torch.autograd.grad(quad, [leaf for leaf in leaves if leaf.requires_grad],
+                                                 allow_unused=True))
+        return (None, None, u if ctx.needs_input_grad[2] else None,
+                *[next(grads) if need else None for need in needs])
 
 
 class DenseLinearOperator(LinearOperator):

@@ -1,6 +1,14 @@
 """Exact GP marginal log likelihood.  Counterpart of
-``gpytorch_tpu/mlls/exact_marginal_log_likelihood.py``, with observation_nan_policy
-"ignore" (targets are used as they are) and no added loss terms.
+``gpytorch_tpu/mlls/exact_marginal_log_likelihood.py``, with the three
+``settings.observation_nan_policy`` values and no added loss terms:
+
+* "ignore": the targets are used as they are;
+* "mask": NaN targets are left out, through ``MaskedLinearOperator`` (the covariance with
+  those rows and columns replaced by the identity, the target by the prior mean), and
+  ½ log 2π is added back for each of them, so that the sum is log p(y_obs);
+* "fill": NaN targets are replaced by the prior mean.
+
+Either way the MLL is divided by the full number of points, as in the JAX package.
 
 The priors' log-densities are added once each, from this module's ``prior_log_prob_sum``
 over the model and the likelihood, as GPyTorch does.  (The JAX package adds the model's
@@ -9,8 +17,14 @@ every likelihood prior twice.)"""
 
 from __future__ import annotations
 
+import math
+
+import torch
+
+from .. import settings
 from ..distributions import MultivariateNormal
 from ..likelihoods import GaussianLikelihood
+from ..linop import MaskedLinearOperator
 from .marginal_log_likelihood import MarginalLogLikelihood
 
 
@@ -23,18 +37,36 @@ class ExactMarginalLogLikelihood(MarginalLogLikelihood):
     def forward(self, function_dist: MultivariateNormal, target, base_samples=None, solver_state=None,
                 return_state: bool = False):
         """(log p(target) + Σ log p(prior values)) / N under the prior ``function_dist`` and
-        the likelihood.
+        the likelihood, with NaN targets treated by ``settings.observation_nan_policy``.
 
         ``base_samples`` is where the SLQ probes' base samples come from (a
         ``torch.Generator``, or a callable that returns them for a shape); pass fresh ones
         each step.  ``solver_state``/``return_state``: the rhs-only warm start of the
-        training solve (``solvers/inv_quad.py``); with ``return_state`` the call returns
-        ``(mll, state)``, and the state goes into the next step's call."""
+        training solve (``solvers/inv_quad.py``), under the policy "ignore" only; with
+        ``return_state`` the call returns ``(mll, state)``, and the state goes into the
+        next step's call."""
         if not isinstance(function_dist, MultivariateNormal):
             raise RuntimeError("ExactMarginalLogLikelihood requires an MVN model output")
+        nan_policy = settings.observation_nan_policy.value()
+        if nan_policy not in ("ignore", "mask", "fill"):
+            raise ValueError(f"unknown observation_nan_policy {nan_policy!r}")
+        if return_state and nan_policy != "ignore":
+            raise ValueError("warm-started solves support observation_nan_policy='ignore' only")
         output = self.likelihood(function_dist)
-        res = output.log_prob(target, base_samples=base_samples, solver_state=solver_state, return_state=return_state)
-        res, state = res if return_state else (res, None)
+        state = None
+        if nan_policy == "ignore":
+            res = output.log_prob(target, base_samples=base_samples, solver_state=solver_state,
+                                  return_state=return_state)
+            res, state = res if return_state else (res, None)
+        else:
+            observed = ~torch.isnan(target)
+            filled = torch.where(observed, target, output.mean)
+            if nan_policy == "mask":
+                covar = MaskedLinearOperator(output.lazy_covariance_matrix.evaluate_kernel(), observed)
+                res = MultivariateNormal(output.mean, covar).log_prob(filled, base_samples=base_samples)
+                res = res + 0.5 * (~observed).sum(-1).to(res.dtype) * math.log(2 * math.pi)
+            else:
+                res = output.log_prob(filled, base_samples=base_samples)
         prior_sum = self.prior_log_prob_sum()
         if prior_sum is not None:
             res = res + prior_sum

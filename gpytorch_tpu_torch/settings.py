@@ -211,11 +211,37 @@ class memory_efficient(_feature_flag):
 
 
 class detach_test_caches(_feature_flag):
-    """Build the prediction caches without gradients, so that a prediction is
-    differentiable with respect to the test inputs (and the test-side hyperparameters)
-    but not through the caches.  Only the default, on, is ported: off raises."""
+    """On (the default): the prediction caches are built without gradients, so that a
+    prediction is differentiable with respect to the test inputs and the test-side
+    hyperparameters but not through the caches.  Off: the mean cache (and a fantasy
+    model's Schur-updated one) and the exact variance's solve are built with autograd,
+    through ``LinearOperator.solve``'s gradient with respect to the operator; such a cache
+    serves one prediction, and the next builds its own.  The LOVE branches (``fast_pred_var``,
+    ``fast_pred_samples``) raise when it is off."""
 
     _default = True
+
+
+class debug(_feature_flag):
+    """Extra validation in ``ExactGP.__call__``: a training-mode call on inputs of another
+    shape than the training inputs raises, and an eval-mode call on the training inputs
+    themselves warns (``GPInputWarning``)."""
+
+    _default = True
+
+
+class prior_mode(_feature_flag):
+    """Models return their prior ``forward`` instead of the posterior."""
+
+    _default = False
+
+
+class observation_nan_policy(_value_context):
+    """What the exact MLL and the mean cache do with NaN targets: "ignore" (use them as
+    they are), "mask" (leave those points out, through ``MaskedLinearOperator``) or
+    "fill" (replace them by the prior mean)."""
+
+    _global_value = "ignore"
 
 
 class fast_pred_var(_feature_flag):

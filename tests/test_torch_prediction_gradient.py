@@ -274,10 +274,3 @@ def test_test_train_block_takes_the_training_inputs_themselves():
     assert test_test.symmetric and test_test.x1 is test
     assert op[2:4, :6].x1.shape == (2, 2)  # any other slice slices the joined tensor
 
-
-def test_prediction_through_the_caches_is_not_ported():
-    train_x, train_y, test_x, _ = _task(50, 5)
-    tm = TorchModel(torch.from_numpy(train_x), torch.from_numpy(train_y), gt.likelihoods.GaussianLikelihood()).double()
-    tm.eval()
-    with gt.settings.detach_test_caches(False), pytest.raises(NotImplementedError, match="detach_test_caches"):
-        tm(torch.from_numpy(test_x))
