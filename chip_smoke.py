@@ -3,8 +3,9 @@
 N=100k, for the flagship RBF model (bench.py's default and honest recipes) and for a
 periodic model, gradients of the flagship's predictions with respect to the test inputs,
 LOVE posterior sampling, iterative refinement of the mean cache, the dense-Cholesky path on
-a 1D toy, fantasy updates with a knowledge-gradient step through the caches, and missing
-targets.
+a 1D toy, fantasy updates with a knowledge-gradient step through the caches, missing
+targets, KISS-GP in 1D and 2D with WISKI fantasy updates, and LOVE differentiated through
+its Lanczos roots.
 
     python3 chip_smoke.py
 
@@ -155,11 +156,37 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               and CUDA float32 against CPU float64, and "mask" against the
               observed subset's MLL in float64 at N=1000.
 
+11. kissgp  — KISS-GP (BASELINE config 3): ConstantMean + GridInterpolationKernel(
+              ScaleKernel(RBF)) + GaussianLikelihood on the periodic task's time column
+              (N=100,000; m = choose_grid_size = 100,000 grid points, a Toeplitz K_UU; the
+              grid spans the forecast week): Wᵀ· twice, bit for bit; 30 Adam steps at lr 0.1
+              under bench.py's training solver settings; the mean, LOVE variances and 16 LOVE
+              draws (the test-independent sample cache) of the 2,048 forecast points; the
+              exact interpolated branch on 128 of them against LOVE (Rayleigh–Ritz: LOVE may
+              not fall below it; the reference's relative gate is read); no CUDA kernel may
+              launch.  Prints ms a step, the refresh, a request and a draw, and the peak
+              device memory.
+11b. kissgp 2d — the same on a 316 × 316 Kronecker grid, the flagship task's first two
+              inputs at N=100,000, 10 steps and one request.
+11c. wiski  — phase 11's model on a grid of 4,096 with phase 11's hyperparameters,
+              conditioned 4 times on 16 new readings (``get_fantasy_model``: WISKI): the mean
+              against a model rebuilt on all the points, beside a planted fault;
+              wiski_fantasy_ms.
+12. love gradient — on phase 7's trained flagship, one fantasy of 16 points under
+              ``detach_test_caches(False)`` and ``fast_pred_var``: ∇Σσ² over the 2,048 test
+              points with respect to X_f and the hyperparameters through the joint
+              operator's Lanczos root (love_grad_ms, the step of qNIPV), its launches
+              (backward: 5 kernel_bwd_fused at t=20, their dv, K*x R's dv, dos, dx1 and dx2);
+              the kernels against their plain versions at N=100k, CUDA float32 against the
+              float64 plain path at N=8,192 beside planted faults, central differences in
+              float64 at N=2,000; kernel_bwd_fused at 100k², t=20 against float64.  Alone:
+              ``python3 -c 'import chip_smoke; chip_smoke.phase_love_gradient()'``.
+
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
 
-``period_witness``, ``sass_witness`` and ``slab_sweep`` are not part of the run (see their
-docstrings).
+``period_witness``, ``sass_witness``, ``slab_sweep`` and ``love_rank_witness`` are not part
+of the run (see their docstrings).
 """
 
 from __future__ import annotations
@@ -346,6 +373,50 @@ NAN_SUBSET_TOL = 1e-6       # (above max_cholesky_size: mBCG), relative, at CG t
 # the budget under which a float64 run's τ is the float32 run's, so that a float32 and a
 # float64 run precondition alike and draw the same probes z ~ N(0, P)
 PC_NOISE_BUDGET_F64 = PC_NOISE_BUDGET * float(np.finfo(np.float64).eps / np.finfo(np.float32).eps)
+# KISS-GP (phases 11, 11b, 11c; no CUDA kernel: interpolation, FFT Toeplitz and Kronecker
+# products are plain PyTorch) and LOVE differentiated through its Lanczos roots (phase 12)
+KISS_STEPS, KISS2_STEPS = 30, 10   # Adam steps at lr 0.1 (examples/02_scalable_kissgp_love.py)
+KISS_LENGTHSCALE = (0.05, 0.5)     # initial RBF lengthscales: 1D in days (72 minutes), 2D on the unit square
+KISS_EXACT_ROWS = 128       # test points of the exact interpolated branch (every 16th): it solves one CG
+                            # column a test point against W K_UU Wᵀ + σ²I at N=100k
+KISS_EXACT_CG_TOL, KISS_EXACT_MAX_ITER = 1e-9, 1000  # … solved in float64 on the card (the float32 branch
+                            # cannot resolve σ² ≈ 1e-4 against k** ≈ 1: at tolerance 1e-5 it read 4 % of the
+                            # largest σ² above LOVE's in 2D on an H100, the cancellation's round-off)
+KISS_MEAN_TOL = 1e-2        # the float32 path against its float64 twin on the card (the same raw parameters
+                            # and grid, both caches at eval's CG tolerance 1e-3): mean, max |Δ| / max |μ|
+KISS_VAR_TOL = 1e-4         # … and LOVE variances, max |Δσ²| / max k** (σ² = k** − |W* K_UU Wᵀ R|² cancels),
+                            # both beside a planted fault: the test side's interpolation W*· × 15/16
+KISS_LOVE_TOL = 1e-6        # Rayleigh–Ritz: R Rᵀ ≼ K̂⁻¹ on the Krylov space, so σ²_LOVE ≥ σ²_exact; gated in
+                            # float64 as max (σ²_exact − σ²_LOVE) / max k** ≤ KISS_LOVE_TOL
+KISS_LOVE_REL = 0.05        # … and LOVE against the exact branch, |Δσ²| / σ², the reference's own limit
+                            # (test_kissgp_gp_regression.py:133, BASELINE.md:18): gated on the median, the max
+                            # read.  A rank-100 root from a random start resolves the variances only where the
+                            # kernel's effective rank is below its own: in 1D at N=100k the forecast's first
+                            # points read up to 90 times over (``love_rank_witness``; ROADMAP queue 3)
+KISS_SAMPLES = 16           # LOVE draws of the 2,048 forecast points from the test-independent sample cache
+WISKI_GRID, WISKI_UPDATES = 4096, 4  # phase 11c: a 1D grid of 4,096 (WISKI's caches are dense m × m) and
+                            # four get_fantasy_model calls of FANT_Q new readings each
+WISKI_MEAN_TOL = 1e-2       # the WISKI mean against a KISS-GP model rebuilt on all the points (its mean
+                            # cache a CG solve at eval's tolerance 1e-3), max |Δ| / max |μ|, as phase 10
+LG_REPS = 3                 # phase 12: love_grad_ms, the median of LG_REPS evaluations
+LG_SLICE_N = 8192           # CUDA float32 against the float64 plain path on the card, at N=8192
+LG_SLICE_TOL = (3e-2, 3e-2) # … max |Δ∇| / max |∇| of X_f and of the hyperparameters (on an H100 CUDA float32
+                            # read 3.6e-3 and 3.4e-4, the float32 plain path 2.7e-3 and 4.2e-4; PERF.md),
+LG_FAULT_EPS = 1e-2         # … bracketed by planted faults: grad_x's output and the symmetric backward's dx and
+                            # dos × (1 − LG_FAULT_EPS), in float64 plain runs (0.115 on ∇X_f and 11.2 on ∇θ)
+LG_FULL_TOL = 0.15          # N=100k: the kernels against their plain versions on the card, both float32, max
+                            # |Δ∇| / max |∇| of X_f and of the hyperparameters.  The two paths sum K·V in other
+                            # orders, and the Lanczos run and its eigh backward amplify that: on an H100, phase
+                            # 5's model, they read 1.6e-2 and 2.1e-3 apart, and 2.4e-3 and 9.2e-4 (kernels) and
+                            # 1.6e-2 and 3.0e-3 (plain) from the float64 plain path (PERF.md)
+LG_FULL_FAULT_EPS = 0.1     # … bracketed by the same planted faults in the kernel path, × (1 − LG_FULL_FAULT_EPS)
+                            # (× 0.95 read 0.193 on ∇X_f through grad_x and 69 on ∇θ through the backward)
+LG_DOS_TOL = 1e-10          # kernel_bwd_fused at N=100k, t=20 against float64: |Δdos| / Σ|k_ij g_i·v_j|.  dos
+                            # cancels to ≈ 4e-6 of that sum, so the limit sits between float32's readings there
+                            # (≈ 5e-13 to 1e-12 on an H100, kernel and plain version alike) and a planted fault
+                            # of dos × (1 − LG_FAULT_EPS), which reads ≈ 4e-8
+LG_FD_N, LG_FD_H = 2000, 1e-4  # central differences of Σσ² along its gradient, float64 plain path on the card
+LG_FD_TOL = 1e-4            # … |Δ| / |derivative|
 
 
 class SmokeFailure(Exception):
@@ -884,24 +955,26 @@ def phase_kernel():
                 check(rel <= KERNEL_REL_TOL, f"kernel type {kt}, d={d}, t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
         print(f"[kernel] type {kt}: n=1000 m=1537 d∈{{3,11}} t∈{{1,20,100}} within {KERNEL_REL_TOL} "
               f"(worst so far {worst_rel:.3e})", flush=True)
-    # the tiled tier of 16 columns (t ∈ (1, 16], a fantasy update's solves), on its own draws
+    # the tiled tier of 16 columns (t ∈ (1, 16], a fantasy update's solves) and that of 32
+    # at t ∈ (20, 32] (t ∈ (16, 20], a Lanczos block, above), on their own draws
     rng16 = np.random.default_rng(16)
     for kt in fk.KERNEL_TYPES:
-        for d, t in ((3, 16), (11, 5)):
+        for d, t in ((3, 16), (11, 5), (3, 27)):
             x1, x2 = (torch.as_tensor(rng16.normal(size=(r, d)), dtype=torch.float32, device=dev) for r in (1000, 1537))
             v = torch.as_tensor(rng16.normal(size=(1537, t)), dtype=torch.float32, device=dev)
             rel, err = _rel_err(fk.kernel_matvec_cuda(x1, x2, v, kt), fk._matvec_reference(x1, x2, v, kt), x1, x2, v, kt)
             max_abs, worst_rel = max(max_abs, err), max(worst_rel, rel)
             check(rel <= KERNEL_REL_TOL, f"kernel type {kt}, d={d}, t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
-    print(f"[kernel] the tiled tier of 16 columns: n=1000 m=1537 (d, t) ∈ {{(3, 16), (11, 5)}}, four kernel types, "
-          f"within {KERNEL_REL_TOL} (worst so far {worst_rel:.3e})", flush=True)
+    print(f"[kernel] the tiled tiers of 16 and 32 columns: n=1000 m=1537 (d, t) ∈ {{(3, 16), (11, 5), (3, 27)}}, four "
+          f"kernel types, within {KERNEL_REL_TOL} (worst so far {worst_rel:.3e})", flush=True)
 
     # serving shapes: CG (100k × 100k, t=1), Lanczos block (t=20), K(test, train)·R (t=100)
     # and K(test, train)·α (t=1, the mean); training shape: mBCG over [y, 63 probes] (t=64);
     # then the strips of a request of 256 points, and a Lanczos block of the LOVE sample
     # root on K(test, test) (2048 × 2048, t=20, symmetric).  The strips (fewer rows than the
-    # card has SMs) split the j range into slabs (fk.product_slabs); the 2048-row ones are
-    # gated against float64 at twice the plain float32 version's error
+    # card has SMs) split the j range into slabs (fk.product_slabs); the 2048-row ones, the
+    # Lanczos block and the training product are gated against float64 at twice the plain
+    # float32 version's error
     timed, strips = {}, []
     for n, m, t in ((N_TRAIN, N_TRAIN, 1), (N_TRAIN, N_TRAIN, 20), (N_TEST, N_TRAIN, 100), (N_TEST, N_TRAIN, 1),
                     (N_TRAIN, N_TRAIN, 64), (REQUEST_ROWS, N_TRAIN, 100), (REQUEST_ROWS, N_TRAIN, 1),
@@ -914,13 +987,13 @@ def phase_kernel():
         rel, err = _rel_err(got, plain, x1, x2, v, fk.RBF)
         check(rel <= KERNEL_REL_TOL, f"serving shape {n}x{m} t={t}: relative error {rel:.3e} > {KERNEL_REL_TOL}")
         max_abs = max(max_abs, err)
-        if t in (1, 64) or n == N_TEST:  # both float32 versions against float64
+        if t in (1, 20, 64) or n == N_TEST:  # both float32 versions against float64
             exact = fk._matvec_reference(x1.double(), x2.double(), v.double(), fk.RBF)
             rel64 = _rel_err(got, exact, x1, x2, v, fk.RBF)[0]
             plain64 = _rel_err(plain, exact, x1, x2, v, fk.RBF)[0]
             del exact
             print(f"[kernel] {n}x{m} t={t} against float64: kernel {rel64:.3e}, plain float32 {plain64:.3e}", flush=True)
-            if t == 64 or n == N_TEST:  # the training product (3xTF32) and the 2048-row strips
+            if t in (20, 64) or n == N_TEST:  # the Lanczos block, the training product and the 2048-row strips
                 check(rel64 <= min(2.0 * plain64, KERNEL_REL_TOL), f"the product {n}x{m} t={t} against float64: "
                       f"{rel64:.3e}, more than twice the plain version's {plain64:.3e} or over {KERNEL_REL_TOL}")
         ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), 10)
@@ -3330,6 +3403,704 @@ def phase_missing():
     check(gap <= NAN_SUBSET_TOL, f"the masked MLL differs from the observed subset's by {gap:.3e}")
     return readings
 
+def build_kiss_model(train_x, train_y, device, dtype, grid_size, grid_bounds, lengthscale):
+    """ConstantMean + GridInterpolationKernel(ScaleKernel(RBFKernel())) + GaussianLikelihood
+    with noise ≥ 2e-2 (KISS-GP, BASELINE config 3) on ``device``, on a grid of ``grid_size``
+    points a dimension over ``grid_bounds``, at noise 0.1 and ``lengthscale``, in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    class KissGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.GridInterpolationKernel(
+                gt.kernels.ScaleKernel(gt.kernels.RBFKernel()), grid_size=grid_size, num_dims=len(grid_bounds),
+                grid_bounds=grid_bounds)
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    tx = torch.as_tensor(train_x, dtype=dtype, device=device)
+    ty = torch.as_tensor(train_y, dtype=dtype, device=device)
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    model = KissGP(tx, ty, likelihood).to(device=device, dtype=dtype)
+    model.likelihood.noise = 0.1
+    model.covar_module.base_kernel.base_kernel.lengthscale = lengthscale
+    return model.train()
+
+
+def _kiss_run(tag, train_x, train_y, test_x, test_y, grid_size, grid_bounds, lengthscale, steps):
+    """KISS-GP at full width: Wᵀ· twice on the card (bit for bit), ``steps`` Adam steps at
+    lr 0.1 under bench.py's training solver settings, then served under the eval settings:
+    refresh, a request of all the test points (mean and LOVE variances), the LOVE sample
+    cache and SAMPLES draws, and the exact interpolated branch on KISS_EXACT_ROWS of the
+    points against LOVE's variances there.  No CUDA kernel may launch.  Returns the
+    readings and the trained model."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+    from gpytorch_tpu_torch.ops.interp import left_t_interp
+
+    dev = "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    model = build_kiss_model(train_x, train_y, dev, torch.float32, grid_size, grid_bounds, lengthscale)
+    tx, cand = model.train_inputs[0], torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
+    m = math.prod(model.covar_module.grid_sizes)
+
+    # Wᵀ·, a segment sum over the sorted interpolation indices, twice on 64 columns
+    with torch.no_grad():
+        op = model.covar_module(tx).evaluate_kernel()
+        rhs = torch.randn(tx.shape[0], 64, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+        a = left_t_interp(op.left_interp_indices, op.left_interp_values, rhs, m)
+        b = left_t_interp(op.left_interp_indices, op.left_interp_values, rhs, m)
+        ref = left_t_interp(op.left_interp_indices.cpu(), op.left_interp_values.double().cpu(), rhs.double().cpu(), m)
+    same = bool(torch.equal(a, b))
+    wt_err = (a.double().cpu() - ref).abs().max().item() / ref.abs().max().item()
+    print(f"[{tag}] N={tx.shape[0]}, grid {model.covar_module.grid_sizes} (m={m}), {op.left_interp_indices.shape[-1]} "
+          f"interpolation weights a row; Wᵀ· on 64 columns twice on the card: bit-identical {same}; against float64 "
+          f"on the CPU max |Δ| / max {wt_err:.3e}", flush=True)
+    check(same, f"{tag}: two runs of Wᵀ· on the card differ")
+
+    fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+    ppk.periodic_matvec_cuda.launches = ppk.periodic_bwd_fused_cuda.launches = 0
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.1)
+    generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    state = torch.zeros(tx.shape[0], 1, dtype=torch.float32, device=dev)
+    times, losses, iters = [], [], []
+    for step in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        loss, state = mll_loss(model, generator, state)
+        loss.backward()
+        optimizer.step()
+        ok = finite_step(loss, model)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        iters.append(state.num_iters)
+        check(ok, f"{tag} training step {step}: non-finite loss or gradient")
+    train_peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * sorted(times[1:])[len(times[1:]) // 2]
+    kern = model.covar_module.base_kernel
+    print(f"[{tag}] {steps} Adam steps (lr 0.1; CG tolerance 0.3, 63 probes, rank-50 preconditioner): median "
+          f"{step_ms:.3f} ms/step over steps 1-{steps - 1} (first {1e3 * times[0]:.1f} ms); loss {losses[0]:.5f} → "
+          f"{losses[-1]:.5f}; CG iterations {iters}; lengthscale {kern.base_kernel.lengthscale.item():.5f}, "
+          f"outputscale {kern.outputscale.item():.5f}, noise {model.likelihood.noise.item():.5f}; peak device memory "
+          f"{train_peak / 2**20:.1f} MiB", flush=True)
+
+    model.eval()
+    for p in model.parameters():
+        p.requires_grad_(False)
+    torch.cuda.reset_peak_memory_stats()
+    with eval_settings(), torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        strategy = model.refresh()
+        sync(dev)
+        refresh_ms = 1e3 * (time.perf_counter() - t0)
+        cg = strategy.lik_train_train_covar.last_cg_result
+        secs = []
+        for _ in range(3):
+            sync(dev)
+            t0 = time.perf_counter()
+            post = model(cand)
+            mean, var = post.mean, post.variance
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+        request_ms = 1e3 * sorted(secs)[1]
+        with settings.fast_pred_samples(True):
+            sync(dev)
+            t0 = time.perf_counter()
+            strategy.interp_sample_cache
+            sync(dev)
+            sample_cache_ms = 1e3 * (time.perf_counter() - t0)
+            draw_secs, gen = [], torch.Generator(device=dev).manual_seed(SAMPLE_SEED)
+            for _ in range(3):
+                sync(dev)
+                t0 = time.perf_counter()
+                draws = model(cand).rsample((KISS_SAMPLES,), base_samples=gen)
+                sync(dev)
+                draw_secs.append(time.perf_counter() - t0)
+            draw_ms = 1e3 * sorted(draw_secs)[1]
+    serve_peak = torch.cuda.max_memory_allocated()
+    launches = (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches, fk.kernel_bwd_fused_cuda.launches,
+                ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
+
+    # the float64 twin on the card (the same raw parameters and grid): the float32 path's
+    # reference, and the exact interpolated branch on KISS_EXACT_ROWS points
+    twin = build_kiss_model(train_x, train_y, dev, torch.float64, grid_size, grid_bounds, lengthscale).eval()
+    with torch.no_grad():
+        for name, p in twin.named_parameters():
+            p.copy_(dict(model.named_parameters())[name])
+            p.requires_grad_(False)
+    rows = slice(None, None, len(cand) // KISS_EXACT_ROWS)
+    c64 = cand.double()
+    with eval_settings(), settings.preconditioner_noise_budget(PC_NOISE_BUDGET_F64), torch.no_grad():
+        twin.refresh()
+        post64 = twin(c64)
+        mean64, var64 = post64.mean, post64.variance
+        with settings.fast_pred_var(False), settings.eval_cg_tolerance(KISS_EXACT_CG_TOL), \
+                settings.max_cg_iterations(KISS_EXACT_MAX_ITER):
+            sync(dev)
+            t0 = time.perf_counter()
+            exact64 = twin(c64[rows]).variance
+            sync(dev)
+            exact_s = time.perf_counter() - t0
+        exact_iters = twin.prediction_strategy().lik_train_train_covar.last_cg_result.num_iters
+        prior64 = twin.covar_module(c64[rows], diag=True)
+    # the float32 path again under a planted fault: the test side's W*· scaled by 15/16
+    with eval_settings(), torch.no_grad(), planted_interp_fault():
+        model.clear_caches()
+        model.refresh()
+        fault_post = model(cand)
+        fault_mean, fault_var = fault_post.mean.double(), fault_post.variance.double()
+    model.clear_caches()
+
+    mean_scale, var_scale = mean64.abs().max().item(), prior64.max().item()
+    mean_gap = (mean.double() - mean64).abs().max().item() / mean_scale
+    var_gap = (var.double() - var64).abs().max().item() / var_scale
+    fault_gaps = ((fault_mean - mean64).abs().max().item() / mean_scale,
+                  (fault_var - var64).abs().max().item() / var_scale)
+    love64 = var64[rows]
+    undershoot = (exact64 - love64).max().item() / var_scale
+    # read, not gated: the root doubled (σ² = k** − 4 |W* K_UU Wᵀ R|²), and the reference's gate
+    doubled = (exact64 - (4.0 * love64 - 3.0 * prior64)).max().item() / var_scale
+    rel = (love64 - exact64).abs() / exact64
+    rmse = (mean - ty).square().mean().sqrt().item()
+    finite = bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()) and bool(torch.isfinite(draws).all())
+    positive = bool((var > 0).all())
+    print(f"[{tag}] serving: refresh {refresh_ms:.1f} ms (mean cache CG {cg.num_iters} iterations, relative residual "
+          f"{cg.residual_norm.max().item():.3e}; then K_UU Wᵀ·, the LOVE root and K_UU Wᵀ R), a request of "
+          f"{len(cand)} points (mean and LOVE variances) {request_ms:.3f} ms, the sample cache (a Lanczos root of "
+          f"K_UU − (K_UU Wᵀ R)(K_UU Wᵀ R)ᵀ on the grid) {sample_cache_ms:.1f} ms, a draw of {KISS_SAMPLES} samples "
+          f"of {len(cand)} points {draw_ms:.3f} ms; peak device memory {serve_peak / 2**20:.1f} MiB", flush=True)
+    print(f"[{tag}] rmse {rmse:.4f}; LOVE variances {var.min().item():.4e} to {var.max().item():.4e} (finite "
+          f"{finite}, all > 0 {positive}); against the float64 twin on the card: mean max |Δ| / max |μ| "
+          f"{mean_gap:.3e} (tol {KISS_MEAN_TOL}), LOVE variances max |Δσ²| / max k** {var_gap:.3e} (tol "
+          f"{KISS_VAR_TOL}); planted fault (W*· × 15/16) {fault_gaps[0]:.3e}, {fault_gaps[1]:.3e}; "
+          f"launches of the five CUDA kernels {launches} (expected none: no TPU kernel on this path)", flush=True)
+    print(f"[{tag}] float64 twin, the exact interpolated branch on {len(exact64)} points (a {len(exact64)}-column CG at "
+          f"tolerance {KISS_EXACT_CG_TOL}, {exact_iters} iterations, {exact_s:.2f} s; σ² {exact64.min().item():.4e} to "
+          f"{exact64.max().item():.4e}, k** {var_scale:.4e}): max (σ²_exact − σ²_LOVE) / max k** {undershoot:.3e} (tol "
+          f"{KISS_LOVE_TOL}; the LOVE root doubled {doubled:.3e}); read: LOVE against it max |Δσ²| / σ² "
+          f"{rel.max().item():.3e}; gated: median {rel.median().item():.3e} (tol {KISS_LOVE_REL})", flush=True)
+    check(sum(losses[-3:]) / 3 < losses[0], f"{tag}: the loss did not fall ({losses[0]:.5f} → {losses[-1]:.5f})")
+    check(finite, f"{tag}: a mean, variance or draw is not finite")
+    check(positive, f"{tag}: a LOVE variance ≤ 0 (min {var.min().item():.4e}): see ROADMAP queue 3")
+    check(mean_gap <= KISS_MEAN_TOL and var_gap <= KISS_VAR_TOL, f"{tag}: float32 against the float64 twin: mean "
+                                                                  f"{mean_gap:.3e}, variances {var_gap:.3e}")
+    check(fault_gaps[0] > KISS_MEAN_TOL and fault_gaps[1] > KISS_VAR_TOL, f"{tag}: the float64 gates do not see a "
+                                                                          f"planted fault: {fault_gaps}")
+    check(undershoot <= KISS_LOVE_TOL, f"{tag}: LOVE variances fall below the exact branch's by {undershoot:.3e}")
+    check(rel.median().item() <= KISS_LOVE_REL, f"{tag}: LOVE against the exact branch, median relative error "
+                                                f"{rel.median().item():.3e}")
+    check(launches == (0, 0, 0, 0, 0), f"{tag}: CUDA kernels launched {launches} on the KISS-GP path")
+    return dict(model=model, step_ms=step_ms, refresh_ms=refresh_ms, request_ms=request_ms, draw_ms=draw_ms,
+                sample_cache_ms=sample_cache_ms, love_rel=rel.max().item(), train_peak=train_peak,
+                serve_peak=serve_peak, launches=launches[0])
+
+
+@contextlib.contextmanager
+def planted_interp_fault():
+    """The test points' interpolation W*· of a KISS-GP request (``left_interp`` as the
+    prediction strategies call it) scaled by 15/16: the mean scaled alike, the LOVE term
+    |W* K_UU Wᵀ R|² by (15/16)²."""
+    from gpytorch_tpu_torch.models import exact_prediction_strategies as eps
+
+    sound = eps.left_interp
+    eps.left_interp = lambda *args: sound(*args) * (15.0 / 16.0)
+    try:
+        yield
+    finally:
+        eps.left_interp = sound
+
+
+def phase_kissgp():
+    """Phase 11: KISS-GP in 1D at full width on the periodic task's time column (100,000
+    five-minute readings; m = choose_grid_size = 100,000 grid points, a Toeplitz K_UU), the
+    grid's bounds spanning the training readings and the forecast week (a dynamic grid would
+    refit to the forecast's times at the request, as the JAX package's does, and the caches
+    built on the old grid would not match it).  Returns ``_kiss_run``'s readings."""
+    import gpytorch_tpu_torch as gt
+
+    train_x, train_y, test_x, test_y = make_periodic_task(P_N_TRAIN, P_N_TEST)
+    t_train, t_test = train_x[:, :1], test_x[:, :1]
+    grid_size = gt.utils.grid.choose_grid_size(t_train)
+    bounds = [(float(t_train.min()), float(t_test.max()))]
+    return _kiss_run("kissgp", t_train, train_y, t_test, test_y, grid_size, bounds, KISS_LENGTHSCALE[0], KISS_STEPS)
+
+
+def phase_kissgp_2d():
+    """Phase 11b: KISS-GP in 2D on a Kronecker grid, the flagship task's first two inputs
+    at N=100,000 (316 × 316 grid points, 16 interpolation weights a row)."""
+    import gpytorch_tpu_torch as gt
+
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST, seed=0)
+    x2, t2 = train_x[:, :2], test_x[:, :2]
+    grid_size = gt.utils.grid.choose_grid_size(x2)
+    return _kiss_run("kissgp 2d", x2, train_y, t2, test_y, grid_size, [(0.0, 1.0), (0.0, 1.0)],
+                     KISS_LENGTHSCALE[1], KISS2_STEPS)
+
+
+def _wiski_model(params, train_x, train_y, bounds, dtype=None):
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    model = build_kiss_model(train_x, train_y, "cuda", dtype, WISKI_GRID, bounds, KISS_LENGTHSCALE[0])
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(params[name])
+            p.requires_grad_(False)
+    return model.eval()
+
+
+def phase_wiski(kiss_model):
+    """Phase 11c: WISKI fantasy updates.  Phase 11's model on a 1D grid of WISKI_GRID points
+    with phase 11's trained hyperparameters, conditioned WISKI_UPDATES times on FANT_Q new
+    readings (the ones after the training readings) by ``get_fantasy_model``: the first call
+    promotes the KISS-GP strategy to WISKI (WᵀW and Wᵀr from the 100,000 training rows), each
+    later one adds its readings' terms.  wiski_fantasy_ms: the median over the updates of
+    the update and a request of the rest of the forecast (mean and variance).  The mean is
+    gated against a KISS-GP model rebuilt on all the points, beside a planted fault (the
+    last update's terms left out)."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    train_x, train_y, test_x, test_y = make_periodic_task(P_N_TRAIN, P_N_TEST)
+    t_train, t_test = train_x[:, :1], test_x[:, :1]
+    bounds = [(float(t_train.min()), float(t_test.max()))]
+    params = {k: p.detach() for k, p in kiss_model.named_parameters()}
+    model = _wiski_model(params, t_train, train_y, bounds)
+    dev = "cuda"
+    new = FANT_Q * WISKI_UPDATES
+    cand = torch.as_tensor(t_test[new:], dtype=torch.float32, device=dev)
+    xs = torch.as_tensor(t_test[:new], dtype=torch.float32, device=dev)
+    ys = torch.as_tensor(test_y[:new], dtype=torch.float32, device=dev)
+    fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+    ppk.periodic_matvec_cuda.launches = ppk.periodic_bwd_fused_cuda.launches = 0
+    times, request_times, models = [], [], [model]
+    with eval_settings(), torch.no_grad():
+        model.refresh()
+        model(cand)
+        for k in range(WISKI_UPDATES):
+            sl = slice(k * FANT_Q, (k + 1) * FANT_Q)
+            sync(dev)
+            t0 = time.perf_counter()
+            fantasy = models[-1].get_fantasy_model(xs[sl], ys[sl])
+            sync(dev)
+            t1 = time.perf_counter()
+            post = fantasy(cand)
+            mean, var = post.mean, post.variance
+            sync(dev)
+            times.append(t1 - t0)
+            request_times.append(time.perf_counter() - t1)
+            models.append(fantasy)
+        strategy = type(models[-1]._cache["prediction_strategy"]).__name__
+        short = models[-2](cand).mean.double()  # the planted fault: the last update left out
+    launches = (fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches, fk.kernel_bwd_fused_cuda.launches,
+                ppk.periodic_matvec_cuda.launches, ppk.periodic_bwd_fused_cuda.launches)
+    # the reference: the KISS-GP model rebuilt on all the points in float64, its mean cache a
+    # CG solve at eval tolerance 1e-8; and read, WISKI's own updates in float64
+    full_x, full_y = np.concatenate([t_train, t_test[:new]]), np.concatenate([train_y, test_y[:new]])
+    with eval_settings(), settings.eval_cg_tolerance(1e-8), settings.preconditioner_noise_budget(PC_NOISE_BUDGET_F64), \
+            torch.no_grad():
+        rebuilt = _wiski_model(params, full_x, full_y, bounds, torch.float64)
+        rebuilt.refresh()
+        ref = rebuilt(cand.double()).mean
+        wiski64 = _wiski_model(params, t_train, train_y, bounds, torch.float64)
+        wiski64(cand.double())
+        for k in range(WISKI_UPDATES):
+            sl = slice(k * FANT_Q, (k + 1) * FANT_Q)
+            wiski64 = wiski64.get_fantasy_model(xs[sl].double(), ys[sl].double())
+        mean64 = wiski64(cand.double()).mean
+    total = [a + b for a, b in zip(times, request_times)]
+    wiski_ms = 1e3 * sorted(total)[len(total) // 2]
+    scale = ref.abs().max().item()
+    gap = (mean.double() - ref).abs().max().item() / scale
+    gap64 = (mean64 - ref).abs().max().item() / scale
+    fault = (short - ref).abs().max().item() / scale
+    finite = bool(torch.isfinite(mean).all()) and bool((var > 0).all())
+    print(f"[wiski] grid {WISKI_GRID}, {WISKI_UPDATES} updates of {FANT_Q} readings ({strategy}): wiski_fantasy_ms "
+          f"median {wiski_ms:.3f} ms (update + a request of {len(cand)} points: "
+          f"{[round(1e3 * t_, 3) for t_ in times]} + {[round(1e3 * t_, 3) for t_ in request_times]} ms; the first "
+          f"update builds WᵀW and Wᵀr from the {P_N_TRAIN} training rows); mean against a KISS-GP model rebuilt on "
+          f"all {P_N_TRAIN + new} points (float64, CG to 1e-8) max |Δ| / max |μ| {gap:.3e} (tol {WISKI_MEAN_TOL}; "
+          f"WISKI in float64 {gap64:.3e}); planted fault (the last update left out) {fault:.3e}; variances finite and "
+          f"> 0 {finite}; launches of the five CUDA kernels {launches} (expected none)", flush=True)
+    check(strategy == "WiskiPredictionStrategy", f"the fantasy model's strategy is {strategy}")
+    check(finite, "a WISKI mean is not finite or a variance ≤ 0")
+    check(gap <= WISKI_MEAN_TOL, f"the WISKI mean differs from a rebuilt model's by {gap:.3e}")
+    check(fault > WISKI_MEAN_TOL, f"the WISKI gate does not see a planted fault: {fault:.3e}")
+    check(launches == (0, 0, 0, 0, 0), f"CUDA kernels launched {launches} on the WISKI path")
+    return dict(wiski_ms=wiski_ms, launches=launches[0])
+
+
+def love_rank_model(n: int = 3000, device: str = "cpu"):
+    """Phase 11's model at N=``n`` (the periodic task's time column, m = n grid points)
+    trained KISS_STEPS steps in float64, in eval mode, and the forecast's first 256 readings,
+    every 16th.  Returns (model, test points)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    train_x, train_y, test_x, _ = make_periodic_task(n, 256)
+    t_train, t_test = train_x[:, :1], test_x[:, :1]
+    bounds = [(float(t_train.min()), float(t_test.max()))]
+    model = build_kiss_model(t_train, train_y, device, torch.float64, gt.utils.grid.choose_grid_size(t_train), bounds,
+                             KISS_LENGTHSCALE[0])
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.1)
+    state = torch.zeros(n, 1, dtype=torch.float64, device=device)
+    for _ in range(KISS_STEPS):
+        optimizer.zero_grad()
+        loss, state = mll_loss(model, torch.Generator(device=device).manual_seed(PROBE_SEED), state, PC_NOISE_BUDGET_F64)
+        loss.backward()
+        optimizer.step()
+    return model.eval(), torch.as_tensor(t_test[::16], dtype=torch.float64, device=device)
+
+
+def love_rank_readings(model, cand, ranks=(100, 300, 1000)):
+    """LOVE's variances at each rank against the exact interpolated branch (eval tolerance
+    1e-10), float64, printed and returned as [(rank, max |Δσ²| / σ², median)]."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    n, readings = model.train_inputs[0].shape[0], []
+    with eval_settings(), settings.preconditioner_noise_budget(PC_NOISE_BUDGET_F64), torch.no_grad():
+        model.clear_caches()
+        with settings.fast_pred_var(False), settings.eval_cg_tolerance(1e-10), settings.max_cg_iterations(10 * n):
+            exact = model(cand).variance
+        for rank in ranks:
+            model.clear_caches()
+            with settings.max_root_decomposition_size(rank):
+                love = model(cand).variance
+            rel = (love - exact).abs() / exact
+            readings.append((rank, rel.max().item(), rel.median().item()))
+            print(f"[love rank] N={n}, m={n}, float64 on {cand.device}: LOVE of rank {rank} against the exact branch: "
+                  f"max |Δσ²| / σ² {rel.max().item():.3e}, median {rel.median().item():.3e}, min (σ²_LOVE − σ²_exact) "
+                  f"{(love - exact).min().item():.3e} (σ² {exact.min().item():.4e} to {exact.max().item():.4e}; "
+                  f"lengthscale {model.covar_module.base_kernel.base_kernel.lengthscale.item():.5f} days)", flush=True)
+    return readings
+
+
+def love_rank_witness(n: int = 3000, device: str = "cpu", ranks=(100, 300, 1000)):
+    """LOVE's variances against the exact interpolated branch as the Lanczos rank grows, on
+    ``love_rank_model``'s model.  The reference's relative limit (0.05) holds once the rank
+    passes the kernel's effective rank.  Not part of the run (about a minute at N=3,000 on
+    four CPU threads): ``python3 -c 'import chip_smoke; chip_smoke.love_rank_witness()'``;
+    ``tests/love_rank_witness.py`` reads the JAX package's LOVE on the same model."""
+    model, cand = love_rank_model(n, device)
+    return love_rank_readings(model, cand, ranks)
+
+
+def love_gradient(model, xf, yf, cand, split=None):
+    """The step of qNIPV: Σσ² (LOVE, ``fast_pred_var``) over ``cand`` of ``model``
+    conditioned on (``xf``, ``yf``) under ``detach_test_caches(False)``, and its gradient
+    with respect to the fantasy inputs and to the hyperparameters (the sum of the model's and
+    its copy's).  The fantasy's LOVE root is a block-Lanczos run on the joint (n + m)
+    operator with X_f's history; the gradient runs back through it.  ``split``, a list,
+    receives the launches of the three kernels after the forward pass.  Returns (value,
+    ∇X_f, {name: ∇})."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    xg = xf.detach().clone().requires_grad_(True)
+    with settings.detach_test_caches(False), settings.fast_pred_var(True), \
+            settings.cg_tolerance(settings.eval_cg_tolerance.value()):
+        fantasy = model.get_fantasy_model(xg, yf)
+        value = fantasy(cand).variance.sum()
+    if split is not None:
+        split.extend((fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches, fk.kernel_bwd_fused_cuda.launches))
+    own, copied = dict(model.named_parameters()), dict(fantasy.named_parameters())
+    names = list(own)
+    grads = torch.autograd.grad(value, [xg] + [own[k] for k in names] + [copied[k] for k in names], allow_unused=True)
+    by_name = {}
+    for k, a, b in zip(names, grads[1:1 + len(names)], grads[1 + len(names):]):
+        by_name[k] = sum((g for g in (a, b) if g is not None), torch.zeros_like(own[k])).detach()
+    return value.detach(), grads[0], by_name
+
+
+def _dos_abs_sum(x, g, v, chunk: int = 2048) -> float:
+    """Σ_ij |k(d2_ij) g_i·v_j| (RBF) in float64, streamed by blocks of rows: the scale of the
+    terms that dos = Σ_ij k_ij g_i·v_j sums."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops.sq_dist import sq_dist_centered
+
+    x, g, v = x.double(), g.double(), v.double()
+    xc = x - x.mean(0, keepdim=True)
+    total = 0.0
+    for i in range(0, x.shape[0], chunk):
+        k = fk._kernel_fn(sq_dist_centered(xc[i:i + chunk], xc), fk.RBF)
+        total += (k * (g[i:i + chunk] @ v.mT).abs()).sum().item()
+    return total
+
+
+def _love_bwd_shape(model):
+    """kernel_bwd_fused at the Lanczos blocks' shape (N=100k, d=3, t=20: dx and dos, no dv,
+    the FMA tier) on the model's scaled training inputs, against the plain version in float64
+    and timed beside its bound and the plain version.  dx is gated at twice the plain float32
+    version's error.  dos cancels (|dos| is far below the sum of its terms' magnitudes), so
+    its error over |dos| is set by the draw of g and v, for the kernel and the plain version
+    alike: its error is gated over Σ|k_ij g_i·v_j| at LG_DOS_TOL, beside the plain version's
+    and a planted fault (the kernel's dos × (1 − LG_FAULT_EPS))."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    tx = model.train_inputs[0]
+    ls = model.covar_module.base_kernel.lengthscale.detach()
+    x = ((tx - tx.mean(0, keepdim=True)) / ls).contiguous()
+    rng = np.random.default_rng(23)
+    t = 20
+    g, v = (torch.as_tensor(rng.normal(size=(N_TRAIN, t)), dtype=torch.float32, device="cuda") for _ in range(2))
+    _, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True)
+    _, pdx, pdos = fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True)
+    _, edx, edos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, need_dv=False, need_dos=True)
+    rel = {name: ((a.double() - edx).abs().max().item() / edx.abs().max().item(), abs(b.double() - edos).item()
+                  / abs(edos.item())) for name, (a, b) in (("kernel", (dx, dos)), ("plain", (pdx, pdos)))}
+    err = max((dx.double() - edx).abs().max().item(), abs(dos.double() - edos).item())
+    terms = _dos_abs_sum(x, g, v)
+    dos_terms = {name: abs(b.double() - edos).item() / terms
+                 for name, b in (("kernel", dos), ("plain", pdos), ("fault", dos * (1.0 - LG_FAULT_EPS)))}
+    ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True), 5)
+    plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True), 2)
+    bms, by = bwd_bound(N_TRAIN, D, t)
+    print(f"[love gradient] kernel_bwd_fused {N_TRAIN}x{N_TRAIN} d={D} t={t} (dx, dos, no dv; the FMA tier): kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {bms / ms:.0%}); against float64 max "
+          f"|Δdx| / max |dx|: kernel {rel['kernel'][0]:.3e}, plain float32 {rel['plain'][0]:.3e} (gate: twice the "
+          f"plain version's); |Δdos| / Σ|k g·v| (|dos| / Σ|k g·v| = {abs(edos.item()) / terms:.3e}): kernel "
+          f"{dos_terms['kernel']:.3e}, plain float32 {dos_terms['plain']:.3e} (gate {LG_DOS_TOL}; planted fault, dos × "
+          f"(1 − {LG_FAULT_EPS}), {dos_terms['fault']:.3e}); |Δdos| / |dos|, "
+          f"read: kernel {rel['kernel'][1]:.3e}, plain {rel['plain'][1]:.3e}", flush=True)
+    check(rel["kernel"][0] <= 2.0 * rel["plain"][0], f"kernel_bwd_fused at N={N_TRAIN}, t={t}, dx against float64: "
+                                                     f"{rel['kernel'][0]:.3e}, more than twice the plain version's "
+                                                     f"{rel['plain'][0]:.3e}")
+    check(dos_terms["kernel"] <= LG_DOS_TOL, f"kernel_bwd_fused at N={N_TRAIN}, t={t}, dos against float64: "
+                                             f"{dos_terms['kernel']:.3e} of the sum of its terms' magnitudes")
+    check(dos_terms["fault"] > LG_DOS_TOL, f"the dos gate does not see a planted fault: {dos_terms['fault']:.3e}")
+    return {"t": t, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "rel_err": rel["kernel"], "plain_rel_err": rel["plain"], "dos_over_terms": dos_terms}
+
+
+def _lg_gaps(ref, got):
+    """(|Δvalue| / |value|, max |Δ∇X_f| / max |∇X_f|, max |Δ∇θ| / max |∇θ|)."""
+    dv = abs(ref[0] - got[0]) / abs(ref[0])
+    dx = (ref[1] - got[1]).abs().max().item() / ref[1].abs().max().item()
+    return dv, dx, _grad_gap(ref[2], got[2])[0]
+
+
+def _lg_cpu(run):
+    value, gxf, grads = run
+    return value.item(), gxf.detach().cpu().double(), {k: g.cpu().double() for k, g in grads.items()}
+
+
+def _lg_slice_run(dtype, n=LG_SLICE_N):
+    """The step at N=``n`` on the card from JAX_PARAMS: X_f every 32nd of 512 candidates,
+    y_f their targets.  Returns (value, ∇X_f, {name: ∇}) on the CPU in float64."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    train_x, train_y, test_x, test_y = make_task(n, 512, seed=5)
+    model = build_model(train_x, train_y, "cuda", dtype)
+    cand = torch.as_tensor(test_x, dtype=dtype, device="cuda")
+    xf, yf = cand[::32][:FANT_Q], torch.as_tensor(test_y[::32][:FANT_Q], dtype=dtype, device="cuda")
+    budget = PC_NOISE_BUDGET_F64 if dtype == torch.float64 else PC_NOISE_BUDGET
+    for p in model.parameters():
+        p.requires_grad_(True)
+    with eval_settings(min_preconditioning_size=1000), gt.settings.preconditioner_noise_budget(budget):
+        model.prediction_strategy()
+        return _lg_cpu(love_gradient(model, xf, yf, cand))
+
+
+def _lg_fd_check():
+    """Σσ²'s directional derivative along its own gradient (over X_f and the raw
+    hyperparameters) against central differences at N=LG_FD_N, float64 plain path on the
+    card, beside a planted fault (the symmetric backward dropped: the Lanczos root
+    differentiated through nothing but its right-hand sides)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    train_x, train_y, test_x, test_y = make_task(LG_FD_N, 256, seed=11)
+    model = build_model(train_x, train_y, "cuda", torch.float64)
+    cand = torch.as_tensor(test_x, dtype=torch.float64, device="cuda")
+    xf, yf = cand[::16][:FANT_Q], torch.as_tensor(test_y[::16][:FANT_Q], dtype=torch.float64, device="cuda")
+    params = list(model.parameters())
+    names = [k for k, _ in model.named_parameters()]
+    for p in params:
+        p.requires_grad_(True)
+
+    def value_at(direction, h):
+        with torch.no_grad():
+            for p, d_ in zip(params, direction[1:]):
+                p.add_(h * d_)
+        try:
+            model.clear_caches()
+            with torch.no_grad(), gt.settings.fast_pred_var(True), \
+                    gt.settings.cg_tolerance(gt.settings.eval_cg_tolerance.value()):
+                model.prediction_strategy()
+                return model.get_fantasy_model(xf + h * direction[0], yf)(cand).variance.sum().item()
+        finally:
+            with torch.no_grad():
+                for p, d_ in zip(params, direction[1:]):
+                    p.sub_(h * d_)
+
+    def along(direction, fault=1.0):
+        model.prediction_strategy()
+        with planted_bwd_fault(fault):
+            _, g_x, g_p = love_gradient(model, xf, yf, cand)
+        return float((g_x * direction[0]).sum()) + sum(float((g_p[k] * d_).sum()) for k, d_ in zip(names, direction[1:]))
+
+    with eval_settings(min_preconditioning_size=1000), plain_kernels(), \
+            gt.settings.preconditioner_noise_budget(PC_NOISE_BUDGET_F64):
+        model.prediction_strategy()
+        _, g_x, g_p = love_gradient(model, xf, yf, cand)
+        direction = [g_x.detach()] + [g_p[k] for k in names]
+        dd = math.sqrt(sum(float((d_ * d_).sum()) for d_ in direction))
+        direction = [d_ / dd for d_ in direction]
+        fd = (value_at(direction, LG_FD_H) - value_at(direction, -LG_FD_H)) / (2 * LG_FD_H)
+        dd_fault = along(direction, 0.0)
+    for p in params:
+        p.requires_grad_(False)
+    err, fault_err = abs(dd - fd) / abs(fd), abs(dd_fault - fd) / abs(fd)
+    print(f"[love gradient] N={LG_FD_N}, float64 plain path: the directional derivative of Σσ² along its gradient over "
+          f"X_f and the raw hyperparameters, autograd {dd:.8e}, central difference (h={LG_FD_H}) {fd:.8e}, |Δ| / |fd| "
+          f"{err:.3e} (tol {LG_FD_TOL}); planted fault (the symmetric backward dropped) {dd_fault:.8e}, "
+          f"{fault_err:.3e}", flush=True)
+    check(err <= LG_FD_TOL, f"Σσ²'s derivative differs from central differences by {err:.3e}")
+    check(fault_err > LG_FD_TOL, f"the central-difference gate does not see a planted fault: {fault_err:.3e}")
+
+
+def phase_love_gradient(model=None):
+    """Phase 12: LOVE differentiated through its Lanczos roots at full width — the step of
+    BoTorch's qNegIntegratedPosteriorVariance: on phase 7's trained flagship (alone, phase
+    5's model), one fantasy of FANT_Q points under ``detach_test_caches(False)`` and
+    ``fast_pred_var``, Σσ² over the 2,048 test points and its gradient with respect to X_f
+    and the hyperparameters (love_grad_ms, the median of LG_REPS), with the launches of the
+    kernels by shape; at N=100k the kernels against their plain versions on the card (both
+    float32); at N=LG_SLICE_N CUDA float32 against the float64 plain path on the card, beside
+    planted faults; central differences in float64 at N=LG_FD_N; kernel_bwd_fused at the
+    Lanczos blocks' shape (t=20) against float64.  Returns the readings for the report."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    train_x, train_y, test_x, _ = make_task(N_TRAIN, N_TEST, seed=0)
+    if model is None:
+        phase_device()
+        phase_build()
+        model = build_model(train_x, train_y, "cuda", torch.float32)
+    dev = "cuda"
+    cand = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    model.eval()
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(False)
+    shape = _love_bwd_shape(model)
+    with eval_settings():
+        model.refresh()
+    xf, yf = _fantasy_points(model, cand)
+    for p in params:
+        p.requires_grad_(True)
+    times, launches, forward = [], [], []
+    with eval_settings():
+        for _ in range(LG_REPS):
+            model.prediction_strategy()
+            fk.kernel_matvec_cuda.launches = fk.kernel_grad_x_cuda.launches = fk.kernel_bwd_fused_cuda.launches = 0
+            forward.clear()
+            sync(dev)
+            t0 = time.perf_counter()
+            run = love_gradient(model, xf, yf, cand, forward)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            launches.append((fk.kernel_matvec_cuda.launches, fk.kernel_grad_x_cuda.launches,
+                             fk.kernel_bwd_fused_cuda.launches))
+        model.prediction_strategy()
+        with plain_kernels():
+            plain = _lg_cpu(love_gradient(model, xf, yf, cand))
+        full_faults = []
+        for fault in (planted_grad_x_fault, planted_bwd_fault):
+            model.prediction_strategy()
+            with fault(1 - LG_FULL_FAULT_EPS):
+                full_faults.append(_lg_gaps(plain, _lg_cpu(love_gradient(model, xf, yf, cand))))
+    for p in params:
+        p.requires_grad_(False)
+    # read, not gated: the float64 plain path at N=100k (its solves at eval's tolerance, which
+    # Σσ² does not depend on: the variances read the LOVE root alone)
+    ref = build_model(train_x, train_y, dev, torch.float64, params=None)
+    ref.load_state_dict({k: v.double() for k, v in model.state_dict().items()})
+    ref.eval()
+    with eval_settings(), plain_kernels(), gt.settings.preconditioner_noise_budget(PC_NOISE_BUDGET_F64):
+        ref.prediction_strategy()
+        sync(dev)
+        t0 = time.perf_counter()
+        full64 = _lg_cpu(love_gradient(ref, xf.double(), yf.double(), cand.double()))
+        sync(dev)
+        full64_s = time.perf_counter() - t0
+    kernels = _lg_cpu(run)
+    love_grad_ms = 1e3 * sorted(times)[len(times) // 2]
+    backward = tuple(a - b for a, b in zip(launches[-1], forward))
+    gaps = _lg_gaps(plain, kernels)
+    finite = bool(torch.isfinite(kernels[1]).all()) and all(bool(torch.isfinite(g).all()) for g in kernels[2].values())
+    print(f"[love gradient] love_grad_ms: median {love_grad_ms:.3f} ms over {LG_REPS} evaluations of ∇Σσ² over {N_TEST} "
+          f"points (X_f and the hyperparameters; {[round(1e3 * t_, 3) for t_ in times]}); Σσ² {kernels[0]:.6f}; "
+          f"launches kernel_matvec, kernel_grad_x, kernel_bwd_fused {launches[-1]}: forward {tuple(forward)} (the old "
+          f"strategy's mean-cache CG, the {FANT_Q}-column CG, 5 Lanczos blocks t=20 on the joint {N_TRAIN + FANT_Q} "
+          f"rows, the mean strip t=1 and K*x R t=100), backward {backward} (5 symmetric backwards t=20 with dv = K·g "
+          f"t=20 for 4 of them, K*x R's dv and dos t=100 and its dx1 and dx2); gradients finite {finite}", flush=True)
+    g64, p64 = _lg_gaps(full64, kernels), _lg_gaps(full64, plain)
+    print(f"[love gradient] N={N_TRAIN}: the kernels against their plain versions on the card (float32 both): Σσ² "
+          f"{gaps[0]:.3e}, ∇X_f {gaps[1]:.3e}, ∇θ {gaps[2]:.3e} (tol {LG_FULL_TOL}); planted faults in the kernel "
+          f"path, grad_x × (1 − {LG_FULL_FAULT_EPS}) {full_faults[0][1]:.3e}, {full_faults[0][2]:.3e}; the symmetric "
+          f"backward's dx and dos × (1 − {LG_FULL_FAULT_EPS}) {full_faults[1][1]:.3e}, {full_faults[1][2]:.3e}; read, "
+          f"against the float64 plain path ({full64_s:.1f} s): the kernels {g64[0]:.3e}, {g64[1]:.3e}, {g64[2]:.3e}, "
+          f"the plain float32 path {p64[0]:.3e}, {p64[1]:.3e}, {p64[2]:.3e}; max |∇X_f| "
+          f"{kernels[1].abs().max().item():.4e}", flush=True)
+    check(finite, "the LOVE gradient is not finite")
+    check(backward == (6, 2, 5), f"the LOVE gradient's backward launched {backward}, expected (6, 2, 5)")
+    check(gaps[1] <= LG_FULL_TOL and gaps[2] <= LG_FULL_TOL, f"N={N_TRAIN}: the LOVE gradient's kernels differ from "
+                                                              f"their plain versions by {gaps}")
+    check(full_faults[0][1] > LG_FULL_TOL and full_faults[1][2] > LG_FULL_TOL,
+          f"N={N_TRAIN}: the LOVE gradient's kernel gate does not see a planted fault: {full_faults}")
+
+    cuda32 = _lg_slice_run(torch.float32)
+    with plain_kernels():
+        ref = _lg_slice_run(torch.float64)
+        plain32 = _lg_slice_run(torch.float32)
+        with planted_grad_x_fault(1 - LG_FAULT_EPS):
+            fault_x = _lg_gaps(ref, _lg_slice_run(torch.float64))
+        with planted_bwd_fault(1 - LG_FAULT_EPS):
+            fault_theta = _lg_gaps(ref, _lg_slice_run(torch.float64))
+    slice_gaps, floor = _lg_gaps(ref, cuda32), _lg_gaps(ref, plain32)
+    print(f"[love gradient] N={LG_SLICE_N}: CUDA float32 against the float64 plain path on the card: Σσ² "
+          f"{slice_gaps[0]:.3e}, ∇X_f {slice_gaps[1]:.3e}, ∇θ {slice_gaps[2]:.3e}; the float32 plain path "
+          f"{floor[0]:.3e}, {floor[1]:.3e}, {floor[2]:.3e}; planted faults, float64: grad_x × (1 − {LG_FAULT_EPS}) "
+          f"{fault_x[0]:.3e}, {fault_x[1]:.3e}, {fault_x[2]:.3e}; the symmetric backward's dx and dos × "
+          f"(1 − {LG_FAULT_EPS}) {fault_theta[0]:.3e}, {fault_theta[1]:.3e}, {fault_theta[2]:.3e} (tol "
+          f"{LG_SLICE_TOL})", flush=True)
+    check(slice_gaps[1] <= LG_SLICE_TOL[0] and slice_gaps[2] <= LG_SLICE_TOL[1],
+          f"N={LG_SLICE_N}: the LOVE gradient differs from float64 by {slice_gaps}")
+    check(fault_x[1] > LG_SLICE_TOL[0], f"N={LG_SLICE_N}: the ∇X_f gate does not see a planted grad_x fault: {fault_x}")
+    check(fault_theta[2] > LG_SLICE_TOL[1], f"N={LG_SLICE_N}: the ∇θ gate does not see a planted backward fault: "
+                                            f"{fault_theta}")
+    _lg_fd_check()
+    return {"love_grad_ms": love_grad_ms, "launches": launches[-1], "backward": backward, "shape": shape,
+            "full_gaps": gaps, "slice_gaps": slice_gaps, "floor": floor, "fault_x": fault_x,
+            "fault_theta": fault_theta}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3361,16 +4132,27 @@ def main() -> int:
         sample_launches = phase_sampling(flagship["model"])
         fantasy = phase_fantasy(flagship["model"])
         missing = phase_missing()
+        kiss = phase_kissgp()
+        kiss2 = phase_kissgp_2d()
+        wiski = phase_wiski(kiss["model"])
+        love_grad = phase_love_gradient(flagship["model"])
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
     by_path = {"flagship": mv_launches, "honest": honest["launches"][0], "serving": serve_launches,
                "refinement": refine_launches, "sampling draw": sample_launches,
                "fantasy conditioning": fantasy["conditioning_launches"][0], "fantasy gradient": fantasy["launches"][0],
-               "missing fill": missing["fill"][0], "missing mask": missing["mask"][0]}
-    print(f"[report] kernel_matvec launches by path: {by_path}; fantasy_ms {fantasy['fantasy_ms']:.3f}, kg_grad_s "
+               "missing fill": missing["fill"][0], "missing mask": missing["mask"][0],
+               "kissgp": kiss["launches"] + kiss2["launches"], "wiski": wiski["launches"],
+               "love gradient": love_grad["launches"][0]}
+    print(f"[report] kernel_matvec launches by path: {by_path} (kissgp and wiski: none expected, no TPU kernel on "
+          f"those paths); fantasy_ms {fantasy['fantasy_ms']:.3f}, kg_grad_s "
           f"{fantasy['kg_grad_s']:.3f} (unresolved at N={N_TRAIN}); missing targets, one loss and gradient at N={N_TRAIN}: fill "
-          f"{missing['fill'][1]:.3f} s, mask {missing['mask'][1]:.3f} s; whole script "
+          f"{missing['fill'][1]:.3f} s, mask {missing['mask'][1]:.3f} s; KISS-GP 1D step {kiss['step_ms']:.3f} ms, "
+          f"refresh {kiss['refresh_ms']:.1f} ms, request {kiss['request_ms']:.3f} ms, draw {kiss['draw_ms']:.3f} ms "
+          f"(peak {max(kiss['train_peak'], kiss['serve_peak']) / 2**20:.1f} MiB); 2D step {kiss2['step_ms']:.3f} ms, "
+          f"request {kiss2['request_ms']:.3f} ms (peak {max(kiss2['train_peak'], kiss2['serve_peak']) / 2**20:.1f} "
+          f"MiB); wiski_fantasy_ms {wiski['wiski_ms']:.3f}; love_grad_ms {love_grad['love_grad_ms']:.3f}; whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
@@ -3389,11 +4171,13 @@ def main() -> int:
                   grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
             | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
                        "grad_x_tc_bound", "launches_by_path": {"acquisition": gx_launches,
-                                                               "fantasy gradient": fantasy["launches"][1]}},
+                                                               "fantasy gradient": fantasy["launches"][1],
+                                                               "love gradient": love_grad["launches"][1]}},
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
                   bwd_tc_bound(N_TRAIN, D, 64))
             | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1],
-                                    "fantasy": fantasy["launches"][2]},
+                                    "fantasy": fantasy["launches"][2], "love gradient": love_grad["launches"][2]},
+               "love_gradient_shape": love_grad["shape"],
                "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
                        "bound_ms from bwd_tc_bound",
                "fantasy_shapes": [fantasy["shapes"]["bwd_t1"], fantasy["shapes"][f"bwd_t{FANT_Q}"]]},

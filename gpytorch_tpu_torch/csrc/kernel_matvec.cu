@@ -10,9 +10,8 @@
 // the JAX package measured; 3xTF32 keeps about 21 mantissa bits.
 //
 // Design of the FMA tiers: each thread owns one output row and TC output columns,
-// accumulated in registers (for t = 1 and t > 64 in two levels, one sum per staged tile:
-// CG's residual stays honest, and so do the LOVE variances K** - |K*x R|^2, which cancel
-// to 1e-5 of K**).  A block of 128 threads owns 128 rows and one tile of TC columns
+// accumulated in registers in two levels, one sum per staged tile (CG's residual stays
+// honest, and so do the LOVE variances K** - |K*x R|^2, which cancel to 1e-5 of K**).  A block of 128 threads owns 128 rows and one tile of TC columns
 // (blockIdx.y), and walks over its slab of x2 and v (blockIdx.z, below) in tiles of TJ rows
 // staged in shared memory.
 // Every output element is written once, by one thread, with no atomics, so the result is
@@ -40,8 +39,8 @@
 // of one slab runs each kernel's SLABS = false instance, the kernel without the split, so
 // that the training and refresh products run the code they ran before it (narrowing the
 // operands in registers cost the t = 64 tier 3 % on an H100).  Known gaps, left to later
-// work: column tiles are 1, 32 or 64 wide (t = 20 runs 32 FMAs per element, t = 100 runs
-// four tiles of 32 summed per staged tile), and each column tile recomputes k.
+// work: column tiles are 1, 16, 20, 32 or 64 wide (t = 100 runs four tiles of 32 summed per
+// staged tile), and each column tile recomputes k.
 // Input dims: d = 3 exact, any other d <= 64 padded to 64 dims, and d > 64 through the
 // wide-d tier (csrc/wide_d.cuh), which walks the dims in slabs.  The template tiers are
 // the ones the paths use (d = 3; t = 1, 20, 64, 100); a finer tier waits for a measured
@@ -86,9 +85,8 @@ __device__ __forceinline__ float kernel_fn(float d2) {
 // DP: distance dims held in registers (3, or 64 for any other d, with the extra dims zero
 // on both sides so they add nothing).  DS: the row stride of the staged x2 tile, DP rounded
 // up to a multiple of 4 for 16-byte shared loads.
-// TILED: sum each staged tile's kTJ terms apart before adding them to the running sum
-// (always so for TC = 1).
-template <int KT, int DP, int TC, bool TILED, bool SLABS>
+// Each staged tile's kTJ terms are summed apart before they are added to the running sum.
+template <int KT, int DP, int TC, bool SLABS>
 __global__ void __launch_bounds__(kRows)
 kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ v,
                   float* __restrict__ out, int n, int m, int d, int t, int slab_len) {
@@ -134,22 +132,22 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
         // t = 1, the product of every CG iteration: each tile's kTJ terms are summed apart
         // and then added to the running sum, which cuts the float32 summation error about
         // tenfold.  CG needs it: with one running sum it took 10 more iterations at N=100k
-        // on an H100 and ended with its true residual 2.4 times over the tolerance.  The
-        // t in (16, 32] tier (t = 20, a Lanczos block) keeps one level, because a second set
-        // of TC accumulators made it 40-60 % slower there (t in (32, 64] runs the tensor-core
-        // tier, in two levels).  t in (1, 16] (the 16 solves of a fantasy update) runs TILED
-        // tiles of 16 columns: in the t <= 32 tier's one level the t = 16 product at N=100k
-        // read 2.2e-5 of max |.| from float64 on an H100, 4 times the plain float32
-        // version's error.  t > 64 (the LOVE root, t = 100) runs TILED tiles
+        // on an H100 and ended with its true residual 2.4 times over the tolerance.  Every
+        // other FMA tier sums per staged tile too (t in (32, 64] runs the tensor-core tier,
+        // in two levels).  t in (1, 16] (the 16 solves of a fantasy update) runs tiles of 16
+        // columns: with one running sum the t = 16 product at N=100k read 2.2e-5 of max |.|
+        // from float64 on an H100, 4 times the plain float32 version's error.  t in (16, 20]
+        // (a Lanczos block, t = 20) runs tiles of 20 and t in (20, 32] tiles of 32: with one
+        // running sum over 32 columns the t = 20 product at N=100k read 2.5e-7 of max K|v|
+        // from the plain float32 version on an H100, ten times the t = 1 and t = 64 products'
+        // distance, and the LOVE gradient through it (5 blocks forward, 4 backward) twice the
+        // plain float32 path's distance from float64.  t > 64 (the LOVE root, t = 100) runs tiles
         // of 32: with one level over 100k terms the smallest LOVE variances of the trained
         // flagship (N=100k, on an H100) were 90 % off float64 (5 % through cuBLAS), and their input gradients
         // 2.3e-3 of the largest gradient (1.4e-4).
-        float tile_sum = 0.0f;
-        float tile[TILED ? TC : 1];
-        if constexpr (TILED) {
+        float tile[TC];
 #pragma unroll
-            for (int c = 0; c < TC; ++c) tile[c] = 0.0f;
-        }
+        for (int c = 0; c < TC; ++c) tile[c] = 0.0f;
 #pragma unroll 4
         for (int jj = 0; jj < kTJ; ++jj) {
             float d2 = 0.0f;
@@ -167,8 +165,8 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
             }
             const float kv = kernel_fn<KT>(d2);
             if constexpr (TC == 1) {
-                tile_sum = fmaf(kv, vs[jj], tile_sum);
-            } else if constexpr (TILED) {
+                tile[0] = fmaf(kv, vs[jj], tile[0]);
+            } else {
 #pragma unroll
                 for (int c = 0; c < TC; c += 4) {
                     const float4 w = *reinterpret_cast<const float4*>(&vs[jj * TC + c]);
@@ -177,24 +175,10 @@ kernel_matvec_f32(const float* __restrict__ x1, const float* __restrict__ x2, co
                     tile[c + 2] = fmaf(kv, w.z, tile[c + 2]);
                     tile[c + 3] = fmaf(kv, w.w, tile[c + 3]);
                 }
-            } else {
-#pragma unroll
-                for (int c = 0; c < TC; c += 4) {
-                    const float4 w = *reinterpret_cast<const float4*>(&vs[jj * TC + c]);
-                    acc[c] = fmaf(kv, w.x, acc[c]);
-                    acc[c + 1] = fmaf(kv, w.y, acc[c + 1]);
-                    acc[c + 2] = fmaf(kv, w.z, acc[c + 2]);
-                    acc[c + 3] = fmaf(kv, w.w, acc[c + 3]);
-                }
             }
         }
-        if constexpr (TC == 1) {
-            acc[0] += tile_sum;
-        }
-        if constexpr (TILED) {
 #pragma unroll
-            for (int c = 0; c < TC; ++c) acc[c] += tile[c];
-        }
+        for (int c = 0; c < TC; ++c) acc[c] += tile[c];
         __syncthreads();
     }
 
@@ -510,19 +494,19 @@ cudaError_t launch_wide(const Args& a) {
     return run(a, kernel_matvec_wide_f32<KT, TC, true>, kernel_matvec_wide_f32<KT, TC, false>, kRows, TC, kRows);
 }
 
-template <int KT, int DP, int TC, bool TILED = false>
+template <int KT, int DP, int TC>
 cudaError_t launch(const Args& a) {
-    return run(a, kernel_matvec_f32<KT, DP, TC, TILED, true>, kernel_matvec_f32<KT, DP, TC, TILED, false>, kRows, TC,
-               kRows);
+    return run(a, kernel_matvec_f32<KT, DP, TC, true>, kernel_matvec_f32<KT, DP, TC, false>, kRows, TC, kRows);
 }
 
 template <int KT, int DP>
 cudaError_t dispatch_tc(const Args& a) {
     if (a.t == 1) return launch<KT, DP, 1>(a);
-    if (a.t <= 16) return launch<KT, DP, 16, true>(a);
+    if (a.t <= 16) return launch<KT, DP, 16>(a);
+    if (a.t <= 20) return launch<KT, DP, 20>(a);
     if (a.t <= 32) return launch<KT, DP, 32>(a);
     if (a.t <= 64) return launch_tc<KT, DP>(a);
-    return launch<KT, DP, 32, true>(a);
+    return launch<KT, DP, 32>(a);
 }
 
 template <int KT>

@@ -5,6 +5,10 @@ from .composition import ConstantMulLinearOperator, MaskedLinearOperator, SumLin
 from .lazy_kernel import LazyEvaluatedKernelOperator, join_rows
 from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
 from .triangular import CholLinearOperator, TriangularLinearOperator
+from .toeplitz import ToeplitzLinearOperator
+from .kronecker import (KroneckerProductAddedDiagLinearOperator, KroneckerProductDiagLinearOperator,
+                        KroneckerProductLinearOperator)
+from .interpolated import InterpolatedLinearOperator
 
 __all__ = [
     "AddedDiagLinearOperator",
@@ -13,6 +17,10 @@ __all__ = [
     "ConstantMulLinearOperator",
     "DenseLinearOperator",
     "DiagLinearOperator",
+    "InterpolatedLinearOperator",
+    "KroneckerProductAddedDiagLinearOperator",
+    "KroneckerProductDiagLinearOperator",
+    "KroneckerProductLinearOperator",
     "LazyEvaluatedKernelOperator",
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
@@ -20,6 +28,7 @@ __all__ = [
     "ProbeSource",
     "RootLinearOperator",
     "SumLinearOperator",
+    "ToeplitzLinearOperator",
     "TriangularLinearOperator",
     "join_rows",
     "probe_base_samples",

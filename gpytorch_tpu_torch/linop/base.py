@@ -92,6 +92,12 @@ class LinearOperator:
         """Dense rows self[idx, :] for a 1-D index tensor — what pivoted Cholesky reads."""
         return self.to_dense()[idx]
 
+    def _entries(self, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        """self[rows, cols] elementwise for broadcastable index tensors (the q × q blocks
+        of an interpolated operator's diagonal); structured operators read them without
+        forming the matrix."""
+        return self.to_dense()[rows, cols]
+
     # -- products and arithmetic --------------------------------------------------------
     def matmul(self, rhs: torch.Tensor) -> torch.Tensor:
         if rhs.ndim == 1:
@@ -232,6 +238,10 @@ class LinearOperator:
             base_samples=base_samples, solver_state=solver_state, return_state=return_state,
         )
 
+    def logdet(self) -> torch.Tensor:
+        """log|self|, by ``inv_quad_logdet``."""
+        return self.inv_quad_logdet(logdet=True)[1]
+
     def solve(self, rhs: torch.Tensor) -> torch.Tensor:
         """self⁻¹ rhs: by ``torch.cholesky_solve`` on the dense Cholesky factor up to
         ``max_cholesky_size`` (differentiable in both), else by preconditioned CG with
@@ -334,6 +344,9 @@ class DenseLinearOperator(LinearOperator):
 
     def _get_rows(self, idx):
         return self.tensor[idx]
+
+    def _entries(self, rows, cols):
+        return self.tensor[rows, cols]
 
     def _flatten(self):
         return (self.tensor,), lambda ts: DenseLinearOperator(ts[0])

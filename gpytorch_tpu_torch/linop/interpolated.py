@@ -1,0 +1,94 @@
+"""InterpolatedLinearOperator — W_l K W_rᵀ, the KISS-GP (SKI) covariance.
+
+Counterpart of ``gpytorch_tpu/linop/interpolated.py``.  K is the grid covariance K_UU
+(m × m: Toeplitz, Kronecker or dense, symmetric) and W_l, W_r the sparse interpolation
+matrices held as (indices, values) of shape (n, q).  A product is a scatter-add Wᵀ·, a
+product with K and a gather W·.  Three reads never form an n × n or m × m matrix, where the
+JAX package's do (it densifies through ``to_dense``):
+
+* ``_diagonal``: diag[i] = Σ_{q,p} w_l[i,q] K[a_iq, b_ip] w_r[i,p], from the q × q entries
+  of K that each row touches (``_entries``: c[|a − b|] for a Toeplitz K, a product of
+  those for a Kronecker one);
+* ``_get_rows`` (what pivoted Cholesky reads): W_l[idx] K W_rᵀ = (W_r K W_l[idx]ᵀ)ᵀ, one
+  product of K with idx.numel() columns;
+* ``to_dense``: through an identity on the smaller side, n_l or n_r.
+
+Slicing slices the interpolation, never the base.  Not known to be PSD: an added
+diagonal gives the Lanczos inverse root no Ritz floor, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.interp import left_interp, left_t_interp
+from .base import LinearOperator, to_linear_operator
+
+
+class InterpolatedLinearOperator(LinearOperator):
+    def __init__(self, base: LinearOperator, left_interp_indices: torch.Tensor, left_interp_values: torch.Tensor,
+                 right_interp_indices=None, right_interp_values=None):
+        self.base = to_linear_operator(base)
+        self.left_interp_indices = left_interp_indices
+        self.left_interp_values = left_interp_values
+        self.right_interp_indices = left_interp_indices if right_interp_indices is None else right_interp_indices
+        self.right_interp_values = left_interp_values if right_interp_values is None else right_interp_values
+
+    def _shape(self):
+        return (self.left_interp_indices.shape[-2], self.right_interp_indices.shape[-2])
+
+    @property
+    def dtype(self):
+        return self.left_interp_values.dtype
+
+    @property
+    def device(self):
+        return self.left_interp_values.device
+
+    def _symmetric_interp(self) -> bool:
+        return self.right_interp_indices is self.left_interp_indices and self.right_interp_values is self.left_interp_values
+
+    def _matmul(self, rhs):
+        m = self.base.shape[-1]
+        tmp = left_t_interp(self.right_interp_indices, self.right_interp_values, rhs, m)
+        return left_interp(self.left_interp_indices, self.left_interp_values, self.base.matmul(tmp))
+
+    def _flatten(self):
+        tb, rb = self.base._flatten()
+        nb = len(tb)
+        if self._symmetric_interp():
+            return tb + (self.left_interp_indices, self.left_interp_values), \
+                lambda ts: InterpolatedLinearOperator(rb(ts[:nb]), *ts[nb:])
+        interp = (self.left_interp_indices, self.left_interp_values, self.right_interp_indices, self.right_interp_values)
+        return tb + interp, lambda ts: InterpolatedLinearOperator(rb(ts[:nb]), *ts[nb:])
+
+    def _diagonal(self):
+        li, ri = self.left_interp_indices, self.right_interp_indices
+        blocks = self.base._entries(li.unsqueeze(-1), ri.unsqueeze(-2))  # (n, q, q)
+        return torch.einsum("nq,nqp,np->n", self.left_interp_values, blocks, self.right_interp_values)
+
+    def _get_rows(self, idx):
+        m = self.base.shape[-1]
+        k = idx.shape[0]
+        eye = torch.eye(k, dtype=self.dtype, device=self.device)
+        wt = left_t_interp(self.left_interp_indices[idx], self.left_interp_values[idx], eye, m)  # (m, k)
+        return left_interp(self.right_interp_indices, self.right_interp_values, self.base.matmul(wt)).mT
+
+    def to_dense(self):
+        m = self.base.shape[-1]
+        n_l, n_r = self.shape
+        if n_r <= n_l:
+            eye = torch.eye(n_r, dtype=self.dtype, device=self.device)
+            wt = left_t_interp(self.right_interp_indices, self.right_interp_values, eye, m)
+            return left_interp(self.left_interp_indices, self.left_interp_values, self.base.matmul(wt))
+        eye = torch.eye(n_l, dtype=self.dtype, device=self.device)
+        wt = left_t_interp(self.left_interp_indices, self.left_interp_values, eye, m)
+        return left_interp(self.right_interp_indices, self.right_interp_values, self.base.matmul(wt)).mT
+
+    def __getitem__(self, index):
+        """``op[rows, cols]`` with two slices: the interpolation rows, not the base."""
+        row_ix, col_ix = index
+        if not (isinstance(row_ix, slice) and isinstance(col_ix, slice)):
+            raise NotImplementedError("only (slice, slice) indexing is ported")
+        return InterpolatedLinearOperator(self.base, self.left_interp_indices[row_ix], self.left_interp_values[row_ix],
+                                          self.right_interp_indices[col_ix], self.right_interp_values[col_ix])

@@ -8,7 +8,10 @@ one part takes that part itself, so that K(test, train) carries no autograd hist
 its training side when the training inputs need no gradient.  Products with a kernel too
 large to evaluate densely go to the fused kernel products (``ops/fused_kernels.py``,
 ``ops/periodic_kernels.py``): the plain streamed versions for CPU tensors, the CUDA
-kernels for CUDA tensors.
+kernels for CUDA tensors.  A kernel that returns a structured operator
+(``returns_lazy_structure``: the grid kernels, whose KISS-GP operator has closed-form
+products) is always evaluated, whatever its size, and reads, products and rows go to that
+operator (``gpytorch_tpu/linop/lazy_kernel.py:55-103``).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Dict, Optional
 import torch
 
 from .. import settings
-from .base import DenseLinearOperator, LinearOperator
+from .base import DenseLinearOperator, LinearOperator, to_linear_operator
 
 
 def join_rows(*parts: torch.Tensor) -> torch.Tensor:
@@ -89,14 +92,21 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         n, m = self.shape
         return n * m > settings.max_eager_kernel_size.value() ** 2 or settings.memory_efficient.on()
 
+    def _structured(self) -> bool:
+        return getattr(self.kernel, "returns_lazy_structure", False)
+
     def evaluate_kernel(self) -> LinearOperator:
-        """The dense kernel matrix if it is small enough, else this lazy operator."""
+        """The kernel's structured operator; else the dense kernel matrix if it is small
+        enough, else this lazy operator."""
+        if self._structured():
+            return to_linear_operator(self._evaluate(self.x1, self.x2))
         if self._is_big():
             return self
         return DenseLinearOperator(self._evaluate(self.x1, self.x2))
 
     def to_dense(self):
-        return self._evaluate(self.x1, self.x2)
+        res = self._evaluate(self.x1, self.x2)
+        return res.to_dense() if isinstance(res, LinearOperator) else res
 
     def _diagonal(self):
         if self.x1.shape == self.x2.shape:
@@ -104,15 +114,17 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         return self.evaluate_kernel()._diagonal()
 
     def _get_rows(self, idx):
+        if self._structured():
+            return self.evaluate_kernel()._get_rows(idx)
         return self._evaluate(self.x1[idx], self.x2)
 
     def _matmul(self, rhs):
-        if not self._is_big():
+        if self._structured() or not self._is_big():
             return self.evaluate_kernel()._matmul(rhs)
         return self._fused_matmul(rhs)
 
     def _matmul_grad_only(self, rhs):
-        if not self._is_big():
+        if self._structured() or not self._is_big():
             return self.evaluate_kernel()._matmul(rhs)
         return self._fused_matmul(rhs, grad_only=True)
 

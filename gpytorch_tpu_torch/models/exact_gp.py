@@ -108,14 +108,13 @@ class ExactGP(Module):
         return strategy
 
     def refresh(self):
-        """Build the prediction caches now rather than at the first request: the mean
-        cache (one CG solve) and, under ``fast_pred_var`` or ``fast_pred_samples``, the
-        LOVE cache.  Returns the prediction strategy that holds them."""
+        """Build the prediction caches now rather than at the first request
+        (``build_caches``: the mean cache, one CG solve, and under ``fast_pred_var`` or
+        ``fast_pred_samples`` the LOVE cache; a KISS-GP strategy's in inducing space).
+        Returns the prediction strategy that holds them."""
         with torch.no_grad(), settings.cg_tolerance(settings.eval_cg_tolerance.value()):
             strategy = self.prediction_strategy()
-            strategy.mean_cache
-            if settings.fast_pred_var.on() or settings.fast_pred_samples.on():
-                strategy.covar_cache
+            strategy.build_caches()
         return strategy
 
     def get_fantasy_model(self, inputs, targets, noise=None) -> "ExactGP":
@@ -126,7 +125,9 @@ class ExactGP(Module):
         comes from the strategy's rank-m update (``get_fantasy_strategy``: m solves against
         the old system at the ambient ``cg_tolerance``); otherwise the copy builds its own
         at first use.  The copy's parameters are new tensors with the same values; under
-        ``detach_test_caches(False)`` its caches depend on this model's parameters as well.
+        ``detach_test_caches(False)`` its caches depend on this model's parameters as well,
+        and its LOVE root is built at first use on the joint (n + m) operator with the new
+        inputs' history.  A KISS-GP model's copy takes WISKI's update instead.
         ``noise`` (a fixed-noise likelihood's new noise) is not ported."""
         if noise is not None:
             raise NotImplementedError("the noise of new observations needs FixedNoiseGaussianLikelihood, not ported")

@@ -14,6 +14,13 @@ Counterpart of ``DefaultPredictionStrategy`` in
 * ``get_fantasy_strategy``, the rank-m block-Schur update of the mean cache for m new
   observations (m solves against the old system and an m×m Cholesky factor).
 
+``InterpolatedPredictionStrategy`` (KISS-GP, a ``GridInterpolationKernel``) holds its
+caches in inducing space: the mean c = K_UU Wᵀ (K̂)⁻¹(y − μ), so that μ* = W* c + μ*; the
+LOVE root K_UU Wᵀ R; and the sampling root S with S Sᵀ ≈ K_UU − (K_UU Wᵀ R)(K_UU Wᵀ R)ᵀ,
+which serves every test batch.  Its fantasy updates promote it to
+``WiskiPredictionStrategy``, whose caches depend on the data only through WᵀW and Wᵀr
+(dense m × m: it is meant for grids of a few thousand points).
+
 Up to ``settings.max_cholesky_size`` training points both caches come from a dense
 Cholesky factor instead (``LinearOperator.solve``, ``root_inv_decomposition``).
 
@@ -30,8 +37,10 @@ holds its training operator and caches with their autograd history: its solves a
 differentiated through the operator as well (``linop/base.py::_Solve``).  The model uses
 such a strategy for one call only (``spent``), so that no graph is shared by two
 predictions; its history lives until the next call replaces it, and a call under the
-default uses it ``detached()``.  The LOVE branches raise under that
-setting: the JAX package differentiates through its Lanczos run, which is not ported.
+default uses it ``detached()``.  Its LOVE caches too are built with their history: the
+inverse root R through its block-Lanczos run on the training operator, and under
+``fast_pred_samples`` the sample root R_s through its run on K** − (K*x R)(K*x R)ᵀ, as the
+JAX package differentiates through both (``solvers/lanczos.py``).
 """
 
 from __future__ import annotations
@@ -44,8 +53,9 @@ import torch
 
 from .. import settings
 from ..distributions import MultivariateNormal
-from ..linop import (DenseLinearOperator, DiagLinearOperator, LazyEvaluatedKernelOperator, MaskedLinearOperator,
-                     RootLinearOperator, to_linear_operator)
+from ..linop import (AddedDiagLinearOperator, DenseLinearOperator, DiagLinearOperator, InterpolatedLinearOperator,
+                     LazyEvaluatedKernelOperator, MaskedLinearOperator, RootLinearOperator, to_linear_operator)
+from ..ops.interp import left_interp, left_t_interp, segment_sum
 from ..solvers.cholesky import psd_safe_cholesky
 
 
@@ -93,6 +103,13 @@ class DefaultPredictionStrategy:
         new.with_graph = False
         return new
 
+    def build_caches(self) -> None:
+        """Build what a request reads: the mean cache and, under ``fast_pred_var`` or
+        ``fast_pred_samples``, the LOVE cache."""
+        self.mean_cache
+        if settings.fast_pred_var.on() or settings.fast_pred_samples.on():
+            self.covar_cache
+
     @property
     def mean_cache(self) -> torch.Tensor:
         """(K + σ²I)⁻¹(y − μ), under ``settings.observation_nan_policy``
@@ -114,7 +131,7 @@ class DefaultPredictionStrategy:
     def covar_cache(self) -> torch.Tensor:
         """LOVE root R with R Rᵀ ≈ (K + σ²I)⁻¹."""
         if self._covar_cache is None:
-            with torch.no_grad():
+            with self._grad_mode():
                 self._covar_cache = self.lik_train_train_covar.root_inv_decomposition(self.lanczos_init).root
         return self._covar_cache
 
@@ -141,15 +158,11 @@ class DefaultPredictionStrategy:
         if settings.skip_posterior_variances.on():
             m = test_test_covar.shape[-1]
             return DiagLinearOperator(torch.zeros(m, dtype=self.train_labels.dtype, device=self.train_labels.device))
-        if (settings.fast_pred_var.on() or settings.fast_pred_samples.on()) and settings.detach_test_caches.off():
-            raise NotImplementedError(
-                "LOVE (fast_pred_var, fast_pred_samples) under detach_test_caches(False) is not ported: the JAX package "
-                "differentiates through its Lanczos run"
-            )
         if settings.fast_pred_samples.on():
             # LOVE sampling: the Lanczos root of Σ* = K** − (K*x R)(K*x R)ᵀ, built once a
-            # request and without gradients (the JAX package detaches it)
-            with torch.no_grad():
+            # request; without gradients unless the strategy keeps its history (the JAX
+            # package detaches it under detach_test_caches)
+            with self._grad_mode():
                 posterior = test_test_covar + RootLinearOperator(test_train_covar.matmul(self.covar_cache)) * -1.0
                 return RootLinearOperator(posterior.evaluate_kernel().root_decomposition(method="lanczos").root)
         if settings.fast_pred_var.on():
@@ -191,3 +204,191 @@ class DefaultPredictionStrategy:
             u = u_old - AinvB @ v
             new._mean_cache = torch.cat([u, v], -1)
         return new
+
+
+class InterpolatedPredictionStrategy(DefaultPredictionStrategy):
+    """KISS-GP prediction with caches in inducing space
+    (``gpytorch_tpu/models/exact_prediction_strategies.py:197-323``).  The training
+    covariance is W K_UU Wᵀ + σ²I; a request interpolates its test points (W*) and reads:
+
+    * ``interp_mean_cache`` c = K_UU Wᵀ (K̂)⁻¹(y − μ) (m, 1): μ* = W* c + μ(x*);
+    * ``interp_covar_cache`` K_UU Wᵀ R (m, k), R the LOVE inverse root of K̂: under
+      ``fast_pred_var`` Σ* = W* K_UU W*ᵀ − (W* K_UU Wᵀ R)(W* K_UU Wᵀ R)ᵀ;
+    * ``interp_sample_cache`` S (m, k) with S Sᵀ ≈ K_UU − (K_UU Wᵀ R)(K_UU Wᵀ R)ᵀ, a Lanczos
+      root: under ``fast_pred_samples`` Σ* = (W* S)(W* S)ᵀ, for any test batch;
+    * otherwise the exact Σ* = W* K_UU W*ᵀ − K*x K̂⁻¹ Kx*, one CG solve with a column per
+      test point.
+
+    The training interpolation is evaluated afresh where a cache is built, as in the JAX
+    package."""
+
+    def __init__(self, train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init=None):
+        super().__init__(train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init)
+        self._interp_mean_cache = None
+        self._interp_covar_cache = None
+        self._interp_sample_cache = None
+
+    def detached(self):
+        new = super().detached()
+        for name in ("_interp_mean_cache", "_interp_covar_cache", "_interp_sample_cache"):
+            value = getattr(self, name)
+            setattr(new, name, None if value is None else value.detach())
+        return new
+
+    def build_caches(self) -> None:
+        self.interp_mean_cache
+        if settings.fast_pred_samples.on():
+            self.interp_sample_cache
+        elif self._love_variances():
+            self.interp_covar_cache
+
+    def _love_variances(self) -> bool:
+        """Whether a request's variances come from ``interp_covar_cache`` (LOVE) rather than
+        the exact branch."""
+        return settings.fast_pred_var.on()
+
+    def _train_interp(self) -> InterpolatedLinearOperator:
+        covar = self.train_prior_dist.lazy_covariance_matrix.evaluate_kernel()
+        if isinstance(covar, AddedDiagLinearOperator):
+            covar = covar.base
+        if not isinstance(covar, InterpolatedLinearOperator):
+            raise RuntimeError("InterpolatedPredictionStrategy requires an interpolated covariance")
+        return covar
+
+    @property
+    def interp_mean_cache(self) -> torch.Tensor:
+        if self._interp_mean_cache is None:
+            with self._grad_mode():
+                interp = self._train_interp()
+                wt = left_t_interp(interp.left_interp_indices, interp.left_interp_values,
+                                   self.mean_cache.unsqueeze(-1), interp.base.shape[-1])
+                self._interp_mean_cache = interp.base.matmul(wt)
+        return self._interp_mean_cache
+
+    @property
+    def interp_covar_cache(self) -> torch.Tensor:
+        if self._interp_covar_cache is None:
+            with self._grad_mode():
+                interp = self._train_interp()
+                wt_root = left_t_interp(interp.left_interp_indices, interp.left_interp_values, self.covar_cache,
+                                        interp.base.shape[-1])
+                self._interp_covar_cache = interp.base.matmul(wt_root)
+        return self._interp_covar_cache
+
+    @property
+    def interp_sample_cache(self) -> torch.Tensor:
+        if self._interp_sample_cache is None:
+            with self._grad_mode():
+                base = self._train_interp().base
+                inside = (base + RootLinearOperator(self.interp_covar_cache) * -1.0).evaluate_kernel()
+                self._interp_sample_cache = inside.root_decomposition(method="lanczos").root
+        return self._interp_sample_cache
+
+    def exact_prediction(self, joint_mean, joint_covar):
+        n = self.num_train
+        joint = joint_covar.evaluate_kernel() if isinstance(joint_covar, LazyEvaluatedKernelOperator) else joint_covar
+        if not isinstance(joint, InterpolatedLinearOperator):
+            return super().exact_prediction(joint_mean, joint_covar)
+        idx, val = joint.left_interp_indices[n:], joint.left_interp_values[n:]
+        mean = left_interp(idx, val, self.interp_mean_cache).squeeze(-1) + joint_mean[n:]
+        return mean, self._interp_predictive_covar(joint, idx, val)
+
+    def _interp_predictive_covar(self, joint, idx, val):
+        if settings.skip_posterior_variances.on():
+            return DiagLinearOperator(torch.zeros(idx.shape[-2], dtype=val.dtype, device=val.device))
+        test_test = InterpolatedLinearOperator(joint.base, idx, val)
+        if settings.fast_pred_samples.on():
+            return RootLinearOperator(left_interp(idx, val, self.interp_sample_cache))
+        if self._love_variances():
+            root = left_interp(idx, val, self.interp_covar_cache)
+            return (test_test + RootLinearOperator(root) * -1.0).evaluate_kernel()
+        n = self.num_train
+        test_train = InterpolatedLinearOperator(joint.base, idx, val, joint.right_interp_indices[:n],
+                                                joint.right_interp_values[:n]).to_dense()
+        correction = test_train @ self.lik_train_train_covar.solve(test_train.mT)
+        return DenseLinearOperator(test_test.to_dense() - correction)
+
+    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output):
+        """Fantasy updates promote the strategy to WISKI: WᵀW and Wᵀr built once from the
+        training data (O(n q²)), then each update adds the new points' terms."""
+        return WiskiPredictionStrategy.from_interpolated(self).get_fantasy_strategy(
+            inputs, targets, full_inputs, full_targets, full_output)
+
+
+def _wtw_wtr(idx: torch.Tensor, vals: torch.Tensor, r: torch.Tensor, m: int):
+    """WᵀW (m × m) and Wᵀr (m,) from the sparse interpolation rows, both deterministic
+    segment sums (``ops/interp.py``)."""
+    outer = (vals.unsqueeze(-1) * vals.unsqueeze(-2)).reshape(-1, 1)
+    flat = (idx.unsqueeze(-1) * m + idx.unsqueeze(-2)).reshape(-1)
+    wtw = segment_sum(flat, outer, m * m).reshape(m, m)
+    return wtw, left_t_interp(idx, vals, r.unsqueeze(-1), m).squeeze(-1)
+
+
+class WiskiPredictionStrategy(InterpolatedPredictionStrategy):
+    """WISKI online updates (``gpytorch_tpu/models/exact_prediction_strategies.py:338-425``;
+    Stanton et al., arXiv 2103.01454).  For K̂ = W K_UU Wᵀ + σ²I,
+
+      Wᵀ K̂⁻¹ r = (WᵀW K_UU + σ²I)⁻¹ Wᵀr,   Wᵀ K̂⁻¹ W = (WᵀW K_UU + σ²I)⁻¹ WᵀW,
+
+    so the posterior depends on the data only through WᵀW and Wᵀr, to which an update adds
+    the new points' terms: no work in n per update.  The caches are dense in m: the mean
+    c = K_UU (WᵀW K_UU + σ²I)⁻¹ Wᵀr and the Cholesky factor of
+    P = K_UU (WᵀW K_UU + σ²I)⁻¹ WᵀW K_UU, so that Σ* = W* (K_UU − P) W*ᵀ."""
+
+    def __init__(self, train_inputs, train_prior_dist, train_labels, likelihood, wtw, wtr, noise, lanczos_init=None):
+        super().__init__(train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init)
+        self.wtw = wtw
+        self.wtr = wtr
+        self.noise = noise
+
+    def detached(self):
+        new = super().detached()
+        new.wtw, new.wtr, new.noise = self.wtw.detach(), self.wtr.detach(), self.noise.detach()
+        return new
+
+    def _m_system(self):
+        Kuu = self._train_interp().base.to_dense()
+        eye = torch.eye(Kuu.shape[-1], dtype=Kuu.dtype, device=Kuu.device)
+        return self.wtw @ Kuu + self.noise * eye, Kuu
+
+    @property
+    def interp_mean_cache(self) -> torch.Tensor:
+        if self._interp_mean_cache is None:
+            with self._grad_mode():
+                M, Kuu = self._m_system()
+                self._interp_mean_cache = Kuu @ torch.linalg.solve(M, self.wtr.unsqueeze(-1))
+        return self._interp_mean_cache
+
+    @property
+    def interp_covar_cache(self) -> torch.Tensor:
+        if self._interp_covar_cache is None:
+            with self._grad_mode():
+                M, Kuu = self._m_system()
+                P = Kuu @ torch.linalg.solve(M, self.wtw @ Kuu)
+                self._interp_covar_cache = psd_safe_cholesky(0.5 * (P + P.mT))
+        return self._interp_covar_cache
+
+    def _love_variances(self) -> bool:
+        # the WISKI root of K_UU − P is exact in inducing space: every request reads it
+        return True
+
+    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output):
+        """Interpolate the new points and add their WᵀW and Wᵀr terms."""
+        with self._grad_mode():
+            joint = full_output.lazy_covariance_matrix.evaluate_kernel()
+            n_new = targets.shape[-1]
+            idx, val = joint.left_interp_indices[-n_new:], joint.left_interp_values[-n_new:]
+            d_wtw, d_wtr = _wtw_wtr(idx, val, targets - full_output.loc[-n_new:], self.wtw.shape[-1])
+            return WiskiPredictionStrategy(full_inputs, full_output, full_targets, self.likelihood,
+                                           self.wtw + d_wtw, self.wtr + d_wtr, self.noise)
+
+    @classmethod
+    def from_interpolated(cls, strategy: InterpolatedPredictionStrategy) -> "WiskiPredictionStrategy":
+        """WᵀW and Wᵀ(y − μ) of the training data, built once."""
+        with strategy._grad_mode():
+            interp = strategy._train_interp()
+            r = strategy.train_labels - strategy.train_prior_dist.loc
+            wtw, wtr = _wtw_wtr(interp.left_interp_indices, interp.left_interp_values, r, interp.base.shape[-1])
+            noise = strategy.likelihood.noise.reshape(-1)[0]
+            return cls(strategy.train_inputs, strategy.train_prior_dist, strategy.train_labels, strategy.likelihood,
+                       wtw, wtr, noise, strategy.lanczos_init)

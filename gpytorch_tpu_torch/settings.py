@@ -204,6 +204,13 @@ class max_eager_kernel_size(_value_context):
     _global_value = 512
 
 
+class use_toeplitz(_feature_flag):
+    """A grid kernel's per-dimension covariance as a Toeplitz operator (FFT products) rather
+    than a dense matrix."""
+
+    _default = True
+
+
 class memory_efficient(_feature_flag):
     """Never evaluate a kernel matrix densely, whatever its size."""
 

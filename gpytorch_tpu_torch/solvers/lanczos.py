@@ -5,6 +5,12 @@ Counterpart of ``gpytorch_tpu/solvers/lanczos.py`` (``block_lanczos_ritz``, ``_r
 is explicit: ``initial_vectors`` where given, the rest drawn from a seeded
 ``torch.Generator`` on the CPU and then moved to the operator's device, so that a CPU run
 and a CUDA run start from the same block.
+
+With autograd on, a root carries the history of the operator's products through the QR
+factorisations, the re-orthogonalisation and the eigendecomposition, as the JAX package
+differentiates its run; the start block and the Ritz floor carry none.  The eigh backward
+divides by the gaps λᵢ − λⱼ of the Ritz values: a degenerate spectrum has no finite
+gradient in either package.
 """
 
 from __future__ import annotations
@@ -75,9 +81,11 @@ def _ritz_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor], in
     # float32 the smallest Ritz values of a large K̂ are rounding noise, and in the
     # inverse root they become 1/√λ spikes that turn LOVE variances negative.  Cauchy
     # interlacing makes the clamp exact in exact arithmetic.
+    # The floor is a constant of the gradient (``stop_gradient`` in the JAX package): a
+    # clamped Ritz value sends nothing to the noise.
     bound = linop._eig_lower_bound()
     if bound is not None:
-        lam = torch.maximum(lam, torch.as_tensor(bound, dtype=lam.dtype, device=lam.device))
+        lam = torch.maximum(lam, torch.as_tensor(bound, dtype=lam.dtype, device=lam.device).detach())
     V = V[:, -max_rank:]
     return Q @ (V / torch.sqrt(lam) if inverse else V * torch.sqrt(lam))
 

@@ -9,24 +9,47 @@ import torch
 
 
 def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    """Copy raw parameters from a ``gpytorch_tpu`` model into ``module``.
+    """Copy raw parameters, and optionally a grid kernel's grid state, from a
+    ``gpytorch_tpu`` model into ``module``.
 
     ``params`` is ``{name: np.asarray(value) for name, value in model.trainable_params().items()}``
     of a ``gpytorch_tpu`` model; the names are dotted paths (``covar_module.raw_outputscale``)
     that match this package's parameter names.  Every parameter of ``module`` must be
-    given, with its shape; values are cast to the parameter's dtype and device.  Clears the
-    module's caches, since they depend on the parameters."""
+    given, with its shape; values are cast to the parameter's dtype and device.
+
+    A grid kernel's state may be given too, under the JAX kernel's attribute names:
+    ``<kernel>.grid`` (its list of 1D grids), ``<kernel>.grid_bounds`` and
+    ``<kernel>.has_initialized_grid``.  These become the kernel's buffers with the values'
+    own dtypes (the JAX package keeps a grid made from bounds in float32 even under x64),
+    so that both packages interpolate on the same grid.  Clears the module's caches, since
+    they depend on the parameters."""
     own = dict(module.named_parameters())
-    unknown, missing = set(params) - set(own), set(own) - set(params)
+    state = {name: value for name, value in params.items() if name not in own}
+    unknown = {name for name in state if name.rsplit(".", 1)[-1] not in _GRID_STATE}
+    missing = set(own) - set(params)
     if unknown or missing:
         raise KeyError(f"parameter names differ: unknown {sorted(unknown)}, missing {sorted(missing)}")
     with torch.no_grad():
         for name, value in params.items():
+            if name in state:
+                continue
             value = torch.as_tensor(np.array(value))
             if tuple(value.shape) != tuple(own[name].shape):
                 raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(own[name].shape)}")
             own[name].copy_(value)
+    for name, value in state.items():
+        path, attr = name.rsplit(".", 1) if "." in name else ("", name)
+        kernel = module.get_submodule(path)
+        device = kernel.grid_0.device
+        if attr == "grid":
+            kernel.update_grid([torch.as_tensor(np.array(g), device=device) for g in value])
+        else:
+            setattr(kernel, attr, torch.as_tensor(np.array(value), device=device))
     for m in module.modules():
         if hasattr(m, "clear_caches"):
             m.clear_caches()
     return module
+
+
+# a grid kernel's state that ``load_jax_params`` carries
+_GRID_STATE = ("grid", "grid_bounds", "has_initialized_grid")

@@ -54,6 +54,8 @@ PERIODIC_STRIP_CASES = [(n, STRIP_M, d, t) for n in STRIP_N for d in (2, 100) fo
 @pytest.mark.parametrize("n,m,d,t", [(1000, 1537, 3, 1), (1000, 1537, 11, 20), (129, 65, 3, 100), (1, 1, 1, 1),
                                      # the tiled tier of 16 columns, t ∈ (1, 16]
                                      (1000, 1537, 3, 16), (1000, 1537, 11, 5),
+                                     # the tiled tiers of 20 and 32 columns, t ∈ (16, 20] and (20, 32]
+                                     (1000, 1537, 3, 20), (1000, 1537, 3, 27),
                                      # the tensor-core tier, t ∈ (32, 64]
                                      (1000, 1537, 3, 33), (1000, 1537, 3, 64), (1000, 1537, 11, 33),
                                      (1000, 1537, 11, 64), *WIDE_CASES, *STRIP_CASES])

@@ -294,15 +294,6 @@ def test_two_backward_passes_in_a_row_and_a_switch_of_settings():
     assert torch.isfinite(mean).all()
 
 
-def test_love_under_detach_test_caches_false_raises():
-    tm = _torch_model()
-    tx = torch.from_numpy(_task()[4])
-    for flag in (gt.settings.fast_pred_var, gt.settings.fast_pred_samples):
-        with gt.settings.detach_test_caches(False), flag(True), pytest.raises(NotImplementedError,
-                                                                              match="detach_test_caches"):
-            tm(tx)
-
-
 def test_fantasy_gradient_launches_the_symmetric_backward(monkeypatch):
     # on the CG branch with the hyperparameters live, the gradient of a fantasy model's Σμ*
     # runs the symmetric backward over the training rows once for the mean cache's solve
