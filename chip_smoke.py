@@ -4,8 +4,9 @@ N=100k, for the flagship RBF model (bench.py's default and honest recipes) and f
 periodic model, gradients of the flagship's predictions with respect to the test inputs,
 LOVE posterior sampling, iterative refinement of the mean cache, the dense-Cholesky path on
 a 1D toy, fantasy updates with a knowledge-gradient step through the caches, missing
-targets, KISS-GP in 1D and 2D with WISKI fantasy updates, and LOVE differentiated through
-its Lanczos roots.
+targets, KISS-GP in 1D and 2D with WISKI fantasy updates, LOVE differentiated through its
+Lanczos roots, a batch of two independent GPs at N=100k, and Kronecker, LCM and Hadamard
+multitask GPs.
 
     python3 chip_smoke.py
 
@@ -181,6 +182,27 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               float64 plain path at N=8,192 beside planted faults, central differences in
               float64 at N=2,000; kernel_bwd_fused at 100k², t=20 against float64.  Alone:
               ``python3 -c 'import chip_smoke; chip_smoke.phase_love_gradient()'``.
+13. batch   — a batch-independent GP at full width (``make_batch_task``: two outputs of
+              N=100,000 on the flagship's inputs, the second with other lengthscales): the
+              flagship's model with ``batch_shape=(2,)`` on the kernel, outputscale, mean
+              and likelihood, bench.py's recipe for 30 steps, then both outputs' 2,048 test
+              points served (mean and LOVE variances).  Gates: the launches (2
+              kernel_matvec a CG iteration, 2 kernel_bwd_fused a step, no kernel_grad_x),
+              each output's RMSE and NLPD, one batched loss and gradient against two
+              unbatched models with each element's parameters, probes and warm start
+              (beside a planted fault); then CUDA against CPU at N=2,000 with pinned pivots,
+              RBF and the batched periodic branch.  Alone:
+              ``python3 -c 'import chip_smoke; chip_smoke.phase_batch()'``.
+13b. multitask — ``examples/03_multitask_gp.py``'s Kronecker multitask GP with 4 tasks on
+              8,192 inputs (n·t = 32,768, K_data formed once a solve, unpreconditioned
+              mBCG): 30 Adam steps and 512 test points (per-task MAE against the noiseless
+              function, gated at each task's noise), CUDA float32 against a CPU float64 run
+              at n = 1,024; no kernel may launch.
+13c. lcm-hadamard — LCMKernel([RBF, Matérn-3/2]) with 2 tasks on 4,096 inputs, and a
+              Hadamard GP (RBF on column 0 times an IndexKernel on column 1,
+              HadamardGaussianLikelihood) on 2 × 4,096 points, dense, its mBCG
+              preconditioned: 20 steps and a request each, each against its CPU float64 run
+              at a small n; no kernel may launch.
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -417,6 +439,22 @@ LG_DOS_TOL = 1e-10          # kernel_bwd_fused at N=100k, t=20 against float64: 
                             # of dos × (1 − LG_FAULT_EPS), which reads ≈ 4e-8
 LG_FD_N, LG_FD_H = 2000, 1e-4  # central differences of Σσ² along its gradient, float64 plain path on the card
 LG_FD_TOL = 1e-4            # … |Δ| / |derivative|
+# the batch-independent GP (phase 13) and the multitask GPs (phases 13b, 13c)
+B_STEPS = 30                # phase 13: Adam steps (cosine 0.1 → 0.01 over them) of the two-output batch at N=100k
+B_FIXED_ITERS = 6           # … the per-element check's CG, run for exactly this many iterations (the SLQ minimum)
+B_ELEMENT_TOL = 1e-2        # … each element's MLL (|Δ| / max(|MLL|, 1)) and gradient (max |Δ| / max |∇|) batched
+                            # against unbatched.  The products launch per element on the same operands, but CG's
+                            # column reductions and the preconditioner's eigensolvers and factors run batched, which
+                            # sums in another order, and CG amplifies float32 round-off on the trained K̂: a CPU
+                            # float32 rehearsal (N=3,000, trained, 8 iterations) read 1.6e-4 and 1.5e-3, and an
+                            # H100 at N=100k 5.5e-3 and 2.4e-3 (the gradients; PERF.md).  A planted fault (element
+                            # 1 given element 0's lengthscales) must read above the gate: 0.688 there
+B_SLICE_N = 2000            # phase 13's CUDA-against-CPU slice, gated as phase 6
+MT_N, MT_TASKS, MT_TEST, MT_STEPS = 8192, 4, 512, 30  # phase 13b: inputs, tasks, test points, Adam steps
+MT_SLICE_N = 1024           # phases 13b and 13c: CUDA float32 against a CPU float64 run at this n (13c at n/2, n/4)
+MT_SLICE_TOL = (1e-3, 1e-2, 1e-3)  # … loss (|Δ| / max(|loss|, 1)), gradient (max |Δ| / max |∇|), served mean
+                            # (max |Δ| / max |μ|)
+LCM_N, HAD_N, MT_SMALL_STEPS = 4096, 4096, 20  # phase 13c: LCM inputs, Hadamard points per task, Adam steps
 
 
 class SmokeFailure(Exception):
@@ -888,17 +926,22 @@ def periodic_bwd_tc_bound(n: int, d: int, t: int):
     return tc_bound(n * n, 2 * t, 15 * d + 4, 4 * (2 * n * d + 2 * d + 2 * n * t + 1))
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
+    )
+    return smi.stdout.strip()
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: this smoke test runs only on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
-    )
     print(f"[device] {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    print(f"[device] nvidia-smi: {smi.stdout.strip()}", flush=True)
+    print(f"[device] nvidia-smi: {nvidia_smi()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4101,6 +4144,620 @@ def phase_love_gradient(model=None):
             "fault_theta": fault_theta}
 
 
+def make_batch_task(n_train: int, n_test: int, seed: int = 0):
+    """The two outputs of phase 13 on the flagship task's inputs: output 0 is
+    ``make_task``'s target (the same draws), output 1 a second smooth function of the same
+    inputs with other lengthscales (long in x₀, short in x₁) plus Gaussian noise of 0.1
+    drawn with numpy from the seed; each standardised.  Returns x (n_train, D), y
+    (2, n_train), the test inputs and targets (2, n_test), and each output's noise standard
+    deviation in its standardised units."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n_train + n_test, D))
+    f0 = np.sin(4 * x[:, 0]) * np.cos(3 * x[:, 1]) + 0.5 * np.sin(7 * x[:, 2] * x[:, 0]) + 0.1 * x[:, 2]
+    y0 = f0 + 0.1 * rng.normal(size=n_train + n_test)
+    f1 = np.cos(1.5 * x[:, 0] + 0.5) + 0.8 * np.sin(10 * x[:, 1]) * np.exp(-x[:, 2])
+    y1 = f1 + 0.1 * np.random.default_rng([seed, 1]).normal(size=n_train + n_test)
+    y = np.stack([(y0 - y0.mean()) / y0.std(), (y1 - y1.mean()) / y1.std()])
+    return x[:n_train], y[:, :n_train], x[n_train:], y[:, n_train:], (0.1 / y0.std(), 0.1 / y1.std())
+
+
+def build_batch_model(train_x, train_y, device, dtype, periodic=False):
+    """Phase 13's batch-independent GP: the flagship's model (the periodic model's with
+    ``periodic``) with a batch shape of one element per row of ``train_y`` on the kernel, the
+    outputscale, the mean and the likelihood, on inputs shared by the outputs (broadcast to
+    (b, n, d)), every element at the flagship's initial values, in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    b, d = np.shape(train_y)[0], np.shape(train_x)[1]
+
+    class BatchGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            base = (gt.kernels.PeriodicKernel(ard_num_dims=d, batch_shape=(b,)) if periodic
+                    else gt.kernels.RBFKernel(ard_num_dims=d, batch_shape=(b,)))
+            self.mean_module = gt.means.ConstantMean(batch_shape=(b,))
+            self.covar_module = gt.kernels.ScaleKernel(base, batch_shape=(b,))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    tx = torch.as_tensor(train_x, dtype=dtype, device=device)
+    ty = torch.as_tensor(train_y, dtype=dtype, device=device)
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR),
+                                                   batch_shape=(b,))
+    model = BatchGP(tx.expand((b,) + tx.shape), ty, likelihood).to(device=device, dtype=dtype)
+    model.likelihood.noise = 0.1
+    model.covar_module.base_kernel.lengthscale = 0.5
+    if periodic:
+        model.covar_module.base_kernel.period_length = P_PERIODS
+    return model.train()
+
+
+class BatchProbes:
+    """Probe base samples of a batch: element i's from ``element(i)`` (an ``InjectedProbes``
+    with i in its seed), stacked on the batch axis of the shapes (probes, b, …), so that an
+    unbatched model of element i given ``element(i)`` draws the same probes."""
+
+    def __init__(self, step: int, seed: int = PROBE_SEED):
+        self.step, self.seed = step, seed
+
+    def element(self, i: int) -> InjectedProbes:
+        return InjectedProbes(self.step, seed=self.seed * 1000 + i)
+
+    def __call__(self, shape):
+        return np.stack([self.element(i)(shape[:1] + shape[2:]) for i in range(shape[1])], axis=1)
+
+
+def batch_loss(model, base_samples, state, budget: float = PC_NOISE_BUDGET):
+    """The mean over the outputs of −MLL per datum, by one batched mBCG under the training
+    recipe with the rhs-only warm state; returns (loss, each element's MLL, state)."""
+    import gpytorch_tpu_torch as gt
+
+    tx, ty = model.train_inputs[0], model.train_targets
+    with train_settings(budget):
+        mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
+        value, state = mll(model(tx), ty, base_samples=base_samples, solver_state=state, return_state=True)
+    return -value.mean(), value.detach(), state
+
+
+def batch_quality(model, test_x, test_y, dev):
+    """The batch model in eval mode, refreshed and asked for all test points under the eval
+    settings: (rmse per output, marginal nlpd per output, the refresh's CG result, refresh
+    s, request s, predictive variances)."""
+    import torch
+
+    model.eval()
+    with eval_settings():
+        cg, refresh_s, answers = serve(model, test_x, dev, [slice(0, test_x.shape[-2])])
+    _, mean, var, secs = answers[0]
+    check(bool(torch.isfinite(mean).all()) and bool((var > 0).all()), "batch: predictions not finite or variance ≤ 0")
+    noise = model.likelihood.noise.reshape(-1)
+    rmse = (mean - test_y).square().mean(-1).sqrt().tolist()
+    nlpd = [marginal_nlpd(mean[i], var[i], test_y[i], noise[i]) for i in range(mean.shape[0])]
+    return rmse, nlpd, cg, refresh_s, secs, var
+
+
+def _unbatched_element(batch_model, train_x, train_y, i: int):
+    """An unbatched flagship model on element i's targets with element i's raw parameters."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    model = build_model(train_x, train_y[i], "cuda", torch.float32, params=None)
+    raw = dict(batch_model.named_parameters())
+    gt.load_jax_params(model, {name: raw[name][i].detach().cpu().numpy() for name, _ in model.named_parameters()})
+    return model.train()
+
+
+def batch_against_unbatched(model, train_x, train_y, state):
+    """Phase 13's per-element check at N=100k: one batched loss and gradient against two
+    unbatched port models with each element's raw parameters, the same probes and the same
+    warm start (``state``, the last training step's rhs solves).  Under the training recipe
+    CG stops when every column of the batch has converged or none has improved for the
+    stall window, so the batched solve runs at least as long as the slower element's: its
+    CG counts are printed beside the unbatched ones (readings).  The gate runs CG for
+    B_FIXED_ITERS iterations in both (tolerance 0, no stall exit), the same function then,
+    and holds each element's MLL and gradient to B_ELEMENT_TOL, beside a planted fault that
+    the gate must see.  The same two runs from a zero start are printed, not gated: CG keeps
+    its best iterate, the start itself, until the 2-norm residual first drops below |y|, so
+    a run that stops before then drops the inverse quadratic (ROADMAP queue 3)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    probes = BatchProbes(step=10_000)
+    warm = state.detach()
+    singles = [_unbatched_element(model, train_x, train_y, i) for i in range(2)]
+
+    def value_and_grads(m, base_samples, state, fixed):
+        stack = train_settings()
+        if fixed:
+            for ctx in (gt.settings.max_cg_iterations(B_FIXED_ITERS), gt.settings.cg_tolerance(0.0),
+                        gt.settings.cg_stall_window(10**6)):
+                stack.enter_context(ctx)
+        m.zero_grad()
+        with stack:
+            mll, state = gt.mlls.ExactMarginalLogLikelihood(m.likelihood, m)(
+                m(m.train_inputs[0]), m.train_targets, base_samples=base_samples, solver_state=state, return_state=True)
+        (-mll.sum()).backward()
+        return mll.detach(), {k: p.grad.detach().clone() for k, p in m.named_parameters()}, state.num_iters
+
+    def run(fixed, start):
+        return (value_and_grads(model, probes, start, fixed),
+                [value_and_grads(single, probes.element(i), start[i], fixed) for i, single in enumerate(singles)])
+
+    for start, name in ((torch.zeros_like(warm), "a zero start"), (warm, "the last training state")):
+        for fixed in (False, True):
+            (mll, _, iters), alone = run(fixed, start)
+            print(f"[batch] N={N_TRAIN}, from {name}, "
+                  f"{f'CG fixed at {B_FIXED_ITERS} iterations' if fixed else 'the training recipe'}: batched CG "
+                  f"{iters} iterations, unbatched {[a[2] for a in alone]}; MLL batched {mll.tolist()}, unbatched "
+                  f"{[a[0].item() for a in alone]} (readings)", flush=True)
+    (mll, grads, iters), alone = run(True, warm)
+    gaps = []
+    for i, (mll_i, grads_i, iters_i) in enumerate(alone):
+        d_loss = abs(mll[i].item() - mll_i.item()) / max(abs(mll_i.item()), 1.0)
+        scale = max(g.abs().max().item() for g in grads_i.values())
+        d_grad = max((grads[k][i] - g).abs().max().item() for k, g in grads_i.items()) / scale
+        gaps.append((d_loss, d_grad))
+        print(f"[batch] element {i}, CG fixed at {B_FIXED_ITERS} iterations (batched {iters}, unbatched {iters_i}): "
+              f"MLL batched {mll[i].item():.6f} unbatched {mll_i.item():.6f} (rel diff {d_loss:.3e}), gradient max "
+              f"diff {d_grad:.3e} of the largest (tol {B_ELEMENT_TOL})", flush=True)
+    # the planted fault: element 1 alone with element 0's lengthscales, a state shared across elements
+    faulty = _unbatched_element(model, train_x, train_y, 1)
+    with torch.no_grad():
+        faulty.covar_module.base_kernel.raw_lengthscale.copy_(model.covar_module.base_kernel.raw_lengthscale[0])
+    mll_f, grads_f, _ = value_and_grads(faulty, probes.element(1), warm[1], True)
+    scale = max(g.abs().max().item() for g in grads_f.values())
+    fault = max(abs(mll[1].item() - mll_f.item()) / max(abs(mll_f.item()), 1.0),
+                max((grads[k][1] - g).abs().max().item() for k, g in grads_f.items()) / scale)
+    print(f"[batch] planted fault (element 1 with element 0's lengthscales): {fault:.3e} (must exceed "
+          f"{B_ELEMENT_TOL})", flush=True)
+    check(all(d_loss <= B_ELEMENT_TOL and d_grad <= B_ELEMENT_TOL for d_loss, d_grad in gaps),
+          f"batch: a batched element differs from its unbatched model: {gaps}")
+    check(fault > B_ELEMENT_TOL, f"batch: the per-element gate does not see a planted fault: {fault:.3e}")
+    return gaps
+
+
+def pivot_correction_witness(n: int = N_TRAIN, rank: int = 50, device: str = "cuda"):
+    """Whether the pivoted Cholesky's correction L·L[p] as a one-column matrix product
+    ((n, rank) @ (rank, 1), the form that serves batched and unbatched factors alike)
+    rounds as the matrix-vector product (n, rank) @ (rank,) does, in float32 on ``device``,
+    at each step m of a rank-``rank`` factorisation (columns past m zero): the entries that
+    differ and their largest gap.  Not part of the run:
+    ``python3 -c 'import chip_smoke; chip_smoke.pivot_correction_witness()'``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(PROBE_SEED)
+    full = torch.randn(n, rank, generator=gen).to(device)
+    pivots = torch.randint(n, (rank,), generator=gen).tolist()
+    differ, gap = 0, 0.0
+    for m, p in enumerate(pivots, start=1):
+        L = torch.where(torch.arange(rank, device=device) < m, full, torch.zeros((), device=device))
+        gemv = L @ L[p]
+        gemm = (L @ L[p:p + 1].mT).squeeze(-1)
+        differ += int((gemv != gemm).sum())
+        gap = max(gap, (gemv - gemm).abs().max().item())
+    print(f"[pivot correction] n={n}, rank {rank}, float32 on {device}: one-column gemm against gemv over {rank} "
+          f"steps: {differ} entries differ, largest gap {gap:.3e}", flush=True)
+    return differ, gap
+
+
+def phase_batch():
+    """Phase 13: the batch-independent GP at full width (``make_batch_task``: two outputs of
+    N=100,000 on the flagship's inputs), trained with bench.py's recipe for B_STEPS steps
+    and served on the 2,048 test points of each output, every product one fused launch per
+    output.  Gates: finite losses, gradients and variances; each output's marginal NLPD
+    lowered; output 0's RMSE ≤ RMSE_LIMIT (1.153 times its noise), output 1's ≤ 1.153 times
+    its own noise;
+    training launches 2 kernel_matvec per CG iteration, 2 kernel_bwd_fused a step and no
+    kernel_grad_x (the one-pass symmetric backward per element), serving 2 per CG
+    iteration, Lanczos block and product; then ``batch_against_unbatched``.  Alone:
+
+        python3 -c 'import chip_smoke; chip_smoke.phase_batch()'
+
+    Returns the readings."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    train_x, train_y, test_x, test_y, noise_std = make_batch_task(N_TRAIN, N_TEST, seed=0)
+    dev = "cuda"
+    model = build_batch_model(train_x, train_y, dev, torch.float32)
+    tx = torch.as_tensor(test_x, dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(test_y, dtype=torch.float32, device=dev)
+    # output 1's RMSE gate: its own noise scaled as the flagship's gate scales output 0's
+    limits = (RMSE_LIMIT, RMSE_LIMIT * noise_std[1] / noise_std[0])
+    rmse0, nlpd0, *_ = batch_quality(model, tx, ty, dev)
+    print(f"[batch] two outputs of N={N_TRAIN} (noise std {noise_std[0]:.4f} and {noise_std[1]:.4f} in standardised "
+          f"units); the initial parameters served: rmse {[round(r, 4) for r in rmse0]}, marginal nlpd "
+          f"{[round(v, 4) for v in nlpd0]}", flush=True)
+    model.train()
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.1)
+    scheduler = torch.optim.lr_scheduler.CosineAnnealingLR(optimizer, T_max=B_STEPS, eta_min=0.01)
+    generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    state = torch.zeros(2, N_TRAIN, 1, dtype=torch.float32, device=dev)
+    wrappers = (fk.kernel_matvec_cuda, fk.kernel_bwd_fused_cuda, fk.kernel_grad_x_cuda)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, iters, losses = [], [], []
+    for step in range(B_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        loss, _, state = batch_loss(model, generator, state)
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        ok = finite_step(loss, model)
+        times.append(time.perf_counter() - t0)
+        iters.append(state.num_iters)
+        losses.append(loss.item())
+        check(ok, f"batch training step {step}: non-finite loss or gradient")
+    train_launches = tuple(w.launches for w in wrappers)
+    train_peak = torch.cuda.max_memory_allocated()
+    median = sorted(times[1:])[(B_STEPS - 1) // 2]
+    mean = sum(times[1:]) / (B_STEPS - 1)
+    kern = model.covar_module
+    print(f"[batch] {B_STEPS} steps: median {median:.4f} s/step, mean {mean:.4f} s/step over steps 1-{B_STEPS - 1}, "
+          f"first step {times[0]:.3f} s; CG iterations per step {iters} ({sum(iters)} in all); loss per step "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    print(f"[batch] lengthscales {kern.base_kernel.lengthscale.detach().cpu().numpy().round(4).tolist()}, outputscales "
+          f"{kern.outputscale.detach().cpu().numpy().round(4).tolist()}, noises "
+          f"{model.likelihood.noise.detach().cpu().numpy().reshape(-1).round(5).tolist()}; peak device memory "
+          f"{train_peak / 2**20:.1f} MiB", flush=True)
+    expected = (2 * sum(iters), 2 * B_STEPS, 0)
+    print(f"[batch] training launched kernel_matvec, kernel_bwd_fused, kernel_grad_x {train_launches} (expected "
+          f"{expected}: one product per output a CG iteration, one fused backward per output a step)", flush=True)
+    check(train_launches == expected, f"batch training launched {train_launches}, expected {expected}")
+    for w in wrappers:
+        w.launches = 0
+    rmse, nlpd, cg, refresh_s, secs, var = batch_quality(model, tx, ty, dev)
+    serve_launches = tuple(w.launches for w in wrappers)
+    serve_expected = (2 * (cg.num_iters + 5 + 2), 0, 0)
+    print(f"[batch] serving the trained model: refresh_s {refresh_s:.3f} (CG {cg.num_iters} iterations), request_ms "
+          f"{secs * 1e3:.2f} ({N_TEST} points of each output); rmse {[round(r, 4) for r in rmse]} (limits "
+          f"{[round(v, 4) for v in limits]}), marginal nlpd {[round(v, 4) for v in nlpd]} (initial "
+          f"{[round(v, 4) for v in nlpd0]}); smallest predictive variance {var.min().item():.4e}; launches "
+          f"{serve_launches} (expected {serve_expected}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {nvidia_smi()}", flush=True)
+    check(serve_launches == serve_expected, f"batch serving launched {serve_launches}, expected {serve_expected}")
+    check(all(r <= lim for r, lim in zip(rmse, limits)), f"batch rmse {rmse} above {limits}")
+    check(all(v < v0 - TRAIN_NLPD_DROP for v, v0 in zip(nlpd, nlpd0)), f"batch: training took the marginal nlpd "
+                                                                        f"from {nlpd0} only to {nlpd}")
+    model.train()
+    gaps = batch_against_unbatched(model, train_x, train_y, state.solution)
+    return dict(launches=tuple(a + b for a, b in zip(train_launches, serve_launches)), median=median, mean=mean,
+                iters=iters, rmse=rmse, nlpd=nlpd, refresh_s=refresh_s, request_ms=secs * 1e3, gaps=gaps,
+                peak=train_peak)
+
+
+def _batch_slice_run(device, dtype, steps, periodic=False):
+    """Phase 13's slice: the batch model (periodic with ``periodic``) at N=B_SLICE_N from
+    its initial values with ``BatchProbes``, a float64 run with the float32 runs' τ:
+    (step-1 loss, step-1 gradients, raw parameters after ``steps`` steps, the model)."""
+    import torch
+
+    budget = PC_NOISE_BUDGET_F64 if dtype == torch.float64 else PC_NOISE_BUDGET
+    if periodic:
+        (x, y0, _, _), (_, y1, _, _) = (make_periodic_task(B_SLICE_N, 0, seed=s) for s in (3, 4))
+        model = build_batch_model(x, np.stack([y0, y1]), device, dtype, periodic=True)
+        optimizer, scheduler = make_periodic_optimizer(model)
+    else:
+        x, y, _, _, _ = make_batch_task(B_SLICE_N, 0, seed=3)
+        model = build_batch_model(x, y, device, dtype)
+        optimizer, scheduler = make_optimizer(model)
+    state = torch.zeros(2, B_SLICE_N, 1, dtype=dtype, device=device)
+    for step in range(steps):
+        optimizer.zero_grad()
+        loss, _, state = batch_loss(model, BatchProbes(step), state, budget)
+        loss.backward()
+        check(finite_step(loss, model), f"batch slice on {device}, step {step}: non-finite loss or gradient")
+        if step == 0:
+            loss0 = loss.item()
+            grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
+        optimizer.step()
+        scheduler.step()
+    raw = {k: p.detach().cpu().double() for k, p in model.named_parameters()}
+    return loss0, grads, raw, model
+
+
+def phase_batch_slice(periodic=False):
+    """Phase 13's CUDA-against-CPU check at N=B_SLICE_N: the batch model (with ``periodic``,
+    two outputs of the periodic task through the batched periodic branch) trained 3 steps on
+    CPU tensors and on CUDA tensors, every run on the CPU float32 run's pinned pivots (each
+    element its own), with a CPU float64 run as the floor of the gradient gate; then the
+    CPU run's parameters served on both devices (the mean and LOVE variances of 512
+    points), as phase 6 and phase 4 do."""
+    import torch
+
+    tag = "batch-periodic-slice" if periodic else "batch-slice"
+    pins = PinnedPivots()
+    with pins.record():
+        l_cpu, g_cpu, r_cpu, m_cpu = _batch_slice_run("cpu", torch.float32, SLICE_TRAIN_STEPS, periodic)
+    with pins.replay():
+        l_gpu, g_gpu, r_gpu, _ = _batch_slice_run("cuda", torch.float32, SLICE_TRAIN_STEPS, periodic)
+    with pins.replay():
+        floor = _grad_gap(_batch_slice_run("cpu", torch.float64, 1, periodic)[1], g_cpu)[0]
+    d_loss = abs(l_cpu - l_gpu) / max(abs(l_cpu), 1.0)
+    d_grad, _ = _grad_gap(g_cpu, g_gpu)
+    d_raw = max((r_cpu[k] - r_gpu[k]).abs().max().item() for k in r_cpu)
+    test_x = (make_periodic_task(B_SLICE_N, 512, seed=3)[2] if periodic else make_batch_task(B_SLICE_N, 512, seed=3)[2])
+    out = {}
+    from gpytorch_tpu_torch import settings
+
+    with eval_settings(min_preconditioning_size=1000), settings.eval_cg_tolerance(SLICE_CG_TOL):
+        for device in ("cpu", "cuda"):
+            model = build_batch_model(m_cpu.train_inputs[0][0].numpy(), m_cpu.train_targets.numpy(), device,
+                                      torch.float32, periodic)
+            model.load_state_dict(m_cpu.state_dict())
+            model.eval()
+            _, _, answers = serve(model, torch.as_tensor(test_x, dtype=torch.float32, device=device), device,
+                                  [slice(0, 512)])
+            out[device] = (answers[0][1].cpu().double(), answers[0][2].cpu().double())
+    (mc, vc), (mg, vg) = out["cpu"], out["cuda"]
+    dm = ((mc - mg).abs().max() / mc.abs().max()).item()
+    dv = ((vc - vg).abs().max() / vc.abs().max()).item()
+    print(f"[{tag}] N={B_SLICE_N}, 2 outputs: step-1 loss cpu {l_cpu:.6f} cuda {l_gpu:.6f} (rel diff {d_loss:.3e}, tol "
+          f"{SLICE_LOSS_TOL}); step-1 grads max diff {d_grad:.3e} of the largest (tol {SLICE_GRAD_TOL}; cpu float32 "
+          f"against float64 {floor:.3e}); raw parameters after {SLICE_TRAIN_STEPS} steps max diff {d_raw:.3e} (tol "
+          f"{SLICE_PARAM_TOL}); 512 points served: mean rel diff {dm:.3e} (tol {SLICE_MEAN_TOL}), var rel diff "
+          f"{dv:.3e} (tol {SLICE_VAR_TOL})", flush=True)
+    check(d_loss <= SLICE_LOSS_TOL, f"{tag} training loss differs: {d_loss:.3e}")
+    check(d_grad <= SLICE_GRAD_TOL, f"{tag} training gradients differ: {d_grad:.3e}")
+    check(d_raw <= SLICE_PARAM_TOL, f"{tag} training parameters differ: {d_raw:.3e}")
+    check(bool(torch.isfinite(mg).all()) and bool((vg > 0).all()), f"{tag}: served means not finite or variances ≤ 0")
+    check(dm <= SLICE_MEAN_TOL and dv <= SLICE_VAR_TOL, f"{tag} served predictions differ: mean {dm:.3e}, var {dv:.3e}")
+
+
+def make_multitask_task(n_train: int, n_test: int, num_tasks: int, seed: int = 0):
+    """t correlated outputs of x uniform on [0, 1]: a shared smooth function f mixed by a
+    seeded 1 × t vector w, y_t = w_t f + noise of standard deviation 0.05·(t + 1), drawn with
+    numpy.  Returns x, y (n_train, t), the test inputs and the noiseless test targets."""
+    rng = np.random.default_rng([seed, 13])
+    x = rng.uniform(size=n_train + n_test)
+    f = np.sin(6 * x) + 0.5 * np.cos(13 * x)
+    w = rng.normal(size=num_tasks)
+    clean = f[:, None] * w[None, :]
+    y = clean + 0.05 * (1 + np.arange(num_tasks)) * rng.normal(size=clean.shape)
+    return x[:n_train], y[:n_train], x[n_train:], clean[n_train:]
+
+
+def build_multitask_model(train_x, train_y, device, dtype, lcm=False):
+    """``examples/03_multitask_gp.py``'s Kronecker multitask GP (MultitaskMean(ConstantMean),
+    MultitaskKernel(RBFKernel, rank 1), MultitaskGaussianLikelihood), or with ``lcm`` its
+    LCMKernel([RBF, Matérn-3/2]) variant, at its initial values, in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    t = np.shape(train_y)[1]
+
+    class MultitaskGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.MultitaskMean(gt.means.ConstantMean(), num_tasks=t)
+            self.covar_module = (gt.kernels.LCMKernel([gt.kernels.RBFKernel(), gt.kernels.MaternKernel(nu=1.5)],
+                                                      num_tasks=t) if lcm
+                                 else gt.kernels.MultitaskKernel(gt.kernels.RBFKernel(), num_tasks=t, rank=1))
+
+        def forward(self, x):
+            return gt.distributions.MultitaskMultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    tx, ty = (torch.as_tensor(a, dtype=dtype, device=device) for a in (train_x, train_y))
+    return MultitaskGP(tx, ty, gt.likelihoods.MultitaskGaussianLikelihood(num_tasks=t)).to(device=device, dtype=dtype)
+
+
+def make_hadamard_task(n_per_task: int, n_test_per_task: int, seed: int = 0):
+    """Two tasks on their own inputs, each a row [task, x]: task 0 sin 6x, task 1
+    0.8 sin(6x + 0.5) + 0.3 cos 3x, noise 0.1, drawn with numpy.  Returns the training rows
+    (2n, 2) and targets, the test rows and their noiseless targets."""
+    rng = np.random.default_rng([seed, 17])
+
+    def rows(n):
+        xs = rng.uniform(size=(2, n))
+        f = np.concatenate([np.sin(6 * xs[0]), 0.8 * np.sin(6 * xs[1] + 0.5) + 0.3 * np.cos(3 * xs[1])])
+        return np.stack([np.repeat([0.0, 1.0], n), xs.reshape(-1)], axis=1), f
+
+    x, f = rows(n_per_task)
+    xs, fs = rows(n_test_per_task)
+    return x, f + 0.1 * rng.normal(size=f.shape), xs, fs
+
+
+def build_hadamard_model(train_x, train_y, device, dtype):
+    """A Hadamard multitask GP: K = K_RBF(x) ⊙ K_task(task), an RBF kernel on column 1 times
+    an IndexKernel (2 tasks, rank 1) on column 0, formed densely; the task noise of each
+    point from ``HadamardGaussianLikelihood``, which reads the task from column 0."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    class HadamardGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMean()
+            self.data_kernel = gt.kernels.RBFKernel(active_dims=(1,))
+            self.task_kernel = gt.kernels.IndexKernel(num_tasks=2, rank=1, active_dims=(0,))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.data_kernel(x) * self.task_kernel(x))
+
+    tx, ty = (torch.as_tensor(a, dtype=dtype, device=device) for a in (train_x, train_y))
+    likelihood = gt.likelihoods.HadamardGaussianLikelihood(num_tasks=2)
+    return HadamardGP(tx, ty, likelihood).to(device=device, dtype=dtype)
+
+
+def _mt_loss(model, base_samples, state, extra=(), budget: float = PC_NOISE_BUDGET):
+    """−MLL per datum of a multitask or Hadamard model by mBCG under the training recipe
+    (``extra``: the likelihood's arguments); returns (loss, state)."""
+    import gpytorch_tpu_torch as gt
+
+    tx, ty = model.train_inputs[0], model.train_targets
+    with train_settings(budget):
+        mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
+        value, state = mll(model(tx), ty, *extra, base_samples=base_samples, solver_state=state, return_state=True)
+    return -value, state
+
+
+def _mt_train_and_serve(tag, model, test_x, steps, extra=False):
+    """``steps`` Adam steps (cosine 0.1 → 0.01) of ``_mt_loss`` with probes from a seeded
+    generator, then the model refreshed and asked for ``test_x`` under the eval settings.
+    Returns (losses, CG iterations, median s/step, peak MiB, refresh s, request s, the
+    prediction's mean and variance, the launches of the five kernels, which must be none:
+    no pallas_call on these paths)."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    dev = test_x.device
+    tx = model.train_inputs[0]
+    rows = model.train_targets.numel()
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.1)
+    scheduler = torch.optim.lr_scheduler.CosineAnnealingLR(optimizer, T_max=steps, eta_min=0.01)
+    generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    state = torch.zeros(rows, 1, dtype=tx.dtype, device=dev)
+    wrappers = (fk.kernel_matvec_cuda, fk.kernel_bwd_fused_cuda, fk.kernel_grad_x_cuda, ppk.periodic_matvec_cuda,
+                ppk.periodic_bwd_fused_cuda)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, iters, times = [], [], []
+    for step in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        loss, state = _mt_loss(model, generator, state, (tx,) if extra else ())
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        check(finite_step(loss, model), f"{tag} training step {step}: non-finite loss or gradient")
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        iters.append(state.num_iters)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    model.eval()
+    with eval_settings(), torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        model.refresh()
+        sync(dev)
+        refresh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = model(test_x)
+        mean, var = pred.mean, pred.variance
+        sync(dev)
+        request_s = time.perf_counter() - t0
+    launched = tuple(w.launches for w in wrappers)
+    median = sorted(times[1:])[(steps - 1) // 2]
+    print(f"[{tag}] {steps} steps: median {median * 1e3:.1f} ms/step (first {times[0]:.3f} s, all {sum(times):.2f} s); CG "
+          f"iterations {iters} ({sum(iters)} in all); loss {losses[0]:.5f} → {losses[-1]:.5f}; peak device memory "
+          f"{peak:.1f} MiB; refresh_s {refresh_s:.3f}, request_ms {request_s * 1e3:.2f} ({test_x.shape[0]} points)",
+          flush=True)
+    print(f"[{tag}] launches of the five kernels in training and serving: {launched} (none expected)", flush=True)
+    check(launched == (0,) * 5, f"{tag} launched {launched}")
+    check(bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()) and bool((var > 0).all()),
+          f"{tag}: predictions not finite or variance ≤ 0")
+    check(sum(losses[-5:]) / 5 < losses[0], f"{tag}: the loss did not fall ({losses[0]:.5f} → {losses[-1]:.5f})")
+    return dict(losses=losses, iters=iters, median=median, peak=peak, refresh_s=refresh_s, request_s=request_s,
+                mean=mean, var=var, total_s=sum(times), launches=launched)
+
+
+def _mt_slice(tag, build, data, extra=False):
+    """CUDA float32 against a CPU float64 run of the port, beside a CPU float32 run (the
+    float32 floor): one loss and gradient at the initial values with the same injected
+    probes and pinned pivots (a float64 run with the float32 runs' τ), then the mean of the
+    test points served from those values at eval tolerance SLICE_CG_TOL.  Returns the
+    gaps (loss, gradient, mean)."""
+    import torch
+
+    from gpytorch_tpu_torch import settings
+
+    train_x, train_y, test_x = data
+    runs, pins = {}, PinnedPivots()
+    for device, dtype in (("cpu", torch.float32), ("cpu", torch.float64), ("cuda", torch.float32)):
+        model = build(train_x, train_y, device, dtype).train()
+        tx = model.train_inputs[0]
+        rows = model.train_targets.numel()
+        budget = PC_NOISE_BUDGET_F64 if dtype == torch.float64 else PC_NOISE_BUDGET
+        with pins.replay() if runs else pins.record():
+            loss, _ = _mt_loss(model, InjectedProbes(0), torch.zeros(rows, 1, dtype=dtype, device=device),
+                               (tx,) if extra else (), budget)
+            loss.backward()
+            grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
+            model.eval()
+            with eval_settings(), settings.eval_cg_tolerance(SLICE_CG_TOL), torch.no_grad():
+                mean = model(torch.as_tensor(test_x, dtype=dtype, device=device)).mean.cpu().double()
+        runs[(device, dtype)] = (loss.item(), grads, mean)
+
+    def gaps(a, b):
+        return (abs(a[0] - b[0]) / max(abs(a[0]), 1.0), _grad_gap(a[1], b[1])[0],
+                ((a[2] - b[2]).abs().max() / a[2].abs().max()).item())
+
+    ref = runs[("cpu", torch.float64)]
+    got, floor = gaps(ref, runs[("cuda", torch.float32)]), gaps(ref, runs[("cpu", torch.float32)])
+    print(f"[{tag}] slice: CUDA float32 against CPU float64: loss {got[0]:.3e}, gradient {got[1]:.3e}, mean {got[2]:.3e} "
+          f"(CPU float32: {floor[0]:.3e}, {floor[1]:.3e}, {floor[2]:.3e}; tol {MT_SLICE_TOL})", flush=True)
+    check(all(g <= tol for g, tol in zip(got, MT_SLICE_TOL)), f"{tag}: CUDA differs from CPU float64: {got}")
+    return got
+
+
+def phase_multitask():
+    """Phase 13b: the Kronecker multitask GP (``build_multitask_model``) on MT_TASKS
+    correlated outputs of MT_N inputs (``make_multitask_task``): MT_STEPS Adam steps by
+    unpreconditioned mBCG over the n·t rows of K_data ⊗ K_task + (I ⊗ D + σ²I) (K_data
+    formed once per solve, 268 MB of float32), then MT_TEST points served: ms a step, CG
+    iterations, per-task MAE against the noiseless function, peak memory.  Checks finite
+    values, a falling loss, no kernel launch, and ``_mt_slice`` at n = MT_SLICE_N."""
+    import torch
+
+    train_x, train_y, test_x, clean = make_multitask_task(MT_N, MT_TEST, MT_TASKS)
+    model = build_multitask_model(train_x, train_y, "cuda", torch.float32).train()
+    r = _mt_train_and_serve("multitask", model, torch.as_tensor(test_x, dtype=torch.float32, device="cuda"), MT_STEPS)
+    mae = (r["mean"].cpu().double() - torch.as_tensor(clean)).abs().mean(0).tolist()
+    print(f"[multitask] n={MT_N}, {MT_TASKS} tasks: per-task MAE against the noiseless function "
+          f"{[round(v, 4) for v in mae]} (noise std {[0.05 * (1 + i) for i in range(MT_TASKS)]}); task covariance "
+          f"{model.covar_module.task_covar_module.covar_matrix.detach().cpu().numpy().round(3).tolist()}", flush=True)
+    check(all(m < 0.05 * (1 + i) for i, m in enumerate(mae)), f"multitask: a task's MAE above its noise: {mae}")
+    sx, sy, stx, _ = make_multitask_task(MT_SLICE_N, 64, MT_TASKS, seed=1)
+    gaps = _mt_slice("multitask", build_multitask_model, (sx, sy, stx))
+    return dict(r, mae=mae, gaps=gaps)
+
+
+def phase_lcm_hadamard():
+    """Phase 13c: the LCM model (``build_multitask_model(lcm=True)``, 2 tasks on LCM_N inputs)
+    and the Hadamard model (``build_hadamard_model``, 2 × HAD_N points, dense, its mBCG
+    preconditioned), each MT_SMALL_STEPS Adam steps and a request, and each against its CPU
+    float64 run at a small n (``_mt_slice``); no kernel launch."""
+    import torch
+
+    train_x, train_y, test_x, clean = make_multitask_task(LCM_N, 256, 2, seed=2)
+    lcm = build_multitask_model(train_x, train_y, "cuda", torch.float32, lcm=True).train()
+    r_lcm = _mt_train_and_serve("lcm", lcm, torch.as_tensor(test_x, dtype=torch.float32, device="cuda"), MT_SMALL_STEPS)
+    lcm_mae = (r_lcm["mean"].cpu().double() - torch.as_tensor(clean)).abs().mean(0).tolist()
+    sx, sy, stx, _ = make_multitask_task(MT_SLICE_N // 2, 64, 2, seed=3)
+    lcm_gaps = _mt_slice("lcm", lambda *a: build_multitask_model(*a, lcm=True), (sx, sy, stx))
+    hx, hy, htx, hclean = make_hadamard_task(HAD_N, 128)
+    had = build_hadamard_model(hx, hy, "cuda", torch.float32).train()
+    r_had = _mt_train_and_serve("hadamard", had, torch.as_tensor(htx, dtype=torch.float32, device="cuda"),
+                                MT_SMALL_STEPS, extra=True)
+    had_mae = [(r_had["mean"].cpu().double() - torch.as_tensor(hclean)).abs()[task * 128:(task + 1) * 128].mean().item()
+               for task in range(2)]
+    sx, sy, stx, _ = make_hadamard_task(MT_SLICE_N // 4, 32, seed=1)
+    had_gaps = _mt_slice("hadamard", build_hadamard_model, (sx, sy, stx), extra=True)
+    print(f"[lcm-hadamard] per-task MAE against the noiseless function (read, not gated): lcm "
+          f"{[round(v, 4) for v in lcm_mae]} (noise std 0.05, 0.1), hadamard {[round(v, 4) for v in had_mae]} (noise std "
+          f"0.1)", flush=True)
+    launched = tuple(a + b for a, b in zip(r_lcm["launches"], r_had["launches"]))
+    return dict(lcm=r_lcm, hadamard=r_had, lcm_mae=lcm_mae, had_mae=had_mae, gaps=(lcm_gaps, had_gaps),
+                launches=launched)
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4136,6 +4793,11 @@ def main() -> int:
         kiss2 = phase_kissgp_2d()
         wiski = phase_wiski(kiss["model"])
         love_grad = phase_love_gradient(flagship["model"])
+        batch = phase_batch()
+        phase_batch_slice()
+        phase_batch_slice(periodic=True)
+        multitask = phase_multitask()
+        lcm_had = phase_lcm_hadamard()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -4144,9 +4806,15 @@ def main() -> int:
                "fantasy conditioning": fantasy["conditioning_launches"][0], "fantasy gradient": fantasy["launches"][0],
                "missing fill": missing["fill"][0], "missing mask": missing["mask"][0],
                "kissgp": kiss["launches"] + kiss2["launches"], "wiski": wiski["launches"],
-               "love gradient": love_grad["launches"][0]}
-    print(f"[report] kernel_matvec launches by path: {by_path} (kissgp and wiski: none expected, no TPU kernel on "
-          f"those paths); fantasy_ms {fantasy['fantasy_ms']:.3f}, kg_grad_s "
+               "love gradient": love_grad["launches"][0], "batch": batch["launches"][0],
+               "multitask": multitask["launches"][0] + lcm_had["launches"][0]}
+    print(f"[report] kernel_matvec launches by path: {by_path} (kissgp, wiski and multitask: none expected, no TPU "
+          f"kernel on those paths); batch (2 outputs, N={N_TRAIN}): median {batch['median']:.4f} s/step, mean "
+          f"{batch['mean']:.4f} s/step, CG {sum(batch['iters'])} iterations in {B_STEPS} steps, refresh_s "
+          f"{batch['refresh_s']:.3f}, request_ms {batch['request_ms']:.2f}, rmse {[round(r, 4) for r in batch['rmse']]}; "
+          f"multitask (n={MT_N}, {MT_TASKS} tasks) {multitask['median'] * 1e3:.1f} ms/step, LCM "
+          f"{lcm_had['lcm']['median'] * 1e3:.1f} ms/step, Hadamard {lcm_had['hadamard']['median'] * 1e3:.1f} ms/step; "
+          f"fantasy_ms {fantasy['fantasy_ms']:.3f}, kg_grad_s "
           f"{fantasy['kg_grad_s']:.3f} (unresolved at N={N_TRAIN}); missing targets, one loss and gradient at N={N_TRAIN}: fill "
           f"{missing['fill'][1]:.3f} s, mask {missing['mask'][1]:.3f} s; KISS-GP 1D step {kiss['step_ms']:.3f} ms, "
           f"refresh {kiss['refresh_ms']:.1f} ms, request {kiss['request_ms']:.3f} ms, draw {kiss['draw_ms']:.3f} ms "
@@ -4176,7 +4844,8 @@ def main() -> int:
             entry("kernel_bwd_fused", "kernel_bwd_fused.cu", 404, bwd_launches, bwd_err, bwd_ms, bwd_plain_ms,
                   bwd_tc_bound(N_TRAIN, D, 64))
             | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1],
-                                    "fantasy": fantasy["launches"][2], "love gradient": love_grad["launches"][2]},
+                                    "fantasy": fantasy["launches"][2], "love gradient": love_grad["launches"][2],
+                                    "batch": batch["launches"][1]},
                "love_gradient_shape": love_grad["shape"],
                "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
                        "bound_ms from bwd_tc_bound",
@@ -4191,10 +4860,7 @@ def main() -> int:
                        "bound_ms from periodic_bwd_tc_bound"},
         ]
     }
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
-    )
-    print(smi.stdout.strip(), flush=True)
+    print(nvidia_smi(), flush=True)
     print(json.dumps(report), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)

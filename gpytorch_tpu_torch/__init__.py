@@ -8,7 +8,9 @@ the Lanczos root of the predictive covariance.  Training: the exact marginal log
 likelihood by mBCG with stochastic Lanczos quadrature, differentiated by the BBMM
 backward, plus the log-densities of the parameters' priors, with NaN targets masked or
 filled.  Fantasy models conditioned on new points, and predictions differentiated through
-their caches (``settings.detach_test_caches(False)``).  Up to
+their caches (``settings.detach_test_caches(False)``).  Batches of independent GPs
+(``batch_shape`` on every kernel, mean and likelihood) and multitask GPs (Kronecker, LCM
+and Hadamard).  Up to
 ``settings.max_cholesky_size`` points, each of these takes a dense Cholesky factor.  Every product with
 the kernel matrix, and its gradient, goes through the fused kernel products
 (``ops/fused_kernels.py``): hand-written CUDA kernels on the GPU.

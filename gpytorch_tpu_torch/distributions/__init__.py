@@ -1,3 +1,4 @@
 from .multivariate_normal import MultivariateNormal
+from .multitask_multivariate_normal import MultitaskMultivariateNormal
 
-__all__ = ["MultivariateNormal"]
+__all__ = ["MultitaskMultivariateNormal", "MultivariateNormal"]

@@ -6,7 +6,8 @@ training and sampling need it: ``mean``, ``variance`` (the lazy diagonal, floore
 dense Cholesky factor at most ``settings.max_cholesky_size`` points or with
 ``settings.fast_computations.log_prob`` off), and samples from the covariance's root
 decomposition, whose base samples come from a ``torch.Generator`` or are injected, in
-place of a JAX key.
+place of a JAX key.  A batched covariance (or mean) gives a batch of distributions: one
+log-density per batch element.
 """
 
 from __future__ import annotations
@@ -27,7 +28,12 @@ class MultivariateNormal:
 
     @property
     def mean(self) -> torch.Tensor:
-        return self.loc
+        batch = self.batch_shape
+        return self.loc if self.loc.shape[:-1] == batch else self.loc.expand(batch + self.loc.shape[-1:])
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.loc.shape[:-1], self._covar.batch_shape)
 
     @property
     def lazy_covariance_matrix(self) -> LinearOperator:
@@ -40,6 +46,7 @@ class MultivariateNormal:
     @property
     def variance(self) -> torch.Tensor:
         diag = self._covar._diagonal()
+        diag = diag.expand(self.batch_shape + diag.shape[-1:])
         return diag.clamp_min(settings.min_variance.value(diag.dtype))
 
     @property
@@ -55,6 +62,7 @@ class MultivariateNormal:
         training steps (``solvers/inv_quad.py``): with ``return_state`` the return is
         ``(log_prob, state)``."""
         diff = value - self.loc
+        diff = diff.expand(torch.broadcast_shapes(diff.shape[:-1], self.batch_shape) + diff.shape[-1:])
         covar = self._covar.evaluate_kernel()
         res = covar.inv_quad_logdet(
             inv_quad_rhs=diff.unsqueeze(-1), logdet=True, base_samples=base_samples,

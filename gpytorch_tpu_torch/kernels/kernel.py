@@ -8,11 +8,15 @@ A kernel is evaluated from explicit hyperparameter tensors (``evaluate(hypers, .
 which ``hypers()`` reads from the module's constrained parameters.  The lazy operator
 holds those tensors, so a solver's backward can rebuild it from copies of them and
 differentiate (the counterpart of the JAX package's pytree ``tree_map``).
+
+``batch_shape`` gives every hyperparameter leading batch dimensions (a lengthscale of shape
+batch + (1, d)): a batch of independent kernels, evaluated on batched or shared inputs.
+``active_dims`` restricts the kernel to some input columns, chosen in ``__call__``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -25,12 +29,15 @@ from ..ops.sq_dist import sq_dist
 class Kernel(Module):
     has_lengthscale = False
 
-    def __init__(self, ard_num_dims: Optional[int] = None, lengthscale_prior=None, lengthscale_constraint=None):
+    def __init__(self, ard_num_dims: Optional[int] = None, batch_shape: Sequence[int] = (),
+                 active_dims: Optional[Sequence[int]] = None, lengthscale_prior=None, lengthscale_constraint=None):
         super().__init__()
         self.ard_num_dims = ard_num_dims
+        self.batch_shape = tuple(int(b) for b in batch_shape)
+        self.active_dims = None if active_dims is None else tuple(int(i) for i in active_dims)
         if self.has_lengthscale:
             num_dims = 1 if ard_num_dims is None else ard_num_dims
-            self.register_parameter("raw_lengthscale", torch.nn.Parameter(torch.zeros(1, num_dims)))
+            self.register_parameter("raw_lengthscale", torch.nn.Parameter(torch.zeros(self.batch_shape + (1, num_dims))))
             self.register_constraint("raw_lengthscale", lengthscale_constraint or Positive())
             if lengthscale_prior is not None:
                 self.register_prior("lengthscale_prior", lengthscale_prior, lambda m: m.lengthscale,
@@ -45,6 +52,11 @@ class Kernel(Module):
     @lengthscale.setter
     def lengthscale(self, value) -> None:
         self._set_constrained("raw_lengthscale", value)
+
+    def num_outputs_per_input(self, x1, x2) -> int:
+        """Rows of the kernel matrix per input row: 1, or the number of tasks of a
+        multitask kernel."""
+        return 1
 
     def hypers(self) -> Dict[str, torch.Tensor]:
         """The constrained hyperparameters ``evaluate`` reads, by (dotted) name."""
@@ -66,10 +78,14 @@ class Kernel(Module):
     def __call__(self, x1, x2=None, diag: bool = False):
         x1 = x1.unsqueeze(-1) if x1.ndim == 1 else x1
         symmetric = x2 is None
+        if self.active_dims is not None:
+            x1 = x1[..., list(self.active_dims)]
         if symmetric:
             x2 = x1
-        elif x2.ndim == 1:
-            x2 = x2.unsqueeze(-1)
+        else:
+            x2 = x2.unsqueeze(-1) if x2.ndim == 1 else x2
+            if self.active_dims is not None:
+                x2 = x2[..., list(self.active_dims)]
         if diag:
             return self.forward(x1, x2, diag=True)
         return LazyEvaluatedKernelOperator(self, x1, x2, symmetric=symmetric)

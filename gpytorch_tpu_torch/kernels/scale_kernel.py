@@ -14,10 +14,11 @@ from .kernel import Kernel
 
 
 class ScaleKernel(Kernel):
-    def __init__(self, base_kernel: Kernel, outputscale_prior=None, outputscale_constraint=None):
-        super().__init__()
+    def __init__(self, base_kernel: Kernel, outputscale_prior=None, outputscale_constraint=None, **kwargs):
+        super().__init__(**kwargs)
         self.base_kernel = base_kernel
-        self.register_parameter("raw_outputscale", torch.nn.Parameter(torch.zeros(())))
+        # one outputscale per batch element: shape batch_shape
+        self.register_parameter("raw_outputscale", torch.nn.Parameter(torch.zeros(self.batch_shape)))
         self.register_constraint("raw_outputscale", outputscale_constraint or Positive())
         if outputscale_prior is not None:
             self.register_prior("outputscale_prior", outputscale_prior, lambda m: m.outputscale,
@@ -37,7 +38,10 @@ class ScaleKernel(Kernel):
 
     def evaluate(self, hypers, x1, x2, diag: bool = False):
         base = {k[len("base_kernel."):]: v for k, v in hypers.items() if k.startswith("base_kernel.")}
-        return hypers["outputscale"] * self.base_kernel.evaluate(base, x1, x2, diag=diag)
+        outputscale = hypers["outputscale"]
+        if outputscale.ndim:  # a batch of outputscales scales its own matrix (or diagonal)
+            outputscale = outputscale.reshape(outputscale.shape + (1,) * (1 if diag else 2))
+        return outputscale * self.base_kernel.evaluate(base, x1, x2, diag=diag)
 
     def prediction_strategy(self, *args, **kwargs):
         return self.base_kernel.prediction_strategy(*args, **kwargs)

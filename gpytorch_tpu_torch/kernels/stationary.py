@@ -46,14 +46,15 @@ class MaternKernel(Kernel):
 
 class PeriodicKernel(Kernel):
     """k(x, x') = exp(−2 Σ_d sin²(π (x_d − x'_d) / p_d) / ℓ_d²), with the period p in
-    ``raw_period_length`` of shape (1, d) (one shared period without ``ard_num_dims``)."""
+    ``raw_period_length`` of shape batch + (1, d) (one shared period without
+    ``ard_num_dims``)."""
 
     has_lengthscale = True
 
     def __init__(self, period_length_prior=None, period_length_constraint=None, **kwargs):
         super().__init__(**kwargs)
         num_dims = 1 if self.ard_num_dims is None else self.ard_num_dims
-        self.register_parameter("raw_period_length", torch.nn.Parameter(torch.zeros(1, num_dims)))
+        self.register_parameter("raw_period_length", torch.nn.Parameter(torch.zeros(self.batch_shape + (1, num_dims))))
         self.register_constraint("raw_period_length", period_length_constraint or Positive())
         if period_length_prior is not None:
             self.register_prior("period_length_prior", period_length_prior, lambda m: m.period_length,
@@ -73,9 +74,12 @@ class PeriodicKernel(Kernel):
     def evaluate(self, hypers, x1, x2, diag: bool = False):
         # each input is reduced to its fractional number of periods before the difference,
         # which sin² does not see, so that far-apart points lose no precision
-        per, inv_l2 = hypers["period_length"], (1.0 / hypers["lengthscale"] ** 2).reshape(-1)
+        per, ls = hypers["period_length"], hypers["lengthscale"]
         a1, a2 = x1 / per, x2 / per
         f1, f2 = a1 - torch.round(a1), a2 - torch.round(a2)
         diff = f1 - f2 if diag else f1[..., :, None, :] - f2[..., None, :, :]
+        # 1/ℓ² per input dim, of each batch element: (*batch, 1, d), and one more unit
+        # dim against the pairwise differences (*batch, n, m, d)
+        inv_l2 = 1.0 / (ls if diag else ls.unsqueeze(-2)) ** 2
         sin2 = torch.sin(math.pi * diff) ** 2
         return torch.exp(-2.0 * (sin2 * inv_l2).sum(-1))

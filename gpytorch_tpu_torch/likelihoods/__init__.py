@@ -1,5 +1,7 @@
-from .gaussian_likelihood import GaussianLikelihood
+from .gaussian_likelihood import GaussianLikelihood, HadamardGaussianLikelihood
 from .likelihood import Likelihood
-from .noise_models import HomoskedasticNoise
+from .multitask_gaussian_likelihood import MultitaskGaussianLikelihood
+from .noise_models import HomoskedasticNoise, MultitaskHomoskedasticNoise
 
-__all__ = ["GaussianLikelihood", "HomoskedasticNoise", "Likelihood"]
+__all__ = ["GaussianLikelihood", "HadamardGaussianLikelihood", "HomoskedasticNoise", "Likelihood",
+           "MultitaskGaussianLikelihood", "MultitaskHomoskedasticNoise"]

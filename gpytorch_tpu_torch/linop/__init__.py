@@ -1,7 +1,10 @@
 from .base import DenseLinearOperator, LinearOperator, ProbeSource, probe_base_samples, to_linear_operator
-from .diag import ConstantDiagLinearOperator, DiagLinearOperator
+from .diag import ConstantDiagLinearOperator, DiagLinearOperator, IdentityLinearOperator
 from .added_diag import AddedDiagLinearOperator
-from .composition import ConstantMulLinearOperator, MaskedLinearOperator, SumLinearOperator
+from .composition import (BatchRepeatLinearOperator, CatLinearOperator, ConstantMulLinearOperator,
+                          MaskedLinearOperator, MatmulLinearOperator, SumLinearOperator)
+from .block import BlockDiagLinearOperator, BlockInterleavedLinearOperator
+from .dense_ops import hadamard_product
 from .lazy_kernel import LazyEvaluatedKernelOperator, join_rows
 from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
 from .triangular import CholLinearOperator, TriangularLinearOperator
@@ -12,11 +15,16 @@ from .interpolated import InterpolatedLinearOperator
 
 __all__ = [
     "AddedDiagLinearOperator",
+    "BatchRepeatLinearOperator",
+    "BlockDiagLinearOperator",
+    "BlockInterleavedLinearOperator",
+    "CatLinearOperator",
     "CholLinearOperator",
     "ConstantDiagLinearOperator",
     "ConstantMulLinearOperator",
     "DenseLinearOperator",
     "DiagLinearOperator",
+    "IdentityLinearOperator",
     "InterpolatedLinearOperator",
     "KroneckerProductAddedDiagLinearOperator",
     "KroneckerProductDiagLinearOperator",
@@ -25,11 +33,13 @@ __all__ = [
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
     "MaskedLinearOperator",
+    "MatmulLinearOperator",
     "ProbeSource",
     "RootLinearOperator",
     "SumLinearOperator",
     "ToeplitzLinearOperator",
     "TriangularLinearOperator",
+    "hadamard_product",
     "join_rows",
     "probe_base_samples",
     "to_linear_operator",

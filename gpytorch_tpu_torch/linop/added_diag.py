@@ -3,7 +3,8 @@
 Counterpart of ``gpytorch_tpu/linop/added_diag.py``.  The preconditioner is the pivoted
 Cholesky factor L (P = LLᵀ + D), τ-regularised under ``preconditioner_noise_budget`` and
 applied in the whitened eigenbasis; log|P| comes from a Cholesky factor and is
-differentiable, for the variance-reduced log-determinant gradient of training.
+differentiable, for the variance-reduced log-determinant gradient of training.  A batched
+operator gets one preconditioner per batch element: its own pivots, τ and factor.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ class AddedDiagLinearOperator(LinearOperator):
         self.diag_op = diag_op
 
     def _shape(self):
-        return self.base.shape
+        return tuple(torch.broadcast_shapes(self.base.shape, self.diag_op.shape))
 
     @property
     def dtype(self):
@@ -129,12 +130,13 @@ class AddedDiagLinearOperator(LinearOperator):
         diag = self.diag_op._diag_values()
         # τ-regularisation: P = LLᵀ + max(D, τ)I with τ = λ_max(LLᵀ)·eps/budget bounds
         # cond(P) by budget/eps, so the float32 apply noise (≈ eps·cond(P), amplified
-        # λ_max-fold inside CG) stays below the budget instead of stalling CG.
+        # λ_max-fold inside CG) stays below the budget instead of stalling CG.  Every
+        # quantity below is per batch element.
         budget = float(settings.preconditioner_noise_budget.value())
         if budget > 0.0:
-            mu = torch.linalg.eigvalsh((L.mT @ L).detach())[-1]  # λ_max(LLᵀ)
+            mu = torch.linalg.eigvalsh((L.mT @ L).detach())[..., -1]  # λ_max(LLᵀ)
             tau = mu * (torch.finfo(L.dtype).eps / budget)
-            diag = torch.maximum(diag, tau)
+            diag = torch.maximum(diag, tau if tau.ndim == 0 else tau.unsqueeze(-1))
         dinv = 1.0 / diag
         dsqrt_inv = torch.sqrt(dinv)
         Lt = L * dsqrt_inv.unsqueeze(-1)
@@ -142,7 +144,7 @@ class AddedDiagLinearOperator(LinearOperator):
         # log|P| = log|I + B| + log|D|, by Cholesky: differentiable, where an eigh
         # gradient would be NaN on a degenerate spectrum
         Lc = torch.linalg.cholesky(torch.eye(B.shape[-1], dtype=B.dtype, device=B.device) + B)
-        logdet_p = 2.0 * torch.log(torch.diagonal(Lc)).sum() + torch.log(diag).sum()
+        logdet_p = 2.0 * torch.log(torch.diagonal(Lc, dim1=-2, dim2=-1)).sum(-1) + torch.log(diag).sum(-1)
         # Whitened-eigenspace apply: with Ũ = D^{-1/2}L = U S Wᵀ,
         #   P⁻¹v = D⁻¹v − Ud diag(s²/(1+s²)) Udᵀ v,   Ud = D^{-1/2}U,
         # every coefficient in [0, 1) — unlike the textbook Woodbury form, no
@@ -150,11 +152,11 @@ class AddedDiagLinearOperator(LinearOperator):
         # The apply is never differentiated: it is built from detached factors.
         s2, W = torch.linalg.eigh(B.detach())
         s2 = s2.clamp_min(0.0)
-        active = s2 > 1e-12 * s2.max().clamp_min(1e-30)
+        active = s2 > 1e-12 * s2.amax(-1, keepdim=True).clamp_min(1e-30)
         inv_s = torch.where(active, 1.0 / torch.sqrt(s2.clamp_min(1e-30)), torch.zeros_like(s2))
         coef = torch.where(active, s2 / (1.0 + s2), torch.zeros_like(s2)).unsqueeze(-1)
         dsqrt_inv_d = dsqrt_inv.detach().unsqueeze(-1)
-        Ud = (Lt.detach() @ (W * inv_s)) * dsqrt_inv_d
+        Ud = (Lt.detach() @ (W * inv_s.unsqueeze(-2))) * dsqrt_inv_d
         dinv_d = dinv.detach().unsqueeze(-1)
 
         def apply_inv(v):

@@ -75,6 +75,10 @@ class LinearOperator:
         return tuple(self._shape())
 
     @property
+    def batch_shape(self):
+        return self.shape[:-2]
+
+    @property
     def dtype(self) -> torch.dtype:
         raise NotImplementedError
 
@@ -83,14 +87,16 @@ class LinearOperator:
         raise NotImplementedError
 
     def to_dense(self) -> torch.Tensor:
-        return self._matmul(torch.eye(self.shape[-1], dtype=self.dtype, device=self.device))
+        n = self.shape[-1]
+        return self._matmul(torch.eye(n, dtype=self.dtype, device=self.device).expand(self.batch_shape + (n, n)))
 
     def _diagonal(self) -> torch.Tensor:
         return torch.diagonal(self.to_dense(), dim1=-2, dim2=-1)
 
     def _get_rows(self, idx: torch.Tensor) -> torch.Tensor:
-        """Dense rows self[idx, :] for a 1-D index tensor — what pivoted Cholesky reads."""
-        return self.to_dense()[idx]
+        """Dense rows self[..., idx, :] — what pivoted Cholesky reads: ``idx`` of shape
+        (m,), or batch + (m,) for per-element rows of a batched operator."""
+        return _take_rows(self.to_dense(), idx)
 
     def _entries(self, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
         """self[rows, cols] elementwise for broadcastable index tensors (the q × q blocks
@@ -113,13 +119,21 @@ class LinearOperator:
         return SumLinearOperator(self, to_linear_operator(other))
 
     def __mul__(self, other):
+        """An operator times an operator or a tensor of the operator's shape is their
+        elementwise (Hadamard) product, ``dense_ops.hadamard_product``; times a scalar (or
+        a tensor whose last dimension is 1) a ``ConstantMulLinearOperator``."""
         from .composition import ConstantMulLinearOperator
+        from .dense_ops import hadamard_product
 
-        if isinstance(other, LinearOperator) or (torch.is_tensor(other) and other.numel() != 1):
-            raise NotImplementedError("only multiplication by a scalar is ported")
+        if isinstance(other, LinearOperator):
+            return hadamard_product(self, other)
+        if torch.is_tensor(other) and other.ndim > 0 and other.shape[-1] != 1:
+            return hadamard_product(self, DenseLinearOperator(torch.broadcast_to(other, self.shape)))
         return ConstantMulLinearOperator(self, other)
 
     def add_diagonal(self, diag: torch.Tensor) -> "LinearOperator":
+        """self + diag(d): a ``ConstantDiagLinearOperator`` for a scalar d or one of shape
+        batch + (1,), else a ``DiagLinearOperator`` of d broadcast to batch + (n,)."""
         from .added_diag import AddedDiagLinearOperator
         from .diag import ConstantDiagLinearOperator, DiagLinearOperator
 
@@ -129,8 +143,10 @@ class LinearOperator:
         n = self.shape[-1]
         if diag.numel() == 1:
             diag_op = ConstantDiagLinearOperator(diag.reshape(1), n)
+        elif diag.shape[-1] == 1:
+            diag_op = ConstantDiagLinearOperator(diag, n)
         else:
-            diag_op = DiagLinearOperator(diag.expand(n))
+            diag_op = DiagLinearOperator(diag.expand(torch.broadcast_shapes(diag.shape, (n,))))
         return AddedDiagLinearOperator(self, diag_op)
 
     # -- structure hooks ----------------------------------------------------------------
@@ -343,7 +359,7 @@ class DenseLinearOperator(LinearOperator):
         return self.tensor
 
     def _get_rows(self, idx):
-        return self.tensor[idx]
+        return _take_rows(self.tensor, idx)
 
     def _entries(self, rows, cols):
         return self.tensor[rows, cols]
@@ -351,6 +367,17 @@ class DenseLinearOperator(LinearOperator):
     def _flatten(self):
         return (self.tensor,), lambda ts: DenseLinearOperator(ts[0])
 
+    def __getitem__(self, index):
+        return DenseLinearOperator(self.tensor[index])
+
 
 def to_linear_operator(obj) -> LinearOperator:
     return obj if isinstance(obj, LinearOperator) else DenseLinearOperator(obj)
+
+
+def _take_rows(dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """dense[..., idx, :]: idx of shape batch + (m,) (or (m,), shared) picks rows of each
+    element."""
+    batch = dense.shape[:-2]
+    idx = idx.expand(batch + idx.shape[-1:])
+    return torch.take_along_dim(dense, idx.unsqueeze(-1), dim=-2)

@@ -1,13 +1,30 @@
-"""Sum and constant-multiple operators — what the LOVE predictive covariance
-K** − (K*x R)(K*x R)ᵀ is built from — and the masked operator of the NaN policy "mask".
-Counterpart of ``SumLinearOperator``, ``ConstantMulLinearOperator`` and
-``MaskedLinearOperator`` in ``gpytorch_tpu/linop/composition.py``."""
+"""Composition operators.  Counterpart of ``gpytorch_tpu/linop/composition.py``: sums
+and constant multiples (what the LOVE predictive covariance K** − (K*x R)(K*x R)ᵀ and the
+multitask marginal K_data ⊗ K_task + (I ⊗ D + σ²I) are built from), products, row and
+column concatenation, a batch repeat, and the masked operator of the NaN policy "mask"."""
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 
 from .base import LinearOperator, to_linear_operator
+
+
+def _flatten_all(ops):
+    """The tensors of several operators and a function that rebuilds the list."""
+    parts = [op._flatten() for op in ops]
+    counts = [len(ts) for ts, _ in parts]
+
+    def rebuild(tensors):
+        out, start = [], 0
+        for (_, rb), c in zip(parts, counts):
+            out.append(rb(tensors[start:start + c]))
+            start += c
+        return out
+
+    return tuple(t for ts, _ in parts for t in ts), rebuild
 
 
 class SumLinearOperator(LinearOperator):
@@ -18,7 +35,7 @@ class SumLinearOperator(LinearOperator):
         self.ops = tuple(flat)
 
     def _shape(self):
-        return self.ops[0].shape
+        return tuple(torch.broadcast_shapes(*[op.shape for op in self.ops]))
 
     @property
     def dtype(self):
@@ -37,8 +54,18 @@ class SumLinearOperator(LinearOperator):
     def _matmul(self, rhs):
         return self._sum(lambda op: op._matmul(rhs))
 
+    def _matmul_grad_only(self, rhs):
+        return self._sum(lambda op: op._matmul_grad_only(rhs))
+
+    def _flatten(self):
+        tensors, rebuild = _flatten_all(self.ops)
+        return tensors, lambda ts: SumLinearOperator(*rebuild(ts))
+
     def _diagonal(self):
         return self._sum(lambda op: op._diagonal())
+
+    def _get_rows(self, idx):
+        return self._sum(lambda op: op._get_rows(idx))
 
     def to_dense(self):
         return self._sum(lambda op: op.to_dense())
@@ -74,6 +101,119 @@ class ConstantMulLinearOperator(LinearOperator):
 
     def evaluate_kernel(self):
         return ConstantMulLinearOperator(self.base.evaluate_kernel(), self.constant)
+
+
+class MatmulLinearOperator(LinearOperator):
+    """left · right."""
+
+    def __init__(self, left, right):
+        self.left = to_linear_operator(left)
+        self.right = to_linear_operator(right)
+
+    def _shape(self):
+        batch = torch.broadcast_shapes(self.left.batch_shape, self.right.batch_shape)
+        return tuple(batch) + (self.left.shape[-2], self.right.shape[-1])
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+    @property
+    def device(self):
+        return self.left.device
+
+    def _matmul(self, rhs):
+        return self.left._matmul(self.right._matmul(rhs))
+
+    def _flatten(self):
+        tensors, rebuild = _flatten_all((self.left, self.right))
+        return tensors, lambda ts: MatmulLinearOperator(*rebuild(ts))
+
+    def _diagonal(self):
+        return torch.einsum("...ij,...ji->...i", self.left.to_dense(), self.right.to_dense())
+
+    def to_dense(self):
+        return self.left.to_dense() @ self.right.to_dense()
+
+
+class CatLinearOperator(LinearOperator):
+    """Operators joined along their rows (``dim=-2``) or columns (``dim=-1``)."""
+
+    def __init__(self, ops: Sequence[LinearOperator], dim: int = -2):
+        if dim not in (-1, -2):
+            raise ValueError("CatLinearOperator supports dim in {-1, -2}")
+        self.ops = tuple(to_linear_operator(op) for op in ops)
+        self.dim = int(dim)
+
+    def _shape(self):
+        shape = list(self.ops[0].shape)
+        shape[self.dim] = sum(op.shape[self.dim] for op in self.ops)
+        return tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.ops[0].dtype
+
+    @property
+    def device(self):
+        return self.ops[0].device
+
+    def _matmul(self, rhs):
+        if self.dim == -2:
+            return torch.cat([op._matmul(rhs) for op in self.ops], dim=-2)
+        out, start = None, 0
+        for op in self.ops:
+            part = op._matmul(rhs[..., start:start + op.shape[-1], :])
+            out = part if out is None else out + part
+            start += op.shape[-1]
+        return out
+
+    def _flatten(self):
+        tensors, rebuild = _flatten_all(self.ops)
+        dim = self.dim
+        return tensors, lambda ts: CatLinearOperator(rebuild(ts), dim)
+
+    def to_dense(self):
+        return torch.cat([op.to_dense() for op in self.ops], dim=self.dim)
+
+
+class BatchRepeatLinearOperator(LinearOperator):
+    """``base`` repeated over the batch shape ``batch_repeat``."""
+
+    def __init__(self, base: LinearOperator, batch_repeat: Tuple[int, ...]):
+        self.base = base
+        self.batch_repeat = tuple(int(b) for b in batch_repeat)
+
+    def _shape(self):
+        return tuple(torch.broadcast_shapes(self.base.batch_shape, self.batch_repeat)) + self.base.shape[-2:]
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def _expand(self, x: torch.Tensor, tail: int) -> torch.Tensor:
+        return x.expand(self.batch_shape + x.shape[-tail:])
+
+    def _matmul(self, rhs):
+        return self._expand(self.base._matmul(rhs), 2)
+
+    def _flatten(self):
+        tb, rb = self.base._flatten()
+        repeat = self.batch_repeat
+        return tb, lambda ts: BatchRepeatLinearOperator(rb(ts), repeat)
+
+    def _diagonal(self):
+        return self._expand(self.base._diagonal(), 1)
+
+    def to_dense(self):
+        return self._expand(self.base.to_dense(), 2)
+
+    def evaluate_kernel(self):
+        return BatchRepeatLinearOperator(self.base.evaluate_kernel(), self.batch_repeat)
 
 
 class MaskedLinearOperator(LinearOperator):

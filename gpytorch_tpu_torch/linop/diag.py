@@ -1,4 +1,6 @@
-"""Diagonal operators.  Counterpart of ``gpytorch_tpu/linop/diag.py``."""
+"""Diagonal operators.  Counterpart of ``gpytorch_tpu/linop/diag.py``: ``DiagLinearOperator``
+diag(d) for d of shape batch + (n,), ``ConstantDiagLinearOperator`` c·I for c of shape
+batch + (1,), and ``IdentityLinearOperator``."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ from .base import LinearOperator
 
 
 class DiagLinearOperator(LinearOperator):
-    """diag(d) with d of shape (n,)."""
+    """diag(d) with d of shape batch + (n,)."""
 
     def __init__(self, diag: torch.Tensor):
         self.diag = diag
@@ -17,11 +19,11 @@ class DiagLinearOperator(LinearOperator):
         return self.diag
 
     def _eig_lower_bound(self) -> torch.Tensor:
-        return self.diag.min()  # the eigenvalues are the diagonal
+        return self.diag.amin(-1)  # the eigenvalues are the diagonal
 
     def _shape(self):
-        n = self.diag.shape[-1]
-        return (n, n)
+        d = self.diag.shape
+        return tuple(d) + (d[-1],)
 
     @property
     def dtype(self):
@@ -41,9 +43,14 @@ class DiagLinearOperator(LinearOperator):
         return torch.diag_embed(self.diag)
 
     def _get_rows(self, idx):
-        rows = torch.zeros(idx.shape[0], self.shape[-1], dtype=self.dtype, device=self.device)
-        rows[torch.arange(idx.shape[0], device=self.device), idx] = self.diag[idx]
-        return rows
+        diag = self.diag
+        n = diag.shape[-1]
+        idx = idx.expand(diag.shape[:-1] + idx.shape[-1:])
+        onehot = (idx.unsqueeze(-1) == torch.arange(n, device=self.device)).to(self.dtype)
+        return onehot * torch.take_along_dim(diag, idx, dim=-1).unsqueeze(-1)
+
+    def _entries(self, rows, cols):
+        return torch.where(rows == cols, self.diag[..., rows], torch.zeros((), dtype=self.dtype, device=self.device))
 
     def add_diagonal(self, diag):
         return DiagLinearOperator(self.diag + diag)
@@ -60,7 +67,7 @@ class DiagLinearOperator(LinearOperator):
 
 
 class ConstantDiagLinearOperator(DiagLinearOperator):
-    """c·I of size n, with c of shape (1,)."""
+    """c·I of size n, with c of shape batch + (1,)."""
 
     def __init__(self, value: torch.Tensor, diag_shape: int):
         self.value = value
@@ -68,14 +75,36 @@ class ConstantDiagLinearOperator(DiagLinearOperator):
 
     @property
     def diag(self) -> torch.Tensor:
-        return self.value.expand(self._diag_shape)
+        return self.value.expand(self.value.shape[:-1] + (self._diag_shape,))
+
+    def _shape(self):
+        n = self._diag_shape
+        return tuple(self.value.shape[:-1]) + (n, n)
 
     def _eig_lower_bound(self) -> torch.Tensor:
-        return self.value[0]
+        return self.value[..., 0]
 
     def _matmul(self, rhs):
-        return self.value * rhs
+        return self.value.unsqueeze(-1) * rhs
 
     def _flatten(self):
         n = self._diag_shape
         return (self.value,), lambda ts: ConstantDiagLinearOperator(ts[0], n)
+
+
+class IdentityLinearOperator(ConstantDiagLinearOperator):
+    """I of size n (``gpytorch_tpu/linop/diag.py:161``), with an optional batch shape: the
+    data factor I_n of the multitask noise I_n ⊗ Σ_task."""
+
+    def __init__(self, diag_shape: int, dtype=torch.float32, device=None, batch_shape=()):
+        super().__init__(torch.ones(tuple(batch_shape) + (1,), dtype=dtype, device=device), diag_shape)
+
+    def _is_known_psd(self) -> bool:
+        return True
+
+    def _matmul(self, rhs):
+        return rhs.expand(torch.broadcast_shapes(self.batch_shape + rhs.shape[-2:], rhs.shape))
+
+    def _flatten(self):
+        n, batch, value = self._diag_shape, self.batch_shape, self.value
+        return (), lambda ts: IdentityLinearOperator(n, value.dtype, value.device, batch)

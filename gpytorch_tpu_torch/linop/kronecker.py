@@ -5,7 +5,10 @@ A₁ ⊗ … ⊗ A_p (the covariance of a stationary kernel on a Cartesian grid,
 ``kernels/grid_kernel.py``, whose factors are per-dimension Toeplitz operators),
 ``KroneckerProductDiagLinearOperator`` (a product of diagonal factors, itself diagonal),
 and ``KroneckerProductAddedDiagLinearOperator`` (⊗ᵢ Kᵢ) + σ²I, solved in closed form from
-the factors' eigendecompositions.  Factors are unbatched; the first factor varies slowest.
+the factors' eigendecompositions (a diagonal factor, such as the identity of the multitask
+noise I_n ⊗ Σ_task, takes its trivial one).  The first factor varies slowest.  Batched
+factors take the JAX package's dense fallback (``gpytorch_tpu/linop/kronecker.py:56-66,
+105-107, 232-234``): products with the formed matrix, and solves by CG.
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ def _kron_matmul(factors: Sequence, rhs: torch.Tensor) -> torch.Tensor:
     for i, f in enumerate(dense):
         x = torch.tensordot(f, x.movedim(i, 0), dims=([1], [0])).movedim(0, i)
     return x.reshape(math.prod(f.shape[-2] for f in dense), k)
+
+
+def _batched_kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a ⊗ b over the last two dims, broadcasting the batch dims."""
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    (n1, m1), (n2, m2) = a.shape[-2:], b.shape[-2:]
+    prod = a[..., :, None, :, None] * b[..., None, :, None, :]
+    return prod.reshape(tuple(batch) + (n1 * n2, m1 * m2))
 
 
 def _split_index(index: torch.Tensor, sizes: Sequence[int]):
@@ -63,7 +74,9 @@ class KroneckerProductLinearOperator(LinearOperator):
         self.factors = tuple(to_linear_operator(f) for f in factors)
 
     def _shape(self):
-        return (math.prod(f.shape[-2] for f in self.factors), math.prod(f.shape[-1] for f in self.factors))
+        batch = torch.broadcast_shapes(*[f.batch_shape for f in self.factors])
+        return tuple(batch) + (math.prod(f.shape[-2] for f in self.factors),
+                               math.prod(f.shape[-1] for f in self.factors))
 
     @property
     def dtype(self):
@@ -73,7 +86,12 @@ class KroneckerProductLinearOperator(LinearOperator):
     def device(self):
         return self.factors[0].device
 
+    def _has_batched_factors(self) -> bool:
+        return any(len(f.shape) > 2 for f in self.factors)
+
     def _matmul(self, rhs):
+        if self._has_batched_factors() or rhs.ndim > 2:
+            return self.to_dense() @ rhs
         return _kron_matmul(self.factors, rhs)
 
     def _flatten(self):
@@ -100,13 +118,13 @@ class KroneckerProductLinearOperator(LinearOperator):
     def _diagonal(self):
         out = self.factors[0]._diagonal()
         for f in self.factors[1:]:
-            out = (out.unsqueeze(-1) * f._diagonal().unsqueeze(-2)).flatten()
+            out = (out.unsqueeze(-1) * f._diagonal().unsqueeze(-2)).flatten(-2)
         return out
 
     def to_dense(self):
         out = self.factors[0].to_dense()
         for f in self.factors[1:]:
-            out = torch.kron(out, f.to_dense())
+            out = torch.kron(out, f.to_dense()) if out.ndim == 2 and len(f.shape) == 2 else _batched_kron(out, f.to_dense())
         return out
 
     def _get_rows(self, idx):
@@ -126,6 +144,8 @@ class KroneckerProductLinearOperator(LinearOperator):
         """(⊗ᵢ Aᵢ)⁻¹ = ⊗ᵢ Aᵢ⁻¹, each factor inverted through its Cholesky factor."""
         from ..solvers.cholesky import psd_safe_cholesky
 
+        if self._has_batched_factors():
+            return super().solve(rhs)
         inverses = []
         for f in self.factors:
             fd = f.to_dense()
@@ -138,9 +158,13 @@ class KroneckerProductLinearOperator(LinearOperator):
         return _closed_form_inv_quad_logdet(self, inv_quad_rhs, logdet, reduce_inv_quad, solver_state, return_state)
 
     def add_diagonal(self, diag):
+        """+ σ²I with a constant σ² (a scalar, or one of shape batch + (1,)) stays a
+        ``KroneckerProductAddedDiagLinearOperator``."""
         diag = torch.as_tensor(diag, dtype=self.dtype, device=self.device)
         if diag.numel() == 1:
             return KroneckerProductAddedDiagLinearOperator(self, diag.reshape(1))
+        if diag.shape[-1] == 1:
+            return KroneckerProductAddedDiagLinearOperator(self, diag)
         return super().add_diagonal(diag)
 
 
@@ -177,15 +201,12 @@ class KroneckerProductDiagLinearOperator(KroneckerProductLinearOperator):
 
 
 class KroneckerProductAddedDiagLinearOperator(LinearOperator):
-    """(⊗ᵢ Kᵢ) + σ²I with a constant σ² (shape (1,)): with Kᵢ = Qᵢ Λᵢ Qᵢᵀ,
+    """(⊗ᵢ Kᵢ) + σ²I with a constant σ² (shape batch + (1,)): with Kᵢ = Qᵢ Λᵢ Qᵢᵀ,
     (K + σ²I)⁻¹ = (⊗Qᵢ)(Λ + σ²I)⁻¹(⊗Qᵢ)ᵀ and log|K + σ²I| = Σ log(λ + σ²)."""
 
     def __init__(self, kron: KroneckerProductLinearOperator, const_diag: torch.Tensor):
         self.kron = kron
         self.const_diag = const_diag
-
-    def _shape(self):
-        return self.kron.shape
 
     @property
     def dtype(self):
@@ -195,8 +216,15 @@ class KroneckerProductAddedDiagLinearOperator(LinearOperator):
     def device(self):
         return self.kron.device
 
+    def _shape(self):
+        return tuple(torch.broadcast_shapes(self.kron.shape, tuple(self.const_diag.shape[:-1]) + (1, 1)))
+
+    def _const(self) -> torch.Tensor:
+        """σ² broadcastable against (..., n, k)."""
+        return self.const_diag if self.const_diag.ndim == 1 else self.const_diag.unsqueeze(-1)
+
     def _matmul(self, rhs):
-        return self.kron._matmul(rhs) + self.const_diag * rhs
+        return self.kron._matmul(rhs) + self._const() * rhs
 
     def _flatten(self):
         tk, rk = self.kron._flatten()
@@ -208,7 +236,7 @@ class KroneckerProductAddedDiagLinearOperator(LinearOperator):
 
     def to_dense(self):
         n = self.shape[-1]
-        return self.kron.to_dense() + self.const_diag * torch.eye(n, dtype=self.dtype, device=self.device)
+        return self.kron.to_dense() + self._const() * torch.eye(n, dtype=self.dtype, device=self.device)
 
     def _eigs(self):
         qs, lam_full = [], None
@@ -219,7 +247,7 @@ class KroneckerProductAddedDiagLinearOperator(LinearOperator):
             else:
                 lam, q = torch.linalg.eigh(f.to_dense())
             qs.append(q)
-            lam_full = lam if lam_full is None else (lam_full.unsqueeze(-1) * lam.unsqueeze(-2)).flatten()
+            lam_full = lam if lam_full is None else (lam_full.unsqueeze(-1) * lam.unsqueeze(-2)).flatten(-2)
         return qs, lam_full
 
     def logdet(self):
@@ -227,6 +255,8 @@ class KroneckerProductAddedDiagLinearOperator(LinearOperator):
         return torch.log(lam + self.const_diag).sum(-1)
 
     def solve(self, rhs):
+        if self.kron._has_batched_factors() or self.const_diag.ndim > 1:
+            return LinearOperator.solve(self, rhs)
         qs, lam = self._eigs()
 
         def fn(r):
@@ -243,4 +273,6 @@ class KroneckerProductAddedDiagLinearOperator(LinearOperator):
         diag = torch.as_tensor(diag, dtype=self.dtype, device=self.device)
         if diag.numel() == 1:
             return KroneckerProductAddedDiagLinearOperator(self.kron, self.const_diag + diag.reshape(1))
+        if diag.shape[-1] == 1:
+            return KroneckerProductAddedDiagLinearOperator(self.kron, self.const_diag + diag)
         return super().add_diagonal(diag)

@@ -12,16 +12,28 @@ kernels for CUDA tensors.  A kernel that returns a structured operator
 (``returns_lazy_structure``: the grid kernels, whose KISS-GP operator has closed-form
 products) is always evaluated, whatever its size, and reads, products and rows go to that
 operator (``gpytorch_tpu/linop/lazy_kernel.py:55-103``).
+
+A batched kernel (hyperparameters of shape batch + …) or batched inputs give a batched
+operator.  Its fused products take one launch per batch element, each with its own centre,
+lengthscale and outputscale, as the JAX package maps its Pallas kernels over the batch
+(``jax.lax.map``, ``gpytorch_tpu/linop/lazy_kernel.py:128-190``).  A kernel with no fused
+product, or a right-hand side whose batch shape is not the operator's, is streamed by
+blocks of rows (``_matmul_chunked``).  A multitask kernel has ``num_outputs_per_input``
+rows per input.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 
 from .. import settings
 from .base import DenseLinearOperator, LinearOperator, to_linear_operator
+
+# rows of x1 per block of the streamed product (``gpytorch_tpu/linop/lazy_kernel.py:24``)
+_CHUNK = 4096
 
 
 def join_rows(*parts: torch.Tensor) -> torch.Tensor:
@@ -39,13 +51,18 @@ def join_rows(*parts: torch.Tensor) -> torch.Tensor:
 
 
 def _rows(x: torch.Tensor, ix: slice) -> torch.Tensor:
-    """x[ix] for a slice of rows: the part itself where x was joined by ``join_rows`` and
-    ix is exactly one part's rows."""
+    """x[..., ix, :] for a slice of rows: the part itself where x was joined by
+    ``join_rows`` and ix is exactly one part's rows."""
     span = ix.indices(x.shape[-2])
     for start, stop, part in getattr(x, "_joined_parts", ()):
         if span == (start, stop, 1):
             return part
-    return x[ix]
+    return x[..., ix, :]
+
+
+def _per_element(t: torch.Tensor, batch, tail: int) -> torch.Tensor:
+    """t broadcast to ``batch`` + its last ``tail`` dims, the batch flattened into one."""
+    return t.expand(tuple(batch) + t.shape[t.ndim - tail:]).reshape((math.prod(batch),) + t.shape[t.ndim - tail:])
 
 
 class LazyEvaluatedKernelOperator(LinearOperator):
@@ -63,8 +80,13 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         # K(X, X) of a valid kernel is PSD; a cross-covariance K(X, Z) is not
         return self.symmetric
 
+    def _num_outputs(self) -> int:
+        return self.kernel.num_outputs_per_input(self.x1, self.x2)
+
     def _shape(self):
-        return (self.x1.shape[-2], self.x2.shape[-2])
+        num = self._num_outputs()
+        batch = torch.broadcast_shapes(self.x1.shape[:-2], self.x2.shape[:-2], tuple(self.kernel.batch_shape))
+        return tuple(batch) + (self.x1.shape[-2] * num, self.x2.shape[-2] * num)
 
     @property
     def dtype(self):
@@ -89,7 +111,7 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         return self.kernel.evaluate(self.hypers, x1, x2, diag=diag)
 
     def _is_big(self) -> bool:
-        n, m = self.shape
+        n, m = self.shape[-2:]
         return n * m > settings.max_eager_kernel_size.value() ** 2 or settings.memory_efficient.on()
 
     def _structured(self) -> bool:
@@ -114,9 +136,14 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         return self.evaluate_kernel()._diagonal()
 
     def _get_rows(self, idx):
+        """Rows K[..., idx, :] from the rows of x1 they stand for: per batch element
+        (``gpytorch_tpu/linop/lazy_kernel.py:268-279``) for idx of shape batch + (m,)."""
         if self._structured():
             return self.evaluate_kernel()._get_rows(idx)
-        return self._evaluate(self.x1[idx], self.x2)
+        batch = self.batch_shape
+        x1 = self.x1.expand(batch + self.x1.shape[-2:])
+        rows = torch.take_along_dim(x1, idx.expand(batch + idx.shape[-1:]).unsqueeze(-1), dim=-2)
+        return self._evaluate(rows, self.x2)
 
     def _matmul(self, rhs):
         if self._structured() or not self._is_big():
@@ -130,7 +157,8 @@ class LazyEvaluatedKernelOperator(LinearOperator):
 
     def _fused_matmul(self, rhs, grad_only: bool = False):
         """K·rhs through the fused kernel products, for (Scale)(RBF | Matérn | Periodic)
-        kernels.
+        kernels; other kernels, and a right-hand side of another batch shape than the
+        operator's, take ``_matmul_chunked``.
 
         RBF and Matérn: the centre is detached, as the JAX package stop-gradients it (it only
         conditions the distances, and K does not depend on it), and the outputscale is an
@@ -143,45 +171,91 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         prefix = ""
         if isinstance(kernel, ScaleKernel):
             kernel, prefix = kernel.base_kernel, "base_kernel."
-        if type(kernel) is PeriodicKernel:
-            return self._periodic_matmul(rhs, prefix, outputscale, grad_only)
-        ktype = fk.kernel_type_for(kernel)
-        if ktype is None:
-            raise NotImplementedError(f"no fused matvec for {type(kernel).__name__}")
-        ls = self.hypers[prefix + "lengthscale"]
-        center = self.x1.mean(-2, keepdim=True).detach()
-        xs1 = ((self.x1 - center) / ls).contiguous()
-        # symmetric: scale once and pass the same tensor twice
-        xs2 = xs1 if self.symmetric else ((self.x2 - center) / ls).contiguous()
+        periodic = type(kernel) is PeriodicKernel
+        ktype = None if periodic else fk.kernel_type_for(kernel)
+        if ktype is None and not periodic:
+            return self._matmul_chunked(rhs)
+        batch = self.batch_shape
+        if tuple(rhs.shape[:-2]) != batch:
+            return self._matmul_chunked(rhs)
+        # one launch per batch element (one for an unbatched operator), each with its own
+        # inputs and hyperparameters
+        x1 = _per_element(self.x1, batch, 2)
+        x2 = x1 if self.symmetric else _per_element(self.x2, batch, 2)
+        v = rhs.reshape((-1,) + rhs.shape[-2:])
+        os_ = None if outputscale is None else _per_element(outputscale, batch, 0)
+        if periodic:
+            per, ls = (_per_element(h, batch, 2) for h in self._periodic_hypers(prefix))
+            outs = [self._periodic_matmul(x1[i], x2[i], v[i], (per[i], ls[i]), None if os_ is None else os_[i],
+                                          grad_only) for i in range(v.shape[0])]
+        else:
+            ls = _per_element(self.hypers[prefix + "lengthscale"], batch, 2)
+            outs = [self._stationary_matmul(x1[i], x2[i], v[i], ls[i], None if os_ is None else os_[i], ktype,
+                                            grad_only) for i in range(v.shape[0])]
+        out = torch.stack(outs)
+        return out.reshape(batch + out.shape[-2:])
+
+    def _stationary_matmul(self, x1, x2, rhs, ls, outputscale, ktype: int, grad_only: bool):
+        """One RBF or Matérn product on 2-D inputs.  The symmetric case scales the inputs
+        once and passes that one tensor twice, so that the backward is the one fused pass
+        (``kernel_bwd_fused``): scaling them twice would take the general branch."""
+        from ..ops import fused_kernels as fk
+
+        center = x1.mean(-2, keepdim=True).detach()
+        xs1 = ((x1 - center) / ls).contiguous()
+        xs2 = xs1 if self.symmetric else ((x2 - center) / ls).contiguous()
         rhs = rhs.contiguous()
         if outputscale is not None:
             return fk.fused_scaled_kernel_matvec(xs1, xs2, rhs, outputscale, ktype, self.symmetric, grad_only)
         return fk.fused_kernel_matvec(xs1, xs2, rhs, ktype, self.symmetric, grad_only)
 
-    def _periodic_matmul(self, rhs, prefix: str, outputscale, grad_only: bool):
-        """The periodic branch (``gpytorch_tpu/linop/lazy_kernel.py:200-210``): inputs
-        divided by the period, no centring, w = 1/ℓ² per input dim.  The outputscale is an
-        operand of the scaled product, whose symmetric backward reads its gradient out of
-        the fused kernel, so that training computes no dv (the JAX package folds it into
+    def _periodic_hypers(self, prefix: str):
+        return self.hypers[prefix + "period_length"], self.hypers[prefix + "lengthscale"]
+
+    def _periodic_matmul(self, x1, x2, rhs, hypers, outputscale, grad_only: bool):
+        """One periodic product on 2-D inputs (``gpytorch_tpu/linop/lazy_kernel.py:200-210``):
+        inputs divided by the period, no centring, w = 1/ℓ² per input dim.  The outputscale
+        is an operand of the scaled product, whose symmetric backward reads its gradient out
+        of the fused kernel, so that training computes no dv (the JAX package folds it into
         the right-hand side and takes its gradient through dv).  The lengthscale's gradient
         flows through w and the period's through x / period, outside the kernels."""
         from ..ops import periodic_kernels as pk
 
-        per = self.hypers[prefix + "period_length"]
-        ls = self.hypers[prefix + "lengthscale"]
-        w = torch.broadcast_to((1.0 / ls**2).reshape(-1), self.x1.shape[-1:]).contiguous()
-        xs1 = (self.x1 / per).contiguous()
-        xs2 = xs1 if self.symmetric else (self.x2 / per).contiguous()
+        per, ls = hypers
+        w = torch.broadcast_to((1.0 / ls**2).reshape(-1), x1.shape[-1:]).contiguous()
+        xs1 = (x1 / per).contiguous()
+        xs2 = xs1 if self.symmetric else (x2 / per).contiguous()
         rhs = rhs.contiguous()
         if outputscale is not None:
             return pk.fused_scaled_periodic_matvec(xs1, xs2, w, rhs, outputscale, self.symmetric, grad_only)
         return pk.fused_periodic_matvec(xs1, xs2, w, rhs, self.symmetric, grad_only)
 
+    def _matmul_chunked(self, rhs):
+        """K·rhs streamed by blocks of ``_CHUNK`` rows of x1, each block evaluated densely
+        (``gpytorch_tpu/linop/lazy_kernel.py:237-260``): for kernels with no fused product,
+        and for a right-hand side whose batch shape is not the operator's.  Differentiable
+        through each block."""
+        n = self.x1.shape[-2]
+        blocks = [to_linear_operator(self._evaluate(self.x1[..., i:i + _CHUNK, :], self.x2))._matmul(rhs)
+                  for i in range(0, n, _CHUNK)]
+        return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=-2)
+
     def __getitem__(self, index):
-        """Slice the inputs, not the kernel matrix: ``op[rows, cols]`` with two slices."""
-        row_ix, col_ix = index
-        if not (isinstance(row_ix, slice) and isinstance(col_ix, slice)):
-            raise NotImplementedError("only (slice, slice) indexing is ported")
+        """Slice the inputs, not the kernel matrix: ``op[rows, cols]`` or ``op[..., rows,
+        cols]`` with two slices.  With ``num_outputs_per_input`` = t > 1, a slice whose
+        bounds are multiples of t slices the inputs by bound / t; any other is taken from
+        the dense matrix."""
+        if not isinstance(index, tuple):
+            index = (index,)
+        row_ix, col_ix = index[-2:] if len(index) >= 2 else (None, None)
+        if index[:-2] not in ((), (Ellipsis,)) or not (isinstance(row_ix, slice) and isinstance(col_ix, slice)):
+            raise NotImplementedError("only (..., slice, slice) indexing is ported")
+        num = self._num_outputs()
+        if num != 1:
+            spans = [ix.indices(size) for ix, size in zip((row_ix, col_ix), self.shape[-2:])]
+            if any(step != 1 or start % num or stop % num for start, stop, step in spans):
+                return DenseLinearOperator(self.to_dense()[index])
+            row_ix, col_ix = (slice(start // num, stop // num) for start, stop, _ in spans)
         symmetric = self.symmetric and row_ix == col_ix
         x1 = _rows(self.x1, row_ix)
         x2 = x1 if symmetric else _rows(self.x2, col_ix)

@@ -16,7 +16,7 @@ from .diag import DiagLinearOperator
 
 
 class RootLinearOperator(LinearOperator):
-    """A = R Rᵀ for a (possibly rectangular) root tensor R of shape (n, k)."""
+    """A = R Rᵀ for a (possibly rectangular) root tensor R of shape batch + (n, k)."""
 
     def __init__(self, root: torch.Tensor):
         self.root = root
@@ -26,7 +26,7 @@ class RootLinearOperator(LinearOperator):
 
     def _shape(self):
         n = self.root.shape[-2]
-        return (n, n)
+        return tuple(self.root.shape[:-2]) + (n, n)
 
     @property
     def dtype(self):
@@ -54,9 +54,10 @@ class RootLinearOperator(LinearOperator):
         return RootLinearOperator(torch.cat([self.root, new_root], dim=-1))
 
     def zero_mean_mvn_samples(self, num_samples: int, base_samples: ProbeSource = None) -> torch.Tensor:
-        """(num_samples, n) draws R u of N(0, R Rᵀ), u of shape (num_samples, k, 1) from
-        ``base_samples``."""
-        u = probe_base_samples((num_samples, self.root.shape[-1], 1), self.dtype, self.device, base_samples)
+        """(num_samples, *batch, n) draws R u of N(0, R Rᵀ), u of shape
+        (num_samples, *batch, k, 1) from ``base_samples``."""
+        shape = (num_samples,) + self.batch_shape + (self.root.shape[-1], 1)
+        u = probe_base_samples(shape, self.dtype, self.device, base_samples)
         return (self.root @ u)[..., 0]
 
 
@@ -82,11 +83,11 @@ class LowRankRootAddedDiagLinearOperator(LinearOperator):
         return self.low_rank._matmul(rhs) + self.diag_op._matmul(rhs)
 
     def zero_mean_mvn_samples(self, num_samples: int, base_samples: ProbeSource = None) -> torch.Tensor:
-        """(num_samples, n) draws of N(0, R Rᵀ + D): x = R u₁ + D^{1/2} u₂ with u ~ N(0, I),
-        u₁ of shape (num_samples, k, 1) drawn first and u₂ of shape (num_samples, n), as the
-        JAX package draws them."""
+        """(num_samples, *batch, n) draws of N(0, R Rᵀ + D): x = R u₁ + D^{1/2} u₂ with
+        u ~ N(0, I), u₁ of shape (num_samples, *batch, k, 1) drawn first and u₂ of shape
+        (num_samples, *batch, n), as the JAX package draws them."""
         R = self.low_rank.root
-        n, k = R.shape
-        u1 = probe_base_samples((num_samples, k, 1), R.dtype, R.device, base_samples)
-        u2 = probe_base_samples((num_samples, n), R.dtype, R.device, base_samples)
+        batch, (n, k) = tuple(R.shape[:-2]), R.shape[-2:]
+        u1 = probe_base_samples((num_samples,) + batch + (k, 1), R.dtype, R.device, base_samples)
+        u2 = probe_base_samples((num_samples,) + batch + (n,), R.dtype, R.device, base_samples)
         return (R @ u1)[..., 0] + torch.sqrt(self.diag_op._diag_values()) * u2

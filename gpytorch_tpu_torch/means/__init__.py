@@ -1,3 +1,4 @@
 from .constant_mean import ConstantMean
+from .multitask_mean import MultitaskMean
 
-__all__ = ["ConstantMean"]
+__all__ = ["ConstantMean", "MultitaskMean"]

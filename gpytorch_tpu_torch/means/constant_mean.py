@@ -1,4 +1,5 @@
-"""ConstantMean.  Counterpart of ``gpytorch_tpu/means/constant_mean.py``."""
+"""ConstantMean.  Counterpart of ``gpytorch_tpu/means/constant_mean.py``: one constant, or
+one per batch element (``raw_constant`` of shape ``batch_shape``)."""
 
 from __future__ import annotations
 
@@ -8,9 +9,10 @@ from ..core.module import Module
 
 
 class ConstantMean(Module):
-    def __init__(self, constant_prior=None):
+    def __init__(self, constant_prior=None, batch_shape=()):
         super().__init__()
-        self.register_parameter("raw_constant", torch.nn.Parameter(torch.zeros(())))
+        self.batch_shape = tuple(int(b) for b in batch_shape)
+        self.register_parameter("raw_constant", torch.nn.Parameter(torch.zeros(self.batch_shape)))
         if constant_prior is not None:
             # the JAX package's (and GPyTorch's) name for this prior
             self.register_prior("mean_prior", constant_prior, lambda m: m.constant,
@@ -22,4 +24,5 @@ class ConstantMean(Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.unsqueeze(-1) if x.ndim == 1 else x
-        return self.constant.to(x.dtype).expand(x.shape[:-1])
+        shape = torch.broadcast_shapes(self.batch_shape, x.shape[:-2]) + x.shape[-2:-1]
+        return self.constant.to(x.dtype).unsqueeze(-1).expand(shape)

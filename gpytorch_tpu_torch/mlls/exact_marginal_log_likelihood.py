@@ -8,7 +8,9 @@
   ½ log 2π is added back for each of them, so that the sum is log p(y_obs);
 * "fill": NaN targets are replaced by the prior mean.
 
-Either way the MLL is divided by the full number of points, as in the JAX package.
+Either way the MLL is divided by the full number of points (n·t for t tasks), as in the
+JAX package.  A batched model gives one value per batch element.  Arguments after the
+target (a Hadamard likelihood's task indices) go to the likelihood.
 
 The priors' log-densities are added once each, from this module's ``prior_log_prob_sum``
 over the model and the likelihood, as GPyTorch does.  (The JAX package adds the model's
@@ -22,19 +24,20 @@ import math
 import torch
 
 from .. import settings
-from ..distributions import MultivariateNormal
-from ..likelihoods import GaussianLikelihood
+from ..distributions import MultitaskMultivariateNormal, MultivariateNormal
+from ..likelihoods import MultitaskGaussianLikelihood
+from ..likelihoods.gaussian_likelihood import _GaussianLikelihoodBase
 from ..linop import MaskedLinearOperator
 from .marginal_log_likelihood import MarginalLogLikelihood
 
 
 class ExactMarginalLogLikelihood(MarginalLogLikelihood):
     def __init__(self, likelihood, model):
-        if not isinstance(likelihood, GaussianLikelihood):
+        if not isinstance(likelihood, (_GaussianLikelihoodBase, MultitaskGaussianLikelihood)):
             raise RuntimeError("Likelihood must be Gaussian for exact inference")
         super().__init__(likelihood, model)
 
-    def forward(self, function_dist: MultivariateNormal, target, base_samples=None, solver_state=None,
+    def forward(self, function_dist: MultivariateNormal, target, *params, base_samples=None, solver_state=None,
                 return_state: bool = False):
         """(log p(target) + Σ log p(prior values)) / N under the prior ``function_dist`` and
         the likelihood, with NaN targets treated by ``settings.observation_nan_policy``.
@@ -52,7 +55,9 @@ class ExactMarginalLogLikelihood(MarginalLogLikelihood):
             raise ValueError(f"unknown observation_nan_policy {nan_policy!r}")
         if return_state and nan_policy != "ignore":
             raise ValueError("warm-started solves support observation_nan_policy='ignore' only")
-        output = self.likelihood(function_dist)
+        output = self.likelihood(function_dist, *params)
+        if nan_policy != "ignore" and isinstance(output, MultitaskMultivariateNormal):
+            raise NotImplementedError("the NaN policies of a multitask model are not ported")
         state = None
         if nan_policy == "ignore":
             res = output.log_prob(target, base_samples=base_samples, solver_state=solver_state,

@@ -16,6 +16,12 @@ autograd on, each call (and each ``get_fantasy_model``) builds or takes a strate
 caches carry their autograd history, and uses it once, so that a prediction is
 differentiable through its caches too (the hyperparameters through K⁻¹(y − μ), and a
 fantasy model's inputs through its Schur update).
+
+A batched model (a batched kernel, mean and likelihood on inputs of shape batch + (n, d) or
+shared (n, d) inputs, targets batch + (n,)) trains and predicts every element at once.  A
+multitask model (its ``forward`` a ``MultitaskMultivariateNormal``) takes targets of shape
+(n, t), flattened to the distribution's layout, and predicts a
+``MultitaskMultivariateNormal``.  Fantasy models of either are not ported: they raise.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from .. import settings
 from ..core.module import Module
-from ..distributions import MultivariateNormal
+from ..distributions import MultitaskMultivariateNormal, MultivariateNormal
 from ..linop import join_rows
 from ..utils.warnings import GPInputWarning
 from .exact_prediction_strategies import prediction_strategy as _prediction_strategy
@@ -133,6 +139,8 @@ class ExactGP(Module):
             raise NotImplementedError("the noise of new observations needs FixedNoiseGaussianLikelihood, not ported")
         if self.train_inputs is None:
             raise RuntimeError("Cannot get a fantasy model without training data")
+        if self.train_targets.ndim > 1 or any(x.ndim > 2 for x in self.train_inputs):
+            raise NotImplementedError("fantasy models of batched or multitask models are not ported")
         inputs = _as_inputs(inputs)
         full_inputs = tuple(join_rows(ti, x) for ti, x in zip(self.train_inputs, inputs))
         full_targets = torch.cat([self.train_targets, targets], -1)
@@ -169,8 +177,21 @@ class ExactGP(Module):
             warnings.warn("The input matches the stored training data. Did you forget to call model.train()?",
                           GPInputWarning)
         strategy = self._call_strategy()
-        full_inputs = tuple(join_rows(ti, x) for ti, x in zip(self.train_inputs, inputs))
+        full_inputs = tuple(join_rows(*_common_batch(ti, x)) for ti, x in zip(self.train_inputs, inputs))
         full_output = self.forward(*full_inputs)
         with settings.cg_tolerance(settings.eval_cg_tolerance.value()):
             pred_mean, pred_covar = strategy.exact_prediction(full_output.loc, full_output.lazy_covariance_matrix)
+        if isinstance(full_output, MultitaskMultivariateNormal):
+            t = full_output.num_tasks
+            flat_shape = pred_mean.shape[:-1] + (pred_mean.shape[-1] // t, t)
+            task_mean = pred_mean.reshape(flat_shape) if full_output.interleaved else (
+                pred_mean.reshape(flat_shape[:-2] + (t, -1)).mT)
+            return MultitaskMultivariateNormal(task_mean, pred_covar, interleaved=full_output.interleaved)
         return MultivariateNormal(pred_mean, pred_covar)
+
+
+def _common_batch(a: torch.Tensor, b: torch.Tensor):
+    """a and b broadcast to their common batch shape (the training and the test inputs of a
+    batched model); each unchanged where it has it already."""
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    return tuple(x if x.shape[:-2] == batch else x.expand(batch + x.shape[-2:]) for x in (a, b))

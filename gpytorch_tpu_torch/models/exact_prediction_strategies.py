@@ -52,7 +52,7 @@ from typing import Optional
 import torch
 
 from .. import settings
-from ..distributions import MultivariateNormal
+from ..distributions import MultitaskMultivariateNormal, MultivariateNormal
 from ..linop import (AddedDiagLinearOperator, DenseLinearOperator, DiagLinearOperator, InterpolatedLinearOperator,
                      LazyEvaluatedKernelOperator, MaskedLinearOperator, RootLinearOperator, to_linear_operator)
 from ..ops.interp import left_interp, left_t_interp, segment_sum
@@ -73,9 +73,17 @@ def _detached_operator(op):
 
 
 class DefaultPredictionStrategy:
+    """The caches of a batched model hold one solve or root per batch element.  A
+    multitask model's targets (n, t) are flattened to its distribution's layout
+    (``gpytorch_tpu/models/exact_prediction_strategies.py:55-64``).  The likelihood's
+    marginal over the training data is given the training inputs, whose column 0 a
+    Hadamard likelihood reads its task indices from."""
+
     def __init__(self, train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init: Optional[torch.Tensor] = None):
         self.train_inputs = train_inputs
         self.train_prior_dist = train_prior_dist
+        if isinstance(train_prior_dist, MultitaskMultivariateNormal) and train_labels.ndim >= 2:
+            train_labels = train_prior_dist._task_to_flat(train_labels)
         self.train_labels = train_labels
         self.likelihood = likelihood
         # explicit start block of the LOVE Lanczos run (None: seeded CPU draw)
@@ -87,7 +95,7 @@ class DefaultPredictionStrategy:
         self.with_graph = torch.is_grad_enabled() and settings.detach_test_caches.off()
         self.spent = False
         # marginal over the training data: K_XX + σ²I
-        self.lik_train_train_covar = likelihood.marginal(train_prior_dist).lazy_covariance_matrix.evaluate_kernel()
+        self.lik_train_train_covar = likelihood.marginal(train_prior_dist, *train_inputs).lazy_covariance_matrix.evaluate_kernel()
 
     def _grad_mode(self):
         return contextlib.nullcontext() if self.with_graph else torch.no_grad()
@@ -140,11 +148,11 @@ class DefaultPredictionStrategy:
         test_mean = joint_mean[..., n:]
         if joint_covar.shape[-1] <= settings.max_eager_kernel_size.value():
             dense = joint_covar.to_dense()
-            test_test_covar = DenseLinearOperator(dense[n:, n:])
-            test_train_covar = DenseLinearOperator(dense[n:, :n])
+            test_test_covar = DenseLinearOperator(dense[..., n:, n:])
+            test_train_covar = DenseLinearOperator(dense[..., n:, :n])
         else:
-            test_test_covar = joint_covar[n:, n:]
-            test_train_covar = joint_covar[n:, :n]
+            test_test_covar = joint_covar[..., n:, n:]
+            test_train_covar = joint_covar[..., n:, :n]
         return (
             self.exact_predictive_mean(test_mean, test_train_covar),
             self.exact_predictive_covar(test_test_covar, test_train_covar),
@@ -156,8 +164,8 @@ class DefaultPredictionStrategy:
 
     def exact_predictive_covar(self, test_test_covar, test_train_covar):
         if settings.skip_posterior_variances.on():
-            m = test_test_covar.shape[-1]
-            return DiagLinearOperator(torch.zeros(m, dtype=self.train_labels.dtype, device=self.train_labels.device))
+            shape = test_test_covar.shape[:-1]
+            return DiagLinearOperator(torch.zeros(shape, dtype=self.train_labels.dtype, device=self.train_labels.device))
         if settings.fast_pred_samples.on():
             # LOVE sampling: the Lanczos root of Σ* = K** − (K*x R)(K*x R)ᵀ, built once a
             # request; without gradients unless the strategy keeps its history (the JAX

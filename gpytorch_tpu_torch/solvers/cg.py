@@ -8,7 +8,8 @@ best-iterate tracking and the stall window; and its training options: the minimu
 iteration count ``n_tridiag_iter`` with the CG coefficients of those iterations stored, a
 warm start ``x0``, convergence gated on the first ``conv_cols`` columns, and the lagged
 warm-rhs initialisation.  The loop runs in Python and synchronises with the host once per
-iteration, to decide whether to stop.
+iteration, to decide whether to stop.  A batched right-hand side (*batch, n, t) solves
+every element's columns in the same loop; the stop waits for all of them.
 """
 
 from __future__ import annotations
@@ -24,11 +25,11 @@ _EPS = 1e-10
 
 
 class CGResult(NamedTuple):
-    solution: torch.Tensor                 # (n, t)
+    solution: torch.Tensor                 # (*batch, n, t)
     num_iters: int
-    residual_norm: torch.Tensor            # (t,) best relative residual of each column
-    alphas: Optional[torch.Tensor] = None  # (n_tridiag_iter, t) where n_tridiag_iter > 0
-    betas: Optional[torch.Tensor] = None   # (n_tridiag_iter, t) where n_tridiag_iter > 0
+    residual_norm: torch.Tensor            # (*batch, t) best relative residual of each column
+    alphas: Optional[torch.Tensor] = None  # (n_tridiag_iter, *batch, t) where n_tridiag_iter > 0
+    betas: Optional[torch.Tensor] = None   # (n_tridiag_iter, *batch, t) where n_tridiag_iter > 0
 
 
 def _col_norm(x: torch.Tensor) -> torch.Tensor:
@@ -46,13 +47,14 @@ def linear_cg(
     conv_cols: Optional[int] = None,
     lagged_rhs_init: bool = False,
 ) -> CGResult:
-    """Solve A x = rhs for every column of rhs (n, t).
+    """Solve A x = rhs for every column of rhs (*batch, n, t).
 
     Each column is normalised to unit norm, so ``tolerance`` is a relative residual.  CG
     runs at least ``n_tridiag_iter`` iterations (storing α and β of those, for
     ``tridiag_from_coeffs``), then stops when every gating column has converged, after
     ``max_iter`` iterations, or when no gating column has improved its best residual for
-    ``settings.cg_stall_window`` iterations.  The gating columns are all of them, or the
+    ``settings.cg_stall_window`` iterations; in a batch, over the columns of every
+    element.  The gating columns are all of them, or the
     first ``conv_cols``; those return their best iterate, the others their last (its
     A-norm error is the one that shrinks monotonically).
 
@@ -113,13 +115,13 @@ def linear_cg(
             # the gating columns' warm-start step x ← x₀ (p was seeded with x₀), r ← b − A x₀
             alpha = torch.where(gated, torch.ones_like(alpha), alpha)
 
-        x = x + alpha * p
-        r = r - alpha * Ap
+        x = x + alpha.unsqueeze(-2) * p
+        r = r - alpha.unsqueeze(-2) * Ap
         resid = _col_norm(r)
         conv_new = conv | (resid < tolerance)
 
         improved = resid < best_resid
-        x_best = torch.where(improved, x, x_best)
+        x_best = torch.where(improved.unsqueeze(-2), x, x_best)
         best_resid = torch.minimum(best_resid, resid)
 
         z = precond_fn(r)
@@ -128,7 +130,7 @@ def linear_cg(
         beta = torch.where(conv_new | krylov_dead, torch.zeros_like(beta_raw), beta_raw)
         if forced:
             beta = torch.where(gated, torch.zeros_like(beta), beta)
-        p = z + beta * p
+        p = z + beta.unsqueeze(-2) * p
         if k < n_tridiag_iter:
             # dead or converged columns store α = 1, β = 0: a unit Ritz value, log 1 = 0
             alphas.append(torch.where(conv | krylov_dead, torch.ones_like(alpha_raw), alpha_raw))
@@ -147,14 +149,14 @@ def linear_cg(
 
 
 def tridiag_from_coeffs(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
-    """Symmetric Lanczos tridiagonals T from CG coefficients: alphas, betas (m, t) →
-    T (t, m, m) with T[0,0] = 1/α₀, T[k,k] = 1/α_k + β_{k−1}/α_{k−1} and
+    """Symmetric Lanczos tridiagonals T from CG coefficients: alphas, betas (m, *batch, t)
+    → T (*batch, t, m, m) with T[0,0] = 1/α₀, T[k,k] = 1/α_k + β_{k−1}/α_{k−1} and
     T[k−1,k] = T[k,k−1] = √β_{k−1}/α_{k−1}."""
-    inv_a = 1.0 / alphas.mT  # (t, m)
-    bc = betas.mT
+    inv_a = 1.0 / alphas.movedim(0, -1)  # (*batch, t, m)
+    bc = betas.movedim(0, -1)
     diag = inv_a.clone()
-    diag[:, 1:] += bc[:, :-1] * inv_a[:, :-1]
-    off = torch.sqrt(torch.clamp_min(bc[:, :-1], 0.0)) * inv_a[:, :-1]
+    diag[..., 1:] += bc[..., :-1] * inv_a[..., :-1]
+    off = torch.sqrt(torch.clamp_min(bc[..., :-1], 0.0)) * inv_a[..., :-1]
     return torch.diag_embed(diag) + torch.diag_embed(off, offset=1) + torch.diag_embed(off, offset=-1)
 
 

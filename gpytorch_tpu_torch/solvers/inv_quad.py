@@ -37,8 +37,8 @@ from .cg import linear_cg, tridiag_from_coeffs
 
 
 class MBCGState(NamedTuple):
-    """What a training solve hands to the next one: the rhs solves (n, t_rhs), detached,
-    and the CG iterations the solve ran."""
+    """What a training solve hands to the next one: the rhs solves (*batch, n, t_rhs),
+    detached, and the CG iterations the solve ran."""
 
     solution: torch.Tensor
     num_iters: int
@@ -101,7 +101,10 @@ def inv_quad_logdet_mbcg(linop, inv_quad_rhs: Optional[torch.Tensor] = None, log
                          reduce_inv_quad: bool = True, base_samples=None,
                          solver_state: Union[None, torch.Tensor, MBCGState] = None, return_state: bool = False):
     """(rhsᵀ linop⁻¹ rhs, log|linop|) by one mBCG solve, differentiable w.r.t. the
-    operator's tensors and the rhs; an entry is None where not asked for.
+    operator's tensors and the rhs; an entry is None where not asked for.  A batched
+    operator gives one value of each per batch element (shape batch), from probes of
+    shape batch + (n, probes) in one CG loop (``gpytorch_tpu/solvers/inv_quad.py:223-261,
+    299-396``).
 
     ``base_samples``: where the probes' standard-normal base samples come from (a
     ``torch.Generator``, a callable that returns them for a shape, or None); see
@@ -122,7 +125,7 @@ def inv_quad_logdet_mbcg(linop, inv_quad_rhs: Optional[torch.Tensor] = None, log
     if has_rhs:
         rhs = inv_quad_rhs if inv_quad_rhs.ndim > 1 else inv_quad_rhs.unsqueeze(-1)
     else:
-        rhs = torch.zeros((n, 1), dtype=linop.dtype, device=linop.device)
+        rhs = torch.zeros(linop.batch_shape + (n, 1), dtype=linop.dtype, device=linop.device)
     x0 = None
     if solver_state is not None:
         x0 = solver_state.solution if isinstance(solver_state, MBCGState) else solver_state
@@ -150,7 +153,7 @@ class _MBCG(torch.autograd.Function):
         from ..linop.base import probe_base_samples
 
         linop = rebuild(tensors)
-        n, dt, dev = linop.shape[-1], rhs.dtype, rhs.device
+        n, dt, dev, batch = linop.shape[-1], rhs.dtype, rhs.device, linop.batch_shape
         t_rhs = rhs.shape[-1] if cfg.has_rhs else 0
         apply_P, P_op, logdet_P = linop._preconditioner()
 
@@ -158,10 +161,10 @@ class _MBCG(torch.autograd.Function):
         rhs_all = rhs
         if cfg.logdet:
             if P_op is not None:
-                z = P_op.zero_mean_mvn_samples(cfg.num_probes, base_samples).mT  # (n, t)
+                z = P_op.zero_mean_mvn_samples(cfg.num_probes, base_samples).movedim(0, -1)  # (*batch, n, t)
             else:
-                z = probe_base_samples((n, cfg.num_probes), dt, dev, base_samples)
-            norms = torch.sqrt(torch.clamp_min((z * z).sum(-2), 1e-20)).unsqueeze(-2)  # (1, t)
+                z = probe_base_samples(batch + (n, cfg.num_probes), dt, dev, base_samples)
+            norms = torch.sqrt(torch.clamp_min((z * z).sum(-2), 1e-20)).unsqueeze(-2)  # (*batch, 1, t)
             probes = z / norms
             rhs_all = torch.cat([rhs, probes], -1) if cfg.has_rhs else probes
 
@@ -178,23 +181,23 @@ class _MBCG(torch.autograd.Function):
         stats["num_iters"] = result.num_iters
         solves = result.solution
 
-        iq = torch.zeros((), dtype=dt, device=dev)
-        s_rhs = solves[:, :t_rhs]
+        iq = torch.zeros(batch, dtype=dt, device=dev)
+        s_rhs = solves[..., :t_rhs]
         if cfg.has_rhs:
             iq = (rhs * s_rhs).sum(-2)
             if cfg.reduce_inv_quad:
                 iq = iq.sum(-1)
 
-        ld = torch.zeros((), dtype=dt, device=dev)
+        ld = torch.zeros(batch, dtype=dt, device=dev)
         s_probe = pinv_probes = None
         if cfg.logdet:
-            s_probe = solves[:, t_rhs:]
+            s_probe = solves[..., t_rhs:]
             pinv_probes = apply_P(probes) if apply_P is not None else probes
-            T = tridiag_from_coeffs(result.alphas[:, t_rhs:], result.betas[:, t_rhs:])  # (t, m, m)
+            T = tridiag_from_coeffs(result.alphas[..., t_rhs:], result.betas[..., t_rhs:])  # (*batch, t, m, m)
             # the small eigenproblems in float64, as the JAX package's symeig promotion does
             lam, V = torch.linalg.eigh(T.double())
             lam = torch.clamp_min(lam, cfg.tridiagonal_jitter)
-            slq = (V[..., 0, :] ** 2 * torch.log(lam)).sum(-1).to(dt)  # (t,)
+            slq = (V[..., 0, :] ** 2 * torch.log(lam)).sum(-1).to(dt)  # (*batch, t)
             ld = n * slq.mean(-1)
             if logdet_P is not None:
                 ld = ld + logdet_P.to(dt)
@@ -220,18 +223,18 @@ class _MBCG(torch.autograd.Function):
                 K_all = lo._matmul_grad_only(torch.cat(cols, -1))
                 total = torch.zeros((), dtype=K_all.dtype, device=K_all.device)
                 if cfg.has_rhs:
-                    quad = (s_rhs * K_all[:, :t_rhs]).sum(-2)
+                    quad = (s_rhs * K_all[..., :t_rhs]).sum(-2)
                     if cfg.reduce_inv_quad:
                         quad = quad.sum(-1)
                     total = total - (g_iq * quad).sum()
                 if cfg.logdet:
-                    est = (s_probe * K_all[:, t_rhs:]).sum(-2)  # (t,)
+                    est = (s_probe * K_all[..., t_rhs:]).sum(-2)  # (*batch, t)
                     if cfg.precond_logdet_vr and ctx.had_precond:
                         _, P_op, logdet_P = lo._preconditioner()
                         est = est - (pinv_probes * P_op._matmul(pinv_probes)).sum(-2)
-                        est = (norms[0] ** 2 * est).mean(-1) + logdet_P
+                        est = (norms[..., 0, :] ** 2 * est).mean(-1) + logdet_P
                     else:
-                        est = (norms[0] ** 2 * est).mean(-1)
+                        est = (norms[..., 0, :] ** 2 * est).mean(-1)
                     total = total + (g_ld * est).sum()
                 wrt = [leaf for leaf in leaves if leaf.requires_grad]
                 grads = iter(torch.autograd.grad(total, wrt, allow_unused=True))

@@ -24,11 +24,12 @@ _EIG_FLOOR = 1e-8
 
 
 def block_lanczos_ritz(matmul_fn, init_block: torch.Tensor, num_blocks: int):
-    """Q (n, m·b) orthonormal, spanning span{Ω, AΩ, …, A^{m-1}Ω}, and T = Qᵀ A Q."""
-    n, b = init_block.shape
+    """Q (*batch, n, m·b) orthonormal, spanning span{Ω, AΩ, …, A^{m-1}Ω}, and T = Qᵀ A Q,
+    for a start block Ω of shape (*batch, n, b) (``gpytorch_tpu/solvers/lanczos.py:136-141``)."""
+    n, b = init_block.shape[-2:]
     # more columns than n would make the trailing qr emit directions not orthogonal to
     # earlier blocks — cap the basis at n columns by narrowing the final block
-    Q, _ = torch.linalg.qr(init_block[:, : min(b, n)])
+    Q, _ = torch.linalg.qr(init_block[..., : min(b, n)])
     Qs, AQs = [Q], []
     cols = Q.shape[-1]
     for j in range(num_blocks):
@@ -37,7 +38,7 @@ def block_lanczos_ritz(matmul_fn, init_block: torch.Tensor, num_blocks: int):
         if j < num_blocks - 1 and cols < n:
             # full re-orthogonalisation, twice, against every previous block
             width = min(b, n - cols)
-            V = V[:, :width]
+            V = V[..., :width]
             for _ in range(2):
                 for Qi in Qs:
                     V = V - Qi @ (Qi.mT @ V)
@@ -52,15 +53,17 @@ def block_lanczos_ritz(matmul_fn, init_block: torch.Tensor, num_blocks: int):
 
 
 def _block_init(linop, initial_vectors: Optional[torch.Tensor], block_size: int) -> torch.Tensor:
-    n = linop.shape[-1]
+    """The start block, of shape batch + (n, block_size)."""
+    batch, n = linop.batch_shape, linop.shape[-1]
     # drawn in float64 on the CPU from a generator seeded with 0, whatever the operator's
     # dtype and device, so every precision and device starts from the same block
     generator = torch.Generator().manual_seed(0)
-    omega = torch.randn(n, block_size, generator=generator, dtype=torch.float64).to(linop.device, linop.dtype)
+    omega = torch.randn(batch + (n, block_size), generator=generator, dtype=torch.float64).to(linop.device, linop.dtype)
     if initial_vectors is not None:
-        vecs = initial_vectors if initial_vectors.ndim == 2 else initial_vectors.unsqueeze(-1)
+        vecs = initial_vectors if initial_vectors.ndim >= len(batch) + 2 else initial_vectors.unsqueeze(-1)
         k = min(block_size, vecs.shape[-1])
-        omega = torch.cat([vecs[:, :k].to(dtype=linop.dtype, device=linop.device), omega[:, k:]], dim=-1)
+        vecs = vecs[..., :k].to(dtype=linop.dtype, device=linop.device).expand(batch + (n, k))
+        omega = torch.cat([vecs, omega[..., k:]], dim=-1)
     return omega
 
 
@@ -76,7 +79,7 @@ def _ritz_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor], in
     b, m = _block_plan(max_rank, n)
     Q, T = block_lanczos_ritz(linop._matmul, _block_init(linop, initial_vectors, b), m)
     lam, V = torch.linalg.eigh(T)
-    lam = lam[-max_rank:].clamp_min(_EIG_FLOOR)
+    lam = lam[..., -max_rank:].clamp_min(_EIG_FLOOR)
     # Floor the Ritz values at the operator's spectral lower bound (σ² for K + σ²I): in
     # float32 the smallest Ritz values of a large K̂ are rounding noise, and in the
     # inverse root they become 1/√λ spikes that turn LOVE variances negative.  Cauchy
@@ -85,9 +88,11 @@ def _ritz_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor], in
     # clamped Ritz value sends nothing to the noise.
     bound = linop._eig_lower_bound()
     if bound is not None:
-        lam = torch.maximum(lam, torch.as_tensor(bound, dtype=lam.dtype, device=lam.device).detach())
-    V = V[:, -max_rank:]
-    return Q @ (V / torch.sqrt(lam) if inverse else V * torch.sqrt(lam))
+        bound = torch.as_tensor(bound, dtype=lam.dtype, device=lam.device).detach()
+        lam = torch.maximum(lam, bound.unsqueeze(-1) if bound.ndim else bound)  # per batch element
+    V = V[..., -max_rank:]
+    scale = torch.sqrt(lam).unsqueeze(-2)
+    return Q @ (V / scale if inverse else V * scale)
 
 
 def lanczos_root(linop, max_rank: int, initial_vectors: Optional[torch.Tensor] = None) -> torch.Tensor:

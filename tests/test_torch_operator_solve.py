@@ -168,15 +168,26 @@ def test_solve_without_gradients_takes_no_autograd_function():
     np.testing.assert_allclose(sol.numpy(), np.linalg.solve(K.numpy() + THETA[2] * np.eye(120), b), rtol=1e-7, atol=1e-9)
 
 
+class _UnflattenedSum(gt.linop.SumLinearOperator):
+    """A sum that cannot be flattened (the port's sums can: multitask training
+    differentiates through them)."""
+
+    def _flatten(self):
+        raise NotImplementedError
+
+    def evaluate_kernel(self):
+        return self
+
+
 def test_solve_of_an_operator_without_flatten_and_a_leaf_under_no_grad():
-    # an operator that cannot be flattened (a sum) solves by plain CG while grad mode is on
-    # and nothing needs a gradient, and raises only when its right-hand side does; under
+    # an operator that cannot be flattened solves by plain CG while grad mode is on and
+    # nothing needs a gradient, and raises only when its right-hand side does; under
     # no_grad a right-hand side that requires grad is solved without gradients
     x, b, _ = _inputs(120)
     K = torch.from_numpy(_kernel(np, x, THETA))
     want = np.linalg.solve(K.numpy() + THETA[2] * np.eye(120), b)
-    summed = gt.linop.SumLinearOperator(gt.linop.DenseLinearOperator(K),
-                                        gt.linop.DiagLinearOperator(torch.full((120,), THETA[2], dtype=torch.float64)))
+    summed = _UnflattenedSum(gt.linop.DenseLinearOperator(K),
+                             gt.linop.DiagLinearOperator(torch.full((120,), THETA[2], dtype=torch.float64)))
     leaf = torch.from_numpy(b).requires_grad_(True)
     with gt.settings.max_cholesky_size(0), gt.settings.cg_tolerance(1e-10):
         sol = summed.solve(torch.from_numpy(b))
