@@ -5,8 +5,9 @@ periodic model, gradients of the flagship's predictions with respect to the test
 LOVE posterior sampling, iterative refinement of the mean cache, the dense-Cholesky path on
 a 1D toy, fantasy updates with a knowledge-gradient step through the caches, missing
 targets, KISS-GP in 1D and 2D with WISKI fantasy updates, LOVE differentiated through its
-Lanczos roots, a batch of two independent GPs at N=100k, and Kronecker, LCM and Hadamard
-multitask GPs.
+Lanczos roots, a batch of two independent GPs at N=100k, Kronecker, LCM and Hadamard
+multitask GPs, and at N=100k sparse variational GPs (natural gradients, whitened and
+unwhitened) and a two-layer deep GP.
 
     python3 chip_smoke.py
 
@@ -203,6 +204,29 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               HadamardGaussianLikelihood) on 2 × 4,096 points, dense, its mBCG
               preconditioned: 20 steps and a request each, each against its CPU float64 run
               at a small n; no kernel may launch.
+
+14. svgp    — BASELINE config 5: a whitened SVGP (m = 1,024 inducing points, a seeded subset of
+              the training inputs; NaturalVariationalDistribution, ConstantMean,
+              ScaleKernel(RBF-ARD), GaussianLikelihood) on the flagship task at N=100,000: the
+              ELBO of a seeded parity state (Cholesky q(u)) and its KL term on the card in
+              float32 and float64 against the JAX package's float64 values (SVGP_ELBO_JAX and
+              SVGP_KL_JAX, from ``tests/svgp_elbo_reference.py``), gated; 196 steps (two epochs of minibatches of
+              1,024) of NGD (lr 0.1) on q(u) and Adam (lr 0.01) on the rest; finite ELBOs, a
+              fixed minibatch's ELBO raised, the RMSE of the 2,048 test points below the
+              constant predictor's (NLPD read), no kernel launched; svgp_step_ms.  Alone:
+              ``python3 -c 'import chip_smoke; chip_smoke.phase_svgp()'``.
+14b. unwhitened — the unwhitened strategy at m = 1,024 with a Cholesky q(u), 3 Adam steps: its
+              KL runs mBCG on the lazy K_ZZ + jitter and launches kernel_matvec at 1,024 × 1,024,
+              t = 1,035 ([L_S | μ_Z − m | 10 probes]), its backward kernel_bwd_fused at the
+              same t (gated: both launched, and the first launch of each against its plain
+              version on the same operands, timed beside its bound); the stochastic KL beside
+              the dense-Cholesky KL in float32 and float64 (read).
+14c. deep gp — a two-layer deep GP: 10 hidden GPs (LinearMean) and an output GP (ConstantMean),
+              128 inducing points each, 10 likelihood samples, DeepApproximateMLL(VariationalELBO),
+              100 Adam steps on minibatches of 1,024, each drawing one joint sample of the
+              10,240 hidden values per sample through a rank-100 Lanczos root; finite values,
+              the objective raised, the RMSE below the constant predictor's, no kernel
+              launched; deep_gp_step_ms and the peak device memory.
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -455,6 +479,24 @@ MT_SLICE_N = 1024           # phases 13b and 13c: CUDA float32 against a CPU flo
 MT_SLICE_TOL = (1e-3, 1e-2, 1e-3)  # … loss (|Δ| / max(|loss|, 1)), gradient (max |Δ| / max |∇|), served mean
                             # (max |Δ| / max |μ|)
 LCM_N, HAD_N, MT_SMALL_STEPS = 4096, 4096, 20  # phase 13c: LCM inputs, Hadamard points per task, Adam steps
+# the sparse variational GPs (phases 14, 14b) and the two-layer deep GP (phase 14c), on make_task's data
+SVGP_M, SVGP_BATCH, SVGP_STEPS = 1024, 1024, 196  # inducing points, minibatch, steps (two epochs of N_TRAIN)
+SVGP_NGD_LR, SVGP_ADAM_LR, SVGP_SEED = 0.1, 0.01, 14  # NGD on q(u)'s natural parameters, Adam on the rest
+SVGP_JITTER = 1e-4          # the parity gate's K_ZZ jitter in every dtype (by default 1e-4 in float32, 1e-6 in
+                            # float64: two dtypes would fit two models)
+# the JAX package's float64 ELBO at svgp_parity_state and its KL term, KL(q ‖ p) / N_TRAIN:
+# python tests/svgp_elbo_reference.py
+SVGP_ELBO_JAX, SVGP_KL_JAX = -29.657439592867885, 0.021697786488198416
+SVGP_ELBO_TOL = (2e-4, 1e-10)  # |ELBO − SVGP_ELBO_JAX| / |SVGP_ELBO_JAX| in float32 and float64: the port read
+                            # 3.42e-05 and 5.02e-14 on an H100, 4.2e-05 and 1.0e-13 on the CPU (float32 round-off,
+                            # amplified by K_ZZ + 1e-4·I, condition ≈ 2e7 at m = 1,024).  The KL term is 7.3e-4 of
+                            # |ELBO|, so a float32 path that dropped it would read 7.3e-4 and fail
+SVGP_KL_TOL = (1e-5, 1e-10)  # … and |KL − SVGP_KL_JAX| / SVGP_KL_JAX in float32 and float64 (closed forms of q(u)'s
+                            # factor; the CPU read 5.0e-08 and 3.2e-16), so that a mis-scaled KL fails in float32
+UW_STEPS = 3                # phase 14b: Adam steps of the unwhitened strategy at m = SVGP_M
+DGP_H, DGP_M, DGP_S = 10, 128, 10  # phase 14c: hidden outputs, inducing points per layer, likelihood samples
+DGP_STEPS, DGP_LR, DGP_SEED = 100, 0.03, 15  # … Adam steps on minibatches of SVGP_BATCH, its rate (GPyTorch's example: 0.01
+                            # over many epochs; 40 steps on the CPU at 0.03 took the RMSE from 1.02 to 0.79), the seed
 
 
 class SmokeFailure(Exception):
@@ -4593,6 +4635,17 @@ def build_hadamard_model(train_x, train_y, device, dtype):
     return HadamardGP(tx, ty, likelihood).to(device=device, dtype=dtype)
 
 
+def _kernel_wrappers():
+    """The five CUDA kernels' wrappers, whose ``launches`` count every launch, in the order
+    of every five-count tuple printed: (matvec, bwd_fused, grad_x, periodic matvec, periodic
+    bwd_fused)."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
+
+    return (fk.kernel_matvec_cuda, fk.kernel_bwd_fused_cuda, fk.kernel_grad_x_cuda, ppk.periodic_matvec_cuda,
+            ppk.periodic_bwd_fused_cuda)
+
+
 def _mt_loss(model, base_samples, state, extra=(), budget: float = PC_NOISE_BUDGET):
     """−MLL per datum of a multitask or Hadamard model by mBCG under the training recipe
     (``extra``: the likelihood's arguments); returns (loss, state)."""
@@ -4613,9 +4666,6 @@ def _mt_train_and_serve(tag, model, test_x, steps, extra=False):
     no pallas_call on these paths)."""
     import torch
 
-    from gpytorch_tpu_torch.ops import fused_kernels as fk
-    from gpytorch_tpu_torch.ops import periodic_kernels as ppk
-
     dev = test_x.device
     tx = model.train_inputs[0]
     rows = model.train_targets.numel()
@@ -4623,8 +4673,7 @@ def _mt_train_and_serve(tag, model, test_x, steps, extra=False):
     scheduler = torch.optim.lr_scheduler.CosineAnnealingLR(optimizer, T_max=steps, eta_min=0.01)
     generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
     state = torch.zeros(rows, 1, dtype=tx.dtype, device=dev)
-    wrappers = (fk.kernel_matvec_cuda, fk.kernel_bwd_fused_cuda, fk.kernel_grad_x_cuda, ppk.periodic_matvec_cuda,
-                ppk.periodic_bwd_fused_cuda)
+    wrappers = _kernel_wrappers()
     for w in wrappers:
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -4758,6 +4807,491 @@ def phase_lcm_hadamard():
     return dict(lcm=r_lcm, hadamard=r_had, lcm_mae=lcm_mae, had_mae=had_mae, gaps=(lcm_gaps, had_gaps),
                 launches=launched)
 
+def _quartiles_ms(secs) -> str:
+    q = np.percentile(np.asarray(secs) * 1e3, [25, 50, 75])
+    return f"median {q[1]:.3f} ms (quartiles {q[0]:.3f}-{q[2]:.3f}, min {min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f})"
+
+
+def build_svgp(train_x, device, dtype, dist="natural", whitened=True, jitter_val=None):
+    """Phase 14's model: an ApproximateGP on SVGP_M inducing points (a seeded subset of the
+    training inputs) with ConstantMean, ScaleKernel(RBFKernel(ard_num_dims=D)) and q(u) of
+    the kind ``dist`` ("natural" or "cholesky") under the whitened (or unwhitened) strategy,
+    and a GaussianLikelihood with noise ≥ NOISE_FLOOR; (model, likelihood) on ``device`` in
+    train mode.  ``jitter_val`` fixes K_ZZ's jitter (by default it follows the dtype)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    Z = torch.as_tensor(train_x[np.random.default_rng(SVGP_SEED).choice(len(train_x), SVGP_M, replace=False)])
+    dist_cls = {"natural": gt.variational.NaturalVariationalDistribution,
+                "cholesky": gt.variational.CholeskyVariationalDistribution}[dist]
+    strategy_cls = gt.variational.VariationalStrategy if whitened else gt.variational.UnwhitenedVariationalStrategy
+
+    class SVGP(gt.models.ApproximateGP):
+        def __init__(self):
+            super().__init__(strategy_cls(self, Z, dist_cls(SVGP_M), jitter_val=jitter_val))
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=D))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    return SVGP().to(device=device, dtype=dtype).train(), likelihood.to(device=device, dtype=dtype).train()
+
+
+def svgp_parity_state(train_x, train_y):
+    """The state of phase 14's parity gate, drawn with numpy from SVGP_SEED: the model's raw
+    parameters under the JAX package's names (the flagship's fitted hyperparameters, the
+    inducing points of ``build_svgp``, q(u) = N(m, L Lᵀ) with m ~ 0.5·N(0, I) and L lower
+    triangular, its diagonal uniform on [0.05, 0.3] and 0.05·N(0, 1) below it), the
+    likelihood's, and one minibatch of SVGP_BATCH training points (none of them inducing)."""
+    rng = np.random.default_rng(SVGP_SEED)
+    z_idx = rng.choice(len(train_x), SVGP_M, replace=False)
+    rest = np.setdiff1d(np.arange(len(train_x)), z_idx)
+    batch = np.random.default_rng([SVGP_SEED, 1]).choice(rest, SVGP_BATCH, replace=False)
+    rng = np.random.default_rng([SVGP_SEED, 2])
+    L = np.tril(0.05 * rng.normal(size=(SVGP_M, SVGP_M)), -1) + np.diag(rng.uniform(0.05, 0.3, size=SVGP_M))
+    params = {k: np.asarray(v) for k, v in JAX_PARAMS.items() if not k.startswith("likelihood.")}
+    params |= {"variational_strategy.inducing_points": train_x[z_idx],
+               "variational_strategy._variational_distribution.variational_mean": 0.5 * rng.normal(size=SVGP_M),
+               "variational_strategy._variational_distribution.chol_variational_covar": L}
+    lik_params = {"noise_covar.raw_noise": np.asarray(JAX_PARAMS["likelihood.noise_covar.raw_noise"])}
+    return params, lik_params, train_x[batch], train_y[batch]
+
+
+def svgp_parity_terms(device, dtype) -> tuple:
+    """(ELBO, KL term) (num_data = N_TRAIN) of ``svgp_parity_state`` on its minibatch: the
+    whitened strategy with a Cholesky q(u) and K_ZZ's jitter SVGP_JITTER."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    train_x, train_y, _, _ = make_task(N_TRAIN, N_TEST)
+    params, lik_params, xb, yb = svgp_parity_state(train_x, train_y)
+    model, likelihood = build_svgp(train_x, device, dtype, dist="cholesky", jitter_val=SVGP_JITTER)
+    gt.load_jax_params(model, params | {"variational_strategy.variational_params_initialized": 1})
+    gt.load_jax_params(likelihood, lik_params)
+    xb, yb = (torch.as_tensor(a, dtype=dtype, device=device) for a in (xb, yb))
+    with torch.no_grad():
+        log_lik, kl, log_prior = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN, combine_terms=False)(
+            model(xb), yb)
+    return (log_lik - kl + log_prior).item(), kl.item()
+
+
+def _svgp_batches(generator, steps: int, device):
+    """Minibatch indices of SVGP_BATCH rows: a fresh permutation of the N_TRAIN rows each
+    epoch, from ``generator``."""
+    import torch
+
+    out = []
+    while len(out) < steps:
+        perm = torch.randperm(N_TRAIN, generator=generator, device=device)
+        out.extend(perm[i:i + SVGP_BATCH] for i in range(0, N_TRAIN - SVGP_BATCH + 1, SVGP_BATCH))
+    return out[:steps]
+
+
+def _predictive_quality(mean, var, test_y, train_y_mean):
+    """(RMSE, NLPD of N(mean, var), RMSE of the constant predictor at the training mean)."""
+    import torch
+
+    rmse = (mean - test_y).pow(2).mean().sqrt().item()
+    nlpd = (0.5 * (torch.log(2 * math.pi * var) + (mean - test_y) ** 2 / var)).mean().item()
+    return rmse, nlpd, (test_y - train_y_mean).pow(2).mean().sqrt().item()
+
+
+def phase_svgp():
+    """Phase 14: whitened SVGP trained with natural gradients at N=100k (``build_svgp``:
+    SVGP_M inducing points, NaturalVariationalDistribution).  First the parity gate: the ELBO
+    and the KL term of ``svgp_parity_state`` on the card in float32 and float64 against the
+    JAX package's float64 values SVGP_ELBO_JAX and SVGP_KL_JAX, within SVGP_ELBO_TOL and
+    SVGP_KL_TOL.  Then SVGP_STEPS steps on minibatches
+    of SVGP_BATCH (two epochs): NGD (lr SVGP_NGD_LR, num_data = N_TRAIN) on the natural
+    parameters and Adam (lr SVGP_ADAM_LR) on the inducing points, the hyperparameters and the
+    noise; every ELBO finite, the ELBO of a fixed minibatch raised; the RMSE and NLPD of the
+    N_TEST test points, the RMSE gated below the constant predictor's; svgp_step_ms.  The
+    path launches no hand-written kernel (K_ZZ and K_Zx are evaluated densely, and of K_xx
+    the ELBO and the predictions read the diagonal): the launches are gated at 0.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_svgp()'``.  Returns the readings."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    dtypes = (torch.float32, torch.float64)
+    terms = {dt: svgp_parity_terms(dev, dt) for dt in dtypes}
+    elbo = {dt: terms[dt][0] for dt in dtypes}
+    gap = tuple(abs(elbo[dt] - SVGP_ELBO_JAX) / abs(SVGP_ELBO_JAX) for dt in dtypes)
+    kl_gap = tuple(abs(terms[dt][1] - SVGP_KL_JAX) / SVGP_KL_JAX for dt in dtypes)
+    print(f"[svgp] parity: ELBO of the parity state on {SVGP_BATCH} points, m={SVGP_M}: float32 "
+          f"{elbo[torch.float32]:.9f}, float64 {elbo[torch.float64]:.12f} on the card; JAX package float64 "
+          f"{SVGP_ELBO_JAX:.12f}; relative gaps {gap[0]:.3e} and {gap[1]:.3e} (tol {SVGP_ELBO_TOL}); KL term float32 "
+          f"{terms[torch.float32][1]:.9f}, float64 {terms[torch.float64][1]:.12f}, JAX package {SVGP_KL_JAX:.12f}, "
+          f"relative gaps {kl_gap[0]:.3e} and {kl_gap[1]:.3e} (tol {SVGP_KL_TOL}); {nvidia_smi()}", flush=True)
+    check(all(g <= tol for g, tol in zip(gap, SVGP_ELBO_TOL)), f"svgp: ELBO gaps {gap} above {SVGP_ELBO_TOL}")
+    check(all(g <= tol for g, tol in zip(kl_gap, SVGP_KL_TOL)), f"svgp: KL gaps {kl_gap} above {SVGP_KL_TOL}")
+
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+    model, likelihood = build_svgp(train_x, dev, torch.float32)
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    is_natural = lambda name: "_variational_distribution.natural" in name  # noqa: E731
+    named = dict(model.named_parameters())
+    ngd = gt.optim.NGD([p for k, p in named.items() if is_natural(k)], num_data=N_TRAIN, lr=SVGP_NGD_LR)
+    adam = torch.optim.Adam([p for k, p in named.items() if not is_natural(k)] + list(likelihood.parameters()),
+                            lr=SVGP_ADAM_LR)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(SVGP_SEED), SVGP_STEPS, dev)
+    fixed = slice(0, SVGP_BATCH)  # a fixed minibatch: the rows are i.i.d. uniform draws
+
+    def fixed_elbo():
+        with torch.no_grad():
+            return mll(model(tx[fixed]), ty[fixed]).item()
+
+    elbo0 = fixed_elbo()  # the first call also initialises q(u) from the prior, N(0, I)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    elbos, times = [], []
+    for idx in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ngd.zero_grad()
+        adam.zero_grad()
+        loss = -mll(model(tx[idx]), ty[idx])
+        loss.backward()
+        ngd.step()
+        adam.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        elbos.append(-loss.item())
+    train_launches = tuple(w.launches for w in wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    elbo1 = fixed_elbo()
+    model.eval()
+    for w in wrappers:
+        w.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = likelihood(model(sx))
+        mean, var = pred.mean, pred.variance
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    serve_launches = tuple(w.launches for w in wrappers)
+    rmse, nlpd, const_rmse = _predictive_quality(mean, var, sy, ty.mean())
+    kern = model.covar_module
+    print(f"[svgp] {SVGP_STEPS} steps (NGD lr {SVGP_NGD_LR} + Adam lr {SVGP_ADAM_LR}, minibatch {SVGP_BATCH}): "
+          f"svgp_step_ms {_quartiles_ms(times[1:])} over steps 1-{SVGP_STEPS - 1}, first step {times[0] * 1e3:.1f} ms; "
+          f"ELBO per step {[round(e, 4) for e in elbos[:5]]} … {[round(e, 4) for e in elbos[-5:]]}; fixed minibatch "
+          f"ELBO {elbo0:.5f} → {elbo1:.5f}; peak device memory {peak / 2**20:.1f} MiB; {nvidia_smi()}", flush=True)
+    print(f"[svgp] lengthscale {kern.base_kernel.lengthscale.detach().cpu().numpy().round(4).tolist()}, outputscale "
+          f"{kern.outputscale.item():.4f}, noise {likelihood.noise.item():.5f}; {N_TEST} test points in "
+          f"{request_s * 1e3:.2f} ms: rmse {rmse:.4f} (constant predictor {const_rmse:.4f}), nlpd {nlpd:.4f}; "
+          f"hand-written kernel launches (matvec, bwd_fused, grad_x, periodic matvec, periodic bwd): training "
+          f"{train_launches}, prediction {serve_launches} (predicted none)", flush=True)
+    check(all(math.isfinite(e) for e in elbos), "svgp: a non-finite ELBO")
+    check(elbo1 > elbo0, f"svgp: training took the fixed minibatch's ELBO from {elbo0} only to {elbo1}")
+    check(rmse < const_rmse, f"svgp: rmse {rmse} not below the constant predictor's {const_rmse}")
+    check(not any(train_launches) and not any(serve_launches), f"svgp: kernels launched {train_launches}, "
+                                                                 f"{serve_launches}")
+    return dict(elbo=elbo, gap=gap, kl_gap=kl_gap, step_ms=float(np.median(times[1:])) * 1e3, rmse=rmse, nlpd=nlpd,
+                const_rmse=const_rmse, launches=sum(train_launches) + sum(serve_launches))
+
+
+@contextlib.contextmanager
+def recorded_calls(name: str):
+    """Wraps ``fused_kernels.<name>`` (a kernel's wrapper) for a run: keeps the operands of
+    its first call (tensors cloned, a tensor passed twice kept as one) and the shape (rows of
+    the first operand, rows of the second, columns of the third) of every call, in a dict it
+    yields (``first``: (args, kwargs), ``shapes``: [(n, m, t)])."""
+    import torch
+
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    wrapper, seen = getattr(fk, name), {"first": None, "shapes": []}
+
+    def recording(*args, **kwargs):
+        if seen["first"] is None:
+            copies = {}
+            seen["first"] = (tuple(copies.setdefault(id(a), a.clone()) if isinstance(a, torch.Tensor) else a
+                                   for a in args), dict(kwargs))
+        seen["shapes"].append((args[0].shape[0], args[1].shape[0], args[2].shape[1]))
+        return wrapper(*args, **kwargs)
+
+    setattr(fk, name, recording)
+    try:
+        yield seen
+    finally:
+        setattr(fk, name, wrapper)
+
+
+def _bwd_at_kl_shape(args, kwargs) -> dict:
+    """kernel_bwd_fused on the operands of the unwhitened KL's first backward launch, with
+    the outputs that launch asked for, against ``_bwd_fused_reference`` in float64 on the
+    same operands: each output's error over the sums of its terms' magnitudes
+    (``_bwd_abs_terms``) gated at BWD_REL_TOL as phase 2's ragged shapes are, and over its
+    own size (max |Δdx| / max |dx|, |Δdos| / |dos|) gated at BWD_TRAIN_TOL, beside the plain
+    float32 version's errors; timed beside ``bwd_bound`` and the plain version.  The KL's
+    backward asks for dx and dos and no dv (as read on an H100), which ``bwd_bound`` assumes:
+    a launch that asks for dv fails the phase."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    x, g, v, kt = args
+    need_dv, need_dos = kwargs.get("need_dv", True), kwargs.get("need_dos", False)
+    check(not need_dv, "unwhitened: the KL's backward asked for dv, which bwd_bound does not count")
+    n, t = x.shape[0], v.shape[1]
+    names = ("dv", "dx", "dos")
+    got = dict(zip(names, fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=need_dv, need_dos=need_dos)))
+    plain = dict(zip(names, fk._bwd_fused_reference(x, g, v, kt, need_dv=need_dv, need_dos=need_dos)))
+    x64, g64, v64 = x.double(), g.double(), v.double()
+    exact = dict(zip(names, fk._bwd_fused_reference(x64, g64, v64, kt, need_dv=need_dv, need_dos=need_dos)))
+    bx, bdv, bdos = _bwd_abs_terms(x64, g64, v64, kt)
+    terms = {"dv": bdv.max(), "dx": bx.max(), "dos": bdos}
+    asked = [k for k in names if exact[k] is not None]
+    rel, max_abs = {}, 0.0
+    for k in asked:
+        size = exact[k].abs().max()
+        for name, out in (("kernel", got), ("plain", plain)):
+            err = (out[k].double() - exact[k]).abs().max()
+            rel[(name, k)] = ((err / terms[k]).item(), (err / size).item())
+            if name == "kernel":
+                max_abs = max(max_abs, err.item())
+    ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=need_dv, need_dos=need_dos), 10)
+    plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, kt, need_dv=need_dv, need_dos=need_dos), 10)
+    bound = bwd_bound(n, D, t)
+    chunks = -(-t // 32)
+    print(f"[unwhitened] the KL's backward {n}x{n} d={D} t={t} ({', '.join(asked)}; the FMA tier, {chunks} column "
+          f"chunks of partials) against float64 on the same operands, error over the sums of the terms' magnitudes / "
+          f"over the output's size: "
+          + "; ".join(f"{k} kernel {rel[('kernel', k)][0]:.3e} / {rel[('kernel', k)][1]:.3e}, plain float32 "
+                      f"{rel[('plain', k)][0]:.3e} / {rel[('plain', k)][1]:.3e}" for k in asked)
+          + f" (tol {BWD_REL_TOL} / {BWD_TRAIN_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}); {nvidia_smi()}", flush=True)
+    for k in asked:
+        over_terms, over_size = rel[("kernel", k)]
+        check(over_terms <= BWD_REL_TOL and over_size <= BWD_TRAIN_TOL,
+              f"unwhitened: the KL's backward, {k}, against float64: {over_terms:.3e} of its terms' magnitudes "
+              f"(tol {BWD_REL_TOL}), {over_size:.3e} of its size (tol {BWD_TRAIN_TOL})")
+    return dict(n=n, m=n, t=t, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], max_abs_err=max_abs,
+                outputs=asked, rel_err={k: rel[("kernel", k)] for k in asked},
+                plain_rel_err={k: rel[("plain", k)] for k in asked})
+
+
+def phase_unwhitened(save=None):
+    """Phase 14b: the unwhitened strategy at m = SVGP_M with a Cholesky q(u) (initialised from
+    the prior N(μ_Z, K_ZZ + jitter)), UW_STEPS Adam steps (lr SVGP_ADAM_LR) on minibatches of
+    SVGP_BATCH.  Its KL reads K_ZZ⁻¹ and log|K_ZZ| by mBCG on the lazy K_ZZ + jitter (SVGP_M
+    > max_cholesky_size, SVGP_M² > max_eager_kernel_size²), so it launches kernel_matvec at
+    SVGP_M × SVGP_M with t = SVGP_M + 1 + num_trace_samples columns ([L_S | μ_Z − m | probes]),
+    and its backward kernel_bwd_fused at the same t.  Gates: finite values, both kernels
+    launched in the KL, and the first launch of each held against its plain version on the
+    same operands (the product at KERNEL_REL_TOL, the backward by ``_bwd_at_kl_shape``), each
+    timed beside its bound.  Prints the stochastic KL beside the dense-Cholesky KL of the same
+    state in float32 and float64 (not gated).  ``save``: a path where the last state's
+    parameters go (``np.savez``, under the JAX package's names), which
+    ``tests/unwhitened_kl_witness.py`` reads into both packages.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_unwhitened()'``.  Returns the readings."""
+    import copy
+
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    train_x, train_y, _, _ = make_task(N_TRAIN, N_TEST)
+    tx, ty = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y))
+    # the jitter fixed, so that the float64 twin below is the same model
+    model, likelihood = build_svgp(train_x, dev, torch.float32, dist="cholesky", whitened=False, jitter_val=SVGP_JITTER)
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    optimizer = torch.optim.Adam(list(model.parameters()) + list(likelihood.parameters()), lr=SVGP_ADAM_LR)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(SVGP_SEED), UW_STEPS, dev)
+    with torch.no_grad():
+        model(tx[:4])  # initialises q(u) from the prior
+    torch.manual_seed(SVGP_SEED)  # the KL's probes come from torch's default generator
+    wrappers = _kernel_wrappers()
+    rows, times = [], []
+    for idx in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        for w in wrappers:
+            w.launches = 0
+        with recorded_calls("kernel_matvec_cuda") as seen:
+            loss = -mll(model(tx[idx]), ty[idx])
+        forward = tuple(w.launches for w in wrappers)
+        for w in wrappers:
+            w.launches = 0
+        with recorded_calls("kernel_bwd_fused_cuda") as seen_bwd:
+            loss.backward()
+        backward = tuple(w.launches for w in wrappers)
+        optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        ok = finite_step(loss, model) and finite_step(loss, likelihood)
+        rows.append((loss.item(), forward, backward, sorted(set(seen["shapes"])), sorted(set(seen_bwd["shapes"]))))
+        check(ok, f"unwhitened: non-finite loss or gradient at step {len(rows) - 1}")
+    for i, (loss, fwd, bwd, shapes, bwd_shapes) in enumerate(rows):
+        print(f"[unwhitened] step {i}: ELBO {-loss:.5f}; launches (matvec, bwd_fused, grad_x, periodic matvec, "
+              f"periodic bwd) forward {fwd}, backward {bwd}; K·V shapes {shapes}, backward shapes {bwd_shapes}",
+              flush=True)
+    check(all(fwd[0] > 0 for _, fwd, _, _, _ in rows), "unwhitened: the KL launched no kernel_matvec")
+    check(all(bwd[1] > 0 for _, _, bwd, _, _ in rows), "unwhitened: the KL's backward launched no kernel_bwd_fused")
+    (x1, x2, v, kt), _ = seen["first"]
+    got, plain = fk.kernel_matvec_cuda(x1, x2, v, kt), fk._matvec_reference(x1, x2, v, kt)
+    rel, err = _rel_err(got, plain, x1, x2, v, kt)
+    n, m, t = x1.shape[0], x2.shape[0], v.shape[1]
+    ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, kt), 10)
+    plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, kt), 10)
+    bound = matvec_bound(n, m, D, t)
+    print(f"[unwhitened] the KL's product {n}x{m} t={t} (symmetric: {x1 is x2}) against its plain "
+          f"version on the same operands: max abs err {err:.3e}, rel {rel:.3e} (tol {KERNEL_REL_TOL}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); {nvidia_smi()}", flush=True)
+    check(rel <= KERNEL_REL_TOL, f"unwhitened: the KL's product differs from its plain version by {rel:.3e}")
+    bwd_shape = _bwd_at_kl_shape(*seen_bwd["first"])
+    with torch.no_grad():
+        kl32 = model.variational_strategy.kl_divergence(model=model).item()
+        twin = copy.deepcopy(model).double()
+        with gt.settings.max_cholesky_size(SVGP_M):
+            kl32_dense = model.variational_strategy.kl_divergence(model=model).item()
+            kl64 = twin.variational_strategy.kl_divergence(model=twin).item()
+    print(f"[unwhitened] KL at the last state: mBCG float32 {kl32:.4f}, dense Cholesky float32 {kl32_dense:.4f}, dense "
+          f"Cholesky float64 {kl64:.4f} (gap of the mBCG one {abs(kl32 - kl64) / abs(kl64):.3e} relative, not gated); "
+          f"step {_quartiles_ms(times)}", flush=True)
+    check(math.isfinite(kl32) and math.isfinite(kl64), "unwhitened: a non-finite KL")
+    if save is not None:
+        np.savez(save, **{k: p.detach().cpu().numpy() for k, p in model.named_parameters()},
+                 **{f"likelihood.{k}": p.detach().cpu().numpy() for k, p in likelihood.named_parameters()})
+        print(f"[unwhitened] the last state's parameters written to {save}", flush=True)
+    launches = [fwd[0] for _, fwd, _, _, _ in rows]
+    bwd_launches = [bwd[1] for _, _, bwd, _, _ in rows]
+    return dict(shape=dict(n=n, m=m, t=t, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                           max_abs_err=err, launches_per_step=launches),
+                bwd_shape=dict(bwd_shape, launches_per_step=bwd_launches),
+                launches=sum(launches), bwd_launches=sum(bwd_launches), kl=(kl32, kl32_dense, kl64))
+
+
+def build_deep_gp(train_x, device, dtype):
+    """Phase 14c's two-layer deep GP: a hidden layer of DGP_H GPs on the D inputs (LinearMean,
+    ScaleKernel(RBFKernel(ard_num_dims=D)) with lengthscales and outputscales drawn from the
+    seed, each a whitened Cholesky q(u) on DGP_M inducing points, a seeded subset of the
+    training inputs of its own) and an output layer on the
+    DGP_H hidden values (ConstantMean, ScaleKernel(RBFKernel(ard_num_dims=DGP_H)), DGP_M
+    inducing points drawn from N(0, I)), with a GaussianLikelihood; on ``device``."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    rng = np.random.default_rng(DGP_SEED)
+    Z_hidden = np.stack([train_x[rng.choice(len(train_x), DGP_M, replace=False)] for _ in range(DGP_H)])
+    Z_out = rng.normal(size=(DGP_M, DGP_H))
+
+    class Layer(gt.models.deep_gps.DeepGPLayer):
+        def __init__(self, Z, input_dims, output_dims):
+            batch = () if output_dims is None else (output_dims,)
+            vd = gt.variational.CholeskyVariationalDistribution(DGP_M, batch_shape=batch)
+            super().__init__(gt.variational.VariationalStrategy(self, torch.as_tensor(Z), vd), input_dims, output_dims)
+            self.mean_module = (gt.means.LinearMean(input_dims, batch_shape=batch) if output_dims
+                                else gt.means.ConstantMean())
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=input_dims, batch_shape=batch),
+                                                       batch_shape=batch)
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    class TwoLayerDeepGP(gt.models.deep_gps.DeepGP):
+        def __init__(self):
+            super().__init__()
+            self.hidden_layer = Layer(Z_hidden, D, DGP_H)
+            self.last_layer = Layer(Z_out, DGP_H, None)
+            self.likelihood = gt.likelihoods.GaussianLikelihood()
+
+        def forward(self, x, base_samples=None):
+            return self.last_layer(self.hidden_layer(x), base_samples=base_samples)
+
+    model = TwoLayerDeepGP()
+    # distinct hidden GPs: with one set of hyperparameters and q(u) at its prior (the whitened
+    # start), every hidden output has the same covariance, each eigenvalue of the block-diagonal
+    # covariance is DGP_H-fold, and the eigh backward of the sample's Lanczos root divides by
+    # the gaps between its Ritz values (in float32 on the CPU the first gradient read NaN)
+    kern = model.hidden_layer.covar_module
+    kern.base_kernel.lengthscale = rng.uniform(0.2, 1.0, size=(DGP_H, 1, D))
+    kern.outputscale = rng.uniform(0.5, 1.5, size=DGP_H)
+    return model.to(device=device, dtype=dtype)
+
+
+def phase_deep_gp():
+    """Phase 14c: the two-layer deep GP (``build_deep_gp``) at N=100k, DGP_STEPS Adam steps (lr
+    DGP_LR) on minibatches of SVGP_BATCH with DeepApproximateMLL(VariationalELBO) and
+    DGP_S samples: each step the output layer reads one joint draw of the SVGP_BATCH × DGP_H
+    hidden values per sample, from a rank-100 Lanczos root of the hidden layer's whole
+    block-diagonal covariance (SVGP_BATCH · DGP_H > max_cholesky_size).  Gates: finite
+    objectives, the mean objective of the last ten steps above that of the first ten, the
+    RMSE of the N_TEST test points (the mean over DGP_S samples) below the constant
+    predictor's, and no hand-written kernel launched (every kernel matrix here is formed
+    densely).  Prints deep_gp_step_ms and the peak device memory.  Returns the readings."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+    model = build_deep_gp(train_x, dev, torch.float32)
+    mll = gt.mlls.DeepApproximateMLL(gt.mlls.VariationalELBO(model.likelihood, model, num_data=N_TRAIN))
+    optimizer = torch.optim.Adam(model.parameters(), lr=DGP_LR)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(DGP_SEED), DGP_STEPS, dev)
+    samples = torch.Generator(device=dev).manual_seed(DGP_SEED + 1)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    objectives, times = [], []
+    with gt.settings.num_likelihood_samples(DGP_S):
+        for idx in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            optimizer.zero_grad()
+            objective = mll(model(tx[idx], base_samples=samples), ty[idx])
+            (-objective).backward()
+            optimizer.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            objectives.append(objective.item())
+            check(finite_step(objective, model), f"deep gp: non-finite objective or gradient at step {len(times) - 1}")
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            means = [model(sx[i:i + SVGP_BATCH], base_samples=samples).mean.mean(0) for i in range(0, N_TEST, SVGP_BATCH)]
+    launches = tuple(w.launches for w in wrappers)
+    mean = torch.cat(means)
+    rmse = (mean - sy).pow(2).mean().sqrt().item()
+    const_rmse = (sy - ty.mean()).pow(2).mean().sqrt().item()
+    first, last = float(np.mean(objectives[:10])), float(np.mean(objectives[-10:]))
+    print(f"[deep gp] H={DGP_H}, m={DGP_M} per layer, S={DGP_S}, minibatch {SVGP_BATCH}, {DGP_STEPS} Adam steps (lr "
+          f"{DGP_LR}): deep_gp_step_ms {_quartiles_ms(times[1:])} over steps 1-{DGP_STEPS - 1}, first step "
+          f"{times[0] * 1e3:.1f} ms; objective, mean of the first and last ten steps {first:.4f} → {last:.4f} (per step "
+          f"{[round(o, 3) for o in objectives[::10]]} every tenth); peak device memory {peak / 2**20:.1f} MiB; "
+          f"{nvidia_smi()}", flush=True)
+    print(f"[deep gp] {N_TEST} test points, mean over {DGP_S} samples: rmse {rmse:.4f} (constant predictor "
+          f"{const_rmse:.4f}); hand-written kernel launches (matvec, bwd_fused, grad_x, periodic matvec, periodic bwd) "
+          f"{launches} (predicted none)", flush=True)
+    check(last > first, f"deep gp: the objective went from {first} only to {last}")
+    check(rmse < const_rmse, f"deep gp: rmse {rmse} not below the constant predictor's {const_rmse}")
+    check(not any(launches), f"deep gp: kernels launched {launches}")
+    return dict(step_ms=float(np.median(times[1:])) * 1e3, rmse=rmse, const_rmse=const_rmse, objective=(first, last),
+                peak=peak, launches=sum(launches))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4798,6 +5332,9 @@ def main() -> int:
         phase_batch_slice(periodic=True)
         multitask = phase_multitask()
         lcm_had = phase_lcm_hadamard()
+        svgp = phase_svgp()
+        unwhitened = phase_unwhitened()
+        deep = phase_deep_gp()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -4807,9 +5344,15 @@ def main() -> int:
                "missing fill": missing["fill"][0], "missing mask": missing["mask"][0],
                "kissgp": kiss["launches"] + kiss2["launches"], "wiski": wiski["launches"],
                "love gradient": love_grad["launches"][0], "batch": batch["launches"][0],
-               "multitask": multitask["launches"][0] + lcm_had["launches"][0]}
-    print(f"[report] kernel_matvec launches by path: {by_path} (kissgp, wiski and multitask: none expected, no TPU "
-          f"kernel on those paths); batch (2 outputs, N={N_TRAIN}): median {batch['median']:.4f} s/step, mean "
+               "multitask": multitask["launches"][0] + lcm_had["launches"][0], "svgp": svgp["launches"],
+               "unwhitened kl": unwhitened["launches"], "deep gp": deep["launches"]}
+    print(f"[report] kernel_matvec launches by path: {by_path} (kissgp, wiski, multitask, svgp and deep gp: none "
+          f"expected, no TPU kernel on those paths); svgp (m={SVGP_M}, NGD) svgp_step_ms {svgp['step_ms']:.3f}, rmse "
+          f"{svgp['rmse']:.4f}, nlpd {svgp['nlpd']:.4f}; unwhitened KL product {unwhitened['shape']['n']}x"
+          f"{unwhitened['shape']['m']} t={unwhitened['shape']['t']} {unwhitened['shape']['ms']:.4f} ms, "
+          f"{unwhitened['shape']['launches_per_step']} launches a step, its backward "
+          f"{unwhitened['bwd_shape']['ms']:.4f} ms, {unwhitened['bwd_shape']['launches_per_step']} a step; deep gp deep_gp_step_ms {deep['step_ms']:.3f}, "
+          f"rmse {deep['rmse']:.4f}; batch (2 outputs, N={N_TRAIN}): median {batch['median']:.4f} s/step, mean "
           f"{batch['mean']:.4f} s/step, CG {sum(batch['iters'])} iterations in {B_STEPS} steps, refresh_s "
           f"{batch['refresh_s']:.3f}, request_ms {batch['request_ms']:.2f}, rmse {[round(r, 4) for r in batch['rmse']]}; "
           f"multitask (n={MT_N}, {MT_TASKS} tasks) {multitask['median'] * 1e3:.1f} ms/step, LCM "
@@ -4834,7 +5377,7 @@ def main() -> int:
                   matvec_tc_bound(N_TRAIN, N_TRAIN, D, 64))
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound",
                "strips": mv_strips, "launches_by_path": by_path,
-               "fantasy_shape": fantasy["shapes"][f"matvec_t{FANT_Q}"]},
+               "fantasy_shape": fantasy["shapes"][f"matvec_t{FANT_Q}"], "unwhitened_kl_shape": unwhitened["shape"]},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
             | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
@@ -4845,8 +5388,8 @@ def main() -> int:
                   bwd_tc_bound(N_TRAIN, D, 64))
             | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1],
                                     "fantasy": fantasy["launches"][2], "love gradient": love_grad["launches"][2],
-                                    "batch": batch["launches"][1]},
-               "love_gradient_shape": love_grad["shape"],
+                                    "batch": batch["launches"][1], "unwhitened kl": unwhitened["bwd_launches"]},
+               "love_gradient_shape": love_grad["shape"], "unwhitened_kl_shape": unwhitened["bwd_shape"],
                "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
                        "bound_ms from bwd_tc_bound",
                "fantasy_shapes": [fantasy["shapes"]["bwd_t1"], fantasy["shapes"][f"bwd_t{FANT_Q}"]]},

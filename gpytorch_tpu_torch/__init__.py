@@ -10,7 +10,8 @@ backward, plus the log-densities of the parameters' priors, with NaN targets mas
 filled.  Fantasy models conditioned on new points, and predictions differentiated through
 their caches (``settings.detach_test_caches(False)``).  Batches of independent GPs
 (``batch_shape`` on every kernel, mean and likelihood) and multitask GPs (Kronecker, LCM
-and Hadamard).  Up to
+and Hadamard).  Sparse variational GPs (whitened and unwhitened strategies, natural
+gradients) and two-layer deep GPs.  Up to
 ``settings.max_cholesky_size`` points, each of these takes a dense Cholesky factor.  Every product with
 the kernel matrix, and its gradient, goes through the fused kernel products
 (``ops/fused_kernels.py``): hand-written CUDA kernels on the GPU.
@@ -19,7 +20,7 @@ the kernel matrix, and its gradient, goes through the fused kernel products
 from __future__ import annotations
 
 from . import (constraints, distributions, kernels, likelihoods, linop, means, metrics, mlls, models, ops, optim,
-               priors, settings, solvers)
+               priors, settings, solvers, variational)
 from .core.module import Module
 from .utils import load_jax_params
 
@@ -40,4 +41,5 @@ __all__ = [
     "priors",
     "settings",
     "solvers",
+    "variational",
 ]

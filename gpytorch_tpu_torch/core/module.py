@@ -3,7 +3,8 @@
 Counterpart of ``gpytorch_tpu/core/module.py``.  The JAX package builds its own pytree
 module system; here ``torch.nn.Module`` already holds parameters and submodules, so this
 class only adds what a GP module needs on top: a constraint per raw parameter, constrained
-reads, priors on parameters or derived values, and a per-module cache that
+reads, priors on parameters or derived values, added loss terms (objects with a
+``loss()`` that a variational objective subtracts), and a per-module cache that
 ``train()``/``eval()`` clear.
 
 A prior is a submodule (its hyperparameters are buffers), registered with the closure that
@@ -25,6 +26,7 @@ class Module(nn.Module):
         self._constraints: Dict[str, object] = {}
         self._priors: Dict[str, Tuple[Union[str, Callable], Optional[Callable]]] = {}
         self._cache: Dict[str, object] = {}
+        self._added_loss_terms: Dict[str, object] = {}
 
     def register_constraint(self, param_name: str, constraint) -> None:
         if param_name not in self._parameters:
@@ -75,6 +77,21 @@ class Module(nn.Module):
         else:
             self._set_constrained(param_or_closure, value)
         return self
+
+    def register_added_loss_term(self, name: str) -> None:
+        self._added_loss_terms[name] = None
+
+    def update_added_loss_term(self, name: str, added_loss_term) -> None:
+        if name not in self._added_loss_terms:
+            raise RuntimeError(f"added_loss_term {name!r} not registered")
+        self._added_loss_terms[name] = added_loss_term
+
+    def added_loss_terms(self) -> Iterator[object]:
+        """The added loss terms set on this module and its submodules."""
+        for module in self.modules():
+            for term in getattr(module, "_added_loss_terms", {}).values():
+                if term is not None:
+                    yield term
 
     def _constrained(self, raw_name: str) -> torch.Tensor:
         raw = getattr(self, raw_name)

@@ -60,7 +60,16 @@ class MultitaskMultivariateNormal(MultivariateNormal):
                                 return_state=return_state)
 
     def rsample(self, sample_shape: Sequence[int] = (), base_samples=None) -> torch.Tensor:
+        """A joint draw over all n·t outputs, from the root decomposition of the whole
+        covariance, of shape ``sample_shape`` + batch + (n, t)."""
         return self._flat_to_task(super().rsample(sample_shape, base_samples))
+
+    def expand(self, batch_shape: Sequence[int]) -> "MultitaskMultivariateNormal":
+        flat = MultivariateNormal(self.loc, self._covar).expand(batch_shape)
+        new = object.__new__(type(self))
+        new.loc, new._covar, new.interleaved = flat.loc, flat._covar, self.interleaved
+        new._output_shape = tuple(batch_shape) + self._output_shape[-2:]
+        return new
 
     @classmethod
     def from_batch_mvn(cls, batch_mvn: MultivariateNormal, task_dim: int = -1) -> "MultitaskMultivariateNormal":

@@ -7,7 +7,9 @@ dense Cholesky factor at most ``settings.max_cholesky_size`` points or with
 ``settings.fast_computations.log_prob`` off), and samples from the covariance's root
 decomposition, whose base samples come from a ``torch.Generator`` or are injected, in
 place of a JAX key.  A batched covariance (or mean) gives a batch of distributions: one
-log-density per batch element.
+log-density per batch element.  ``expand`` repeats a distribution over a larger batch
+without copying it, ``to_data_independent_dist`` is the ``torch.distributions.Normal`` of
+its marginals, and ``kl_divergence`` is KL(p ‖ q) of two of them.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ class MultivariateNormal:
         return diag.clamp_min(settings.min_variance.value(diag.dtype))
 
     @property
+    def stddev(self) -> torch.Tensor:
+        return self.variance.sqrt()
+
+    @property
     def event_shape(self) -> torch.Size:
         return self.loc.shape[-1:]
 
@@ -79,7 +85,7 @@ class MultivariateNormal:
         that returns them for a shape)."""
         num = math.prod(sample_shape)
         samples = self._covar.evaluate_kernel().zero_mean_mvn_samples(num, base_samples) + self.loc
-        return samples.reshape(tuple(sample_shape) + tuple(self.event_shape))
+        return samples.reshape(tuple(sample_shape) + tuple(self.batch_shape) + self.loc.shape[-1:])
 
     def sample(self, sample_shape: Sequence[int] = (), base_samples: ProbeSource = None) -> torch.Tensor:
         with torch.no_grad():
@@ -95,3 +101,27 @@ class MultivariateNormal:
         """μ + R u for base samples u of shape (..., k)."""
         root = self._covar.evaluate_kernel().root_decomposition().root
         return (root @ base_samples.unsqueeze(-1)).squeeze(-1) + self.loc
+
+    def expand(self, batch_shape: Sequence[int]) -> "MultivariateNormal":
+        batch_shape = tuple(batch_shape)
+        covar = self._covar.expand(batch_shape + tuple(self._covar.shape[-2:]))
+        return MultivariateNormal(self.loc.expand(batch_shape + self.loc.shape[-1:]), covar)
+
+    def to_data_independent_dist(self) -> torch.distributions.Normal:
+        """The independent normals of the marginals N(μ_i, σ²_i)."""
+        return torch.distributions.Normal(self.mean, self.stddev, validate_args=False)
+
+
+def kl_divergence(p: MultivariateNormal, q: MultivariateNormal) -> torch.Tensor:
+    """KL(p ‖ q) = ½[tr(Σq⁻¹Σp) + (μq − μp)ᵀΣq⁻¹(μq − μp) − n + log|Σq| − log|Σp|], one value
+    per batch element: the trace and the quadratic form are one ``inv_quad_logdet`` of Σq
+    against [R_p | μq − μp] for a root R_p Rᵀ_p = Σp, so that a closed-form Σq (the whitened
+    N(0, I) prior) stays closed form and a lazy kernel Σq (the unwhitened prior) runs one
+    mBCG solve (``gpytorch_tpu/distributions/multivariate_normal.py:202-215``)."""
+    n = p.event_shape[0]
+    mean_diff = q.mean - p.mean
+    q_covar = q.lazy_covariance_matrix.evaluate_kernel()
+    p_covar = p.lazy_covariance_matrix.evaluate_kernel()
+    rhs = torch.cat([p_covar.root_decomposition().root, mean_diff.unsqueeze(-1)], dim=-1)
+    inv_quad, logdet_q = q_covar.inv_quad_logdet(inv_quad_rhs=rhs, logdet=True, reduce_inv_quad=True)
+    return 0.5 * (inv_quad - n + logdet_q - p_covar.logdet())

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..distributions import MultivariateNormal
@@ -12,11 +14,31 @@ from .noise_models import HomoskedasticNoise, MultitaskHomoskedasticNoise
 
 
 class _GaussianLikelihoodBase(Likelihood):
-    """The likelihoods whose marginal adds a diagonal noise to the covariance."""
+    """The likelihoods whose marginal adds a diagonal noise to the covariance, and whose
+    expectations under a Gaussian q(f) are closed forms."""
 
     def __init__(self, noise_covar):
         super().__init__()
         self.noise_covar = noise_covar
+
+    def _noise_diag(self, shape, *params) -> torch.Tensor:
+        """σ² at every point of a tensor of ``shape``."""
+        return self.noise_covar(shape)._diagonal().expand(shape)
+
+    def forward(self, function_samples: torch.Tensor, *params) -> torch.distributions.Normal:
+        """p(y | f) = N(f, σ²) at every point."""
+        noise = self._noise_diag(function_samples.shape, *params)
+        return torch.distributions.Normal(function_samples, noise.sqrt(), validate_args=False)
+
+    def expected_log_prob(self, target, function_dist: MultivariateNormal, *params, base_samples=None):
+        """E_q[log p(y | f)] = −½[((y − μ)² + σ_f²)/σ² + log σ² + log 2π] per point."""
+        mean, variance = function_dist.mean, function_dist.variance
+        noise = self._noise_diag(mean.shape, *params)
+        return -0.5 * (((target - mean) ** 2 + variance) / noise + torch.log(noise) + math.log(2 * math.pi))
+
+    def log_marginal(self, observations, function_dist: MultivariateNormal, *params, base_samples=None):
+        """log N(y; μ, σ_f² + σ²) per point."""
+        return self.marginal(function_dist, *params).to_data_independent_dist().log_prob(observations)
 
 
 class GaussianLikelihood(_GaussianLikelihoodBase):
@@ -63,9 +85,12 @@ class HadamardGaussianLikelihood(_GaussianLikelihoodBase):
         idx = params[0].long()
         return idx[..., 0] if idx.ndim > 1 else idx
 
-    def marginal(self, function_dist: MultivariateNormal, *params) -> MultivariateNormal:
-        """p(y | x) = N(μ, K + diag(σ²_{task(i)}))."""
+    def _noise_diag(self, shape, *params) -> torch.Tensor:
         noise = self.noise_covar.noise  # (*batch, num_tasks)
         idx = self._task_indices(params)
-        point_noise = torch.take_along_dim(noise, idx.expand(noise.shape[:-1] + idx.shape[-1:]), dim=-1)
+        return torch.take_along_dim(noise, idx.expand(noise.shape[:-1] + idx.shape[-1:]), dim=-1).expand(shape)
+
+    def marginal(self, function_dist: MultivariateNormal, *params) -> MultivariateNormal:
+        """p(y | x) = N(μ, K + diag(σ²_{task(i)}))."""
+        point_noise = self._noise_diag(function_dist.loc.shape, *params)
         return MultivariateNormal(function_dist.loc, function_dist.lazy_covariance_matrix + DiagLinearOperator(point_noise))

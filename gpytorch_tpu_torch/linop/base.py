@@ -149,6 +149,20 @@ class LinearOperator:
             diag_op = DiagLinearOperator(diag.expand(torch.broadcast_shapes(diag.shape, (n,))))
         return AddedDiagLinearOperator(self, diag_op)
 
+    def add_jitter(self, jitter_val: float = 1e-3) -> "LinearOperator":
+        return self.add_diagonal(torch.as_tensor(jitter_val, dtype=self.dtype, device=self.device))
+
+    def expand(self, *sizes) -> "LinearOperator":
+        """The operator over a larger batch shape (``sizes`` = batch + the matrix shape, or
+        the batch alone), as a ``BatchRepeatLinearOperator``: no copy."""
+        from .composition import BatchRepeatLinearOperator
+
+        sizes = tuple(int(s) for s in (sizes[0] if len(sizes) == 1 and isinstance(sizes[0], (tuple, list)) else sizes))
+        batch = sizes[:-2] if len(sizes) >= 2 else sizes
+        if len(sizes) >= 2 and sizes[-2:] != self.shape[-2:]:
+            raise RuntimeError("expand cannot change the matrix dimensions")
+        return BatchRepeatLinearOperator(self, batch) if batch else self
+
     # -- structure hooks ----------------------------------------------------------------
     def evaluate_kernel(self) -> "LinearOperator":
         """Hook for LazyEvaluatedKernelOperator; identity elsewhere."""
@@ -288,6 +302,23 @@ class LinearOperator:
             self.last_cg_result = linear_solve_cg(op, rhs)
             solution = self.last_cg_result.solution
         return solution.squeeze(-1) if squeeze else solution
+
+
+class ClosedFormInvQuadLogdet:
+    """``inv_quad_logdet`` for an operator whose quadratic form and log-determinant have
+    closed forms at every size, whatever ``max_cholesky_size`` says: the operator gives
+    ``_inv_quad_cols(rhs)`` (rhsᵀ self⁻¹ rhs for each column of rhs (..., n, k)) and
+    ``logdet()``.  The solver state passes through untouched."""
+
+    def inv_quad_logdet(self, inv_quad_rhs=None, logdet=False, reduce_inv_quad=True, base_samples=None,
+                        solver_state=None, return_state=False):
+        iq = None
+        if inv_quad_rhs is not None:
+            iq = self._inv_quad_cols(inv_quad_rhs if inv_quad_rhs.ndim > 1 else inv_quad_rhs.unsqueeze(-1))
+            if reduce_inv_quad:
+                iq = iq.sum(-1)
+        res = (iq, self.logdet() if logdet else None)
+        return (res, solver_state) if return_state else res
 
 
 class _Solve(torch.autograd.Function):

@@ -4,15 +4,15 @@ Counterpart of ``gpytorch_tpu/linop/block.py``.  ``BlockDiagLinearOperator`` rea
 batch dimension of a base operator (..., B, n, n) as the diagonal blocks of a
 (..., B·n, B·n) operator in the block layout (index b·n + i is block b, row i);
 ``BlockInterleavedLinearOperator`` is the same matrix in the interleaved layout (index
-i·B + b), the default layout of ``MultitaskMultivariateNormal``.  Products, solves and
-log-determinants go to the blocks as a batch.
+i·B + b), the default layout of ``MultitaskMultivariateNormal``.  Products, solves, log-determinants, Cholesky
+factors and roots go to the blocks as a batch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .base import LinearOperator, ProbeSource, to_linear_operator
+from .base import DenseLinearOperator, LinearOperator, ProbeSource, to_linear_operator
 
 
 class BlockDiagLinearOperator(LinearOperator):
@@ -85,6 +85,20 @@ class BlockDiagLinearOperator(LinearOperator):
         iq = None if iq_b is None else iq_b.sum(-1 if reduce_inv_quad else -2)
         ld = None if ld_b is None else ld_b.sum(-1)
         return ((iq, ld), solver_state) if return_state else (iq, ld)
+
+    def logdet(self) -> torch.Tensor:
+        return self.base.logdet().sum(-1)
+
+    def cholesky(self, upper: bool = False) -> "BlockDiagLinearOperator":
+        return type(self)(self.base.cholesky(upper=upper))
+
+    def root_decomposition(self, method=None):
+        """R Rᵀ = self for R the blocks' roots laid out as this operator lays out its blocks
+        (dense: (..., B·n, B·k))."""
+        from .root import RootLinearOperator
+
+        root = self.base.root_decomposition(method).root
+        return RootLinearOperator(type(self)(DenseLinearOperator(root)).to_dense())
 
     def add_diagonal(self, diag):
         diag = torch.as_tensor(diag, dtype=self.dtype, device=self.device)

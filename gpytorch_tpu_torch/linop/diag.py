@@ -1,15 +1,17 @@
 """Diagonal operators.  Counterpart of ``gpytorch_tpu/linop/diag.py``: ``DiagLinearOperator``
 diag(d) for d of shape batch + (n,), ``ConstantDiagLinearOperator`` c·I for c of shape
-batch + (1,), and ``IdentityLinearOperator``."""
+batch + (1,), and ``IdentityLinearOperator``.  Their log-determinants, inverse quadratic
+forms, Cholesky factors and roots are closed forms at every size: no mBCG, whatever
+``settings.max_cholesky_size`` says (the whitened KL's N(0, I) prior)."""
 
 from __future__ import annotations
 
 import torch
 
-from .base import LinearOperator
+from .base import ClosedFormInvQuadLogdet, LinearOperator
 
 
-class DiagLinearOperator(LinearOperator):
+class DiagLinearOperator(ClosedFormInvQuadLogdet, LinearOperator):
     """diag(d) with d of shape batch + (n,)."""
 
     def __init__(self, diag: torch.Tensor):
@@ -55,6 +57,20 @@ class DiagLinearOperator(LinearOperator):
     def add_diagonal(self, diag):
         return DiagLinearOperator(self.diag + diag)
 
+    def _inv_quad_cols(self, rhs):
+        return (rhs * rhs / self.diag.unsqueeze(-1)).sum(-2)
+
+    def logdet(self) -> torch.Tensor:
+        return torch.log(self.diag).sum(-1)
+
+    def cholesky(self, upper: bool = False) -> "DiagLinearOperator":
+        return DiagLinearOperator(torch.sqrt(self.diag))
+
+    def root_decomposition(self, method=None):
+        from .root import RootLinearOperator
+
+        return RootLinearOperator(torch.diag_embed(torch.sqrt(self.diag)))
+
     def _flatten(self):
         return (self.diag,), lambda ts: DiagLinearOperator(ts[0])
 
@@ -87,6 +103,9 @@ class ConstantDiagLinearOperator(DiagLinearOperator):
     def _matmul(self, rhs):
         return self.value.unsqueeze(-1) * rhs
 
+    def logdet(self) -> torch.Tensor:
+        return self._diag_shape * torch.log(self.value[..., 0])
+
     def _flatten(self):
         n = self._diag_shape
         return (self.value,), lambda ts: ConstantDiagLinearOperator(ts[0], n)
@@ -104,6 +123,9 @@ class IdentityLinearOperator(ConstantDiagLinearOperator):
 
     def _matmul(self, rhs):
         return rhs.expand(torch.broadcast_shapes(self.batch_shape + rhs.shape[-2:], rhs.shape))
+
+    def logdet(self) -> torch.Tensor:
+        return torch.zeros(self.batch_shape, dtype=self.dtype, device=self.device)
 
     def _flatten(self):
         n, batch, value = self._diag_shape, self.batch_shape, self.value

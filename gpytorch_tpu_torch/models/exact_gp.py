@@ -33,10 +33,10 @@ from typing import Optional
 import torch
 
 from .. import settings
-from ..core.module import Module
 from ..distributions import MultitaskMultivariateNormal, MultivariateNormal
 from ..linop import join_rows
 from ..utils.warnings import GPInputWarning
+from .gp import GP
 from .exact_prediction_strategies import prediction_strategy as _prediction_strategy
 
 
@@ -46,7 +46,7 @@ def _as_inputs(inputs) -> tuple:
     return tuple(x.unsqueeze(-1) if x.ndim == 1 else x for x in inputs)
 
 
-class ExactGP(Module):
+class ExactGP(GP):
     """Subclasses define ``forward(x) -> MultivariateNormal`` (the prior).
 
     ``lanczos_init`` optionally fixes the start block (n, b) of the LOVE Lanczos run;

@@ -311,3 +311,19 @@ class min_variance(_dtype_value_context):
     _global_float_value = 1e-6
     _global_double_value = 1e-10
     _global_half_value = 1e-3
+
+
+class num_likelihood_samples(_value_context):
+    """Monte Carlo draws of a likelihood's expectations, and the sample dimension of a deep
+    GP."""
+
+    _global_value = 10
+
+
+class variational_cholesky_jitter(_dtype_value_context):
+    """Jitter added to K_ZZ before a variational strategy factorises it (unless the strategy
+    was given its own ``jitter_val``)."""
+
+    _global_float_value = 1e-4
+    _global_double_value = 1e-6
+    _global_half_value = 1e-3

@@ -21,11 +21,13 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -
     ``<kernel>.grid`` (its list of 1D grids), ``<kernel>.grid_bounds`` and
     ``<kernel>.has_initialized_grid``.  These become the kernel's buffers with the values'
     own dtypes (the JAX package keeps a grid made from bounds in float32 even under x64),
-    so that both packages interpolate on the same grid.  Clears the module's caches, since
-    they depend on the parameters."""
+    so that both packages interpolate on the same grid.  So may a variational strategy's
+    ``<strategy>.variational_params_initialized``: given as 1, the loaded q(u) is kept on the
+    model's first call instead of being initialised from the prior.  Clears the module's
+    caches, since they depend on the parameters."""
     own = dict(module.named_parameters())
     state = {name: value for name, value in params.items() if name not in own}
-    unknown = {name for name in state if name.rsplit(".", 1)[-1] not in _GRID_STATE}
+    unknown = {name for name in state if name.rsplit(".", 1)[-1] not in _STATE}
     missing = set(own) - set(params)
     if unknown or missing:
         raise KeyError(f"parameter names differ: unknown {sorted(unknown)}, missing {sorted(missing)}")
@@ -39,6 +41,9 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -
             own[name].copy_(value)
     for name, value in state.items():
         path, attr = name.rsplit(".", 1) if "." in name else ("", name)
+        if attr == "variational_params_initialized":
+            module.get_submodule(path).variational_params_initialized.fill_(int(np.asarray(value)))
+            continue
         kernel = module.get_submodule(path)
         device = kernel.grid_0.device
         if attr == "grid":
@@ -51,5 +56,6 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -
     return module
 
 
-# a grid kernel's state that ``load_jax_params`` carries
-_GRID_STATE = ("grid", "grid_bounds", "has_initialized_grid")
+# the state besides parameters that ``load_jax_params`` carries: a grid kernel's, and a
+# variational strategy's flag
+_STATE = ("grid", "grid_bounds", "has_initialized_grid", "variational_params_initialized")
