@@ -1,10 +1,12 @@
-from .kernel import Kernel
+from .kernel import AdditiveKernel, Kernel, ProductKernel
 from .scale_kernel import ScaleKernel
 from .stationary import MaternKernel, PeriodicKernel, RBFKernel
 from .grid_kernel import GridKernel
 from .grid_interpolation_kernel import GridInterpolationKernel
 from .index_kernel import IndexKernel
 from .multitask_kernel import LCMKernel, MultitaskKernel
+from .structure_kernels import AdditiveStructureKernel, NewtonGirardAdditiveKernel, ProductStructureKernel
 
-__all__ = ["GridInterpolationKernel", "GridKernel", "IndexKernel", "Kernel", "LCMKernel", "MaternKernel",
-           "MultitaskKernel", "PeriodicKernel", "RBFKernel", "ScaleKernel"]
+__all__ = ["AdditiveKernel", "AdditiveStructureKernel", "GridInterpolationKernel", "GridKernel", "IndexKernel", "Kernel",
+           "LCMKernel", "MaternKernel", "MultitaskKernel", "NewtonGirardAdditiveKernel", "PeriodicKernel",
+           "ProductKernel", "ProductStructureKernel", "RBFKernel", "ScaleKernel"]

@@ -10,6 +10,11 @@ evaluation, and again whenever inputs leave it (by more than 2.01 spacings from 
 edges), as in the JAX package.  Its state lives in buffers — the grids, ``grid_bounds``
 (d, 2) and ``has_initialized_grid`` — which ``load_jax_params`` carries over.  A refit reads
 the inputs' extent on the host.
+
+With ``last_dim_is_batch`` every input dimension is interpolated alone on a 1D grid, its own
+or (a kernel of one grid dimension, as SKIP builds it) the one grid, against the grid
+covariances stacked a dimension: an ``InterpolatedLinearOperator`` of batch (…, d)
+(``gpytorch_tpu/kernels/grid_interpolation_kernel.py:67-89``).
 """
 
 from __future__ import annotations
@@ -71,19 +76,24 @@ class GridInterpolationKernel(GridKernel):
         self.update_grid(create_grid(self.grid_sizes, bounds, extend=False, dtype=x1.dtype, device=x1.device))
         self.has_initialized_grid = torch.ones_like(self.has_initialized_grid)
 
-    def _compute_grid(self, inputs: torch.Tensor):
-        return Interpolation().interpolate(self.grid, inputs)
+    def _compute_grid(self, inputs: torch.Tensor, last_dim_is_batch: bool = False):
+        if not last_dim_is_batch:
+            return Interpolation().interpolate(self.grid, inputs)
+        parts = [Interpolation().interpolate([self.grid[d if d < self.num_dims else 0]], inputs[..., d:d + 1])
+                 for d in range(inputs.shape[-1])]
+        return torch.stack([i for i, _ in parts], -3), torch.stack([v for _, v in parts], -3)
 
-    def evaluate(self, hypers, x1, x2, diag: bool = False):
+    def evaluate(self, hypers, x1, x2, diag: bool = False, last_dim_is_batch: bool = False):
         self._update_dynamic_grid(x1, x2)
-        left_idx, left_val = self._compute_grid(x1)
+        left_idx, left_val = self._compute_grid(x1, last_dim_is_batch)
         if x1 is x2:
             right_idx, right_val = left_idx, left_val.to(x1.dtype)
             left_val = right_val
         else:
-            right_idx, right_val = self._compute_grid(x2)
+            right_idx, right_val = self._compute_grid(x2, last_dim_is_batch)
             left_val, right_val = left_val.to(x1.dtype), right_val.to(x1.dtype)
-        res = InterpolatedLinearOperator(self.grid_covariance(hypers), left_idx, left_val, right_idx, right_val)
+        res = InterpolatedLinearOperator(self.grid_covariance(hypers, last_dim_is_batch), left_idx, left_val,
+                                         right_idx, right_val)
         return res._diagonal() if diag else res
 
     def prediction_strategy(self, train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init=None):

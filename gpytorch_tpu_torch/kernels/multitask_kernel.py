@@ -16,11 +16,7 @@ import torch
 
 from ..linop import DenseLinearOperator, KroneckerProductLinearOperator, SumLinearOperator, to_linear_operator
 from .index_kernel import IndexKernel
-from .kernel import Kernel
-
-
-def _sub_hypers(hypers, prefix: str):
-    return {k[len(prefix):]: v for k, v in hypers.items() if k.startswith(prefix)}
+from .kernel import Kernel, sub_hypers
 
 
 class MultitaskKernel(Kernel):
@@ -41,8 +37,8 @@ class MultitaskKernel(Kernel):
                 **{f"task_covar_module.{k}": v for k, v in self.task_covar_module.hypers().items()}}
 
     def evaluate(self, hypers, x1, x2, diag: bool = False):
-        covar_i = IndexKernel.task_covar(_sub_hypers(hypers, "task_covar_module."))
-        covar_x = self.data_covar_module.evaluate(_sub_hypers(hypers, "data_covar_module."), x1, x2, diag=diag)
+        covar_i = IndexKernel.task_covar(sub_hypers(hypers, "task_covar_module."))
+        covar_x = self.data_covar_module.evaluate(sub_hypers(hypers, "data_covar_module."), x1, x2, diag=diag)
         covar_x = covar_x.to_dense() if not torch.is_tensor(covar_x) else covar_x
         if diag:  # diag(K_data ⊗ K_task), task index fastest
             task = torch.diagonal(covar_i, dim1=-2, dim2=-1)
@@ -74,7 +70,7 @@ class LCMKernel(Kernel):
                 for k, v in m.hypers().items()}
 
     def evaluate(self, hypers, x1, x2, diag: bool = False):
-        parts = [m.evaluate(_sub_hypers(hypers, f"covar_module_list.{q}."), x1, x2, diag=diag)
+        parts = [m.evaluate(sub_hypers(hypers, f"covar_module_list.{q}."), x1, x2, diag=diag)
                  for q, m in enumerate(self.covar_module_list)]
         if diag:
             return sum(parts[1:], parts[0])

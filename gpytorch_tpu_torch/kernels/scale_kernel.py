@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..constraints import Positive
-from .kernel import Kernel
+from .kernel import Kernel, sub_hypers
 
 
 class ScaleKernel(Kernel):
@@ -36,12 +36,15 @@ class ScaleKernel(Kernel):
         base = {f"base_kernel.{k}": v for k, v in self.base_kernel.hypers().items()}
         return {"outputscale": self.outputscale, **base}
 
-    def evaluate(self, hypers, x1, x2, diag: bool = False):
-        base = {k[len("base_kernel."):]: v for k, v in hypers.items() if k.startswith("base_kernel.")}
+    def evaluate(self, hypers, x1, x2, diag: bool = False, **kwargs):
+        base = sub_hypers(hypers, "base_kernel.")
         outputscale = hypers["outputscale"]
         if outputscale.ndim:  # a batch of outputscales scales its own matrix (or diagonal)
-            outputscale = outputscale.reshape(outputscale.shape + (1,) * (1 if diag else 2))
-        return outputscale * self.base_kernel.evaluate(base, x1, x2, diag=diag)
+            # (one more unit dimension against the input dimensions of last_dim_is_batch)
+            extra = (1 if diag else 2) + (1 if kwargs.get("last_dim_is_batch") else 0)
+            outputscale = outputscale.reshape(outputscale.shape + (1,) * extra)
+        # the base first: a structured operator (a grid kernel's) takes the product
+        return self.base_kernel.evaluate(base, x1, x2, diag=diag, **kwargs) * outputscale
 
     def prediction_strategy(self, *args, **kwargs):
         return self.base_kernel.prediction_strategy(*args, **kwargs)

@@ -3,7 +3,8 @@
 Counterpart of ``RBFKernel``, ``MaternKernel`` and ``PeriodicKernel`` in
 ``gpytorch_tpu/kernels/stationary.py``.  Each maps onto its fused kernel product
 (``ops/fused_kernels.py``, ``ops/periodic_kernels.py``) whenever K is too large to evaluate
-densely.
+densely.  With ``last_dim_is_batch`` each evaluates one matrix per input dimension,
+(…, d, n, m), from the inputs scaled as usual (``_last_dim_batch``).
 """
 
 from __future__ import annotations
@@ -17,14 +18,22 @@ from ..ops.fused_kernels import _kernel_fn, kernel_type_for
 from .kernel import Kernel
 
 
+def _last_dim_batch(x1, x2, last_dim_is_batch: bool):
+    """(…, n, d) inputs as (…, d, n, 1) with ``last_dim_is_batch``: each dimension alone."""
+    if last_dim_is_batch:
+        return x1.mT.unsqueeze(-1), x2.mT.unsqueeze(-1)
+    return x1, x2
+
+
 class RBFKernel(Kernel):
     """k(x, x') = exp(−½‖(x−x')/ℓ‖²)."""
 
     has_lengthscale = True
 
-    def evaluate(self, hypers, x1, x2, diag: bool = False):
+    def evaluate(self, hypers, x1, x2, diag: bool = False, last_dim_is_batch: bool = False):
         ls = hypers["lengthscale"]
-        return torch.exp(-0.5 * self.covar_dist(x1 / ls, x2 / ls, diag=diag))
+        x1, x2 = _last_dim_batch(x1 / ls, x2 / ls, last_dim_is_batch)
+        return torch.exp(-0.5 * self.covar_dist(x1, x2, diag=diag))
 
 
 class MaternKernel(Kernel):
@@ -39,9 +48,10 @@ class MaternKernel(Kernel):
         super().__init__(**kwargs)
         self.nu = nu
 
-    def evaluate(self, hypers, x1, x2, diag: bool = False):
+    def evaluate(self, hypers, x1, x2, diag: bool = False, last_dim_is_batch: bool = False):
         ls = hypers["lengthscale"]
-        return _kernel_fn(self.covar_dist(x1 / ls, x2 / ls, diag=diag), kernel_type_for(self))
+        x1, x2 = _last_dim_batch(x1 / ls, x2 / ls, last_dim_is_batch)
+        return _kernel_fn(self.covar_dist(x1, x2, diag=diag), kernel_type_for(self))
 
 
 class PeriodicKernel(Kernel):
@@ -71,12 +81,17 @@ class PeriodicKernel(Kernel):
     def hypers(self):
         return {**super().hypers(), "period_length": self.period_length}
 
-    def evaluate(self, hypers, x1, x2, diag: bool = False):
+    def evaluate(self, hypers, x1, x2, diag: bool = False, last_dim_is_batch: bool = False):
         # each input is reduced to its fractional number of periods before the difference,
         # which sin² does not see, so that far-apart points lose no precision
         per, ls = hypers["period_length"], hypers["lengthscale"]
         a1, a2 = x1 / per, x2 / per
         f1, f2 = a1 - torch.round(a1), a2 - torch.round(a2)
+        if last_dim_is_batch:
+            # (…, d, n) per dimension, each with its own lengthscale (…, d, 1)
+            f1, f2, ls = f1.mT, f2.mT, ls.mT
+            diff = f1 - f2 if diag else f1.unsqueeze(-1) - f2.unsqueeze(-2)
+            return torch.exp(-2.0 * torch.sin(math.pi * diff) ** 2 / (ls if diag else ls.unsqueeze(-1)) ** 2)
         diff = f1 - f2 if diag else f1[..., :, None, :] - f2[..., None, :, :]
         # 1/ℓ² per input dim, of each batch element: (*batch, 1, d), and one more unit
         # dim against the pairwise differences (*batch, n, m, d)

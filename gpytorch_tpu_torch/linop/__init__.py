@@ -12,6 +12,7 @@ from .toeplitz import ToeplitzLinearOperator
 from .kronecker import (KroneckerProductAddedDiagLinearOperator, KroneckerProductDiagLinearOperator,
                         KroneckerProductLinearOperator)
 from .interpolated import InterpolatedLinearOperator
+from .zero import ZeroLinearOperator
 
 __all__ = [
     "AddedDiagLinearOperator",
@@ -39,6 +40,7 @@ __all__ = [
     "SumLinearOperator",
     "ToeplitzLinearOperator",
     "TriangularLinearOperator",
+    "ZeroLinearOperator",
     "hadamard_product",
     "join_rows",
     "probe_base_samples",

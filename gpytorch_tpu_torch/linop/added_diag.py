@@ -16,6 +16,19 @@ from .base import LinearOperator
 from .diag import DiagLinearOperator
 
 
+def _gram(a: torch.Tensor) -> torch.Tensor:
+    """aᵀa of a factor a (*batch, n, k), one matrix product per batch element, so that an
+    element of a batch gets the preconditioner it would get alone.  A batched GEMM sums an
+    element's n rows otherwise than the unbatched one: on phase 13's factors (N=100,000,
+    k=50, an H100) the two read 4e-5 of |aᵀa| apart, which CG run past its tolerance
+    amplified to 7e-3 of one element's MLL, where the unbatched product stayed within
+    3e-6 of float64."""
+    if a.ndim == 2:
+        return a.mT @ a
+    flat = a.reshape((-1,) + a.shape[-2:])
+    return torch.stack([f.mT @ f for f in flat]).reshape(a.shape[:-2] + (a.shape[-1], a.shape[-1]))
+
+
 class _PCFastGrad(torch.autograd.Function):
     """The pivoted-Cholesky root with the gradient of its fixed-pivot Nyström form
     (``settings.fast_precond_grad``; ``gpytorch_tpu/linop/added_diag.py::_pc_fast_grad``).
@@ -118,6 +131,7 @@ class AddedDiagLinearOperator(LinearOperator):
         n = self.shape[-1]
         if k == 0 or n < settings.min_preconditioning_size.value():
             return None, None, None
+        from ..solvers.cholesky import psd_safe_cholesky
         from ..solvers.pivoted_cholesky import pivoted_cholesky
         from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
 
@@ -134,16 +148,16 @@ class AddedDiagLinearOperator(LinearOperator):
         # quantity below is per batch element.
         budget = float(settings.preconditioner_noise_budget.value())
         if budget > 0.0:
-            mu = torch.linalg.eigvalsh((L.mT @ L).detach())[..., -1]  # λ_max(LLᵀ)
+            mu = torch.linalg.eigvalsh(_gram(L.detach()))[..., -1]  # λ_max(LLᵀ)
             tau = mu * (torch.finfo(L.dtype).eps / budget)
             diag = torch.maximum(diag, tau if tau.ndim == 0 else tau.unsqueeze(-1))
         dinv = 1.0 / diag
         dsqrt_inv = torch.sqrt(dinv)
         Lt = L * dsqrt_inv.unsqueeze(-1)
-        B = Lt.mT @ Lt
+        B = _gram(Lt)
         # log|P| = log|I + B| + log|D|, by Cholesky: differentiable, where an eigh
         # gradient would be NaN on a degenerate spectrum
-        Lc = torch.linalg.cholesky(torch.eye(B.shape[-1], dtype=B.dtype, device=B.device) + B)
+        Lc = psd_safe_cholesky(torch.eye(B.shape[-1], dtype=B.dtype, device=B.device) + B, jitter=0.0, max_tries=1)
         logdet_p = 2.0 * torch.log(torch.diagonal(Lc, dim1=-2, dim2=-1)).sum(-1) + torch.log(diag).sum(-1)
         # Whitened-eigenspace apply: with Ũ = D^{-1/2}L = U S Wᵀ,
         #   P⁻¹v = D⁻¹v − Ud diag(s²/(1+s²)) Udᵀ v,   Ud = D^{-1/2}U,

@@ -113,7 +113,10 @@ class LinearOperator:
     def __add__(self, other):
         from .composition import SumLinearOperator
         from .diag import DiagLinearOperator
+        from .zero import ZeroLinearOperator
 
+        if isinstance(other, ZeroLinearOperator):
+            return self
         if isinstance(other, DiagLinearOperator):
             return self.add_diagonal(other._diag_values())
         return SumLinearOperator(self, to_linear_operator(other))

@@ -13,6 +13,11 @@ kernels for CUDA tensors.  A kernel that returns a structured operator
 products) is always evaluated, whatever its size, and reads, products and rows go to that
 operator (``gpytorch_tpu/linop/lazy_kernel.py:55-103``).
 
+With ``last_dim_is_batch`` the operator holds one matrix per input dimension, the
+dimensions a batch dimension after the others (``gpytorch_tpu/linop/lazy_kernel.py:41-48``),
+and is always evaluated densely: the fused products take rows of inputs, not single
+dimensions (``:95-98``).
+
 A batched kernel (hyperparameters of shape batch + …) or batched inputs give a batched
 operator.  Its fused products take one launch per batch element, each with its own centre,
 lengthscale and outputscale, as the JAX package maps its Pallas kernels over the batch
@@ -67,11 +72,12 @@ def _per_element(t: torch.Tensor, batch, tail: int) -> torch.Tensor:
 
 class LazyEvaluatedKernelOperator(LinearOperator):
     def __init__(self, kernel, x1: torch.Tensor, x2: torch.Tensor, symmetric: bool = False,
-                 hypers: Optional[Dict[str, torch.Tensor]] = None):
+                 hypers: Optional[Dict[str, torch.Tensor]] = None, last_dim_is_batch: bool = False):
         self.kernel = kernel
         self.x1 = x1
         self.x2 = x2
         self.symmetric = bool(symmetric)
+        self.last_dim_is_batch = bool(last_dim_is_batch)
         # the kernel's hyperparameters as tensors, read once: every evaluation and product
         # goes through them, so an operator rebuilt from copies differentiates (_flatten)
         self.hypers = kernel.hypers() if hypers is None else dict(hypers)
@@ -86,6 +92,8 @@ class LazyEvaluatedKernelOperator(LinearOperator):
     def _shape(self):
         num = self._num_outputs()
         batch = torch.broadcast_shapes(self.x1.shape[:-2], self.x2.shape[:-2], tuple(self.kernel.batch_shape))
+        if self.last_dim_is_batch:
+            batch = tuple(batch) + (self.x1.shape[-1],)
         return tuple(batch) + (self.x1.shape[-2] * num, self.x2.shape[-2] * num)
 
     @property
@@ -99,16 +107,17 @@ class LazyEvaluatedKernelOperator(LinearOperator):
     def _flatten(self):
         names = list(self.hypers)
         xs = (self.x1,) if self.symmetric else (self.x1, self.x2)
-        kernel, symmetric, nx = self.kernel, self.symmetric, len(xs)
+        kernel, symmetric, nx, by_dim = self.kernel, self.symmetric, len(xs), self.last_dim_is_batch
 
         def rebuild(tensors):
             x1, x2 = (tensors[0], tensors[0]) if symmetric else tensors[:2]
-            return LazyEvaluatedKernelOperator(kernel, x1, x2, symmetric, dict(zip(names, tensors[nx:])))
+            return LazyEvaluatedKernelOperator(kernel, x1, x2, symmetric, dict(zip(names, tensors[nx:])), by_dim)
 
         return xs + tuple(self.hypers.values()), rebuild
 
     def _evaluate(self, x1, x2, diag: bool = False):
-        return self.kernel.evaluate(self.hypers, x1, x2, diag=diag)
+        kwargs = {"last_dim_is_batch": True} if self.last_dim_is_batch else {}
+        return self.kernel.evaluate(self.hypers, x1, x2, diag=diag, **kwargs)
 
     def _is_big(self) -> bool:
         n, m = self.shape[-2:]
@@ -119,8 +128,8 @@ class LazyEvaluatedKernelOperator(LinearOperator):
 
     def evaluate_kernel(self) -> LinearOperator:
         """The kernel's structured operator; else the dense kernel matrix if it is small
-        enough, else this lazy operator."""
-        if self._structured():
+        enough (or holds one matrix per input dimension), else this lazy operator."""
+        if self._structured() or self.last_dim_is_batch:
             return to_linear_operator(self._evaluate(self.x1, self.x2))
         if self._is_big():
             return self
@@ -138,20 +147,23 @@ class LazyEvaluatedKernelOperator(LinearOperator):
     def _get_rows(self, idx):
         """Rows K[..., idx, :] from the rows of x1 they stand for: per batch element
         (``gpytorch_tpu/linop/lazy_kernel.py:268-279``) for idx of shape batch + (m,)."""
-        if self._structured():
+        if self._structured() or self.last_dim_is_batch:
             return self.evaluate_kernel()._get_rows(idx)
         batch = self.batch_shape
         x1 = self.x1.expand(batch + self.x1.shape[-2:])
         rows = torch.take_along_dim(x1, idx.expand(batch + idx.shape[-1:]).unsqueeze(-1), dim=-2)
         return self._evaluate(rows, self.x2)
 
+    def _dense_products(self) -> bool:
+        return self._structured() or self.last_dim_is_batch or not self._is_big()
+
     def _matmul(self, rhs):
-        if self._structured() or not self._is_big():
+        if self._dense_products():
             return self.evaluate_kernel()._matmul(rhs)
         return self._fused_matmul(rhs)
 
     def _matmul_grad_only(self, rhs):
-        if self._structured() or not self._is_big():
+        if self._dense_products():
             return self.evaluate_kernel()._matmul(rhs)
         return self._fused_matmul(rhs, grad_only=True)
 
@@ -259,4 +271,4 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         symmetric = self.symmetric and row_ix == col_ix
         x1 = _rows(self.x1, row_ix)
         x2 = x1 if symmetric else _rows(self.x2, col_ix)
-        return LazyEvaluatedKernelOperator(self.kernel, x1, x2, symmetric, self.hypers)
+        return LazyEvaluatedKernelOperator(self.kernel, x1, x2, symmetric, self.hypers, self.last_dim_is_batch)

@@ -2,7 +2,8 @@
 
 Counterpart of ``gpytorch_tpu/linop/toeplitz.py``: the covariance of a stationary kernel
 on a regular 1D grid (``kernels/grid_kernel.py``).  Products through
-``ops/toeplitz.py::sym_toeplitz_matmul`` (FFT), entries T[a, b] = c[|a − b|].
+``ops/toeplitz.py::sym_toeplitz_matmul`` (FFT), entries T[a, b] = c[|a − b|].  A column of
+shape batch + (n,) holds one matrix per batch element (a batched kernel's grid).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ class ToeplitzLinearOperator(LinearOperator):
 
     def _shape(self):
         n = self.column.shape[-1]
-        return (n, n)
+        return tuple(self.column.shape[:-1]) + (n, n)
 
     @property
     def dtype(self):
@@ -36,10 +37,10 @@ class ToeplitzLinearOperator(LinearOperator):
         return (self.column,), lambda ts: ToeplitzLinearOperator(ts[0])
 
     def _entries(self, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-        return self.column[(rows - cols).abs()]
+        return self.column[..., (rows - cols).abs()]
 
     def _diagonal(self):
-        return self.column[:1].expand(self.column.shape[-1])
+        return self.column[..., :1].expand(self.column.shape)
 
     def to_dense(self):
         i = torch.arange(self.column.shape[-1], device=self.device)

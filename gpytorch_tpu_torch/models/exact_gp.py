@@ -21,7 +21,9 @@ A batched model (a batched kernel, mean and likelihood on inputs of shape batch 
 shared (n, d) inputs, targets batch + (n,)) trains and predicts every element at once.  A
 multitask model (its ``forward`` a ``MultitaskMultivariateNormal``) takes targets of shape
 (n, t), flattened to the distribution's layout, and predicts a
-``MultitaskMultivariateNormal``.  Fantasy models of either are not ported: they raise.
+``MultitaskMultivariateNormal``.  Fantasy models of either condition on new points too
+(a Schur update per batch element; the caches of a multitask one rebuilt on the joint
+operator).
 """
 
 from __future__ import annotations
@@ -123,30 +125,41 @@ class ExactGP(GP):
             strategy.build_caches()
         return strategy
 
-    def get_fantasy_model(self, inputs, targets, noise=None) -> "ExactGP":
+    def get_fantasy_model(self, inputs, targets, **kwargs) -> "ExactGP":
         """A copy of this model conditioned on the new observations (``inputs``,
         ``targets``) without refitting (``gpytorch_tpu/models/exact_gp.py:63-103``).  Its
-        training inputs are the old ones and the new ones joined by ``join_rows``, and its
-        ``lanczos_init`` is None.  If this model holds a prediction strategy, the copy's
-        comes from the strategy's rank-m update (``get_fantasy_strategy``: m solves against
-        the old system at the ambient ``cg_tolerance``); otherwise the copy builds its own
-        at first use.  The copy's parameters are new tensors with the same values; under
-        ``detach_test_caches(False)`` its caches depend on this model's parameters as well,
-        and its LOVE root is built at first use on the joint (n + m) operator with the new
-        inputs' history.  A KISS-GP model's copy takes WISKI's update instead.
-        ``noise`` (a fixed-noise likelihood's new noise) is not ported."""
-        if noise is not None:
-            raise NotImplementedError("the noise of new observations needs FixedNoiseGaussianLikelihood, not ported")
+        training inputs are the old ones and the new ones joined by ``join_rows`` on the
+        data axis −2 (broadcast to a common batch shape), its targets joined on −1, or on
+        −2 for a multitask model (its training prior a ``MultitaskMultivariateNormal``,
+        targets (n, t)); its ``lanczos_init`` is None.  ``noise=`` (the new observations'
+        noise, for a fixed-noise likelihood) makes the copy's likelihood
+        ``likelihood.get_fantasy_likelihood(noise=...)``.  If this model holds a prediction
+        strategy, the copy's comes from the strategy's update (``get_fantasy_strategy``: a
+        rank-m Schur update per batch element, m solves against the old system at the
+        ambient ``cg_tolerance``; for a multitask model caches built at first use on the
+        joint operator); otherwise the copy builds its own at first use.  The copy's
+        parameters are new tensors with the same values; under ``detach_test_caches(False)``
+        its caches depend on this model's parameters as well, and its LOVE root is built at
+        first use on the joint (n + m) operator with the new inputs' history.  A KISS-GP
+        model's copy takes WISKI's update instead."""
         if self.train_inputs is None:
             raise RuntimeError("Cannot get a fantasy model without training data")
-        if self.train_targets.ndim > 1 or any(x.ndim > 2 for x in self.train_inputs):
-            raise NotImplementedError("fantasy models of batched or multitask models are not ported")
+        fantasy_kwargs = {"noise": kwargs.pop("noise")} if "noise" in kwargs else {}
+        if kwargs:
+            raise TypeError(f"unexpected arguments {sorted(kwargs)}")
+        if fantasy_kwargs and not hasattr(self.likelihood, "get_fantasy_likelihood"):
+            raise RuntimeError("noise= needs a likelihood with get_fantasy_likelihood (a fixed-noise likelihood)")
         inputs = _as_inputs(inputs)
-        full_inputs = tuple(join_rows(ti, x) for ti, x in zip(self.train_inputs, inputs))
-        full_targets = torch.cat([self.train_targets, targets], -1)
+        full_inputs = tuple(join_rows(*_common_batch(ti, x)) for ti, x in zip(self.train_inputs, inputs))
         old_strategy = None
         if self._cache.get("prediction_strategy") is not None:
             old_strategy = self._call_strategy()
+            train_prior = old_strategy.train_prior_dist
+        else:
+            with torch.no_grad():
+                train_prior = self.forward(*self.train_inputs)
+        data_axis = -2 if isinstance(train_prior, MultitaskMultivariateNormal) else -1
+        full_targets = torch.cat([self.train_targets, targets], data_axis)
         # what is replaced below (and a history, which cannot be deep-copied) stays out of the copy
         held = {name: self.__dict__[name] for name in ("_cache", "train_inputs", "train_targets", "lanczos_init")}
         self.__dict__.update(_cache={}, train_inputs=None, train_targets=None, lanczos_init=None)
@@ -155,11 +168,13 @@ class ExactGP(GP):
         finally:
             self.__dict__.update(held)
         new_model.train_inputs, new_model.train_targets = full_inputs, full_targets
+        if fantasy_kwargs:
+            new_model.likelihood = self.likelihood.get_fantasy_likelihood(**fantasy_kwargs)
         if old_strategy is not None:
             with old_strategy._grad_mode():
                 full_output = self.forward(*full_inputs)
             new_model._cache["prediction_strategy"] = old_strategy.get_fantasy_strategy(
-                inputs, targets, full_inputs, full_targets, full_output)
+                inputs, targets, full_inputs, full_targets, full_output, **fantasy_kwargs)
         return new_model
 
     def __call__(self, *args) -> MultivariateNormal:

@@ -182,7 +182,8 @@ class DefaultPredictionStrategy:
         correction = train_test @ self.lik_train_train_covar.solve(train_test.mT)
         return DenseLinearOperator(test_test_covar.to_dense() - correction)
 
-    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output) -> "DefaultPredictionStrategy":
+    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output,
+                             **kwargs) -> "DefaultPredictionStrategy":
         """The strategy of the model conditioned on m new observations (``inputs``,
         ``targets``), by the block-Schur identity
         (``gpytorch_tpu/models/exact_prediction_strategies.py:153-194``):
@@ -190,27 +191,37 @@ class DefaultPredictionStrategy:
           [[Â, B ], [u]   [r₁]        v = S⁻¹(r₂ − Bᵀ u_old),  S = D − Bᵀ Â⁻¹ B,
            [Bᵀ, D]] [v] = [r₂]  ⇒     u = u_old − (Â⁻¹B) v,
 
-        with B = K(X, X_new) and D = K(X_new, X_new) + σ²I evaluated densely from
-        ``full_output`` (the prior over the joint inputs): m solves against the old system
-        Â and an m×m ``psd_safe_cholesky``.  The new mean cache is [u, v]; the new LOVE
-        cache is left to be computed at first use on the (n + m) joint operator.  The
+        per batch element, with B = K(X, X_new) and D = K(X_new, X_new) + Σ_new evaluated
+        densely from ``full_output`` (the prior over the joint inputs): m solves against the
+        old system Â and an m×m ``psd_safe_cholesky``.  Σ_new is the likelihood's noise
+        over the new points: ``noise`` (a fixed-noise likelihood's new observations'
+        noise, given as a keyword) where it is given.  The new strategy's likelihood is the
+        likelihood's ``get_fantasy_likelihood(**kwargs)`` where it has one.  The new mean
+        cache is [u, v]; the new LOVE cache is left to be computed at first use on the
+        (n + m) joint operator.  A multitask model takes no Schur update: its new strategy
+        builds its caches at first use on the joint operator, as in the JAX package.  The
         solves run at the ambient ``cg_tolerance``, as in the JAX package.  Built with
         autograd where this strategy was."""
+        lik = self.likelihood
+        if hasattr(lik, "get_fantasy_likelihood"):
+            lik = lik.get_fantasy_likelihood(**kwargs)
         with self._grad_mode():
-            new = DefaultPredictionStrategy(full_inputs, full_output, full_targets, self.likelihood)
+            new = DefaultPredictionStrategy(full_inputs, full_output, full_targets, lik)
+            if isinstance(full_output, MultitaskMultivariateNormal):
+                return new
             n = self.num_train
             prior_joint = full_output.lazy_covariance_matrix
             # lazy slicing slices the inputs: an (n, m) and an (m, m) kernel evaluation
-            B = prior_joint[:n, n:].to_dense()
-            new_block = MultivariateNormal(full_output.loc[n:], prior_joint[n:, n:].evaluate_kernel())
-            D = self.likelihood.marginal(new_block).lazy_covariance_matrix.to_dense()
-            u_old = self.mean_cache
+            B = prior_joint[..., :n, n:].to_dense()
+            new_block = MultivariateNormal(full_output.loc[..., n:], prior_joint[..., n:, n:].evaluate_kernel())
+            noise = {"noise": kwargs["noise"]} if "noise" in kwargs else {}
+            D = lik.marginal(new_block, **noise).lazy_covariance_matrix.to_dense()
+            u_old = self.mean_cache.unsqueeze(-1)
             AinvB = self.lik_train_train_covar.solve(B)
             S = D - B.mT @ AinvB
-            resid = full_targets[n:] - new_block.loc - B.mT @ u_old
-            v = torch.cholesky_solve(resid.unsqueeze(-1), psd_safe_cholesky(S)).squeeze(-1)
-            u = u_old - AinvB @ v
-            new._mean_cache = torch.cat([u, v], -1)
+            resid = (full_targets[..., n:] - new_block.loc).unsqueeze(-1) - B.mT @ u_old
+            v = torch.cholesky_solve(resid, psd_safe_cholesky(S))
+            new._mean_cache = torch.cat([u_old - AinvB @ v, v], -2).squeeze(-1)
         return new
 
 
@@ -297,13 +308,13 @@ class InterpolatedPredictionStrategy(DefaultPredictionStrategy):
         joint = joint_covar.evaluate_kernel() if isinstance(joint_covar, LazyEvaluatedKernelOperator) else joint_covar
         if not isinstance(joint, InterpolatedLinearOperator):
             return super().exact_prediction(joint_mean, joint_covar)
-        idx, val = joint.left_interp_indices[n:], joint.left_interp_values[n:]
-        mean = left_interp(idx, val, self.interp_mean_cache).squeeze(-1) + joint_mean[n:]
-        return mean, self._interp_predictive_covar(joint, idx, val)
+        idx, val = joint.left_interp_indices[..., n:, :], joint.left_interp_values[..., n:, :]
+        mean = left_interp(idx, val, self.interp_mean_cache).squeeze(-1) + joint_mean[..., n:]
+        return mean, self._interp_predictive_covar(joint, idx, val, mean.shape)
 
-    def _interp_predictive_covar(self, joint, idx, val):
+    def _interp_predictive_covar(self, joint, idx, val, shape):
         if settings.skip_posterior_variances.on():
-            return DiagLinearOperator(torch.zeros(idx.shape[-2], dtype=val.dtype, device=val.device))
+            return DiagLinearOperator(torch.zeros(shape, dtype=val.dtype, device=val.device))
         test_test = InterpolatedLinearOperator(joint.base, idx, val)
         if settings.fast_pred_samples.on():
             return RootLinearOperator(left_interp(idx, val, self.interp_sample_cache))
@@ -311,16 +322,22 @@ class InterpolatedPredictionStrategy(DefaultPredictionStrategy):
             root = left_interp(idx, val, self.interp_covar_cache)
             return (test_test + RootLinearOperator(root) * -1.0).evaluate_kernel()
         n = self.num_train
-        test_train = InterpolatedLinearOperator(joint.base, idx, val, joint.right_interp_indices[:n],
-                                                joint.right_interp_values[:n]).to_dense()
+        test_train = InterpolatedLinearOperator(joint.base, idx, val, joint.right_interp_indices[..., :n, :],
+                                                joint.right_interp_values[..., :n, :]).to_dense()
         correction = test_train @ self.lik_train_train_covar.solve(test_train.mT)
         return DenseLinearOperator(test_test.to_dense() - correction)
 
-    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output):
+    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output, **kwargs):
         """Fantasy updates promote the strategy to WISKI: WᵀW and Wᵀr built once from the
         training data (O(n q²)), then each update adds the new points' terms."""
+        _unbatched_wiski(kwargs, self.train_labels)
         return WiskiPredictionStrategy.from_interpolated(self).get_fantasy_strategy(
-            inputs, targets, full_inputs, full_targets, full_output)
+            inputs, targets, full_inputs, full_targets, full_output, **kwargs)
+
+
+def _unbatched_wiski(kwargs, train_labels) -> None:
+    if kwargs or train_labels.ndim > 1:
+        raise NotImplementedError("WISKI updates of a fixed-noise or batched KISS-GP model are not ported")
 
 
 def _wtw_wtr(idx: torch.Tensor, vals: torch.Tensor, r: torch.Tensor, m: int):
@@ -380,8 +397,9 @@ class WiskiPredictionStrategy(InterpolatedPredictionStrategy):
         # the WISKI root of K_UU − P is exact in inducing space: every request reads it
         return True
 
-    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output):
+    def get_fantasy_strategy(self, inputs, targets, full_inputs, full_targets, full_output, **kwargs):
         """Interpolate the new points and add their WᵀW and Wᵀr terms."""
+        _unbatched_wiski(kwargs, self.train_labels)
         with self._grad_mode():
             joint = full_output.lazy_covariance_matrix.evaluate_kernel()
             n_new = targets.shape[-1]

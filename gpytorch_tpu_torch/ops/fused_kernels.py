@@ -427,12 +427,13 @@ class KernelBwdFusedCUDA:
     """Wrapper of the fused symmetric backward kernel: returns (dv, dx, dos) as
     ``_bwd_fused_reference`` does.  Allocates the per-chunk per-row dx and dos partials (as
     many chunks as the library says), launches on the current stream, folds the partials
-    with ``torch.sum`` and counts its launches in ``launches``.  The kernel forms no dv:
-    where it is asked for, dv = K·g is one launch of the product kernel (counted by
-    ``kernel_matvec_cuda``)."""
+    with ``torch.sum`` (dos's in ``dos_fold_dtype``, float64) and counts its launches in
+    ``launches``.  The kernel forms no dv: where it is asked for, dv = K·g is one launch of
+    the product kernel (counted by ``kernel_matvec_cuda``)."""
 
     def __init__(self):
         self.launches = 0
+        self.dos_fold_dtype = torch.float64
 
     def __call__(self, x, g, v, kernel_type: int, need_dv: bool = True, need_dos: bool = False):
         _check_shapes(x, x, v, kernel_type)
@@ -460,7 +461,9 @@ class KernelBwdFusedCUDA:
         self.launches += 1
         dv = kernel_matvec_cuda(x, x, g, kernel_type) if need_dv else None
         dx = dx_part[0] if chunks == 1 else dx_part.sum(0)
-        return dv, dx, (dos_part.sum() if need_dos else None)
+        # dos's n per-row partials cancel to a small sum: folded in float64, the fold adds
+        # no float32 rounding of its own (the partials' own rounding stays, ≈ 1e-7 of |dos|)
+        return dv, dx, (dos_part.sum(dtype=self.dos_fold_dtype).to(torch.float32) if need_dos else None)
 
 
 kernel_bwd_fused_cuda = KernelBwdFusedCUDA()

@@ -12,13 +12,14 @@ import torch
 
 
 def sym_toeplitz_matmul(column: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """T(column)·rhs for T symmetric Toeplitz: column (n,), rhs (n, k) or (n,)."""
+    """T(column)·rhs for T symmetric Toeplitz: column (…, n), rhs (…, n, k) or (n,), the
+    batch dimensions broadcast."""
     squeeze = rhs.ndim == 1
     if squeeze:
         rhs = rhs.unsqueeze(-1)
     n = column.shape[-1]
-    circ = torch.cat([column, column.new_zeros(1), column[1:].flip(-1)])
+    circ = torch.cat([column, column.new_zeros(column.shape[:-1] + (1,)), column[..., 1:].flip(-1)], -1)
     fft_c = torch.fft.rfft(circ)
     fft_rhs = torch.fft.rfft(torch.cat([rhs, torch.zeros_like(rhs)], -2), dim=-2)
-    out = torch.fft.irfft(fft_c.unsqueeze(-1) * fft_rhs, n=2 * n, dim=-2)[:n].to(rhs.dtype)
+    out = torch.fft.irfft(fft_c.unsqueeze(-1) * fft_rhs, n=2 * n, dim=-2)[..., :n, :].to(rhs.dtype)
     return out.squeeze(-1) if squeeze else out

@@ -327,3 +327,44 @@ class variational_cholesky_jitter(_dtype_value_context):
     _global_float_value = 1e-4
     _global_double_value = 1e-6
     _global_half_value = 1e-3
+
+
+class min_fixed_noise(_dtype_value_context):
+    """Floor of a fixed (user-supplied) observation noise."""
+
+    _global_float_value = 1e-4
+    _global_double_value = 1e-6
+    _global_half_value = 1e-3
+
+
+class _linalg_dtype_cholesky(_value_context):
+    """Dtype that every dense Cholesky factorisation (``psd_safe_cholesky``) is promoted
+    to, the factor cast back to the input's dtype; None factors in the input's dtype."""
+
+    _global_value = torch.float64
+
+
+class _linalg_dtype_symeig(_value_context):
+    """Dtype of the SLQ log-determinant's small symmetric eigenproblems; None keeps the
+    operator's dtype."""
+
+    _global_value = torch.float64
+
+
+class linalg_dtypes:
+    """Sets both promotion dtypes for a block: ``default`` for each that is not given
+    (float64 if none is)."""
+
+    def __init__(self, default=torch.float64, symeig=None, cholesky=None):
+        self._contexts = (_linalg_dtype_cholesky(default if cholesky is None else cholesky),
+                          _linalg_dtype_symeig(default if symeig is None else symeig))
+
+    def __enter__(self):
+        for ctx in self._contexts:
+            ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for ctx in reversed(self._contexts):
+            ctx.__exit__(*exc)
+        return False

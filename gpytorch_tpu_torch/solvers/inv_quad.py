@@ -194,8 +194,9 @@ class _MBCG(torch.autograd.Function):
             s_probe = solves[..., t_rhs:]
             pinv_probes = apply_P(probes) if apply_P is not None else probes
             T = tridiag_from_coeffs(result.alphas[..., t_rhs:], result.betas[..., t_rhs:])  # (*batch, t, m, m)
-            # the small eigenproblems in float64, as the JAX package's symeig promotion does
-            lam, V = torch.linalg.eigh(T.double())
+            # the small eigenproblems in settings._linalg_dtype_symeig where it is wider
+            sym = settings._linalg_dtype_symeig.value()
+            lam, V = torch.linalg.eigh(T.to(sym) if sym is not None and torch.finfo(sym).bits > torch.finfo(dt).bits else T)
             lam = torch.clamp_min(lam, cfg.tridiagonal_jitter)
             slq = (V[..., 0, :] ** 2 * torch.log(lam)).sum(-1).to(dt)  # (*batch, t)
             ld = n * slq.mean(-1)

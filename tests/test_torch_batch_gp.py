@@ -411,9 +411,13 @@ def test_from_batch_mvn_with_a_multitask_likelihood_matches_jax_package():
 
 
 def test_fantasy_model_of_a_batched_model_raises():
+    # a batched model conditions each element on its new points (tests/test_torch_fantasy_batched.py
+    # holds the values against the JAX package); targets of another batch shape raise
     x, y = _task(50, 2)
     model = _torch_model(x, y, _params(2)).eval()
     with torch.no_grad():
         model(torch.from_numpy(x[:5]))
-    with pytest.raises(NotImplementedError, match="batched or multitask"):
-        model.get_fantasy_model(torch.from_numpy(x[:3]), torch.zeros(2, 3, dtype=torch.float64))
+        with pytest.raises(RuntimeError):
+            model.get_fantasy_model(torch.from_numpy(x[:3]), torch.zeros(3, 3, dtype=torch.float64))
+        fantasy = model.get_fantasy_model(torch.from_numpy(x[:3]), torch.zeros(2, 3, dtype=torch.float64))
+    assert fantasy.prediction_strategy().mean_cache.shape == (2, 53)

@@ -250,3 +250,84 @@ def test_cholesky_training_on_the_1d_toy_matches_jax_package():
         np.testing.assert_allclose(tloss.item(), float(jloss), rtol=RTOL, err_msg=f"step {i}")
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[name]), rtol=1e-8, atol=1e-10, err_msg=name)
+
+
+def _ill_conditioned(n=200, seed=0):
+    """RBF(ℓ = 0.5) on n uniform points in the unit cube plus 1e-4·I: cond ≈ 1e6."""
+    x = np.random.default_rng(seed).uniform(size=(n, D))
+    return np.exp(-0.5 * ((x[:, None] - x[None]) ** 2).sum(-1) / 0.5**2) + 1e-4 * np.eye(n)
+
+
+def test_float32_cholesky_is_promoted_to_float64_as_in_the_jax_package():
+    # settings._linalg_dtype_cholesky (float64 by default): a float32 matrix is factored in
+    # float64 with float64's jitter (1e-8) and the factor cast back, as the JAX package does
+    # under x64.  The two factors agree to 1e-9 of max |L| (they read 1.5e-11 apart; a
+    # float32 factorisation reads 2e-4 apart), and under _linalg_dtype_cholesky(None) the
+    # port factors in float32 again
+    a = _ill_conditioned()
+    want = np.asarray(gp.solvers.psd_safe_cholesky(jnp.asarray(a, dtype=jnp.float32)))
+    got = gt.solvers.psd_safe_cholesky(torch.as_tensor(a, dtype=torch.float32))
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 1e-9 * np.abs(want).max()
+    with gt.settings._linalg_dtype_cholesky(None):
+        f32 = gt.solvers.psd_safe_cholesky(torch.as_tensor(a, dtype=torch.float32)).numpy()
+    assert np.abs(f32 - want).max() > 1e-6 * np.abs(want).max()
+
+
+def _unwhitened_svgp(pkg, z, dtype):
+    m = z.shape[0]
+    if pkg is gp:
+        zj = jnp.asarray(z, dtype=dtype)
+
+        class JaxSVGP(gp.models.ApproximateGP):
+            def __init__(self):
+                vd = gp.variational.CholeskyVariationalDistribution(m, dtype=dtype)
+                super().__init__(gp.variational.UnwhitenedVariationalStrategy(self, zj, vd, jitter_val=1e-4))
+                self.mean_module = gp.means.ConstantMean(dtype=dtype)
+                self.covar_module = gp.kernels.ScaleKernel(gp.kernels.RBFKernel(ard_num_dims=D, dtype=dtype),
+                                                           dtype=dtype)
+
+            def forward(self, x):
+                return gp.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+        model = JaxSVGP()
+        model(zj[:4])  # q(u) initialises eagerly, then is overwritten
+        return model
+
+    class TorchSVGP(gt.models.ApproximateGP):
+        def __init__(self):
+            super().__init__(gt.variational.UnwhitenedVariationalStrategy(
+                self, torch.as_tensor(z), gt.variational.CholeskyVariationalDistribution(m), jitter_val=1e-4))
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=D))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    return TorchSVGP().to(dtype=dtype)
+
+
+def test_unwhitened_kl_in_float32_by_dense_cholesky_matches_jax_package():
+    # the unwhitened KL(q(u) ‖ N(μ_Z, K_ZZ + 1e-4·I)) at m = 256 on the dense-Cholesky path in
+    # float32, both packages from one state: within 1e-3 of each other (they read 3.2e-4
+    # apart; with the port's factors in float32 1e-2) and of the float64 value
+    m = 256
+    rng = np.random.default_rng(1)
+    z = rng.uniform(size=(m, D))
+    vd = "variational_strategy._variational_distribution."
+    params = {"variational_strategy.inducing_points": z, vd + "variational_mean": rng.normal(size=m),
+              vd + "chol_variational_covar": np.tril(rng.normal(size=(m, m)) * 0.01) + 0.3 * np.eye(m),
+              "mean_module.raw_constant": np.array(0.1), "covar_module.raw_outputscale": np.array(0.0),
+              "covar_module.base_kernel.raw_lengthscale": np.zeros((1, D))}
+    kl = {}
+    for name, dtype, jdt in (("float32", torch.float32, jnp.float32), ("float64", torch.float64, jnp.float64)):
+        jm = _unwhitened_svgp(gp, z, jdt).with_params({k: jnp.asarray(v, dtype=jdt) for k, v in params.items()})
+        with gp.settings.max_cholesky_size(m):
+            kl["jax", name] = float(jax.jit(lambda: jm.variational_strategy.kl_divergence(model=jm))())
+        tm = gt.load_jax_params(_unwhitened_svgp(gt, z, dtype),
+                                params | {"variational_strategy.variational_params_initialized": 1})
+        with torch.no_grad(), gt.settings.max_cholesky_size(m):
+            kl["port", name] = tm.variational_strategy.kl_divergence(model=tm).item()
+    np.testing.assert_allclose(kl["port", "float64"], kl["jax", "float64"], rtol=1e-9)
+    np.testing.assert_allclose(kl["port", "float32"], kl["jax", "float32"], rtol=1e-3)
+    np.testing.assert_allclose(kl["port", "float32"], kl["jax", "float64"], rtol=1e-3)

@@ -373,8 +373,9 @@ def test_debug_checks():
 
 
 def test_fantasy_noise_and_missing_data_raise():
+    # new observations' noise needs a fixed-noise likelihood (tests/test_torch_fixed_noise.py)
     _, _, xf, yf, _ = _task()
-    with pytest.raises(NotImplementedError, match="FixedNoiseGaussianLikelihood"):
+    with pytest.raises(RuntimeError, match="get_fantasy_likelihood"):
         _torch_model().get_fantasy_model(torch.from_numpy(xf), torch.from_numpy(yf), noise=torch.ones(Q))
     with pytest.raises(RuntimeError, match="without training data"):
         TorchModel(None, None, gt.likelihoods.GaussianLikelihood()).get_fantasy_model(torch.from_numpy(xf),

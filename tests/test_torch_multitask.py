@@ -435,5 +435,9 @@ def test_kronecker_added_diag_with_an_identity_factor_solves_in_closed_form():
 def test_fantasy_model_of_a_multitask_model_raises():
     x, y = _multitask_task(20, 2)
     model = _kron_model(gt, 2)(torch.from_numpy(x), torch.from_numpy(y), _likelihood(gt, 2, 0, True)).double().eval()
-    with pytest.raises(NotImplementedError, match="batched or multitask"):
-        model.get_fantasy_model(torch.zeros(2, dtype=torch.float64), torch.zeros(2, 2, dtype=torch.float64))
+    # a multitask model's new targets join on the data axis (tests/test_torch_fantasy_batched.py
+    # holds the values against the JAX package); targets of another number of tasks raise
+    with pytest.raises(RuntimeError):
+        model.get_fantasy_model(torch.zeros(2, dtype=torch.float64), torch.zeros(2, 3, dtype=torch.float64))
+    fantasy = model.get_fantasy_model(torch.zeros(2, dtype=torch.float64), torch.zeros(2, 2, dtype=torch.float64))
+    assert fantasy.train_targets.shape == (22, 2)

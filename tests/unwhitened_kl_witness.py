@@ -13,7 +13,11 @@ that phase's state before its first step (q(u) initialised from the prior):
     python3 -c 'import chip_smoke; chip_smoke.phase_unwhitened(save="chiprun_out/uw_state.npz")'  # on the card
     python tests/unwhitened_kl_witness.py [chiprun_out/uw_state.npz]
 
-A few minutes on the CPU, not part of the test run.
+A few minutes on the CPU, not part of the test run.  On the last state of one H100 run of
+phase 14b it read, with the same probes in both packages: mBCG float64 JAX −1,460.257, port
+−1,460.126; mBCG float32 −1,204.752 and −1,198.378; dense Cholesky float64 128,563.933 in
+both, float32 JAX 128,550.641 and port 128,557.180 (both factor the float32 K_ZZ in float64:
+``settings._linalg_dtype_cholesky``; factored in float32 the port read 127,070.7).
 """
 
 import os
