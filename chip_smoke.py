@@ -8,7 +8,9 @@ targets, KISS-GP in 1D and 2D with WISKI fantasy updates, LOVE differentiated th
 Lanczos roots, a batch of two independent GPs at N=100k, Kronecker, LCM and Hadamard
 multitask GPs, at N=100k sparse variational GPs (natural gradients, whitened and
 unwhitened) and a two-layer deep GP, Dirichlet GP classification at N=100k, fantasies of
-batched, fixed-noise and multitask models, and the structure kernels (additive and SKIP).
+batched, fixed-noise and multitask models, the structure kernels (additive and SKIP), and at
+N=100k a CIQ-SVGP at m = 4,096, a probit SVGP classifier, online variational conditioning, a
+two-layer DSPP and VNNGP.
 
     python3 chip_smoke.py
 
@@ -150,8 +152,9 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               gradient unresolved at N=100k; kernel_bwd_fused at t=1 and t=16); at N=4096 that
               step's directional derivative against central differences on the float64 plain
               path, and its CUDA float32 gradient against a CPU float64 plain run, each gate
-              bracketed by planted faults; kernel_bwd_fused at t=1 and 16 and kernel_matvec
-              at t=16 on the 100k training rows against float64.  Alone:
+              bracketed by planted faults; kernel_bwd_fused at t=1 and 16 (dos over the sum of
+              its terms' magnitudes, beside a planted dos × 0.99) and kernel_matvec at t=16 on
+              the 100k training rows against float64.  Alone:
               ``python3 -c 'import chip_smoke; chip_smoke.phase_fantasy()'`` (phase 5's model).
 10b. missing — the flagship's data with 1 % of the targets NaN: one loss and gradient under
               the NaN policies "fill" and "mask" at N=100k (CG iterations, seconds), both
@@ -250,6 +253,33 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               (ProductStructureKernel(ScaleKernel(GridInterpolationKernel(RBF, 1,024 points))))
               at N=16,384, 10 steps each and a request: ms a step, peak memory, RMSE; no
               kernel may launch.  Alone: ``python3 -c 'import chip_smoke; chip_smoke.phase_structure()'``.
+
+16. ciq     — a CIQ-SVGP (BASELINE config 5's model with ``CiqVariationalStrategy``): m = 4,096
+              inducing points from the training rows, NaturalVariationalDistribution, jitter
+              1e-4, 100 steps of NGD and Adam on minibatches of 1,024 at N=100,000.  The ELBO
+              of a seeded state at m = 1,024 in float32 (kernels) and float64 (plain versions)
+              against the JAX package's float64 value (``tests/ciq_elbo_reference.py``); per
+              step 10 + (forward + backward multi-shift CG iterations) kernel_matvec launches on
+              the lazy symmetric K_ZZ, one kernel_bwd_fused at t = 15,360 (15 shifts × 1,024
+              columns) and no kernel_grad_x, gated; the path's shapes (4,096² at t = 1 and
+              1,024, the backward at t = 15,360) against the plain versions and float64; the
+              trained interpolation term K_ZZ^(-1/2) K_Zx of 1,024 points against float64 eigh;
+              RMSE, NLPD, ciq_step_ms, peak memory.  Alone: ``chip_smoke.phase_ciq()``.
+16b. classification — a whitened SVGP (m = 1,024, NGD) with a BernoulliLikelihood on the
+              flagship's inputs, labels its function above the median, 100 steps: the
+              quadrature ELBO in float32 against a float64 copy, test accuracy above 0.80.
+16c. ovc    — online variational conditioning: the whitened strategy's pseudo-points at a
+              seeded state (m = 1,024, q(u) at the collapsed optimum of 8,192 points) against
+              the JAX package's float64 values; ``get_fantasy_model`` with 16 points, its mean
+              and variances at 2,048 points against dense float64 (dense Cholesky factors:
+              K_ZZ + D̃ is too ill-conditioned for CG), its one strip launch held against the
+              plain versions; ovc_fantasy_ms.
+16d. dspp   — a two-layer DSPP (3 hidden GPs, m = 512 a layer, 8 quadrature sites), 100 Adam
+              steps of DeepPredictiveLogLikelihood: the loss in float32 against float64, the
+              fixed minibatch's loss lowered; dspp_step_ms, RMSE.
+16e. vnngp  — VNNGP over all 100,000 points (k = 16, Matérn-5/2 ARD, an IVF index, minibatch
+              1,024, KL batch 256, 100 steps): the IVF recall of 1,024 queries against the
+              exact search ≥ 0.95; the index's build time, vnngp_step_ms, RMSE.
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -486,7 +516,8 @@ LG_FULL_FAULT_EPS = 0.1     # … bracketed by the same planted faults in the ke
 LG_DOS_TOL = 1e-10          # kernel_bwd_fused at N=100k, t=20 against float64: |Δdos| / Σ|k_ij g_i·v_j|.  dos
                             # cancels to ≈ 4e-6 of that sum, so the limit sits between float32's readings there
                             # (≈ 5e-13 to 1e-12 on an H100, kernel and plain version alike) and a planted fault
-                            # of dos × (1 − LG_FAULT_EPS), which reads ≈ 4e-8
+                            # of dos × (1 − LG_FAULT_EPS), which reads ≈ 4e-8.  Phase 10 gates its t=1 and t=16
+                            # backwards, and phase 16 the CIQ backward (4,096 rows, t=15,360), by the same bound
 LG_FD_N, LG_FD_H = 2000, 1e-4  # central differences of Σσ² along its gradient, float64 plain path on the card
 LG_FD_TOL = 1e-4            # … |Δ| / |derivative|
 # the batch-independent GP (phase 13) and the multitask GPs (phases 13b, 13c)
@@ -535,6 +566,31 @@ FANT_CG_TOL = 1e-4          # phase 15b: CG tolerance of the gated conditioning.
 DGP_H, DGP_M, DGP_S = 10, 128, 10  # phase 14c: hidden outputs, inducing points per layer, likelihood samples
 DGP_STEPS, DGP_LR, DGP_SEED = 100, 0.03, 15  # … Adam steps on minibatches of SVGP_BATCH, its rate (GPyTorch's example: 0.01
                             # over many epochs; 40 steps on the CPU at 0.03 took the RMSE from 1.02 to 0.79), the seed
+
+# CIQ-SVGP (phase 16), SVGP classification (16b), online variational conditioning (16c), DSPP (16d)
+# and VNNGP (16e), on make_task's data
+CIQ_M, CIQ_BATCH, CIQ_STEPS, CIQ_SEED = 4096, 1024, 100, 16  # inducing points, minibatch, steps, seed
+CIQ_PARITY_M, CIQ_PARITY_BATCH = 1024, 256  # the parity state's inducing points and minibatch
+# the JAX package's float64 ELBO of the CIQ-SVGP at svgp_parity_state(m=CIQ_PARITY_M,
+# batch_size=CIQ_PARITY_BATCH, seed=CIQ_SEED), jitter SVGP_JITTER: python tests/ciq_elbo_reference.py
+CIQ_ELBO_JAX = -57.732998331771654
+CIQ_ELBO_TOL = (2e-4, 1e-6)  # |ELBO − CIQ_ELBO_JAX| / |CIQ_ELBO_JAX| in float32 and float64: the CPU read 1.3e-05
+                            # and 1.7e-07 (both packages stop at the cap of 100 iterations, where CG has long lost
+                            # the orthogonality of its Krylov basis and amplifies rounding differences)
+CLS_STEPS, CLS_ACCURACY = 100, 0.80  # phase 16b: NGD + Adam steps of the probit SVGP, the test accuracy gate
+CLS_ELBO_TOL = 1e-4         # … its trained ELBO on one minibatch, float32 against a float64 copy, relative
+OVC_Q, OVC_FIT_N = 16, 8192  # phase 16c: new points of the fantasy; training points of ovc_state's q(u)
+OVC_PSEUDO_TOL = 1e-9       # … (Σ ỹ, tr D̃, ‖D̃‖_F) in float64 against OVC_PSEUDO_JAX, relative
+OVC_MEAN_TOL, OVC_VAR_TOL = 1e-3, 1e-3  # … the fantasy's mean and variances against dense float64, max |Δ| / max |·|
+                            # (float32 on the CPU: 1.6e-4 and 6.0e-5)
+# (Σ ỹ, tr D̃, ‖D̃‖_F) of the whitened strategy's pseudo-points at ovc_state, the JAX package
+# in float64: python tests/ciq_elbo_reference.py
+OVC_PSEUDO_JAX = (198.88336943274766, 1.0016231818534662, 0.07841994570055712)
+DSPP_H, DSPP_M, DSPP_Q = 3, 512, 8  # phase 16d: hidden GPs, inducing points a layer, quadrature sites
+DSPP_STEPS, DSPP_LR, DSPP_SEED = 100, 0.01, 17  # … Adam steps on minibatches of SVGP_BATCH, its rate, the seed
+DSPP_LOSS_TOL = 1e-4        # … the initial loss on one minibatch, float32 against a float64 copy, relative
+VNN_K, VNN_KL_BATCH, VNN_STEPS, VNN_LR = 16, 256, 100, 0.1  # phase 16e (examples/12_vnngp_large_scale.py's
+VNN_SEED, VNN_RECALL = 18, 0.95  # configuration at N=100k, d=3), the seed, the IVF index's recall gate
 
 
 class SmokeFailure(Exception):
@@ -1121,7 +1177,7 @@ def phase_kernel():
                       f"{rel64:.3e}, more than twice the plain version's {plain64:.3e} or over {KERNEL_REL_TOL}")
         ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), 10)
         slabs = fk.kernel_matvec_cuda.last_slabs
-        plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, fk.RBF), 3)
+        plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, fk.RBF), 2)
         timed[(n, m, t)] = (ms, plain_ms)
         bound = matvec_tc_bound(n, m, D, t) if 32 < t <= 64 else matvec_bound(n, m, D, t)
         print(f"[kernel] {n}x{m} t={t}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
@@ -3011,13 +3067,14 @@ def planted_grad_x_fault(scale: float):
 def _fantasy_kernel_shapes(model):
     """Step 5 of phase 10: the shapes that the fantasy path gives the kernels at N=100k and
     no main path timed before: the symmetric backward at d=3, t=1 (the mean cache's solve)
-    and t=16 (the 16 solves A⁻¹B), dx and dos on the FMA tier, and the product at t=16 (the
-    16-column CG), on the model's scaled training inputs, each held against the plain
-    version in float64 and gated at twice the plain float32 version's error, timed beside
-    its bound and the plain version.  Returns {name: report entry}."""
+    and t=16 (the 16 solves A⁻¹B), dx and dos on the FMA tier (``_bwd_against_float64``: dx
+    at twice the plain float32 version's error, dos over the sum of its terms' magnitudes at
+    LG_DOS_TOL beside a planted fault, since dos cancels to a fraction of that sum that the
+    trained state sets: plain's own |Δdos| / |dos| read 2.5e-08 to 2.2e-07 between trained
+    states on an H100), and the product at t=16 (the 16-column CG;
+    ``_matvec_against_float64``), on the model's scaled training inputs and seeded g and v.
+    Returns {name: report entry}."""
     import torch
-
-    from gpytorch_tpu_torch.ops import fused_kernels as fk
 
     tx = model.train_inputs[0]
     ls = model.covar_module.base_kernel.lengthscale.detach()
@@ -3026,42 +3083,9 @@ def _fantasy_kernel_shapes(model):
     out = {}
     for t in (1, FANT_Q):
         g, v = (torch.as_tensor(rng.normal(size=(N_TRAIN, t)), dtype=torch.float32, device="cuda") for _ in range(2))
-        _, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True)
-        _, pdx, pdos = fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True)
-        _, edx, edos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, need_dv=False, need_dos=True)
-        rel = {name: ((a.double() - edx).abs().max().item() / edx.abs().max().item(),
-                      abs(b.double() - edos).item() / abs(edos.item())) for name, (a, b) in
-               (("kernel", (dx, dos)), ("plain", (pdx, pdos)))}
-        err = max((dx.double() - edx).abs().max().item(), abs(dos.double() - edos).item())
-        ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True), 5)
-        plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True), 2)
-        bms, by = bwd_bound(N_TRAIN, D, t)
-        print(f"[fantasy] kernel_bwd_fused {N_TRAIN}x{N_TRAIN} d={D} t={t} (dx, dos, no dv; the FMA tier): kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {bms / ms:.0%}); against float64 max "
-              f"|Δdx| / max |dx| and |Δdos| / |dos|: kernel {rel['kernel'][0]:.3e}, {rel['kernel'][1]:.3e}; plain "
-              f"float32 {rel['plain'][0]:.3e}, {rel['plain'][1]:.3e} (gate: twice the plain version's)", flush=True)
-        for name, r, p in zip(("dx", "dos"), rel["kernel"], rel["plain"]):
-            check(r <= 2.0 * p, f"kernel_bwd_fused at N={N_TRAIN}, t={t}, {name} against float64: {r:.3e}, more "
-                                f"than twice the plain version's {p:.3e}")
-        out[f"bwd_t{t}"] = {"t": t, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                            "max_abs_err": err, "rel_err": rel["kernel"], "plain_rel_err": rel["plain"]}
+        out[f"bwd_t{t}"] = _bwd_against_float64(x, g, v, "fantasy", "a solve of the fantasy path differentiated")
     v = torch.as_tensor(rng.normal(size=(N_TRAIN, FANT_Q)), dtype=torch.float32, device="cuda")
-    got = fk.kernel_matvec_cuda(x, x, v, fk.RBF)
-    plain = fk._matvec_reference(x, x, v, fk.RBF)
-    exact = fk._matvec_reference(x.double(), x.double(), v.double(), fk.RBF)
-    scale = exact.abs().max().item()
-    rel, prel = ((a.double() - exact).abs().max().item() / scale for a in (got, plain))
-    ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x, x, v, fk.RBF), 5)
-    plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x, x, v, fk.RBF), 2)
-    bms, by = matvec_bound(N_TRAIN, N_TRAIN, D, FANT_Q)
-    print(f"[fantasy] kernel_matvec {N_TRAIN}x{N_TRAIN} d={D} t={FANT_Q} (the tiled tier of 16 columns): kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {bms / ms:.0%}); against float64 max |Δ| / max |·|: "
-          f"kernel {rel:.3e}, plain float32 {prel:.3e} (gate: twice the plain version's)", flush=True)
-    check(rel <= 2.0 * prel, f"kernel_matvec at N={N_TRAIN}, t={FANT_Q} against float64: {rel:.3e}, more than twice "
-                             f"the plain version's {prel:.3e}")
-    out[f"matvec_t{FANT_Q}"] = {"t": FANT_Q, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                                "max_abs_err": (got.double() - exact).abs().max().item(), "rel_err": rel,
-                                "plain_rel_err": prel}
+    out[f"matvec_t{FANT_Q}"] = _matvec_against_float64(x, x, v, "fantasy", "the 16-column CG, a tiled tier of 16")
     return out
 
 
@@ -3983,49 +4007,17 @@ def _dos_abs_sum(x, g, v, chunk: int = 2048) -> float:
 
 def _love_bwd_shape(model):
     """kernel_bwd_fused at the Lanczos blocks' shape (N=100k, d=3, t=20: dx and dos, no dv,
-    the FMA tier) on the model's scaled training inputs, against the plain version in float64
-    and timed beside its bound and the plain version.  dx is gated at twice the plain float32
-    version's error.  dos cancels (|dos| is far below the sum of its terms' magnitudes), so
-    its error over |dos| is set by the draw of g and v, for the kernel and the plain version
-    alike: its error is gated over Σ|k_ij g_i·v_j| at LG_DOS_TOL, beside the plain version's
-    and a planted fault (the kernel's dos × (1 − LG_FAULT_EPS))."""
+    the FMA tier) on the model's scaled training inputs and seeded g and v, by
+    ``_bwd_against_float64``: dx at twice the plain float32 version's error, dos over
+    Σ|k_ij g_i·v_j| at LG_DOS_TOL beside a planted fault."""
     import torch
-
-    from gpytorch_tpu_torch.ops import fused_kernels as fk
 
     tx = model.train_inputs[0]
     ls = model.covar_module.base_kernel.lengthscale.detach()
     x = ((tx - tx.mean(0, keepdim=True)) / ls).contiguous()
     rng = np.random.default_rng(23)
-    t = 20
-    g, v = (torch.as_tensor(rng.normal(size=(N_TRAIN, t)), dtype=torch.float32, device="cuda") for _ in range(2))
-    _, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True)
-    _, pdx, pdos = fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True)
-    _, edx, edos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, need_dv=False, need_dos=True)
-    rel = {name: ((a.double() - edx).abs().max().item() / edx.abs().max().item(), abs(b.double() - edos).item()
-                  / abs(edos.item())) for name, (a, b) in (("kernel", (dx, dos)), ("plain", (pdx, pdos)))}
-    err = max((dx.double() - edx).abs().max().item(), abs(dos.double() - edos).item())
-    terms = _dos_abs_sum(x, g, v)
-    dos_terms = {name: abs(b.double() - edos).item() / terms
-                 for name, b in (("kernel", dos), ("plain", pdos), ("fault", dos * (1.0 - LG_FAULT_EPS)))}
-    ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, need_dv=False, need_dos=True), 5)
-    plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, fk.RBF, need_dv=False, need_dos=True), 2)
-    bms, by = bwd_bound(N_TRAIN, D, t)
-    print(f"[love gradient] kernel_bwd_fused {N_TRAIN}x{N_TRAIN} d={D} t={t} (dx, dos, no dv; the FMA tier): kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {bms / ms:.0%}); against float64 max "
-          f"|Δdx| / max |dx|: kernel {rel['kernel'][0]:.3e}, plain float32 {rel['plain'][0]:.3e} (gate: twice the "
-          f"plain version's); |Δdos| / Σ|k g·v| (|dos| / Σ|k g·v| = {abs(edos.item()) / terms:.3e}): kernel "
-          f"{dos_terms['kernel']:.3e}, plain float32 {dos_terms['plain']:.3e} (gate {LG_DOS_TOL}; planted fault, dos × "
-          f"(1 − {LG_FAULT_EPS}), {dos_terms['fault']:.3e}); |Δdos| / |dos|, "
-          f"read: kernel {rel['kernel'][1]:.3e}, plain {rel['plain'][1]:.3e}", flush=True)
-    check(rel["kernel"][0] <= 2.0 * rel["plain"][0], f"kernel_bwd_fused at N={N_TRAIN}, t={t}, dx against float64: "
-                                                     f"{rel['kernel'][0]:.3e}, more than twice the plain version's "
-                                                     f"{rel['plain'][0]:.3e}")
-    check(dos_terms["kernel"] <= LG_DOS_TOL, f"kernel_bwd_fused at N={N_TRAIN}, t={t}, dos against float64: "
-                                             f"{dos_terms['kernel']:.3e} of the sum of its terms' magnitudes")
-    check(dos_terms["fault"] > LG_DOS_TOL, f"the dos gate does not see a planted fault: {dos_terms['fault']:.3e}")
-    return {"t": t, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-            "rel_err": rel["kernel"], "plain_rel_err": rel["plain"], "dos_over_terms": dos_terms}
+    g, v = (torch.as_tensor(rng.normal(size=(N_TRAIN, 20)), dtype=torch.float32, device="cuda") for _ in range(2))
+    return _bwd_against_float64(x, g, v, "love gradient", "a Lanczos block differentiated")
 
 
 def _lg_gaps(ref, got):
@@ -4974,64 +4966,73 @@ def _quartiles_ms(secs) -> str:
     return f"median {q[1]:.3f} ms (quartiles {q[0]:.3f}-{q[2]:.3f}, min {min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f})"
 
 
-def build_svgp(train_x, device, dtype, dist="natural", whitened=True, jitter_val=None):
-    """Phase 14's model: an ApproximateGP on SVGP_M inducing points (a seeded subset of the
-    training inputs) with ConstantMean, ScaleKernel(RBFKernel(ard_num_dims=D)) and q(u) of
-    the kind ``dist`` ("natural" or "cholesky") under the whitened (or unwhitened) strategy,
-    and a GaussianLikelihood with noise ≥ NOISE_FLOOR; (model, likelihood) on ``device`` in
+def build_svgp(train_x, device, dtype, dist="natural", whitened=True, jitter_val=None, m=SVGP_M, seed=SVGP_SEED,
+               strategy="whitened", likelihood=None):
+    """Phase 14's model: an ApproximateGP on m inducing points (a subset of the training
+    inputs drawn from ``seed``) with ConstantMean, ScaleKernel(RBFKernel(ard_num_dims=D)) and
+    q(u) of the kind ``dist`` ("natural" or "cholesky") under the whitened (or unwhitened)
+    strategy, or with ``strategy="ciq"`` the CIQ strategy (phase 16), and a GaussianLikelihood
+    with noise ≥ NOISE_FLOOR (or ``likelihood``); (model, likelihood) on ``device`` in
     train mode.  ``jitter_val`` fixes K_ZZ's jitter (by default it follows the dtype)."""
     import torch
 
     import gpytorch_tpu_torch as gt
 
-    Z = torch.as_tensor(train_x[np.random.default_rng(SVGP_SEED).choice(len(train_x), SVGP_M, replace=False)])
+    Z = torch.as_tensor(train_x[np.random.default_rng(seed).choice(len(train_x), m, replace=False)])
     dist_cls = {"natural": gt.variational.NaturalVariationalDistribution,
                 "cholesky": gt.variational.CholeskyVariationalDistribution}[dist]
-    strategy_cls = gt.variational.VariationalStrategy if whitened else gt.variational.UnwhitenedVariationalStrategy
+    strategy_cls = {"whitened": gt.variational.VariationalStrategy if whitened
+                    else gt.variational.UnwhitenedVariationalStrategy,
+                    "ciq": gt.variational.CiqVariationalStrategy}[strategy]
 
     class SVGP(gt.models.ApproximateGP):
         def __init__(self):
-            super().__init__(strategy_cls(self, Z, dist_cls(SVGP_M), jitter_val=jitter_val))
+            super().__init__(strategy_cls(self, Z, dist_cls(m), jitter_val=jitter_val))
             self.mean_module = gt.means.ConstantMean()
             self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=D))
 
         def forward(self, x):
             return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
 
-    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    if likelihood is None:
+        likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
     return SVGP().to(device=device, dtype=dtype).train(), likelihood.to(device=device, dtype=dtype).train()
 
 
-def svgp_parity_state(train_x, train_y):
-    """The state of phase 14's parity gate, drawn with numpy from SVGP_SEED: the model's raw
-    parameters under the JAX package's names (the flagship's fitted hyperparameters, the
-    inducing points of ``build_svgp``, q(u) = N(m, L Lᵀ) with m ~ 0.5·N(0, I) and L lower
-    triangular, its diagonal uniform on [0.05, 0.3] and 0.05·N(0, 1) below it), the
-    likelihood's, and one minibatch of SVGP_BATCH training points (none of them inducing)."""
-    rng = np.random.default_rng(SVGP_SEED)
-    z_idx = rng.choice(len(train_x), SVGP_M, replace=False)
+def svgp_parity_state(train_x, train_y, m=SVGP_M, batch_size=SVGP_BATCH, seed=SVGP_SEED):
+    """The state of phase 14's parity gate (and, with its own m, minibatch and seed, phase
+    16's), drawn with numpy from ``seed``: the model's raw parameters under the JAX
+    package's names (the flagship's fitted hyperparameters, m inducing points from the
+    training inputs, q(u) = N(m, L Lᵀ) with m ~ 0.5·N(0, I) and L lower triangular, its
+    diagonal uniform on [0.05, 0.3] and 0.05·N(0, 1) below it), the likelihood's, and one
+    minibatch of ``batch_size`` training points (none of them inducing)."""
+    rng = np.random.default_rng(seed)
+    z_idx = rng.choice(len(train_x), m, replace=False)
     rest = np.setdiff1d(np.arange(len(train_x)), z_idx)
-    batch = np.random.default_rng([SVGP_SEED, 1]).choice(rest, SVGP_BATCH, replace=False)
-    rng = np.random.default_rng([SVGP_SEED, 2])
-    L = np.tril(0.05 * rng.normal(size=(SVGP_M, SVGP_M)), -1) + np.diag(rng.uniform(0.05, 0.3, size=SVGP_M))
+    batch = np.random.default_rng([seed, 1]).choice(rest, batch_size, replace=False)
+    rng = np.random.default_rng([seed, 2])
+    L = np.tril(0.05 * rng.normal(size=(m, m)), -1) + np.diag(rng.uniform(0.05, 0.3, size=m))
     params = {k: np.asarray(v) for k, v in JAX_PARAMS.items() if not k.startswith("likelihood.")}
     params |= {"variational_strategy.inducing_points": train_x[z_idx],
-               "variational_strategy._variational_distribution.variational_mean": 0.5 * rng.normal(size=SVGP_M),
+               "variational_strategy._variational_distribution.variational_mean": 0.5 * rng.normal(size=m),
                "variational_strategy._variational_distribution.chol_variational_covar": L}
     lik_params = {"noise_covar.raw_noise": np.asarray(JAX_PARAMS["likelihood.noise_covar.raw_noise"])}
     return params, lik_params, train_x[batch], train_y[batch]
 
 
-def svgp_parity_terms(device, dtype) -> tuple:
-    """(ELBO, KL term) (num_data = N_TRAIN) of ``svgp_parity_state`` on its minibatch: the
-    whitened strategy with a Cholesky q(u) and K_ZZ's jitter SVGP_JITTER."""
+def svgp_parity_terms(device, dtype, strategy="whitened", m=SVGP_M, batch_size=SVGP_BATCH,
+                      seed=SVGP_SEED) -> tuple:
+    """(ELBO, KL term) (num_data = N_TRAIN) of ``svgp_parity_state(m, batch_size, seed)`` on
+    its minibatch: a Cholesky q(u) under the whitened (or with ``strategy="ciq"`` the CIQ)
+    strategy, K_ZZ's jitter SVGP_JITTER."""
     import torch
 
     import gpytorch_tpu_torch as gt
 
     train_x, train_y, _, _ = make_task(N_TRAIN, N_TEST)
-    params, lik_params, xb, yb = svgp_parity_state(train_x, train_y)
-    model, likelihood = build_svgp(train_x, device, dtype, dist="cholesky", jitter_val=SVGP_JITTER)
+    params, lik_params, xb, yb = svgp_parity_state(train_x, train_y, m, batch_size, seed)
+    model, likelihood = build_svgp(train_x, device, dtype, dist="cholesky", jitter_val=SVGP_JITTER, m=m, seed=seed,
+                                   strategy=strategy)
     gt.load_jax_params(model, params | {"variational_strategy.variational_params_initialized": 1})
     gt.load_jax_params(likelihood, lik_params)
     xb, yb = (torch.as_tensor(a, dtype=dtype, device=device) for a in (xb, yb))
@@ -5041,15 +5042,15 @@ def svgp_parity_terms(device, dtype) -> tuple:
     return (log_lik - kl + log_prior).item(), kl.item()
 
 
-def _svgp_batches(generator, steps: int, device):
-    """Minibatch indices of SVGP_BATCH rows: a fresh permutation of the N_TRAIN rows each
+def _svgp_batches(generator, steps: int, device, batch: int = SVGP_BATCH):
+    """Minibatch indices of ``batch`` rows: a fresh permutation of the N_TRAIN rows each
     epoch, from ``generator``."""
     import torch
 
     out = []
     while len(out) < steps:
         perm = torch.randperm(N_TRAIN, generator=generator, device=device)
-        out.extend(perm[i:i + SVGP_BATCH] for i in range(0, N_TRAIN - SVGP_BATCH + 1, SVGP_BATCH))
+        out.extend(perm[i:i + batch] for i in range(0, N_TRAIN - batch + 1, batch))
     return out[:steps]
 
 
@@ -5100,11 +5101,7 @@ def phase_svgp():
     tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
     model, likelihood = build_svgp(train_x, dev, torch.float32)
     mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
-    is_natural = lambda name: "_variational_distribution.natural" in name  # noqa: E731
-    named = dict(model.named_parameters())
-    ngd = gt.optim.NGD([p for k, p in named.items() if is_natural(k)], num_data=N_TRAIN, lr=SVGP_NGD_LR)
-    adam = torch.optim.Adam([p for k, p in named.items() if not is_natural(k)] + list(likelihood.parameters()),
-                            lr=SVGP_ADAM_LR)
+    ngd, adam = _ngd_and_adam(model, likelihood)
     batches = _svgp_batches(torch.Generator(device=dev).manual_seed(SVGP_SEED), SVGP_STEPS, dev)
     fixed = slice(0, SVGP_BATCH)  # a fixed minibatch: the rows are i.i.d. uniform draws
 
@@ -5931,6 +5928,664 @@ def phase_structure():
     return out
 
 
+def _ngd_and_adam(model, likelihood):
+    """NGD (lr SVGP_NGD_LR, num_data = N_TRAIN) on q(u)'s natural parameters and Adam (lr
+    SVGP_ADAM_LR) on the model's other parameters and the likelihood's."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    is_natural = lambda name: "_variational_distribution.natural" in name  # noqa: E731
+    named = dict(model.named_parameters())
+    ngd = gt.optim.NGD([p for k, p in named.items() if is_natural(k)], num_data=N_TRAIN, lr=SVGP_NGD_LR)
+    adam = torch.optim.Adam([p for k, p in named.items() if not is_natural(k)] + list(likelihood.parameters()),
+                            lr=SVGP_ADAM_LR)
+    return ngd, adam
+
+
+def _matvec_against_float64(x1, x2, v, tag, what):
+    """kernel_matvec on a path's operands (x2 is x1 where the product is symmetric) against
+    the plain float32 version and the plain version in float64, gated at twice the plain
+    float32 version's max |Δ| / max |K v|, both timed beside ``matvec_bound``."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    got, plain = fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), fk._matvec_reference(x1, x2, v, fk.RBF)
+    exact = fk._matvec_reference(x1.double(), x2.double(), v.double(), fk.RBF)
+    scale = exact.abs().max().item()
+    rel, prel = ((a.double() - exact).abs().max().item() / scale for a in (got, plain))
+    n, m, t = x1.shape[0], x2.shape[0], v.shape[1]
+    ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, fk.RBF), 5)
+    plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, fk.RBF), 2)
+    bms, by = matvec_tc_bound(n, m, D, t) if 32 < t <= 64 else matvec_bound(n, m, D, t)
+    print(f"[{tag}] kernel_matvec {n}x{m} d={D} t={t} ({what}; symmetric: {x1 is x2}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}, {bms / ms:.0%}); against float64 max |Δ| / max |K v|: kernel "
+          f"{rel:.3e}, plain float32 {prel:.3e} (gate: twice the plain version's); {nvidia_smi()}", flush=True)
+    check(rel <= 2.0 * prel, f"{tag}: kernel_matvec at {n}x{m}, t={t} against float64: {rel:.3e}, more than twice "
+                             f"the plain version's {prel:.3e}")
+    return dict(n=n, m=m, t=t, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                max_abs_err=(got.double() - exact).abs().max().item(), rel_err=rel, plain_rel_err=prel)
+
+
+def _bwd_against_float64(x, g, v, tag, what):
+    """kernel_bwd_fused (dx and dos, no dv) on the path's operands against the plain float32
+    version and the plain version in float64: dx gated at twice the plain float32 version's
+    max |Δdx| / max |dx|, dos over Σ|k_ij g_i·v_j| at LG_DOS_TOL beside a planted fault (the
+    kernel's dos × (1 − LG_FAULT_EPS)) that the gate must see, as phase 10 gates it; both
+    timed beside ``bwd_bound``."""
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    kw = dict(need_dv=False, need_dos=True)
+    _, dx, dos = fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, **kw)
+    _, pdx, pdos = fk._bwd_fused_reference(x, g, v, fk.RBF, **kw)
+    _, edx, edos = fk._bwd_fused_reference(x.double(), g.double(), v.double(), fk.RBF, **kw)
+    size = edx.abs().max().item()
+    rel, prel = ((a.double() - edx).abs().max().item() / size for a in (dx, pdx))
+    terms = _dos_abs_sum(x, g, v)
+    dos_terms = {name: abs(b.double() - edos).item() / terms
+                 for name, b in (("kernel", dos), ("plain", pdos), ("fault", dos * (1.0 - LG_FAULT_EPS)))}
+    n, t = x.shape[0], v.shape[1]
+    ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, fk.RBF, **kw), 5)
+    plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, fk.RBF, **kw), 2)
+    bms, by = bwd_tc_bound(n, D, t) if 32 < t <= 64 else bwd_bound(n, D, t)
+    chunks = fk.load_library().gp_kernel_bwd_fused_chunks(t, D)
+    print(f"[{tag}] kernel_bwd_fused {n}x{n} d={D} t={t} ({what}; dx, dos, no dv; {chunks} column chunks of partials): "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, {bms / ms:.0%}); against float64 "
+          f"max |Δdx| / max |dx|: kernel {rel:.3e}, plain float32 {prel:.3e} (gate: twice the plain version's); "
+          f"|Δdos| / Σ|k g·v| (|dos| / Σ|k g·v| = {abs(edos.item()) / terms:.3e}): kernel {dos_terms['kernel']:.3e}, "
+          f"plain float32 {dos_terms['plain']:.3e} (gate {LG_DOS_TOL}; planted fault {dos_terms['fault']:.3e}); "
+          f"{nvidia_smi()}", flush=True)
+    check(rel <= 2.0 * prel, f"{tag}: kernel_bwd_fused at {n}x{n}, t={t}, dx against float64: {rel:.3e}, more than "
+                             f"twice the plain version's {prel:.3e}")
+    check(dos_terms["kernel"] <= LG_DOS_TOL, f"{tag}: kernel_bwd_fused at {n}x{n}, t={t}, dos against float64: "
+                                             f"{dos_terms['kernel']:.3e} of its terms' magnitudes")
+    check(dos_terms["fault"] > LG_DOS_TOL, f"{tag}: the dos gate does not see a planted fault: {dos_terms['fault']:.3e}")
+    err = max((dx.double() - edx).abs().max().item(), abs(dos.double() - edos).item())
+    return dict(n=n, m=n, t=t, chunks=chunks, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+                rel_err=rel, plain_rel_err=prel, dos_over_terms=dos_terms)
+
+
+def _interp_against_eigh(model, sx):
+    """K_ZZ^{-1/2} K_Zx of the points ``sx`` on the model's state, by CIQ in float32 through
+    the kernels, in float32 through the plain versions and in float64 (a float64 copy of the
+    model, plain versions), each against float64 eigh of K_ZZ + jitter on the card: returns
+    ({path: max |Δ| / max |exact|}, λ_min, λ_max of K_ZZ + jitter, CIQ iterations)."""
+    import copy
+
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.solvers import contour
+
+    def interp(m):
+        Z = m.variational_strategy.inducing_points.detach()
+        op = m.covar_module(Z).evaluate_kernel().add_jitter(m.variational_strategy.jitter_val)
+        with gt.settings.max_preconditioner_size(0):
+            return gt.solvers.sqrt_inv_matmul(op, m.covar_module(Z, sx.to(Z.dtype)).to_dense())
+
+    with torch.no_grad():
+        Z = model.variational_strategy.inducing_points.detach()
+        twin = copy.deepcopy(model).double()
+        dense = twin.covar_module(Z.double()).to_dense()
+        dense = dense + model.variational_strategy.jitter_val * torch.eye(Z.shape[0], dtype=dense.dtype, device=dense.device)
+        lam, V = torch.linalg.eigh(dense)
+        exact = V @ (lam.rsqrt().unsqueeze(-1) * (V.mT @ twin.covar_module(Z.double(), sx.double()).to_dense()))
+        scale = exact.abs().max().item()
+        out = {"kernel": interp(model)}
+        iters = contour.last_iterations["forward"]
+        with plain_kernels():
+            out["plain float32"] = interp(model)
+            out["plain float64"] = interp(twin)
+    return {k: (a.double() - exact).abs().max().item() / scale for k, a in out.items()}, lam[0].item(), lam[-1].item(), iters
+
+
+def phase_ciq():
+    """Phase 16: CIQ-SVGP with natural gradients at N=100k (``build_svgp(strategy="ciq")``:
+    CIQ_M inducing points from the training rows, NaturalVariationalDistribution, K_ZZ's
+    jitter SVGP_JITTER).  First the parity gate: the ELBO of ``svgp_parity_terms``'s CIQ
+    state (m = CIQ_PARITY_M, seed CIQ_SEED) on the card in float32 (kernels) and float64
+    (plain versions) against the JAX package's float64 CIQ_ELBO_JAX within CIQ_ELBO_TOL.  Then CIQ_STEPS steps of NGD
+    (lr SVGP_NGD_LR) and Adam (lr SVGP_ADAM_LR) on minibatches of CIQ_BATCH: each step's
+    forward is 10 Lanczos products at t = 1 and one kernel_matvec at t = CIQ_BATCH a
+    multi-shift CG iteration on the lazy symmetric K_ZZ (CIQ_M² > max_eager_kernel_size²),
+    its backward one more multi-shift CG and one kernel_bwd_fused at t = 15·CIQ_BATCH (every
+    shift's columns, dx and dos), and no kernel_grad_x and no forward product at that width:
+    gated per step (matvec launches = 10 + forward + backward iterations, one backward, no
+    grad_x), the iteration counts printed.  The path's shapes (4,096² at t = 1 and CIQ_BATCH,
+    the backward at t = 15·CIQ_BATCH, on the first step's operands) against the plain
+    versions and float64 (``_matvec_against_float64``, ``_bwd_against_float64``).  Every ELBO
+    finite and a fixed minibatch's ELBO raised; on the trained state the interpolation term
+    of 1,024 test points against float64 eigh, the kernel path gated at twice the plain
+    float32 path's error; RMSE and NLPD of the N_TEST test points (ciq_step_ms, the
+    prediction's time, peak memory).  Alone: ``python3 -c 'import chip_smoke;
+    chip_smoke.phase_ciq()'``.  Returns the readings."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.solvers import contour
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    parity = dict(strategy="ciq", m=CIQ_PARITY_M, batch_size=CIQ_PARITY_BATCH, seed=CIQ_SEED)
+    elbo = {torch.float32: svgp_parity_terms(dev, torch.float32, **parity)[0]}
+    with plain_kernels():  # the kernels take float32 alone
+        elbo[torch.float64] = svgp_parity_terms(dev, torch.float64, **parity)[0]
+    gap = tuple(abs(e - CIQ_ELBO_JAX) / abs(CIQ_ELBO_JAX) for e in elbo.values())
+    print(f"[ciq] parity: ELBO of the parity state on {CIQ_PARITY_BATCH} points, m={CIQ_PARITY_M}: float32 (kernels) "
+          f"{elbo[torch.float32]:.9f}, float64 (plain versions) {elbo[torch.float64]:.12f} on the card; JAX package "
+          f"float64 {CIQ_ELBO_JAX:.12f}; relative gaps {gap[0]:.3e} and {gap[1]:.3e} (tol {CIQ_ELBO_TOL}); "
+          f"{nvidia_smi()}", flush=True)
+    check(all(g <= tol for g, tol in zip(gap, CIQ_ELBO_TOL)), f"ciq: ELBO gaps {gap} above {CIQ_ELBO_TOL}")
+
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+    model, likelihood = build_svgp(train_x, dev, torch.float32, jitter_val=SVGP_JITTER, m=CIQ_M, seed=CIQ_SEED,
+                                   strategy="ciq")
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    ngd, adam = _ngd_and_adam(model, likelihood)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(CIQ_SEED), CIQ_STEPS, dev, CIQ_BATCH)
+    fixed = slice(0, CIQ_BATCH)
+
+    def fixed_elbo():
+        with torch.no_grad():
+            return mll(model(tx[fixed]), ty[fixed]).item()
+
+    elbo0 = fixed_elbo()  # the first call also initialises q(u) from the prior, N(0, I)
+    wrappers = _kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    elbos, times, iters, launches = [], [], [], []
+    q = gt.settings.num_contour_quadrature.value()
+    with recorded_calls("kernel_matvec_cuda", t=CIQ_BATCH) as mv, recorded_calls("kernel_matvec_cuda", t=1) as mv1, \
+            recorded_calls("kernel_bwd_fused_cuda") as bwd:
+        for idx in batches:
+            for w in wrappers:
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ngd.zero_grad()
+            adam.zero_grad()
+            loss = -mll(model(tx[idx]), ty[idx])
+            loss.backward()
+            ngd.step()
+            adam.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(tuple(w.launches for w in wrappers))
+            iters.append((contour.last_iterations["forward"], contour.last_iterations["backward"]))
+            elbos.append(-loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    elbo1 = fixed_elbo()
+    expected = [(10 + f + b, 1, 0, 0, 0) for f, b in iters]
+    print(f"[ciq] {CIQ_STEPS} steps at m={CIQ_M} (NGD lr {SVGP_NGD_LR} + Adam lr {SVGP_ADAM_LR}, minibatch {CIQ_BATCH}, "
+          f"{q} quadrature shifts): ciq_step_ms {_quartiles_ms(times[1:])} over steps 1-{CIQ_STEPS - 1}, first step "
+          f"{times[0] * 1e3:.1f} ms; multi-shift CG iterations (forward, backward) per step {iters}; ELBO per step "
+          f"{[round(e, 4) for e in elbos[:5]]} … {[round(e, 4) for e in elbos[-5:]]}; fixed minibatch ELBO {elbo0:.5f} "
+          f"→ {elbo1:.5f}; peak device memory {peak / 2**20:.1f} MiB; {nvidia_smi()}", flush=True)
+    print(f"[ciq] launches per step (matvec, bwd_fused, grad_x, periodic matvec, periodic bwd): first {launches[0]}, "
+          f"last {launches[-1]}; predicted (10 Lanczos + forward + backward iterations, 1, 0, 0, 0); kernel_matvec "
+          f"shapes of the first step {sorted(set(mv['shapes']) | set(mv1['shapes']))}, kernel_bwd_fused "
+          f"{sorted(set(bwd['shapes']))}", flush=True)
+    check(all(math.isfinite(e) for e in elbos), "ciq: a non-finite ELBO")
+    check(elbo1 > elbo0, f"ciq: training took the fixed minibatch's ELBO from {elbo0} only to {elbo1}")
+    check(launches == expected, f"ciq: launches per step {launches} differ from {expected}")
+    check(set(bwd["shapes"]) == {(CIQ_M, CIQ_M, q * CIQ_BATCH)}, f"ciq: backward shapes {set(bwd['shapes'])}")
+
+    shapes = {"matvec_t1": _matvec_against_float64(*mv1["first"][0][:3], "ciq", "a Lanczos step"),
+              "matvec_batch": _matvec_against_float64(*mv["first"][0][:3], "ciq", "a multi-shift CG iteration")}
+    check(all(shapes[k]["n"] == CIQ_M and rec["first"][0][0] is rec["first"][0][1]
+              for k, rec in (("matvec_t1", mv1), ("matvec_batch", mv))), "ciq: the K_ZZ products are not symmetric")
+    (bx, bg, bv, _), _ = bwd["first"]
+    shapes["bwd"] = _bwd_against_float64(bx, bg, bv, "ciq", "the CIQ backward, every shift")
+
+    model.eval()
+    errs, lam_min, lam_max, interp_iters = _interp_against_eigh(model, sx[:1024])
+    print(f"[ciq] trained state: K_ZZ^(-1/2) K_Zx of 1,024 test points against float64 eigh of K_ZZ + jitter "
+          f"(λ from {lam_min:.3e} to {lam_max:.3e}), max |Δ| / max |exact|: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f" ({interp_iters} multi-shift CG iterations; gate: the kernel path within twice the plain float32 "
+            f"path's)", flush=True)
+    check(errs["kernel"] <= 2.0 * errs["plain float32"], f"ciq: the interpolation term's error {errs}")
+    for w in wrappers:
+        w.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = likelihood(model(sx))
+        mean, var = pred.mean, pred.variance
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    serve_launches = tuple(w.launches for w in wrappers)
+    rmse, nlpd, const_rmse = _predictive_quality(mean, var, sy, ty.mean())
+    print(f"[ciq] {N_TEST} test points in {request_s * 1e3:.2f} ms (launches {serve_launches}): rmse {rmse:.4f} "
+          f"(constant predictor {const_rmse:.4f}; phase 14's whitened SVGP at m={SVGP_M}: 0.1889), nlpd {nlpd:.4f}",
+          flush=True)
+    check(rmse < const_rmse, f"ciq: rmse {rmse} not below the constant predictor's {const_rmse}")
+    check(serve_launches[0] > 0 and not any(serve_launches[1:]), f"ciq: prediction launches {serve_launches}")
+    return dict(elbo=elbo, gap=gap, step_ms=float(np.median(times[1:])) * 1e3, iters=iters, rmse=rmse, nlpd=nlpd,
+                peak=peak, request_ms=request_s * 1e3, interp_err=errs, shapes=shapes,
+                launches=(sum(l[0] for l in launches), sum(l[1] for l in launches), sum(l[2] for l in launches)),
+                serve_launches=serve_launches)
+
+
+def make_classification_task(n_train: int, n_test: int, seed: int = 0):
+    """make_task's inputs with labels 1 where its noiseless function lies above its median
+    over the training inputs, 0 elsewhere: two balanced classes."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n_train + n_test, D))
+    f = np.sin(4 * x[:, 0]) * np.cos(3 * x[:, 1]) + 0.5 * np.sin(7 * x[:, 2] * x[:, 0]) + 0.1 * x[:, 2]
+    labels = (f > np.median(f[:n_train])).astype(np.float64)
+    return x[:n_train], labels[:n_train], x[n_train:], labels[n_train:]
+
+
+def phase_classification():
+    """Phase 16b: a whitened SVGP (m = SVGP_M, NaturalVariationalDistribution, K_ZZ's jitter
+    SVGP_JITTER in both dtypes) with a
+    BernoulliLikelihood (probit) on ``make_classification_task`` at N=100k, CLS_STEPS steps of
+    NGD and Adam on minibatches of SVGP_BATCH.  Its ELBO takes E_q[log Φ((2y − 1) f)] by
+    Gauss–Hermite quadrature.  Gates: every ELBO finite; on the trained state one minibatch's
+    ELBO in float32 against a float64 copy on the card within CLS_ELBO_TOL; test accuracy of
+    the N_TEST points above CLS_ACCURACY; no kernel launched (K_ZZ and K_Zx dense).  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_classification()'``."""
+    import copy
+
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_classification_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+    model, likelihood = build_svgp(train_x, dev, torch.float32, jitter_val=SVGP_JITTER,
+                                   likelihood=gt.likelihoods.BernoulliLikelihood())
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    ngd, adam = _ngd_and_adam(model, likelihood)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(CIQ_SEED + 1), CLS_STEPS, dev)
+    with torch.no_grad():
+        model(tx[:4])  # initialises q(u)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    elbos, times = [], []
+    for idx in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ngd.zero_grad()
+        adam.zero_grad()
+        loss = -mll(model(tx[idx]), ty[idx])
+        loss.backward()
+        ngd.step()
+        adam.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        elbos.append(-loss.item())
+    train_launches = tuple(w.launches for w in wrappers)
+    twin, twin_lik = copy.deepcopy(model).double(), copy.deepcopy(likelihood).double()
+    idx = batches[0]
+    with torch.no_grad():
+        e32 = mll(model(tx[idx]), ty[idx]).item()
+        e64 = gt.mlls.VariationalELBO(twin_lik, twin, num_data=N_TRAIN)(twin(tx[idx].double()), ty[idx].double()).item()
+        model.eval()
+        probs = likelihood(model(sx)).probs
+    accuracy = ((probs > 0.5).to(sy.dtype) == sy).double().mean().item()
+    gap = abs(e32 - e64) / abs(e64)
+    print(f"[classification] {CLS_STEPS} steps (NGD lr {SVGP_NGD_LR} + Adam lr {SVGP_ADAM_LR}, minibatch {SVGP_BATCH}, "
+          f"m={SVGP_M}, Bernoulli probit, {gt.settings.num_gauss_hermite_locs.value()} Gauss–Hermite nodes): "
+          f"cls_step_ms {_quartiles_ms(times[1:])}; ELBO {[round(e, 4) for e in elbos[:3]]} … "
+          f"{[round(e, 4) for e in elbos[-3:]]}; trained ELBO float32 {e32:.7f}, float64 {e64:.10f}, relative gap "
+          f"{gap:.3e} (tol {CLS_ELBO_TOL}); test accuracy {accuracy:.4f} (gate > {CLS_ACCURACY}); launches "
+          f"{train_launches}; {nvidia_smi()}", flush=True)
+    check(all(math.isfinite(e) for e in elbos), "classification: a non-finite ELBO")
+    check(gap <= CLS_ELBO_TOL, f"classification: ELBO float32 against float64 {gap:.3e}")
+    check(accuracy > CLS_ACCURACY, f"classification: accuracy {accuracy}")
+    check(not any(train_launches), f"classification: kernels launched {train_launches}")
+    return dict(step_ms=float(np.median(times[1:])) * 1e3, accuracy=accuracy, gap=gap)
+
+
+def ovc_state(train_x, train_y):
+    """Phase 16c's state, in float64 with numpy: phase 14's parity state (its hyperparameters
+    and inducing points) with q(u) at the collapsed optimum of the whitened ELBO given
+    OVC_FIT_N training points (Titsias 2009): with A = L⁻¹ K_Zx (L = chol(K_ZZ + jitter)),
+    S = (I + A Aᵀ/σ²)⁻¹ and m = S A (y − μ)/σ², a state as training would leave it.  Its
+    pseudo-noise D̃ is large where the data do not inform q(u), which bounds the conditioning of
+    K_ZZ + D̃ (the parity state's own random q(u) makes D̃ indefinite, and any S small in K_ZZ's
+    near-null directions makes K_ZZ + D̃ singular in float64)."""
+    params, lik_params, _, _ = svgp_parity_state(train_x, train_y)
+    softplus = lambda a: np.log1p(np.exp(np.asarray(a, dtype=np.float64)))  # noqa: E731
+    ls = softplus(params["covar_module.base_kernel.raw_lengthscale"]).reshape(-1)
+    outputscale = softplus(params["covar_module.raw_outputscale"])
+    noise = NOISE_FLOOR + softplus(lik_params["noise_covar.raw_noise"]).item()
+    Z = params["variational_strategy.inducing_points"] / ls
+    rows = np.random.default_rng([SVGP_SEED, 3]).choice(len(train_x), OVC_FIT_N, replace=False)
+    X = train_x[rows] / ls
+
+    def kernel(a, b):
+        d2 = (a * a).sum(-1)[:, None] + (b * b).sum(-1)[None, :] - 2.0 * a @ b.T
+        return outputscale * np.exp(-0.5 * np.maximum(d2, 0.0))
+
+    L = np.linalg.cholesky(kernel(Z, Z) + SVGP_JITTER * np.eye(len(Z)))
+    A = np.linalg.solve(L, kernel(Z, X))
+    L_P = np.linalg.cholesky(np.eye(len(Z)) + A @ A.T / noise)
+    L_P_inv = np.linalg.solve(L_P, np.eye(len(Z)))
+    S = L_P_inv.T @ L_P_inv
+    name = "variational_strategy._variational_distribution."
+    params[name + "variational_mean"] = S @ (A @ (train_y[rows] - params["mean_module.raw_constant"])) / noise
+    params[name + "chol_variational_covar"] = np.linalg.cholesky(0.5 * (S + S.T))
+    return params, lik_params
+
+
+def _ovc_model(train_x, train_y, device, dtype):
+    import gpytorch_tpu_torch as gt
+
+    params, lik_params = ovc_state(train_x, train_y)
+    model, likelihood = build_svgp(train_x, device, dtype, dist="cholesky", jitter_val=SVGP_JITTER)
+    gt.load_jax_params(model, params | {"variational_strategy.variational_params_initialized": 1})
+    gt.load_jax_params(likelihood, lik_params)
+    model.likelihood = likelihood  # amortized_exact_gp's likelihood
+    return model.eval()
+
+
+def _ovc_dense_reference(model64, xf, yf, xs):
+    """The fantasy's mean and variances at ``xs`` from dense float64 solves of the same
+    conditioning on the card: the mean from the block system [[K_ZZ + D̃, K_Zf],
+    [K_fZ, K_ff + σ²I]] on [ỹ; y_f] − μ, the variances from K + σ²I on all the points (as both
+    packages take them), each with psd_safe_cholesky's 1e-8."""
+    import torch
+
+    with torch.no_grad():
+        cov, mean = model64.variational_strategy.pseudo_points(model64)
+        Z = model64.variational_strategy.inducing_points
+        X = torch.cat([Z, xf])
+        K = model64.covar_module(X).to_dense()
+        mu = model64.mean_module(X)
+        noise = model64.likelihood.noise.item()
+        m, n = Z.shape[0], X.shape[0]
+        eye = torch.eye(n, dtype=K.dtype, device=K.device)
+        A = K + 1e-8 * eye
+        A[:m, :m] += cov
+        A[m:, m:] += noise * torch.eye(n - m, dtype=K.dtype, device=K.device)
+        targets = torch.cat([mean[:, 0] + model64.mean_module(Z), yf])
+        K_sx = model64.covar_module(xs, X).to_dense()
+        pred_mean = model64.mean_module(xs) + K_sx @ torch.linalg.solve(A, targets - mu)
+        pred_var = model64.covar_module(xs, diag=True) - (K_sx * torch.linalg.solve(K + (noise + 1e-8) * eye,
+                                                                                    K_sx.mT).mT).sum(-1)
+    return pred_mean, pred_var
+
+
+def phase_ovc():
+    """Phase 16c: online variational conditioning of a whitened SVGP (m = SVGP_M, Cholesky
+    q(u); ``ovc_state``): its pseudo-points (Σ ỹ, tr D̃, ‖D̃‖_F) in float64 on the card against
+    the JAX package's float64 values OVC_PSEUDO_JAX within OVC_PSEUDO_TOL (the float32 ones
+    read), then ``get_fantasy_model`` with OVC_Q new points (the first test points and their
+    targets): an exact GP over the m pseudo-points and the new points.  Its system K_ZZ + D̃
+    keeps K_ZZ's conditioning (its smallest eigenvalue is the jitter: κ ≈ 7e6), where CG stops
+    far short of the mean within max_cg_iterations (16 % off in float64 on the CPU, at any
+    tolerance), so the update and the request run under max_cholesky_size(m + OVC_Q): dense
+    Cholesky factors, promoted to float64.  The request's mean reads the test points' strip
+    of the kernel operator on the m + OVC_Q points (N_TEST × 1,040 > max_eager_kernel_size²):
+    one launch of kernel_matvec at t = 1 (gated), held against the plain versions and
+    float64.  The mean and variances at the N_TEST test points against a dense float64
+    computation of the same conditioning (``_ovc_dense_reference``), gated at OVC_MEAN_TOL
+    and OVC_VAR_TOL (max |Δ| / max |·|); ovc_fantasy_ms (the update) and the request's time.
+    Alone: ``python3 -c 'import chip_smoke; chip_smoke.phase_ovc()'``."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    model = _ovc_model(train_x, train_y, dev, torch.float32)
+    model64 = _ovc_model(train_x, train_y, dev, torch.float64)
+    readings = {}
+    for tag, m in (("float32", model), ("float64", model64)):
+        with torch.no_grad():
+            cov, mean = m.variational_strategy.pseudo_points(m)
+        readings[tag] = (mean.sum().item(), torch.trace(cov).item(), cov.norm().item())
+    gaps = {tag: max(abs(a - b) / abs(b) for a, b in zip(r, OVC_PSEUDO_JAX)) for tag, r in readings.items()}
+    print(f"[ovc] pseudo-points (Σ ỹ, tr D̃, ‖D̃‖_F) at m={SVGP_M}: float64 {readings['float64']}, float32 "
+          f"{readings['float32']} on the card; JAX package float64 {OVC_PSEUDO_JAX}; largest relative gaps float64 "
+          f"{gaps['float64']:.3e} (tol {OVC_PSEUDO_TOL}), float32 {gaps['float32']:.3e} (read)", flush=True)
+    check(gaps["float64"] <= OVC_PSEUDO_TOL, f"ovc: pseudo-points {readings['float64']} against {OVC_PSEUDO_JAX}")
+    xf, yf, xs = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (test_x[:OVC_Q], test_y[:OVC_Q], test_x))
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    with torch.no_grad(), gt.settings.max_cholesky_size(SVGP_M + OVC_Q), recorded_calls("kernel_matvec_cuda") as mv:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fantasy = model.get_fantasy_model(xf, yf)
+        torch.cuda.synchronize()
+        fantasy_s = time.perf_counter() - t0
+        update_launches = tuple(w.launches for w in wrappers)
+        t0 = time.perf_counter()
+        pred = fantasy(xs)
+        mean, var = pred.mean, pred.variance
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    launches = tuple(w.launches for w in wrappers)
+    ref_mean, ref_var = _ovc_dense_reference(model64, xf.double(), yf.double(), xs.double())
+    gap_mean = (mean.double() - ref_mean).abs().max().item() / ref_mean.abs().max().item()
+    gap_var = (var.double() - ref_var).abs().max().item() / ref_var.abs().max().item()
+    print(f"[ovc] get_fantasy_model with {OVC_Q} points on {SVGP_M} pseudo-points (dense Cholesky): "
+          f"ovc_fantasy_ms {fantasy_s * 1e3:.2f} (launches {update_launches}), {N_TEST} test points in "
+          f"{request_s * 1e3:.2f} ms; launches in all {launches}; against dense float64: mean {gap_mean:.3e} (tol "
+          f"{OVC_MEAN_TOL}), variance {gap_var:.3e} (tol {OVC_VAR_TOL}); {nvidia_smi()}", flush=True)
+    check(gap_mean <= OVC_MEAN_TOL and gap_var <= OVC_VAR_TOL, f"ovc: fantasy gaps {gap_mean:.3e}, {gap_var:.3e}")
+    check(launches == (1, 0, 0, 0, 0) and not any(update_launches), f"ovc: launches {update_launches}, {launches}")
+    check(mv["shapes"] == [(N_TEST, SVGP_M + OVC_Q, 1)], f"ovc: kernel_matvec shapes {mv['shapes']}")
+    shape = _matvec_against_float64(*mv["first"][0][:3], "ovc", "the request's mean, the test rows' strip")
+    return dict(fantasy_ms=fantasy_s * 1e3, request_ms=request_s * 1e3, launches=launches[0], gaps=(gap_mean, gap_var),
+                pseudo_gap=gaps, shape=shape)
+
+
+def build_dspp(train_x, device, dtype):
+    """Phase 16d's model: a two-layer DSPP with DSPP_H hidden GPs (ConstantMean,
+    ScaleKernel(RBF-ARD), a whitened Cholesky q(u) of DSPP_M inducing points each, drawn
+    from the training inputs) and an output GP on them, DSPP_Q quadrature sites a layer, and a
+    GaussianLikelihood with noise ≥ NOISE_FLOOR; in train mode on ``device``."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    rng = np.random.default_rng(DSPP_SEED)
+
+    class Layer(gt.models.deep_gps.DSPPLayer):
+        def __init__(self, input_dims, output_dims):
+            batch = () if output_dims is None else (output_dims,)
+            if output_dims is None:
+                Z = torch.as_tensor(rng.normal(size=(DSPP_M, input_dims)))
+            else:
+                Z = torch.as_tensor(train_x[rng.choice(len(train_x), (output_dims, DSPP_M), replace=True)])
+            vd = gt.variational.CholeskyVariationalDistribution(DSPP_M, batch_shape=batch)
+            super().__init__(gt.variational.VariationalStrategy(self, Z, vd), input_dims, output_dims,
+                             num_quad_sites=DSPP_Q)
+            self.mean_module = gt.means.ConstantMean(batch_shape=batch)
+            self.covar_module = gt.kernels.ScaleKernel(
+                gt.kernels.RBFKernel(ard_num_dims=input_dims, batch_shape=batch), batch_shape=batch)
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    class TwoLayerDSPP(gt.models.deep_gps.DSPP):
+        def __init__(self):
+            super().__init__(num_quad_sites=DSPP_Q)
+            self.hidden_layer = Layer(D, DSPP_H)
+            self.last_layer = Layer(DSPP_H, None)
+            self.likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+
+        def forward(self, x):
+            return self.last_layer(self.hidden_layer(x))
+
+    return TwoLayerDSPP().to(device=device, dtype=dtype).train()
+
+
+def phase_dspp():
+    """Phase 16d: a two-layer DSPP (``build_dspp``) at N=100k, DSPP_STEPS Adam steps (lr
+    DSPP_LR) of ``DeepPredictiveLogLikelihood`` on minibatches of SVGP_BATCH.  Gates: finite
+    losses; the loss of one minibatch on the initial state in float32 against a float64 copy
+    on the card within DSPP_LOSS_TOL; a fixed minibatch's loss lowered; no kernel launched
+    (K_ZZ at DSPP_M² is dense).  Prints dspp_step_ms, the RMSE of the quadrature-weighted
+    mean of the N_TEST test points beside the constant predictor's.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_dspp()'``."""
+    import copy
+
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+    model = build_dspp(train_x, dev, torch.float32)
+    mll = gt.mlls.DeepPredictiveLogLikelihood(model.likelihood, model, num_data=N_TRAIN)
+    fixed = slice(0, SVGP_BATCH)
+
+    def fixed_loss(m=model, objective=mll, dtype=torch.float32):
+        with torch.no_grad():
+            return -objective(m(tx[fixed].to(dtype)), ty[fixed].to(dtype)).item()
+
+    loss0 = fixed_loss()  # initialises every layer's q(u)
+    twin = copy.deepcopy(model).double()
+    loss64 = fixed_loss(twin, gt.mlls.DeepPredictiveLogLikelihood(twin.likelihood, twin, num_data=N_TRAIN),
+                        torch.float64)
+    gap = abs(loss0 - loss64) / abs(loss64)
+    optimizer = torch.optim.Adam(model.parameters(), lr=DSPP_LR)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(DSPP_SEED), DSPP_STEPS, dev)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for idx in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        loss = -mll(model(tx[idx]), ty[idx])
+        loss.backward()
+        optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = tuple(w.launches for w in wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    loss1 = fixed_loss()
+    model.eval()
+    with torch.no_grad():
+        out = model.likelihood(model(sx))
+        weights = model.quad_weights.exp().unsqueeze(-1)
+        mean = (weights * out.mean).sum(0)
+    rmse = (mean - sy).pow(2).mean().sqrt().item()
+    const_rmse = (sy - ty.mean()).pow(2).mean().sqrt().item()
+    print(f"[dspp] {DSPP_STEPS} Adam steps (lr {DSPP_LR}, minibatch {SVGP_BATCH}; {DSPP_H} hidden GPs, m={DSPP_M} a "
+          f"layer, {DSPP_Q} sites): dspp_step_ms {_quartiles_ms(times[1:])}; initial loss float32 {loss0:.7f}, "
+          f"float64 {loss64:.10f}, relative gap {gap:.3e} (tol {DSPP_LOSS_TOL}); fixed minibatch loss {loss0:.5f} → "
+          f"{loss1:.5f}; rmse {rmse:.4f} (constant predictor {const_rmse:.4f}); quadrature weights "
+          f"{[round(w, 4) for w in weights.squeeze(-1).tolist()]}; peak device memory {peak / 2**20:.1f} MiB; launches "
+          f"{launches}; {nvidia_smi()}", flush=True)
+    check(all(math.isfinite(v) for v in losses), "dspp: a non-finite loss")
+    check(gap <= DSPP_LOSS_TOL, f"dspp: loss float32 against float64 {gap:.3e}")
+    check(loss1 < loss0, f"dspp: training took the fixed minibatch's loss from {loss0} only to {loss1}")
+    check(not any(launches), f"dspp: kernels launched {launches}")
+    return dict(step_ms=float(np.median(times[1:])) * 1e3, rmse=rmse, gap=gap)
+
+
+def phase_vnngp():
+    """Phase 16e: VNNGP at ``examples/12_vnngp_large_scale.py``'s configuration on make_task's
+    data: every training point an inducing point (M = N_TRAIN), k = VNN_K, ScaleKernel(
+    Matérn-5/2 ARD), the IVF index (``preferred_nnlib="ivf"``, its k-means seeded by a
+    torch.Generator), jitter 1e-4, VNN_STEPS Adam steps (lr VNN_LR) on minibatches of
+    SVGP_BATCH with the stochastic KL over VNN_KL_BATCH inducing points (``indices`` and
+    ``kl_indices`` passed explicitly).  Gates: the IVF index's recall of the VNN_K nearest of
+    1,024 test points against the exact search ≥ VNN_RECALL (the JAX package's test's
+    threshold); finite losses; no kernel launched.  Prints the index build time,
+    vnngp_step_ms and the RMSE beside the constant predictor's (read: a step moves q(u) at
+    its minibatch's points alone, so VNN_STEPS steps of SVGP_BATCH touch each of the N_TRAIN
+    points about once).  Alone: ``python3 -c 'import
+    chip_smoke; chip_smoke.phase_vnngp()'``."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.utils.nearest_neighbors import NNUtil
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+
+    class VNNGP(gt.models.ApproximateGP):
+        def __init__(self):
+            vd = gt.variational.MeanFieldVariationalDistribution(N_TRAIN)
+            super().__init__(gt.variational.NNVariationalStrategy(
+                self, tx, vd, k=VNN_K, training_batch_size=SVGP_BATCH, jitter_val=1e-4, preferred_nnlib="ivf",
+                generator=torch.Generator().manual_seed(VNN_SEED)))
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.MaternKernel(nu=2.5, ard_num_dims=D))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = VNNGP()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = model.to(dev)
+    likelihood = gt.likelihoods.GaussianLikelihood().to(dev)
+    exact = NNUtil(VNN_K, D)
+    exact.set_nn_idx(tx)
+    queries = sx[:1024]
+    want, got = exact.find_nn_idx(queries).cpu().numpy(), model.variational_strategy.nn_util.find_nn_idx(queries)
+    recall = float(np.mean([len(set(a) & set(b)) / VNN_K for a, b in zip(want.tolist(), got.cpu().numpy().tolist())]))
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    optimizer = torch.optim.Adam(list(model.parameters()) + list(likelihood.parameters()), lr=VNN_LR)
+    gen = torch.Generator(device=dev).manual_seed(VNN_SEED)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    with torch.no_grad():
+        model(tx[:4])  # initialises q(u)
+    losses, times = [], []
+    for _ in range(VNN_STEPS):
+        idx = torch.randperm(N_TRAIN, generator=gen, device=dev)[:SVGP_BATCH]
+        kl_idx = torch.randperm(N_TRAIN - VNN_K, generator=gen, device=dev)[:VNN_KL_BATCH] + VNN_K
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        loss = -mll(model(tx[idx], indices=idx), ty[idx], kl_indices=kl_idx)
+        loss.backward()
+        optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    model.eval()
+    with torch.no_grad():
+        pred = likelihood(model(sx))
+    launches = tuple(w.launches for w in wrappers)
+    rmse = (pred.mean - sy).pow(2).mean().sqrt().item()
+    const_rmse = (sy - ty.mean()).pow(2).mean().sqrt().item()
+    print(f"[vnngp] M={N_TRAIN}, k={VNN_K}, Matérn-5/2 ARD, IVF index built with the sequential structure in "
+          f"{build_s:.2f} s; recall of the {VNN_K} nearest of 1,024 test points against the exact search {recall:.4f} "
+          f"(gate ≥ {VNN_RECALL}); {VNN_STEPS} Adam steps (lr {VNN_LR}, minibatch {SVGP_BATCH}, KL batch "
+          f"{VNN_KL_BATCH}): vnngp_step_ms {_quartiles_ms(times[1:])}; loss {[round(v, 4) for v in losses[:3]]} … "
+          f"{[round(v, 4) for v in losses[-3:]]}; rmse {rmse:.4f} (constant predictor {const_rmse:.4f}); launches "
+          f"{launches}; {nvidia_smi()}", flush=True)
+    check(recall >= VNN_RECALL, f"vnngp: IVF recall {recall}")
+    check(all(math.isfinite(v) for v in losses), "vnngp: a non-finite loss")
+    check(not any(launches), f"vnngp: kernels launched {launches}")
+    return dict(step_ms=float(np.median(times[1:])) * 1e3, build_s=build_s, recall=recall, rmse=rmse)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5977,6 +6632,11 @@ def main() -> int:
         dirichlet = phase_dirichlet()
         more = phase_fantasy_more(batch["model"], flagship["model"], multitask["model"])
         structure = phase_structure()
+        ciq = phase_ciq()
+        classification = phase_classification()
+        ovc = phase_ovc()
+        dspp = phase_dspp()
+        vnngp = phase_vnngp()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -5989,9 +6649,11 @@ def main() -> int:
                "multitask": multitask["launches"][0] + lcm_had["launches"][0], "svgp": svgp["launches"],
                "unwhitened kl": unwhitened["launches"], "deep gp": deep["launches"],
                "dirichlet": dirichlet["launches"][0], "batch fantasy": more["batch"]["launches"],
-               "fixed-noise fantasy": more["fixed_noise"]["launches"], "multitask fantasy": 0, "structure": 0}
+               "fixed-noise fantasy": more["fixed_noise"]["launches"], "multitask fantasy": 0, "structure": 0,
+               "ciq": ciq["launches"][0] + ciq["serve_launches"][0], "classification": 0,
+               "online conditioning": ovc["launches"], "dspp": 0, "vnngp": 0}
     print(f"[report] kernel_matvec launches by path: {by_path} (kissgp, wiski, multitask, svgp, deep gp, multitask "
-          f"fantasy and structure: none expected, no TPU kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
+          f"fantasy, structure, classification, dspp and vnngp: none expected, no TPU kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
           f"N={N_TRAIN}) dirichlet_step_ms {dirichlet['median_ms']:.1f}, CG {sum(dirichlet['iters'])} iterations in "
           f"{DIR_STEPS} steps, each class alone at the refresh {dirichlet['per_class_iters']}, refresh_s "
           f"{dirichlet['refresh_s']:.3f}, request_ms {dirichlet['request_ms']:.2f}, accuracy {dirichlet['accuracy']:.4f} "
@@ -6015,7 +6677,12 @@ def main() -> int:
           f"refresh {kiss['refresh_ms']:.1f} ms, request {kiss['request_ms']:.3f} ms, draw {kiss['draw_ms']:.3f} ms "
           f"(peak {max(kiss['train_peak'], kiss['serve_peak']) / 2**20:.1f} MiB); 2D step {kiss2['step_ms']:.3f} ms, "
           f"request {kiss2['request_ms']:.3f} ms (peak {max(kiss2['train_peak'], kiss2['serve_peak']) / 2**20:.1f} "
-          f"MiB); wiski_fantasy_ms {wiski['wiski_ms']:.3f}; love_grad_ms {love_grad['love_grad_ms']:.3f}; whole script "
+          f"MiB); wiski_fantasy_ms {wiski['wiski_ms']:.3f}; love_grad_ms {love_grad['love_grad_ms']:.3f}; ciq (m={CIQ_M}) "
+          f"ciq_step_ms {ciq['step_ms']:.1f}, rmse {ciq['rmse']:.4f}, nlpd {ciq['nlpd']:.4f}, request_ms "
+          f"{ciq['request_ms']:.1f}, peak {ciq['peak'] / 2**20:.1f} MiB; classification cls_step_ms "
+          f"{classification['step_ms']:.3f}, accuracy {classification['accuracy']:.4f}; ovc_fantasy_ms "
+          f"{ovc['fantasy_ms']:.2f}; dspp_step_ms {dspp['step_ms']:.3f}, rmse {dspp['rmse']:.4f}; vnngp index "
+          f"{vnngp['build_s']:.2f} s, vnngp_step_ms {vnngp['step_ms']:.3f}, rmse {vnngp['rmse']:.4f}; whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
@@ -6030,7 +6697,9 @@ def main() -> int:
             | {"tier": "t in (32, 64] on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from matvec_tc_bound",
                "strips": mv_strips, "launches_by_path": by_path,
                "fantasy_shape": fantasy["shapes"][f"matvec_t{FANT_Q}"], "unwhitened_kl_shape": unwhitened["shape"],
-               "dirichlet_shape": dirichlet["shape"]},
+               "dirichlet_shape": dirichlet["shape"],
+               "ciq_shape": [ciq["shapes"]["matvec_t1"], ciq["shapes"]["matvec_batch"]],
+               "ovc_shape": ovc["shape"]},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
             | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
@@ -6042,8 +6711,9 @@ def main() -> int:
             | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1],
                                     "fantasy": fantasy["launches"][2], "love gradient": love_grad["launches"][2],
                                     "batch": batch["launches"][1], "unwhitened kl": unwhitened["bwd_launches"],
-                                    "dirichlet": dirichlet["launches"][1]},
+                                    "dirichlet": dirichlet["launches"][1], "ciq": ciq["launches"][1]},
                "love_gradient_shape": love_grad["shape"], "unwhitened_kl_shape": unwhitened["bwd_shape"],
+               "ciq_shape": ciq["shapes"]["bwd"],
                "dirichlet_shape": dirichlet["bwd_shape"],
                "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
                        "bound_ms from bwd_tc_bound",

@@ -1,3 +1,3 @@
-from .constraints import GreaterThan, Positive
+from .constraints import GreaterThan, Interval, Positive
 
-__all__ = ["GreaterThan", "Positive"]
+__all__ = ["GreaterThan", "Interval", "Positive"]

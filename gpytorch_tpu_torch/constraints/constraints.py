@@ -46,3 +46,22 @@ class Positive(GreaterThan):
 
     def inverse_transform(self, value: torch.Tensor) -> torch.Tensor:
         return inv_softplus(value)
+
+
+class Interval:
+    """value = lower + (upper − lower)·sigmoid(raw)."""
+
+    def __init__(self, lower_bound: float, upper_bound: float):
+        self.lower_bound, self.upper_bound = float(lower_bound), float(upper_bound)
+
+    def transform(self, raw: torch.Tensor) -> torch.Tensor:
+        return self.lower_bound + (self.upper_bound - self.lower_bound) * torch.sigmoid(raw)
+
+    def inverse_transform(self, value: torch.Tensor) -> torch.Tensor:
+        return torch.logit((value - self.lower_bound) / (self.upper_bound - self.lower_bound))
+
+    def check(self, value: torch.Tensor) -> bool:
+        return bool(((value > self.lower_bound) & (value < self.upper_bound)).all())
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.lower_bound:.3E}, {self.upper_bound:.3E})"

@@ -1,11 +1,14 @@
 from .gaussian_likelihood import (DirichletClassificationLikelihood, FixedNoiseGaussianLikelihood, GaussianLikelihood,
                                   GaussianLikelihoodWithMissingObs, HadamardGaussianLikelihood)
-from .likelihood import Likelihood
+from .likelihood import Likelihood, _OneDimensionalLikelihood
 from .multitask_gaussian_likelihood import MultitaskGaussianLikelihood
 from .noise_models import (FixedGaussianNoise, HeteroskedasticNoise, HomoskedasticNoise, MultitaskHomoskedasticNoise,
                            Noise)
+from .non_gaussian import (BernoulliLikelihood, BetaLikelihood, LaplaceLikelihood, NegativeBinomialLikelihood,
+                           PoissonLikelihood, SoftmaxLikelihood, StudentTLikelihood)
 
-__all__ = ["DirichletClassificationLikelihood", "FixedGaussianNoise", "FixedNoiseGaussianLikelihood",
-           "GaussianLikelihood", "GaussianLikelihoodWithMissingObs", "HadamardGaussianLikelihood",
-           "HeteroskedasticNoise", "HomoskedasticNoise", "Likelihood", "MultitaskGaussianLikelihood",
-           "MultitaskHomoskedasticNoise", "Noise"]
+__all__ = ["BernoulliLikelihood", "BetaLikelihood", "DirichletClassificationLikelihood", "FixedGaussianNoise",
+           "FixedNoiseGaussianLikelihood", "GaussianLikelihood", "GaussianLikelihoodWithMissingObs",
+           "HadamardGaussianLikelihood", "HeteroskedasticNoise", "HomoskedasticNoise", "LaplaceLikelihood",
+           "Likelihood", "MultitaskGaussianLikelihood", "MultitaskHomoskedasticNoise", "NegativeBinomialLikelihood",
+           "Noise", "PoissonLikelihood", "SoftmaxLikelihood", "StudentTLikelihood", "_OneDimensionalLikelihood"]

@@ -8,7 +8,8 @@ The expectations under q(f) that a variational objective needs, ``expected_log_p
 from ``settings.num_likelihood_samples`` draws of q(f) here; a likelihood with a closed
 form overrides them.  The draws' base samples come from ``base_samples`` (a
 ``torch.Generator``, or a callable that returns them for a shape), in place of the JAX
-package's key."""
+package's key.  ``_OneDimensionalLikelihood`` takes them by Gauss–Hermite quadrature
+instead."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from .. import settings
 from ..core.module import Module
 from ..distributions import MultivariateNormal
+from ..utils.quadrature import GaussHermiteQuadrature1D
 
 
 class Likelihood(Module):
@@ -51,3 +53,20 @@ class Likelihood(Module):
         if torch.is_tensor(input):
             return self.forward(input, *params, **kwargs)
         raise NotImplementedError("a likelihood takes a MultivariateNormal or a tensor of function values")
+
+
+class _OneDimensionalLikelihood(Likelihood):
+    """A likelihood of scalar function values, whose ``expected_log_prob`` and
+    ``log_marginal`` are Gauss–Hermite quadratures over each point's marginal of q(f)
+    (``gpytorch_tpu/likelihoods/likelihood.py:68-82``) in place of Monte Carlo draws."""
+
+    def __init__(self):
+        super().__init__()
+        self.quadrature = GaussHermiteQuadrature1D()
+
+    def expected_log_prob(self, observations, function_dist: MultivariateNormal, *params, **kwargs):
+        return self.quadrature(lambda f: self.forward(f, *params).log_prob(observations), function_dist)
+
+    def log_marginal(self, observations, function_dist: MultivariateNormal, *params, **kwargs):
+        prob = self.quadrature(lambda f: self.forward(f, *params).log_prob(observations).exp(), function_dist)
+        return prob.clamp_min(1e-30).log()

@@ -4,7 +4,8 @@ Counterpart of ``gpytorch_tpu/linop/base.py``, ported as far as exact-GP serving
 and sampling need: ``matmul``; ``solve`` by preconditioned CG (with
 ``settings.solve_iterative_refinements``); ``inv_quad_logdet`` by mBCG with stochastic
 Lanczos quadrature; ``root_decomposition`` and ``root_inv_decomposition`` by block Lanczos;
-``zero_mean_mvn_samples`` from the root; diagonal and row access (for the pivoted-Cholesky
+``zero_mean_mvn_samples`` from the root (or by contour-integral quadrature, as
+``sqrt_inv_matmul``); diagonal and row access (for the pivoted-Cholesky
 preconditioner), and the structure hooks ``evaluate_kernel``, ``_eig_lower_bound`` and
 ``_is_known_psd``.  As in the JAX package, each of these takes a dense Cholesky factor
 instead up to ``settings.max_cholesky_size``, or at any size when its
@@ -239,9 +240,23 @@ class LinearOperator:
         return RootLinearOperator(lanczos_inv_root(self, max_rank, initial_vectors))
 
     def zero_mean_mvn_samples(self, num_samples: int, base_samples: ProbeSource = None) -> torch.Tensor:
-        """(num_samples, n) draws of N(0, self) from its root decomposition; the base
-        samples come from ``base_samples`` (``probe_base_samples``), always Gaussian."""
+        """(num_samples, n) draws of N(0, self) from its root decomposition, or under
+        ``settings.ciq_samples`` as K^{1/2}ε by contour-integral quadrature; the base
+        samples ε come from ``base_samples`` (``probe_base_samples``), always Gaussian."""
+        if settings.ciq_samples.on():
+            from ..solvers.contour import contour_integral_quad
+
+            eps = probe_base_samples(self.batch_shape + (self.shape[-1], num_samples), self.dtype, self.device,
+                                     base_samples)
+            return contour_integral_quad(self, eps, inverse=False).movedim(-1, 0)
         return self.root_decomposition().zero_mean_mvn_samples(num_samples, base_samples)
+
+    def sqrt_inv_matmul(self, rhs: torch.Tensor, lhs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """self^{-1/2} rhs (lhs self^{-1/2} rhs where ``lhs`` is given) by contour-integral
+        quadrature (``solvers/contour.py``)."""
+        from ..solvers.contour import sqrt_inv_matmul
+
+        return sqrt_inv_matmul(self, rhs, lhs)
 
     def inv_quad_logdet(self, inv_quad_rhs: Optional[torch.Tensor] = None, logdet: bool = False,
                         reduce_inv_quad: bool = True, base_samples: ProbeSource = None,

@@ -1,8 +1,8 @@
-from .deep_approximate_mll import DeepApproximateMLL
+from .deep_approximate_mll import DeepApproximateMLL, DeepPredictiveLogLikelihood
 from .exact_marginal_log_likelihood import ExactMarginalLogLikelihood
 from .marginal_log_likelihood import MarginalLogLikelihood
 from .predictive_log_likelihood import PredictiveLogLikelihood
 from .variational_elbo import GammaRobustVariationalELBO, VariationalELBO
 
-__all__ = ["DeepApproximateMLL", "ExactMarginalLogLikelihood", "GammaRobustVariationalELBO", "MarginalLogLikelihood",
-           "PredictiveLogLikelihood", "VariationalELBO"]
+__all__ = ["DeepApproximateMLL", "DeepPredictiveLogLikelihood", "ExactMarginalLogLikelihood", "GammaRobustVariationalELBO",
+           "MarginalLogLikelihood", "PredictiveLogLikelihood", "VariationalELBO"]

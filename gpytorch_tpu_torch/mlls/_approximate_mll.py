@@ -5,7 +5,8 @@
         + (log-density of the model's priors) / num_data − (added loss terms),
 
 or with ``combine_terms=False`` the tuple (likelihood term, KL term, prior term), and the
-added loss terms fourth where the model has any."""
+added loss terms fourth where the model has any.  A ``kl_indices=`` keyword goes to the
+strategy's ``kl_divergence`` (VNNGP's stochastic KL), not to the likelihood."""
 
 from __future__ import annotations
 
@@ -26,8 +27,11 @@ class _ApproximateMarginalLogLikelihood(MarginalLogLikelihood):
 
     def forward(self, approximate_dist_f, target, **kwargs):
         num_batch = approximate_dist_f.event_shape[0]
+        # ``kl_indices``: the minibatch of a VNNGP's stochastic KL, for the strategy alone
+        kl_kwargs = {"kl_indices": kwargs.pop("kl_indices")} if "kl_indices" in kwargs else {}
         log_likelihood = self._log_likelihood_term(approximate_dist_f, target, **kwargs) / num_batch
-        kl_divergence = self.model.variational_strategy.kl_divergence(model=self.model) * (self.beta / self.num_data)
+        kl_divergence = self.model.variational_strategy.kl_divergence(model=self.model, **kl_kwargs) * (
+            self.beta / self.num_data)
         log_prior = self.model.prior_log_prob_sum()
         log_prior = torch.zeros_like(kl_divergence) if log_prior is None else log_prior / self.num_data
         added_loss, had_added_loss = torch.zeros_like(kl_divergence), False

@@ -1,3 +1,4 @@
 from .deep_gp import DeepGP, DeepGPLayer
+from .dspp import DSPP, DSPPLayer
 
-__all__ = ["DeepGP", "DeepGPLayer"]
+__all__ = ["DSPP", "DSPPLayer", "DeepGP", "DeepGPLayer"]

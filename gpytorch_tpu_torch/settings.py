@@ -163,6 +163,37 @@ class max_lanczos_quadrature_iterations(_value_context):
     _global_value = 20
 
 
+class num_contour_quadrature(_value_context):
+    """Quadrature nodes (shifts) of contour-integral quadrature, K^{±1/2}·v (CIQ)."""
+
+    _global_value = 15
+
+
+class minres_tolerance(_value_context):
+    """Relative residual of the unshifted system at which CIQ's multi-shift CG stops."""
+
+    _global_value = 1e-4
+
+
+class max_minres_iterations(_value_context):
+    """Iteration cap of CIQ's multi-shift CG."""
+
+    _global_value = 100
+
+
+class ciq_samples(_feature_flag):
+    """Draw N(0, K) samples as K^{1/2}ε by contour-integral quadrature instead of a root
+    decomposition."""
+
+    _default = False
+
+
+class num_gauss_hermite_locs(_value_context):
+    """Nodes of the Gauss–Hermite quadrature of a one-dimensional likelihood's expectations."""
+
+    _global_value = 20
+
+
 class tridiagonal_jitter(_value_context):
     """Floor of the Lanczos-tridiagonal Ritz values before their logarithm."""
 

@@ -1,7 +1,8 @@
-"""Block-Krylov Rayleigh–Ritz root decompositions (the LOVE caches and sampling root).
+"""Block-Krylov Rayleigh–Ritz root decompositions (the LOVE caches and sampling root), and
+the single-vector Lanczos tridiagonalisation that estimates CIQ's spectrum.
 
-Counterpart of ``gpytorch_tpu/solvers/lanczos.py`` (``block_lanczos_ritz``, ``_ritz_root``,
-``lanczos_root`` and ``lanczos_inv_root``).  The start block
+Counterpart of ``gpytorch_tpu/solvers/lanczos.py`` (``lanczos_tridiag``,
+``block_lanczos_ritz``, ``_ritz_root``, ``lanczos_root`` and ``lanczos_inv_root``).  The start block
 is explicit: ``initial_vectors`` where given, the rest drawn from a seeded
 ``torch.Generator`` on the CPU and then moved to the operator's device, so that a CPU run
 and a CUDA run start from the same block.
@@ -21,6 +22,35 @@ import torch
 
 # lowest Ritz value kept in the inverse root, before the operator's own lower bound
 _EIG_FLOOR = 1e-8
+
+
+def lanczos_tridiag(matmul_fn, init_vec: torch.Tensor, num_iter: int, eps: float = 1e-10):
+    """``num_iter`` single-vector Lanczos steps from ``init_vec`` (*batch, n), each
+    re-orthogonalised twice against every earlier vector: (Q (*batch, n, k) orthonormal,
+    T (*batch, k, k) tridiagonal) with Qᵀ A Q ≈ T (``gpytorch_tpu/solvers/lanczos.py:17``).
+    One product with a single column a step."""
+    q = init_vec / init_vec.norm(dim=-1, keepdim=True).clamp_min(eps)
+    k = int(min(num_iter, q.shape[-1]))
+    Q = q.unsqueeze(-2)  # (*batch, j + 1, n): the vectors so far, as rows
+    q_prev, beta_prev = torch.zeros_like(q), torch.zeros(q.shape[:-1], dtype=q.dtype, device=q.device)
+    alphas, betas = [], []
+    for j in range(k):
+        v = matmul_fn(q.unsqueeze(-1)).squeeze(-1)
+        alpha = (q * v).sum(-1)
+        v = v - alpha.unsqueeze(-1) * q - beta_prev.unsqueeze(-1) * q_prev
+        for _ in range(2):
+            v = v - ((Q @ v.unsqueeze(-1)).mT @ Q).squeeze(-2)
+        beta = v.norm(dim=-1)
+        q_prev, q, beta_prev = q, v / beta.clamp_min(eps).unsqueeze(-1), beta
+        alphas.append(alpha)
+        betas.append(beta)
+        if j + 1 < k:
+            Q = torch.cat([Q, q.unsqueeze(-2)], dim=-2)
+    T = torch.diag_embed(torch.stack(alphas, -1))
+    if k > 1:
+        off = torch.stack(betas[:-1], -1)
+        T = T + torch.diag_embed(off, 1) + torch.diag_embed(off, -1)
+    return Q.mT, T
 
 
 def block_lanczos_ritz(matmul_fn, init_block: torch.Tensor, num_blocks: int):

@@ -23,7 +23,11 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -
     own dtypes (the JAX package keeps a grid made from bounds in float32 even under x64),
     so that both packages interpolate on the same grid.  So may a variational strategy's
     ``<strategy>.variational_params_initialized``: given as 1, the loaded q(u) is kept on the
-    model's first call instead of being initialised from the prior.  Clears the module's
+    model's first call instead of being initialised from the prior, and a VNNGP strategy's
+``<strategy>.nn_xinduce_idx`` (the k nearest preceding inducing points of each, which an
+approximate index builds differently in the two packages).  Every new parameter of the
+variational long tail is a parameter here too (DSPP's ``quad_sites`` and
+``raw_quad_weights``, the non-Gaussian likelihoods' raw parameters).  Clears the module's
     caches, since they depend on the parameters."""
     own = dict(module.named_parameters())
     state = {name: value for name, value in params.items() if name not in own}
@@ -44,6 +48,11 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -
         if attr == "variational_params_initialized":
             module.get_submodule(path).variational_params_initialized.fill_(int(np.asarray(value)))
             continue
+        if attr == "nn_xinduce_idx":
+            owner = module.get_submodule(path)
+            device = owner.nn_xinduce_idx.device
+            owner.nn_xinduce_idx = torch.as_tensor(np.array(value), dtype=torch.long, device=device)
+            continue
         kernel = module.get_submodule(path)
         device = kernel.grid_0.device
         if attr == "grid":
@@ -56,6 +65,6 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -
     return module
 
 
-# the state besides parameters that ``load_jax_params`` carries: a grid kernel's, and a
-# variational strategy's flag
-_STATE = ("grid", "grid_bounds", "has_initialized_grid", "variational_params_initialized")
+# the state besides parameters that ``load_jax_params`` carries: a grid kernel's, a
+# variational strategy's flag and a VNNGP strategy's sequential neighbours
+_STATE = ("grid", "grid_bounds", "has_initialized_grid", "variational_params_initialized", "nn_xinduce_idx")

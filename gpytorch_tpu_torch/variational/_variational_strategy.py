@@ -11,8 +11,16 @@ in the JAX package the model is passed at call time (``strategy(x, model=model)`
 ``nn.Module``'s registry, so that ``.modules()`` and ``.parameters()`` of the model do not
 loop through its own strategy.
 
-Online variational conditioning (``pseudo_points``, ``amortized_exact_gp``,
-``get_fantasy_model``) is not ported.
+Online variational conditioning (Maddox et al. 2021, arXiv 2110.15172;
+``gpytorch_tpu/variational/_variational_strategy.py:117-177``): ``pseudo_points`` (each
+strategy's own) gives a Gaussian observation model over the inducing points, pseudo-targets
+ỹ with a full noise covariance D̃, such that the exact GP conditioned on (Z, ỹ) has the
+posterior q(f); ``amortized_exact_gp`` builds that exact GP, its likelihood the model's
+(a ``GaussianLikelihood`` where the model has none) and its training covariance
+K_ZZ + D̃, and ``get_fantasy_model`` conditions it on new observations (a Cholesky q(u)
+only).  As in the JAX package, the fantasy's new training covariance takes the
+likelihood's noise on every point: the variances of a fantasy read K_ZZ + σ²I where its
+mean reads K_ZZ + D̃.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from .. import settings
 from ..core.module import Module
 from ..distributions import Delta, MultivariateNormal, kl_divergence
+from ..linop import to_linear_operator
 
 
 class _VariationalStrategy(Module):
@@ -98,3 +107,50 @@ class _VariationalStrategy(Module):
         if isinstance(q_u, Delta):
             return self.forward(x, inducing_points, q_u.v, None, model=model, **kwargs)
         raise RuntimeError(f"invalid variational distribution type {type(q_u).__name__}")
+
+    # -- online variational conditioning ---------------------------------------------------
+    def pseudo_points(self, model=None):
+        """(D̃, ỹ − μ_Z as a column): the pseudo-observations' noise covariance and centred
+        targets, of each strategy."""
+        raise NotImplementedError("Each variational strategy must implement its own pseudo points method")
+
+    def amortized_exact_gp(self, model=None, mean_module=None, covar_module=None):
+        """The exact GP over the pseudo-observations, in eval mode, with its prediction
+        strategy built on K_ZZ + D̃ (the model's mean and kernel unless given)."""
+        from ..likelihoods.gaussian_likelihood import GaussianLikelihood
+        from ..models.exact_gp import ExactGP
+        from ..models.exact_prediction_strategies import DefaultPredictionStrategy
+
+        model = self._resolve_model(model)
+        mean_module = model.mean_module if mean_module is None else mean_module
+        covar_module = model.covar_module if covar_module is None else covar_module
+        pseudo_covar, pseudo_mean = self.pseudo_points(model)
+        Z = self.inducing_points.detach()
+        pseudo_y = pseudo_mean[..., 0] + mean_module(Z)
+
+        class _PseudoExactGP(ExactGP):
+            def __init__(self, likelihood):
+                super().__init__(Z, pseudo_y, likelihood)
+                self.mean_module, self.covar_module = mean_module, covar_module
+
+            def forward(self, x):
+                return MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+        likelihood = model.likelihood if hasattr(model, "likelihood") else GaussianLikelihood().to(Z)
+        exact = _PseudoExactGP(likelihood).eval()
+        prior = exact.forward(Z)
+        strategy = DefaultPredictionStrategy((Z,), prior, pseudo_y, likelihood)
+        strategy.lik_train_train_covar = (prior.lazy_covariance_matrix.evaluate_kernel()
+                                          + to_linear_operator(pseudo_covar)).evaluate_kernel()
+        exact._cache["prediction_strategy"] = strategy
+        return exact
+
+    def get_fantasy_model(self, inputs, targets, model=None, mean_module=None, covar_module=None, **kwargs):
+        """The amortized exact GP conditioned on (``inputs``, ``targets``) by its fantasy
+        update (``ExactGP.get_fantasy_model``)."""
+        from ._variational_distribution import CholeskyVariationalDistribution
+
+        if not isinstance(self._variational_distribution, CholeskyVariationalDistribution):
+            raise NotImplementedError("Fantasy models are only supported for CholeskyVariationalDistribution")
+        exact = self.amortized_exact_gp(model=model, mean_module=mean_module, covar_module=covar_module)
+        return exact.get_fantasy_model(inputs, targets, **kwargs)

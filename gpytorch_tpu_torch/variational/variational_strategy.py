@@ -17,6 +17,9 @@ N(μ_Z, K_ZZ + jitter), and with A = K_ZZ⁻¹ K_Zx (two triangular solves)
 Its KL reads the prior's log-determinant and K_ZZ⁻¹[L_S | μ_Z − m]: by a dense Cholesky up to
 ``settings.max_cholesky_size`` inducing points, above it by mBCG on the lazy K_ZZ + jitter
 (K_ZZ is kept lazy above ``max_eager_kernel_size``²), which launches the K·V kernel.
+
+Each strategy's ``pseudo_points`` gives the pseudo-observations of online variational
+conditioning (``_pseudo_points_from``; ``_variational_strategy.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,39 @@ from ..distributions import MultivariateNormal
 from ..linop import IdentityLinearOperator, RootLinearOperator, SumLinearOperator, join_rows
 from ..solvers.cholesky import psd_safe_cholesky
 from ._variational_strategy import _VariationalStrategy
+
+
+def _pseudo_points_from(var_chol, var_mean, cov_diff, K_root, jitter_val: float, whitened: bool):
+    """The pseudo-points (D̃, ỹ − μ_Z) of online variational conditioning
+    (``gpytorch_tpu/variational/variational_strategy.py:34-60``): with S = L_S L_Sᵀ and
+    R = I − S (whitened) or K_ZZ − S (unwhitened),
+
+        D̃ = S + S (R Rᵀ + εI)⁻¹ Rᵀ S,   ỹ − μ_Z = (R Rᵀ + εI)⁻¹ Rᵀ m  (whitened)
+                                          or m + S (R Rᵀ + εI)⁻¹ Rᵀ m  (unwhitened),
+
+    the normal equations standing in for R⁻¹ (R need not be definite); whitened values
+    are mapped back through K_root, the Cholesky factor of K_ZZ + jitter.  D̃ symmetrised."""
+    S = var_chol @ var_chol.mT
+    m_vec = var_mean.unsqueeze(-1)
+    eye = torch.eye(cov_diff.shape[-1], dtype=cov_diff.dtype, device=cov_diff.device)
+    L_inner = psd_safe_cholesky(cov_diff @ cov_diff.mT + jitter_val * eye)
+    pseudo_covar = S + S @ torch.cholesky_solve(cov_diff.mT @ S, L_inner)
+    inner_mean = torch.cholesky_solve(cov_diff.mT @ m_vec, L_inner)
+    if whitened:
+        pseudo_covar = K_root @ pseudo_covar @ K_root.mT
+        pseudo_mean = K_root @ inner_mean
+    else:
+        pseudo_mean = m_vec + S @ inner_mean
+    return 0.5 * (pseudo_covar + pseudo_covar.mT), pseudo_mean
+
+
+def _cholesky_q(strategy):
+    from ._variational_distribution import CholeskyVariationalDistribution
+
+    vd = strategy._variational_distribution
+    if not isinstance(vd, CholeskyVariationalDistribution):
+        raise NotImplementedError("pseudo points require CholeskyVariationalDistribution")
+    return torch.tril(vd.chol_variational_covar), vd.variational_mean
 
 
 def _joint_prior(model, inducing_points, x):
@@ -40,6 +76,14 @@ def _joint_prior(model, inducing_points, x):
 
 
 class VariationalStrategy(_VariationalStrategy):
+    def pseudo_points(self, model=None):
+        """Whitened: R = I − S, mapped back through chol(K_ZZ + jitter)."""
+        var_chol, var_mean = _cholesky_q(self)
+        K_ZZ = self._resolve_model(model).forward(self.inducing_points).lazy_covariance_matrix.evaluate_kernel()
+        K_root = psd_safe_cholesky(K_ZZ.add_jitter(self.jitter_val).to_dense())
+        eye = torch.eye(var_chol.shape[-1], dtype=var_chol.dtype, device=var_chol.device)
+        return _pseudo_points_from(var_chol, var_mean, eye - var_chol @ var_chol.mT, K_root, self.jitter_val, True)
+
     def prior_distribution(self, model=None) -> MultivariateNormal:
         """N(0, I) over the whitened inducing values."""
         m, batch = self._variational_distribution.num_inducing_points, self._variational_distribution.batch_shape
@@ -60,6 +104,13 @@ class VariationalStrategy(_VariationalStrategy):
 
 
 class UnwhitenedVariationalStrategy(_VariationalStrategy):
+    def pseudo_points(self, model=None):
+        """Unwhitened: R = K_ZZ − S."""
+        var_chol, var_mean = _cholesky_q(self)
+        K_ZZ = self._resolve_model(model).forward(self.inducing_points).lazy_covariance_matrix.evaluate_kernel()
+        return _pseudo_points_from(var_chol, var_mean, K_ZZ.to_dense() - var_chol @ var_chol.mT, None,
+                                   self.jitter_val, False)
+
     def prior_distribution(self, model=None) -> MultivariateNormal:
         """N(μ_Z, K_ZZ + jitter), the kernel lazy above ``max_eager_kernel_size``²."""
         out = self._resolve_model(model).forward(self.inducing_points)
