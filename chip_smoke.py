@@ -10,7 +10,8 @@ multitask GPs, at N=100k sparse variational GPs (natural gradients, whitened and
 unwhitened) and a two-layer deep GP, Dirichlet GP classification at N=100k, fantasies of
 batched, fixed-noise and multitask models, the structure kernels (additive and SKIP), and at
 N=100k a CIQ-SVGP at m = 4,096, a probit SVGP classifier, online variational conditioning, a
-two-layer DSPP and VNNGP.
+two-layer DSPP and VNNGP, an LMC multitask SVGP, grid-interpolation, large-batch and decoupled
+SVGPs, and SGPR and random-Fourier-feature exact GPs.
 
     python3 chip_smoke.py
 
@@ -280,6 +281,34 @@ Phases, in order; any failed check exits non-zero before the result line is prin
 16e. vnngp  — VNNGP over all 100,000 points (k = 16, Matérn-5/2 ARD, an IVF index, minibatch
               1,024, KL batch 256, 100 steps): the IVF recall of 1,024 queries against the
               exact search ≥ 0.95; the index's build time, vnngp_step_ms, RMSE.
+
+17. lmc     — an LMC multitask SVGP (``make_lmc_task``: 4 tasks mixed from 3 latent functions,
+              N=100,000, d=3): LMCVariationalStrategy over a whitened VariationalStrategy of batch
+              shape (3,), m = 1,024 a latent, a Cholesky q(u), MultitaskGaussianLikelihood.  The
+              ELBO and KL term of a seeded state at m = 256 in float32 and float64 against the JAX
+              package's float64 values (``tests/lmc_elbo_reference.py``); 196 Adam steps on
+              minibatches of 1,024; finite ELBOs, a fixed minibatch's ELBO raised, no kernel
+              launched; lmc_step_ms, per-task RMSE and NLPD of the 2,048 test points, peak memory.
+17b. grid svgp — the additive grid-interpolation strategy (a 1-D grid of 1,024 points, 3 input
+              dimensions) and the 2-D one (32 × 32) on the flagship's data, 100 Adam steps each:
+              their unwhitened KL's mBCG launches kernel_matvec (1,024², d = 1 with the 3 dimensions
+              folded into the columns, and d = 2) and its backward kernel_bwd_fused on every
+              step (gated), the first launch of each against its plain version and timed beside
+              its bound; the mBCG KL beside the dense float64 KL (read); grid_svgp_step_ms, RMSE.
+17c. large batch — LargeBatchVariationalStrategy against VariationalStrategy at m = 1,024 on
+              minibatches of 16,384, 30 Adam steps each (step times read); at one state the ELBO
+              and its gradients against the whitened strategy's in float32 and float64 (gated).
+17d. decoupled — the orthogonally decoupled strategy (4,096 mean inducing points with a Delta
+              q(u) over a whitened strategy with 512) and the batch-decoupled one (1,024, a kernel
+              of batch shape (2,)), 100 Adam steps each: the ELBO in float32 against float64, a
+              fixed minibatch's ELBO raised; the orthogonal KL's ½ mᵀK m launch at 4,096², t = 1,
+              held against its plain version; step times, RMSE, launches a step.
+17e. sgpr, rff — exact GPs on the flagship's data at N=100,000 with InducingPointKernel(ScaleKernel(
+              RBF-ARD)) (1,024 inducing points) and RFFKernel (1,024 frequencies), 50 steps each of
+              bench.py's training recipe, then 2,048 test points served: SGPR's added loss term
+              against its float64 closed form, rᵀ(R Rᵀ + σ²I)⁻¹r and the served mean against a float64
+              Woodbury evaluation (gated), no kernel launched; step times, CG iterations, RMSE, NLPD
+              and the strategy that served.
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -591,6 +620,43 @@ DSPP_STEPS, DSPP_LR, DSPP_SEED = 100, 0.01, 17  # … Adam steps on minibatches 
 DSPP_LOSS_TOL = 1e-4        # … the initial loss on one minibatch, float32 against a float64 copy, relative
 VNN_K, VNN_KL_BATCH, VNN_STEPS, VNN_LR = 16, 256, 100, 0.1  # phase 16e (examples/12_vnngp_large_scale.py's
 VNN_SEED, VNN_RECALL = 18, 0.95  # configuration at N=100k, d=3), the seed, the IVF index's recall gate
+
+# an LMC multitask SVGP (phase 17), grid-interpolation SVGPs (17b), the large-batch strategy (17c), the
+# decoupled strategies (17d) and SGPR and RFF exact GPs (17e), at N=100k
+LMC_TASKS, LMC_LATENTS, LMC_M, LMC_STEPS, LMC_LR, LMC_SEED = 4, 3, 1024, 196, 0.01, 20  # tasks, latent GPs,
+                            # inducing points a latent, Adam steps (two epochs of minibatches), its rate, the seed
+LMC_PARITY_M, LMC_PARITY_BATCH = 256, 512  # the parity state's inducing points a latent and minibatch
+# the JAX package's float64 ELBO at lmc_parity_state and its KL term, KL / N_TRAIN:
+# python tests/lmc_elbo_reference.py
+LMC_ELBO_JAX, LMC_KL_JAX = -62.20488984715707, 0.012575767516202993
+LMC_ELBO_TOL = (1e-4, 1e-10)  # |ELBO − LMC_ELBO_JAX| / |LMC_ELBO_JAX| in float32 and float64: the CPU read 4.7e-07
+                            # and 9.8e-15; the KL term is 2.0e-4 of |ELBO|, so a float32 path that dropped it fails
+LMC_KL_TOL = (1e-5, 1e-10)  # … and |KL − LMC_KL_JAX| / LMC_KL_JAX (the CPU read 1.1e-07 and 1.4e-16)
+GRID_M, GRID_2D, GRID_STEPS, GRID_SEED = 1024, 32, 100, 21  # phase 17b: the additive 1-D grid, the 2-D grid's side,
+                            # Adam steps of each model, the seed
+LB_M, LB_BATCH, LB_STEPS, LB_SEED = 1024, 16_384, 30, 22  # phase 17c: inducing points, minibatch, Adam steps, seed
+LB_TOL = ((1e-4, 5e-3), (1e-9, 1e-7))  # … its ELBO and gradients at one state against the whitened strategy's
+                            # (|ΔELBO| / |ELBO|, max |Δ∇| / max |∇|), float32 and float64.  A CPU run at m = 1,024,
+                            # minibatch 4,096, 30 steps read each float32 strategy against float64 at ≤ 1.3e-06 and
+                            # ≤ 3.3e-04, the two float64 ones 1.9e-10 and 5.6e-09 apart; an H100 read the two
+                            # strategies 8.3e-06 and 1.6e-03 apart in float32, 1.3e-11 and 4.0e-09 in float64.  With
+                            # the grouped L⁻ᵀ(S − I)L⁻¹ in float32 (the JAX package's dtype) it read 1.4e-03 and 1.14
+DEC_MEAN_M, DEC_COVAR_M, DEC_BATCH_M, DEC_STEPS, DEC_SEED = 4096, 512, 1024, 100, 23  # phase 17d: the orthogonal
+                            # strategy's mean and covariance inducing points, the batch one's, Adam steps, the seed
+DEC_MEAN_LR = 1e-3          # … Adam's rate for the orthogonal strategy's Delta q(u) values
+DEC_ELBO_TOL = 1e-4         # … the initial ELBO of a fixed minibatch, float32 against float64, relative (an H100
+                            # read 3.0e-08 orthogonal, 3.2e-08 batch; the CPU 4.5e-08, 8.0e-09)
+SPARSE_M, RFF_SAMPLES, SPARSE_STEPS, SPARSE_LR, SPARSE_SEED = 1024, 1024, 50, 0.05, 24  # phase 17e: SGPR's inducing
+                            # points, RFF's frequencies, Adam steps (inducing points at SVGP_ADAM_LR), rate, seed
+SPARSE_CG_TOL = 1e-4        # … the CG tolerance of the gated rᵀ(R Rᵀ + σ²I)⁻¹r
+SGPR_TERM_TOL = 1e-12       # … SGPR's loss term in float64 against ``_sgpr_term64``, |Δ| over ½ Σ (k_ii + q_ii) / σ²,
+                            # the sum of its terms' magnitudes (the CPU at N=20,000 read 1.0e-17; a planted term = 0
+                            # 5.0e-06).  The float32 term is printed, not gated: k_ii − q_ii cancels (an H100 read
+                            # 10.50 against −16.86 at N=100,000, the CPU 2.1e-07 of the terms at N=20,000), in the
+                            # JAX package's float32 as well, and a term of 0 lies inside that error
+SPARSE_IQ_TOL = 1e-4        # … rᵀ(R Rᵀ + σ²I)⁻¹r against float64 Woodbury, relative (an H100 read 1.1e-05 SGPR and
+                            # 5.2e-09 RFF, the CPU at N=20,000 5.5e-06 and 1.0e-07)
+SPARSE_MEAN_TOL = 1e-2      # … the served mean (eval CG at 1e-3), max |Δ| / max |μ| (an H100 read 1.6e-03 and 7.0e-05)
 
 
 class SmokeFailure(Exception):
@@ -1018,18 +1084,20 @@ def grad_x_tc_bound(n: int, m: int, d: int, t: int):
     return tc_bound(n * m, t, 5 * d + 4, 4 * (2 * n * d + m * d + n * t + m * t))
 
 
-def bwd_bound(n: int, d: int, t: int):
+def bwd_bound(n: int, d: int, t: int, dv: bool = False):
     """Fused backward on the FP32 cores (dx and dos): per (i, j) pair 4t FLOP for g_i·v_j
     and v_i·g_j, 5d for the distance and the dx update, about 9 for k, k′, the weight and
-    dos, and one exp; x, g and v read once, dx written once."""
-    return bound_ms(n * n * (4 * t + 5 * d + 9), 4 * (2 * n * d + 2 * n * t), n * n)
+    dos, and one exp; x, g and v read once, dx written once.  With ``dv`` (= K·g) 2t FLOP
+    more per pair on the same k and dv written once."""
+    return bound_ms(n * n * (4 * t + 5 * d + 9 + (2 * t if dv else 0)), 4 * (2 * n * d + (3 if dv else 2) * n * t),
+                    n * n)
 
 
-def bwd_tc_bound(n: int, d: int, t: int):
+def bwd_tc_bound(n: int, d: int, t: int, dv: bool = False):
     """The fused backward's t ∈ (32, 64] tier (dx and dos): ``tc_bound`` with the score
-    [g_i | v_i]·[v_j | g_j] of depth 2t on the tensor cores, the 5d + 9 CUDA-core
-    operations per pair of ``bwd_bound``, and its bytes."""
-    return tc_bound(n * n, 2 * t, 5 * d + 9, 4 * (2 * n * d + 2 * n * t))
+    [g_i | v_i]·[v_j | g_j] of depth 2t on the tensor cores (3t with ``dv``'s product), the
+    5d + 9 CUDA-core operations per pair of ``bwd_bound``, and its bytes."""
+    return tc_bound(n * n, (3 if dv else 2) * t, 5 * d + 9, 4 * (2 * n * d + (3 if dv else 2) * n * t))
 
 
 def periodic_matvec_bound(n: int, m: int, d: int, t: int):
@@ -4971,7 +5039,8 @@ def build_svgp(train_x, device, dtype, dist="natural", whitened=True, jitter_val
     """Phase 14's model: an ApproximateGP on m inducing points (a subset of the training
     inputs drawn from ``seed``) with ConstantMean, ScaleKernel(RBFKernel(ard_num_dims=D)) and
     q(u) of the kind ``dist`` ("natural" or "cholesky") under the whitened (or unwhitened)
-    strategy, or with ``strategy="ciq"`` the CIQ strategy (phase 16), and a GaussianLikelihood
+    strategy, or with ``strategy="ciq"`` the CIQ strategy (phase 16) or ``"large_batch"`` the
+    large-batch strategy (phase 17c), and a GaussianLikelihood
     with noise ≥ NOISE_FLOOR (or ``likelihood``); (model, likelihood) on ``device`` in
     train mode.  ``jitter_val`` fixes K_ZZ's jitter (by default it follows the dtype)."""
     import torch
@@ -4983,7 +5052,8 @@ def build_svgp(train_x, device, dtype, dist="natural", whitened=True, jitter_val
                 "cholesky": gt.variational.CholeskyVariationalDistribution}[dist]
     strategy_cls = {"whitened": gt.variational.VariationalStrategy if whitened
                     else gt.variational.UnwhitenedVariationalStrategy,
-                    "ciq": gt.variational.CiqVariationalStrategy}[strategy]
+                    "ciq": gt.variational.CiqVariationalStrategy,
+                    "large_batch": gt.variational.LargeBatchVariationalStrategy}[strategy]
 
     class SVGP(gt.models.ApproximateGP):
         def __init__(self):
@@ -5199,15 +5269,15 @@ def _product_at_path_shape(args, tag: str = "unwhitened", what: str = "the KL's 
     x1, x2, v, kt = args
     got, plain = fk.kernel_matvec_cuda(x1, x2, v, kt), fk._matvec_reference(x1, x2, v, kt)
     rel, err = _rel_err(got, plain, x1, x2, v, kt)
-    n, m, t = x1.shape[0], x2.shape[0], v.shape[1]
+    n, m, d, t = x1.shape[0], x2.shape[0], x1.shape[1], v.shape[1]
     ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, kt), 10)
     plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, kt), 10)
-    bound = matvec_tc_bound(n, m, D, t) if 32 < t <= 64 else matvec_bound(n, m, D, t)
-    print(f"[{tag}] {what} {n}x{m} t={t} (symmetric: {x1 is x2}) against its plain "
+    bound = matvec_tc_bound(n, m, d, t) if 32 < t <= 64 else matvec_bound(n, m, d, t)
+    print(f"[{tag}] {what} {n}x{m} d={d} t={t} (symmetric: {x1 is x2}) against its plain "
           f"version on the same operands: max abs err {err:.3e}, rel {rel:.3e} (tol {KERNEL_REL_TOL}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); {nvidia_smi()}", flush=True)
     check(rel <= KERNEL_REL_TOL, f"{tag}: {what} differs from its plain version by {rel:.3e}")
-    return dict(n=n, m=m, t=t, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], max_abs_err=err)
+    return dict(n=n, m=m, d=d, t=t, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], max_abs_err=err)
 
 
 def _e(x) -> str:
@@ -5217,22 +5287,22 @@ def _e(x) -> str:
 
 def _bwd_at_path_shape(args, kwargs, tag: str = "unwhitened", what: str = "the KL's backward") -> dict:
     """kernel_bwd_fused on the operands of a path's first backward launch (``tag``: the
-    unwhitened KL's by default), with the outputs that launch asked for, against
-    ``_bwd_fused_reference`` in float64 on the same operands: each output's error over the
-    sums of its terms' magnitudes (``_bwd_abs_terms``) gated at BWD_REL_TOL as phase 2's
-    ragged shapes are (up to BWD_TERMS_N rows: the sums are formed densely), and over its
-    own size (max |Δdx| / max |dx|, |Δdos| / |dos|) gated at BWD_TRAIN_TOL, and above
-    BWD_TERMS_N rows at twice the plain float32 version's as phase 3b's training call is,
-    beside the plain float32 version's errors; timed beside the bound
-    (``bwd_tc_bound`` for the tensor-core tier, t in (32, 64], else ``bwd_bound``) and the
-    plain version.  The backwards of these paths ask for dx and dos and no dv (as read on an
-    H100), which the bounds assume: a launch that asks for dv fails the phase."""
+    unwhitened KL's by default), with the outputs that launch asked for (dv = K·g, where asked,
+    is the wrapper's launch of the product kernel), against ``_bwd_fused_reference`` in float64
+    on the same operands, beside the plain float32 version's errors.  Up to BWD_TERMS_N rows,
+    where the sums of its terms' magnitudes (``_bwd_abs_terms``) are formed densely, each
+    output's error is gated at BWD_REL_TOL of those sums as phase 2's ragged shapes are, dx and
+    dv also at BWD_TRAIN_TOL of their own size, and dos, one sum that may cancel to a small
+    fraction of its terms (|dos| / Σ|k g·v| is printed), at twice the plain float32 version's
+    error; above BWD_TERMS_N rows each at BWD_TRAIN_TOL of its size and twice the plain
+    version's, as phase 3b's training call is.  A planted fault, dos = 0, must fail its gate.
+    Timed beside the bound (``bwd_tc_bound`` for the tensor-core tier, t in (32, 64], else
+    ``bwd_bound``, with dv where it is asked for) and the plain version."""
     from gpytorch_tpu_torch.ops import fused_kernels as fk
 
     x, g, v, kt = args
     need_dv, need_dos = kwargs.get("need_dv", True), kwargs.get("need_dos", False)
-    check(not need_dv, f"{tag}: {what} asked for dv, which the bound does not count")
-    n, t = x.shape[0], v.shape[1]
+    n, d, t = x.shape[0], x.shape[1], v.shape[1]
     names = ("dv", "dx", "dos")
     got = dict(zip(names, fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=need_dv, need_dos=need_dos)))
     plain = dict(zip(names, fk._bwd_fused_reference(x, g, v, kt, need_dv=need_dv, need_dos=need_dos)))
@@ -5241,39 +5311,43 @@ def _bwd_at_path_shape(args, kwargs, tag: str = "unwhitened", what: str = "the K
     with_terms = n <= BWD_TERMS_N
     if with_terms:
         bx, bdv, bdos = _bwd_abs_terms(x64, g64, v64, kt)
-        terms = {"dv": bdv.max(), "dx": bx.max(), "dos": bdos}
+        terms = {"dv": bdv.max().item(), "dx": bx.max().item(), "dos": bdos.item()}
     asked = [k for k in names if exact[k] is not None]
-    rel, max_abs = {}, 0.0
+    err, limit, rel, max_abs = {}, {}, {}, 0.0
     for k in asked:
-        size = exact[k].abs().max()
+        size = exact[k].abs().max().item()
         for name, out in (("kernel", got), ("plain", plain)):
-            err = (out[k].double() - exact[k]).abs().max()
-            rel[(name, k)] = ((err / terms[k]).item() if with_terms else None, (err / size).item())
-            if name == "kernel":
-                max_abs = max(max_abs, err.item())
+            err[(name, k)] = (out[k].double() - exact[k]).abs().max().item()
+            rel[(name, k)] = (err[(name, k)] / terms[k] if with_terms else None, err[(name, k)] / size)
+        max_abs = max(max_abs, err[("kernel", k)])
+        if with_terms:
+            limit[k] = min(BWD_REL_TOL * terms[k], 2.0 * err[("plain", k)] if k == "dos" else BWD_TRAIN_TOL * size)
+        else:
+            limit[k] = min(BWD_TRAIN_TOL * size, 2.0 * err[("plain", k)])
+        rel[("gate", k)] = limit[k] / (terms[k] if with_terms else size)
+    fault = abs(exact["dos"].item()) if need_dos else None  # the error of a planted dos = 0
     ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=need_dv, need_dos=need_dos), 10)
     plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, kt, need_dv=need_dv, need_dos=need_dos), 10)
     tc = 32 < t <= 64
-    bound = bwd_tc_bound(n, D, t) if tc else bwd_bound(n, D, t)
+    bound = bwd_tc_bound(n, d, t, need_dv) if tc else bwd_bound(n, d, t, need_dv)
     tier = "the tensor-core tier" if tc else f"the FMA tier, {-(-t // 32)} column chunks of partials"
-    print(f"[{tag}] {what} {n}x{n} d={D} t={t} ({', '.join(asked)}; {tier}) against float64 on the same operands, "
-          f"error over the sums of the terms' magnitudes / "
-          f"over the output's size: "
+    cancel = (f"; |dos| / Σ|k g·v| = {fault / terms['dos']:.3e}, which a planted dos = 0 reads"
+              if need_dos and with_terms else "")
+    print(f"[{tag}] {what} {n}x{n} d={d} t={t} ({', '.join(asked)}; {tier}) against float64 on the same operands, "
+          f"error over the sums of the terms' magnitudes / over the output's size: "
           + "; ".join(f"{k} kernel {_e(rel[('kernel', k)][0])} / {rel[('kernel', k)][1]:.3e}, plain float32 "
-                      f"{_e(rel[('plain', k)][0])} / {rel[('plain', k)][1]:.3e}" for k in asked)
-          + f" (tol {BWD_REL_TOL} / {BWD_TRAIN_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}); {nvidia_smi()}", flush=True)
+                      f"{_e(rel[('plain', k)][0])} / {rel[('plain', k)][1]:.3e}, gate {rel[('gate', k)]:.3e} "
+                      f"{'of the terms' if with_terms else 'of the size'}"
+                      for k in asked)
+          + f"{cancel}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"{nvidia_smi()}", flush=True)
     for k in asked:
-        over_terms, over_size = rel[("kernel", k)]
-        if with_terms:
-            check(over_terms <= BWD_REL_TOL and over_size <= BWD_TRAIN_TOL,
-                  f"{tag}: {what}, {k}, against float64: {over_terms:.3e} of its terms' magnitudes "
-                  f"(tol {BWD_REL_TOL}), {over_size:.3e} of its size (tol {BWD_TRAIN_TOL})")
-        else:
-            limit = min(2.0 * rel[("plain", k)][1], BWD_TRAIN_TOL)
-            check(over_size <= limit, f"{tag}: {what}, {k}, against float64: {over_size:.3e} of its size, more than "
-                                      f"twice the plain version's or over {BWD_TRAIN_TOL}")
-    return dict(n=n, m=n, t=t, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], max_abs_err=max_abs,
+        check(err[("kernel", k)] <= limit[k], f"{tag}: {what}, {k}, against float64: error {err[('kernel', k)]:.3e}, "
+                                              f"over its gate {limit[k]:.3e} (plain float32 {err[('plain', k)]:.3e})")
+    if need_dos:
+        check(fault > limit["dos"], f"{tag}: {what}: the dos gate {limit['dos']:.3e} does not see a planted dos = 0 "
+                                    f"({fault:.3e})")
+    return dict(n=n, m=n, d=d, t=t, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], max_abs_err=max_abs,
                 outputs=asked, rel_err={k: rel[("kernel", k)] for k in asked},
                 plain_rel_err={k: rel[("plain", k)] for k in asked})
 
@@ -6586,6 +6660,707 @@ def phase_vnngp():
     return dict(step_ms=float(np.median(times[1:])) * 1e3, build_s=build_s, recall=recall, rmse=rmse)
 
 
+def make_lmc_task(n_train: int, n_test: int, seed: int = LMC_SEED):
+    """Phase 17's multitask task, drawn with numpy: x uniform on the unit cube (d = D), LMC_LATENTS
+    latent functions of make_task's kind with seeded frequencies, each standardised, mixed into
+    LMC_TASKS tasks by a seeded LMC_LATENTS × LMC_TASKS matrix, plus Gaussian noise of 0.1."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(2.0, 7.0, size=(LMC_LATENTS, 3))
+    mixing = rng.normal(size=(LMC_LATENTS, LMC_TASKS))
+    x = rng.uniform(size=(n_train + n_test, D))  # the training rows do not depend on n_test
+    f = np.stack([np.sin(a[k, 0] * x[:, 0]) * np.cos(a[k, 1] * x[:, 1]) + 0.5 * np.sin(a[k, 2] * x[:, 2] * x[:, 0])
+                  for k in range(LMC_LATENTS)], -1)
+    f = (f - f[:n_train].mean(0)) / f[:n_train].std(0)
+    y = f @ mixing + 0.1 * np.random.default_rng([seed, 1]).normal(size=(n_train + n_test, LMC_TASKS))
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
+def build_lmc(train_x, device, dtype, m=LMC_M, seed=LMC_SEED):
+    """Phase 17's model: LMCVariationalStrategy(LMC_TASKS tasks, LMC_LATENTS latents) over a
+    whitened VariationalStrategy with batch shape (LMC_LATENTS,) (m inducing points a latent,
+    each a seeded subset of the training inputs; a Cholesky q(u); K_ZZ's jitter SVGP_JITTER in
+    every dtype), ConstantMean and ScaleKernel(RBFKernel(ard_num_dims=D)) with the latents'
+    batch shape, and a MultitaskGaussianLikelihood (a noise a task and the global noise);
+    (model, likelihood) on ``device`` in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    rng = np.random.default_rng(seed)
+    Z = torch.as_tensor(np.stack([train_x[rng.choice(len(train_x), m, replace=False)] for _ in range(LMC_LATENTS)]))
+    batch = (LMC_LATENTS,)
+
+    class LMCSVGP(gt.models.ApproximateGP):
+        def __init__(self):
+            vd = gt.variational.CholeskyVariationalDistribution(m, batch_shape=batch)
+            base = gt.variational.VariationalStrategy(self, Z, vd, jitter_val=SVGP_JITTER)
+            super().__init__(gt.variational.LMCVariationalStrategy(base, num_tasks=LMC_TASKS, num_latents=LMC_LATENTS,
+                                                                   latent_dim=-1))
+            self.mean_module = gt.means.ConstantMean(batch_shape=batch)
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=D, batch_shape=batch),
+                                                       batch_shape=batch)
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    likelihood = gt.likelihoods.MultitaskGaussianLikelihood(num_tasks=LMC_TASKS)
+    return LMCSVGP().to(device=device, dtype=dtype).train(), likelihood.to(device=device, dtype=dtype).train()
+
+
+def lmc_parity_state(train_x, train_y, m=LMC_PARITY_M, batch_size=LMC_PARITY_BATCH, seed=LMC_SEED):
+    """The state of phase 17's parity gate, drawn with numpy from ``seed`` under the JAX
+    package's names: the LMC coefficients, m inducing points a latent from the training inputs,
+    q(u) = N(m, L Lᵀ) a latent as ``svgp_parity_state`` draws it, the hyperparameters of each
+    latent and the likelihood's noises; and one minibatch of ``batch_size`` training points."""
+    rng = np.random.default_rng(seed)
+    z_idx = np.stack([rng.choice(len(train_x), m, replace=False) for _ in range(LMC_LATENTS)])
+    batch = np.random.default_rng([seed, 1]).choice(len(train_x), batch_size, replace=False)
+    rng = np.random.default_rng([seed, 2])
+    L = (np.tril(0.05 * rng.normal(size=(LMC_LATENTS, m, m)), -1)
+         + np.eye(m) * rng.uniform(0.05, 0.3, size=(LMC_LATENTS, m, 1)))
+    base = "variational_strategy.base_variational_strategy."
+    params = {"variational_strategy.lmc_coefficients": rng.normal(size=(LMC_LATENTS, LMC_TASKS)),
+              base + "inducing_points": train_x[z_idx],
+              base + "_variational_distribution.variational_mean": 0.5 * rng.normal(size=(LMC_LATENTS, m)),
+              base + "_variational_distribution.chol_variational_covar": L,
+              "mean_module.raw_constant": 0.1 * rng.normal(size=LMC_LATENTS),
+              "covar_module.raw_outputscale": rng.uniform(-0.5, 0.5, size=LMC_LATENTS),
+              "covar_module.base_kernel.raw_lengthscale": rng.uniform(-1.5, 0.0, size=(LMC_LATENTS, 1, D))}
+    lik_params = {"raw_task_noises": rng.uniform(-3.5, -2.5, size=LMC_TASKS), "raw_noise": np.asarray([-4.0])}
+    return params, lik_params, train_x[batch], train_y[batch]
+
+
+def lmc_parity_terms(device, dtype) -> tuple:
+    """(ELBO, KL term) (num_data = N_TRAIN) of ``lmc_parity_state`` on its minibatch."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    train_x, train_y, _, _ = make_lmc_task(N_TRAIN, N_TEST)
+    params, lik_params, xb, yb = lmc_parity_state(train_x, train_y)
+    model, likelihood = build_lmc(train_x, device, dtype, m=LMC_PARITY_M)
+    gt.load_jax_params(model, params | {"variational_strategy.base_variational_strategy.variational_params_initialized": 1})
+    gt.load_jax_params(likelihood, lik_params)
+    xb, yb = (torch.as_tensor(a, dtype=dtype, device=device) for a in (xb, yb))
+    with torch.no_grad():
+        log_lik, kl, log_prior = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN, combine_terms=False)(
+            model(xb), yb)
+    return (log_lik - kl + log_prior).item(), kl.item()
+
+
+def _train_svgp_steps(model, likelihood, optimizer, mll, tx, ty, batches, tag, wrappers=None):
+    """Adam steps of −ELBO on ``batches``: (ELBOs, seconds a step, the five launch counts of
+    each step's forward and backward) from ``wrappers`` (``_kernel_wrappers()`` by default;
+    taken before ``recorded_calls`` wraps them)."""
+    import torch
+
+    elbos, times, launches = [], [], []
+    wrappers = _kernel_wrappers() if wrappers is None else wrappers
+    for idx in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        for w in wrappers:
+            w.launches = 0
+        loss = -mll(model(tx[idx]), ty[idx])
+        forward = tuple(w.launches for w in wrappers)
+        for w in wrappers:
+            w.launches = 0
+        loss.backward()
+        backward = tuple(w.launches for w in wrappers)
+        optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        elbos.append(-loss.item())
+        launches.append((forward, backward))
+        check(finite_step(loss, model) and finite_step(loss, likelihood),
+              f"{tag}: non-finite ELBO or gradient at step {len(times) - 1}")
+    return elbos, times, launches
+
+
+def phase_lmc():
+    """Phase 17: an LMC multitask SVGP at N=100k (``build_lmc``: LMC_TASKS tasks from
+    LMC_LATENTS latent GPs, LMC_M inducing points a latent) on ``make_lmc_task``.  First the
+    parity gate: the ELBO and the KL term of ``lmc_parity_state`` (m = LMC_PARITY_M) on the card
+    in float32 and float64 against the JAX package's float64 values LMC_ELBO_JAX and LMC_KL_JAX
+    (``tests/lmc_elbo_reference.py``), within LMC_ELBO_TOL and LMC_KL_TOL.  Then LMC_STEPS Adam
+    steps (lr LMC_LR) on minibatches of SVGP_BATCH: every ELBO finite and the ELBO of a fixed
+    minibatch raised; no hand-written kernel launched (K_ZZ and K_Zx dense, K_xx read through
+    the dense latent covariances).  Prints lmc_step_ms, the per-task RMSE and NLPD of the
+    N_TEST test points and the peak device memory.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_lmc()'``.  Returns the readings."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    dtypes = (torch.float32, torch.float64)
+    terms = {dt: lmc_parity_terms(dev, dt) for dt in dtypes}
+    gap = tuple(abs(terms[dt][0] - LMC_ELBO_JAX) / abs(LMC_ELBO_JAX) for dt in dtypes)
+    kl_gap = tuple(abs(terms[dt][1] - LMC_KL_JAX) / LMC_KL_JAX for dt in dtypes)
+    print(f"[lmc] parity: ELBO of the parity state on {LMC_PARITY_BATCH} points, m={LMC_PARITY_M} a latent: float32 "
+          f"{terms[torch.float32][0]:.9f}, float64 {terms[torch.float64][0]:.12f} on the card; JAX package float64 "
+          f"{LMC_ELBO_JAX:.12f}; relative gaps {gap[0]:.3e} and {gap[1]:.3e} (tol {LMC_ELBO_TOL}); KL term float32 "
+          f"{terms[torch.float32][1]:.9f}, float64 {terms[torch.float64][1]:.12f}, JAX package {LMC_KL_JAX:.12f}, "
+          f"relative gaps {kl_gap[0]:.3e} and {kl_gap[1]:.3e} (tol {LMC_KL_TOL}); {nvidia_smi()}", flush=True)
+    check(all(g <= tol for g, tol in zip(gap, LMC_ELBO_TOL)), f"lmc: ELBO gaps {gap} above {LMC_ELBO_TOL}")
+    check(all(g <= tol for g, tol in zip(kl_gap, LMC_KL_TOL)), f"lmc: KL gaps {kl_gap} above {LMC_KL_TOL}")
+
+    train_x, train_y, test_x, test_y = make_lmc_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+    model, likelihood = build_lmc(train_x, dev, torch.float32)
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    optimizer = torch.optim.Adam(list(model.parameters()) + list(likelihood.parameters()), lr=LMC_LR)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(LMC_SEED), LMC_STEPS, dev)
+    fixed = slice(0, SVGP_BATCH)
+
+    def fixed_elbo():
+        with torch.no_grad():
+            return mll(model(tx[fixed]), ty[fixed]).item()
+
+    elbo0 = fixed_elbo()  # the first call also initialises q(u) from the prior, N(0, I)
+    torch.cuda.reset_peak_memory_stats()
+    elbos, times, launches = _train_svgp_steps(model, likelihood, optimizer, mll, tx, ty, batches, "lmc")
+    peak = torch.cuda.max_memory_allocated()
+    elbo1 = fixed_elbo()
+    model.eval()
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = likelihood(model(sx))
+        mean, var = pred.mean, pred.variance
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    serve_launches = tuple(w.launches for w in wrappers)
+    rmse = (mean - sy).pow(2).mean(0).sqrt().tolist()
+    nlpd = (0.5 * (torch.log(2 * math.pi * var) + (mean - sy) ** 2 / var)).mean(0).tolist()
+    const_rmse = (sy - ty.mean(0)).pow(2).mean(0).sqrt().tolist()
+    train_launches = tuple(sum(f[i] + b[i] for f, b in launches) for i in range(5))
+    print(f"[lmc] {LMC_STEPS} Adam steps (lr {LMC_LR}, minibatch {SVGP_BATCH}; {LMC_TASKS} tasks from {LMC_LATENTS} "
+          f"latents, m={LMC_M} a latent): lmc_step_ms {_quartiles_ms(times[1:])} over steps 1-{LMC_STEPS - 1}, first "
+          f"step {times[0] * 1e3:.1f} ms; ELBO per step {[round(e, 4) for e in elbos[:5]]} … "
+          f"{[round(e, 4) for e in elbos[-5:]]}; fixed minibatch ELBO {elbo0:.5f} → {elbo1:.5f}; peak device memory "
+          f"{peak / 2**20:.1f} MiB; {nvidia_smi()}", flush=True)
+    print(f"[lmc] {N_TEST} test points in {request_s * 1e3:.2f} ms: rmse per task {[round(r, 4) for r in rmse]} "
+          f"(constant predictor {[round(r, 4) for r in const_rmse]}), nlpd per task {[round(v, 4) for v in nlpd]}; "
+          f"LMC coefficients {model.variational_strategy.lmc_coefficients.detach().cpu().numpy().round(3).tolist()}; "
+          f"hand-written kernel launches (matvec, bwd_fused, grad_x, periodic matvec, periodic bwd): training "
+          f"{train_launches}, prediction {serve_launches} (predicted none)", flush=True)
+    check(all(math.isfinite(e) for e in elbos), "lmc: a non-finite ELBO")
+    check(elbo1 > elbo0, f"lmc: training took the fixed minibatch's ELBO from {elbo0} only to {elbo1}")
+    check(not any(train_launches) and not any(serve_launches), f"lmc: kernels launched {train_launches}, "
+                                                                f"{serve_launches}")
+    return dict(gap=gap, kl_gap=kl_gap, step_ms=float(np.median(times[1:])) * 1e3, rmse=rmse, nlpd=nlpd, peak=peak,
+                launches=sum(train_launches) + sum(serve_launches))
+
+
+def build_grid_svgp(device, dtype, additive: bool):
+    """Phase 17b's models: with ``additive``, AdditiveGridInterpolationVariationalStrategy on a
+    1-D grid of GRID_M points over (0, 1) for the D inputs (q(u) a Cholesky factor a dimension)
+    with ScaleKernel(RBFKernel()); else GridInterpolationVariationalStrategy on a GRID_2D ×
+    GRID_2D grid over the unit square (the first two inputs) with
+    ScaleKernel(RBFKernel(ard_num_dims=2)); ConstantMean and a GaussianLikelihood with noise ≥
+    NOISE_FLOOR; (model, likelihood) on ``device`` in train mode."""
+    import gpytorch_tpu_torch as gt
+
+    class GridSVGP(gt.models.ApproximateGP):
+        def __init__(self):
+            if additive:
+                vd = gt.variational.CholeskyVariationalDistribution(GRID_M, batch_shape=(D,))
+                strategy = gt.variational.AdditiveGridInterpolationVariationalStrategy(self, GRID_M, [(0.0, 1.0)], D, vd)
+                kernel = gt.kernels.RBFKernel()
+            else:
+                vd = gt.variational.CholeskyVariationalDistribution(GRID_2D ** 2)
+                strategy = gt.variational.GridInterpolationVariationalStrategy(self, GRID_2D, [(0.0, 1.0)] * 2, vd)
+                kernel = gt.kernels.RBFKernel(ard_num_dims=2)
+            super().__init__(strategy)
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(kernel)
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    return GridSVGP().to(device=device, dtype=dtype).train(), likelihood.to(device=device, dtype=dtype).train()
+
+
+def _grid_svgp_run(additive: bool) -> dict:
+    """One model of phase 17b: GRID_STEPS Adam steps with the launches of each step's forward
+    and backward and the operands of the first kernel_matvec and kernel_bwd_fused launch
+    (``recorded_calls``), then the mBCG KL beside the dense float32 and float64 KL of the last
+    state, the fixed minibatch's ELBO and the RMSE of the test points."""
+    import copy
+
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    tag = "grid svgp additive" if additive else "grid svgp 2d"
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    cols = slice(None) if additive else slice(0, 2)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in (train_x[:, cols], train_y, test_x[:, cols], test_y))
+    model, likelihood = build_grid_svgp(dev, torch.float32, additive)
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    optimizer = torch.optim.Adam(list(model.parameters()) + list(likelihood.parameters()), lr=SVGP_ADAM_LR)
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(GRID_SEED), GRID_STEPS, dev)
+    fixed = slice(0, SVGP_BATCH)
+
+    def fixed_elbo():
+        with torch.no_grad():
+            return mll(model(tx[fixed]), ty[fixed]).item()
+
+    elbo0 = fixed_elbo()  # the first call initialises q(u) from the prior
+    torch.manual_seed(GRID_SEED)  # the KL's probes come from torch's default generator
+    wrappers = _kernel_wrappers()
+    with recorded_calls("kernel_matvec_cuda") as seen, recorded_calls("kernel_bwd_fused_cuda") as seen_bwd:
+        elbos, times, launches = _train_svgp_steps(model, likelihood, optimizer, mll, tx, ty, batches, tag, wrappers)
+    elbo1 = fixed_elbo()
+    fwd, bwd = [f[0] for f, _ in launches], [b[1] for _, b in launches]
+    others = [f[2:] + b[2:] + (f[1], b[0]) for f, b in launches]
+    print(f"[{tag}] {GRID_STEPS} Adam steps (lr {SVGP_ADAM_LR}, minibatch {SVGP_BATCH}): grid_svgp_step_ms "
+          f"{_quartiles_ms(times[1:])} over steps 1-{GRID_STEPS - 1}, first step {times[0] * 1e3:.1f} ms; the KL's "
+          f"kernel_matvec launches a step (one a CG iteration) {fwd}, kernel_bwd_fused a step {bwd}; K·V shapes "
+          f"{sorted(set(seen['shapes']))}, backward shapes {sorted(set(seen_bwd['shapes']))}; fixed minibatch ELBO "
+          f"{elbo0:.5f} → {elbo1:.5f}; {nvidia_smi()}", flush=True)
+    check(all(math.isfinite(e) for e in elbos), f"{tag}: a non-finite ELBO")
+    check(all(n > 0 for n in fwd), f"{tag}: a step's KL launched no kernel_matvec: {fwd}")
+    check(all(n > 0 for n in bwd), f"{tag}: a step's KL backward launched no kernel_bwd_fused: {bwd}")
+    check(not any(any(o) for o in others), f"{tag}: other kernels launched: {others}")
+    check(elbo1 > elbo0, f"{tag}: training took the fixed minibatch's ELBO from {elbo0} only to {elbo1}")
+    shape = _product_at_path_shape(seen["first"][0], tag=tag)
+    bwd_shape = _bwd_at_path_shape(*seen_bwd["first"], tag=tag)
+    strategy = model.variational_strategy
+    with torch.no_grad():
+        torch.manual_seed(GRID_SEED + 1)
+        kl32 = strategy.kl_divergence(model=model).sum().item()
+        twin = copy.deepcopy(model).double()
+        with gt.settings.max_cholesky_size(4 * GRID_M):
+            kl32_dense = strategy.kl_divergence(model=model).sum().item()
+            kl64 = twin.variational_strategy.kl_divergence(model=twin).sum().item()
+        model.eval()
+        mean = likelihood(model(sx)).mean
+    rmse = (mean - sy).pow(2).mean().sqrt().item()
+    print(f"[{tag}] KL at the last state: mBCG float32 {kl32:.4f}, dense Cholesky float32 {kl32_dense:.4f}, dense "
+          f"Cholesky float64 {kl64:.4f} (gap of the mBCG one {abs(kl32 - kl64) / abs(kl64):.3e} relative, not gated); "
+          f"rmse of the {N_TEST} test points {rmse:.4f}", flush=True)
+    check(all(math.isfinite(k) for k in (kl32, kl32_dense, kl64)), f"{tag}: a non-finite KL")
+    return dict(step_ms=float(np.median(times[1:])) * 1e3, rmse=rmse, kl=(kl32, kl32_dense, kl64),
+                shape=dict(shape, launches_per_step=fwd), bwd_shape=dict(bwd_shape, launches_per_step=bwd),
+                launches=sum(fwd), bwd_launches=sum(bwd))
+
+
+def phase_grid_svgp():
+    """Phase 17b: the grid-interpolation SVGPs on make_task's data (``build_grid_svgp``):
+    the additive strategy on all D inputs (a 1-D grid of GRID_M points) and the 2-D strategy
+    on the first two (GRID_2D² points), GRID_STEPS Adam steps each on minibatches of
+    SVGP_BATCH.  q(u) is unwhitened: its KL against N(μ_U, K_UU + 1e-3·I) runs mBCG on the lazy
+    K_UU (GRID_M > max_cholesky_size, GRID_M² > max_eager_kernel_size²), whose products launch
+    kernel_matvec (the additive prior repeats the 1-D K_UU over the D dimensions and folds them
+    into the columns of one launch) and whose backward launches kernel_bwd_fused.  Gates: every
+    step launched both in the KL and no other kernel; the first launch of each against its
+    plain version on the same operands (the product at KERNEL_REL_TOL, the backward by
+    ``_bwd_at_path_shape``), timed beside its bound; finite ELBOs and the ELBO of a fixed
+    minibatch raised.  Prints the mBCG KL beside the dense float64 KL (not gated),
+    grid_svgp_step_ms, the RMSE and the launches a step (CG iterations).  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_grid_svgp()'``.  Returns the readings."""
+    import torch
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    return dict(additive=_grid_svgp_run(True), grid2d=_grid_svgp_run(False))
+
+
+def _elbo_and_grads(model, likelihood, x, y) -> tuple:
+    """The ELBO of (x, y) and its gradient in every parameter of the model and the likelihood,
+    by name."""
+    import gpytorch_tpu_torch as gt
+
+    for p in list(model.parameters()) + list(likelihood.parameters()):
+        p.grad = None
+    elbo = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)(model(x), y)
+    elbo.backward()
+    grads = {f"m.{k}": p.grad.detach().clone() for k, p in model.named_parameters()}
+    grads |= {f"l.{k}": p.grad.detach().clone() for k, p in likelihood.named_parameters()}
+    return elbo.item(), grads
+
+
+def phase_large_batch():
+    """Phase 17c: LargeBatchVariationalStrategy against VariationalStrategy, which computes the
+    same function, on make_task's data: m = LB_M inducing points (``build_svgp``'s seeded
+    subset), a Cholesky q(u), minibatches of LB_BATCH.  Each strategy takes LB_STEPS Adam steps
+    (lr SVGP_ADAM_LR) from the same state on the same minibatches; their step times are printed
+    (not a claim).  Gate: at the large-batch model's last state, its ELBO on one minibatch and
+    the ELBO's gradients against the whitened strategy's on the same state, in float32 and in
+    float64 (float64 copies), within LB_TOL (|ΔELBO| / |ELBO| and max |Δ∇| / max |∇|); no kernel
+    launched.  Alone: ``python3 -c 'import chip_smoke; chip_smoke.phase_large_batch()'``."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    dev = "cuda"
+    train_x, train_y, _, _ = make_task(N_TRAIN, N_TEST)
+    tx, ty = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y))
+    kw = dict(dist="cholesky", jitter_val=SVGP_JITTER, m=LB_M, seed=LB_SEED)
+    large, lik_large = build_svgp(train_x, dev, torch.float32, strategy="large_batch", **kw)
+    with torch.no_grad():
+        large(tx[:4])  # initialises q(u)
+    whitened, lik_whitened = build_svgp(train_x, dev, torch.float32, **kw)
+    whitened.load_state_dict(large.state_dict())
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(LB_SEED), LB_STEPS, dev, batch=LB_BATCH)
+    runs = {}
+    for name, model, likelihood in (("large batch", large, lik_large), ("whitened", whitened, lik_whitened)):
+        mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+        optimizer = torch.optim.Adam(list(model.parameters()) + list(likelihood.parameters()), lr=SVGP_ADAM_LR)
+        runs[name] = _train_svgp_steps(model, likelihood, optimizer, mll, tx, ty, batches, f"large batch: {name}")
+    xb, yb = tx[batches[0]], ty[batches[0]]
+    gaps = {}
+    for dtype in (torch.float32, torch.float64):
+        pair = []
+        for cls_name in ("large_batch", "whitened"):
+            model, likelihood = build_svgp(train_x, dev, dtype, strategy=cls_name, **kw)
+            model.load_state_dict(large.state_dict())
+            likelihood.load_state_dict(lik_large.state_dict())
+            pair.append(_elbo_and_grads(model, likelihood, xb.to(dtype), yb.to(dtype)))
+        (e_large, g_large), (e_white, g_white) = pair
+        scale = max(g.abs().max().item() for g in g_white.values())
+        grad_gap = max((g_large[k] - g_white[k]).abs().max().item() for k in g_white) / scale
+        gaps[dtype] = (abs(e_large - e_white) / abs(e_white), grad_gap)
+    launches = [tuple(a + b for a, b in zip(f, bw)) for name in runs for f, bw in runs[name][2]]
+    print(f"[large batch] m={LB_M}, minibatch {LB_BATCH}, {LB_STEPS} Adam steps each from one state on the same "
+          f"minibatches: large-batch step {_quartiles_ms(runs['large batch'][1][1:])}, whitened step "
+          f"{_quartiles_ms(runs['whitened'][1][1:])} (printed, not a claim); ELBO {runs['large batch'][0][0]:.5f} → "
+          f"{runs['large batch'][0][-1]:.5f} and {runs['whitened'][0][0]:.5f} → {runs['whitened'][0][-1]:.5f}; at the "
+          f"last state against the whitened strategy (|ΔELBO| / |ELBO|, max |Δ∇| / max |∇|): float32 "
+          f"{gaps[torch.float32][0]:.3e}, {gaps[torch.float32][1]:.3e}; float64 {gaps[torch.float64][0]:.3e}, "
+          f"{gaps[torch.float64][1]:.3e} (tol {LB_TOL}); {nvidia_smi()}", flush=True)
+    for dtype, tol in zip((torch.float32, torch.float64), LB_TOL):
+        check(all(g <= t for g, t in zip(gaps[dtype], tol)), f"large batch: {dtype} gaps {gaps[dtype]} above {tol}")
+    check(not any(any(x) for x in launches), f"large batch: kernels launched {launches}")
+    return dict(step_ms=float(np.median(runs["large batch"][1][1:])) * 1e3,
+                whitened_step_ms=float(np.median(runs["whitened"][1][1:])) * 1e3, gaps=gaps)
+
+
+def build_decoupled(train_x, device, dtype, kind: str):
+    """Phase 17d's models, with ConstantMean and ScaleKernel(RBFKernel(ard_num_dims=D)) and a
+    GaussianLikelihood with noise ≥ NOISE_FLOOR: ``kind`` "orthogonal" is
+    OrthogonallyDecoupledVariationalStrategy with DEC_MEAN_M mean inducing points (a Delta
+    q(u)) over a whitened VariationalStrategy with DEC_COVAR_M (a Cholesky q(u)); "batch" is
+    BatchDecoupledVariationalStrategy with DEC_BATCH_M inducing points and a kernel of batch
+    shape (2,).  Inducing points are seeded subsets of the training inputs, K_ZZ's jitter
+    SVGP_JITTER; (model, likelihood) on ``device`` in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    rng = np.random.default_rng(DEC_SEED)
+
+    def rows(m):
+        return torch.as_tensor(train_x[rng.choice(len(train_x), m, replace=False)])
+
+    batch = (2,) if kind == "batch" else ()
+
+    class DecoupledSVGP(gt.models.ApproximateGP):
+        def __init__(self):
+            if kind == "orthogonal":
+                covar = gt.variational.VariationalStrategy(
+                    self, rows(DEC_COVAR_M), gt.variational.CholeskyVariationalDistribution(DEC_COVAR_M),
+                    jitter_val=SVGP_JITTER)
+                strategy = gt.variational.OrthogonallyDecoupledVariationalStrategy(
+                    covar, rows(DEC_MEAN_M), gt.variational.DeltaVariationalDistribution(DEC_MEAN_M),
+                    jitter_val=SVGP_JITTER)
+            else:
+                strategy = gt.variational.BatchDecoupledVariationalStrategy(
+                    self, rows(DEC_BATCH_M), gt.variational.CholeskyVariationalDistribution(DEC_BATCH_M),
+                    jitter_val=SVGP_JITTER)
+            super().__init__(strategy)
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=D, batch_shape=batch),
+                                                       batch_shape=batch)
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    return DecoupledSVGP().to(device=device, dtype=dtype).train(), likelihood.to(device=device, dtype=dtype).train()
+
+
+def _decoupled_run(kind: str) -> dict:
+    import copy
+
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    tag = f"decoupled {kind}"
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    tx, ty, sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (train_x, train_y, test_x, test_y))
+    model, likelihood = build_decoupled(train_x, dev, torch.float32, kind)
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=N_TRAIN)
+    fixed = slice(0, SVGP_BATCH)
+
+    def fixed_elbo(m=model, lik=likelihood, dtype=torch.float32):
+        with torch.no_grad():
+            return gt.mlls.VariationalELBO(lik, m, num_data=N_TRAIN)(m(tx[fixed].to(dtype)), ty[fixed].to(dtype)).item()
+
+    elbo0 = fixed_elbo()  # initialises q(u) (and the wrapped strategy's)
+    twin, twin_lik = copy.deepcopy(model).double(), copy.deepcopy(likelihood).double()
+    with plain_kernels():
+        elbo64 = fixed_elbo(twin, twin_lik, torch.float64)
+    gap = abs(elbo0 - elbo64) / abs(elbo64)
+    # the Delta q(u)'s values over DEC_MEAN_M correlated points move the mean together: their own rate
+    delta = [p for name, p in model.named_parameters() if name == "variational_strategy._variational_distribution"
+             ".variational_mean" and kind == "orthogonal"]
+    rest = [p for p in list(model.parameters()) + list(likelihood.parameters()) if all(p is not q for q in delta)]
+    optimizer = torch.optim.Adam([{"params": rest, "lr": SVGP_ADAM_LR}]
+                                 + ([{"params": delta, "lr": DEC_MEAN_LR}] if delta else []))
+    batches = _svgp_batches(torch.Generator(device=dev).manual_seed(DEC_SEED), DEC_STEPS, dev)
+    wrappers = _kernel_wrappers()
+    with recorded_calls("kernel_matvec_cuda") as seen, recorded_calls("kernel_bwd_fused_cuda") as seen_bwd:
+        elbos, times, launches = _train_svgp_steps(model, likelihood, optimizer, mll, tx, ty, batches, tag, wrappers)
+    elbo1 = fixed_elbo()
+    model.eval()
+    with torch.no_grad():
+        mean = likelihood(model(sx)).mean
+    rmse = (mean - sy).pow(2).mean().sqrt().item()
+    fwd = [f for f, _ in launches]
+    bwd = [b for _, b in launches]
+    print(f"[{tag}] {DEC_STEPS} Adam steps (lr {SVGP_ADAM_LR}, minibatch {SVGP_BATCH}): step "
+          f"{_quartiles_ms(times[1:])} over steps 1-{DEC_STEPS - 1}; ELBO of the fixed minibatch at the initial state "
+          f"float32 {elbo0:.7f}, float64 {elbo64:.10f}, relative gap {gap:.3e} (tol {DEC_ELBO_TOL}); fixed minibatch "
+          f"ELBO {elbo0:.5f} → {elbo1:.5f}; rmse {rmse:.4f}; launches a step (matvec, bwd_fused, grad_x, periodic "
+          f"matvec, periodic bwd) forward {sorted(set(fwd))}, backward {sorted(set(bwd))}; K·V shapes "
+          f"{sorted(set(seen['shapes']))}; {nvidia_smi()}", flush=True)
+    check(all(math.isfinite(e) for e in elbos), f"{tag}: a non-finite ELBO")
+    check(gap <= DEC_ELBO_TOL, f"{tag}: ELBO float32 against float64 {gap:.3e}")
+    check(kind != "orthogonal" or all(f[0] > 0 and b[0] > 0 and b[1] > 0 for f, b in zip(fwd, bwd)),
+          f"{tag}: a step launched no kernel_matvec or kernel_bwd_fused: forward {fwd}, backward {bwd}")
+    check(elbo1 > elbo0, f"{tag}: training took the fixed minibatch's ELBO from {elbo0} only to {elbo1}")
+    # the backward's kernel_matvec launches are its dv = K·g, inside kernel_bwd_fused's wrapper
+    out = dict(step_ms=float(np.median(times[1:])) * 1e3, rmse=rmse, gap=gap,
+               launches=sum(f[0] for f in fwd) + sum(b[0] for b in bwd), bwd_launches=sum(b[1] for b in bwd))
+    if seen["first"] is not None:
+        out["shape"] = dict(_product_at_path_shape(seen["first"][0], tag=tag, what="½ mᵀK m's product"),
+                            launches_per_step=[f[0] + b[0] for f, b in zip(fwd, bwd)])
+    if seen_bwd["first"] is not None:
+        out["bwd_shape"] = dict(_bwd_at_path_shape(*seen_bwd["first"], tag=tag, what="½ mᵀK m's backward"),
+                                launches_per_step=[b[1] for b in bwd])
+    return out
+
+
+def phase_decoupled():
+    """Phase 17d: the decoupled strategies (``build_decoupled``) at N=100k on make_task's data,
+    DEC_STEPS Adam steps (lr SVGP_ADAM_LR) each on minibatches of SVGP_BATCH.  Gates: each ELBO
+    of a fixed minibatch on the initial state in float32 against a float64 copy (plain versions
+    of the kernels) within DEC_ELBO_TOL, finite ELBOs, the fixed minibatch's ELBO raised.  The
+    orthogonally decoupled KL's ½ mᵀ(K_mm + …)m reads the lazy K at DEC_MEAN_M² (above
+    max_eager_kernel_size²): its kernel_matvec launch (t = 1) is held against its plain version
+    on the same operands, and its backward's kernel_bwd_fused launch (dv, dx, dos; the dv a
+    second kernel_matvec launch) by ``_bwd_at_path_shape``, each timed beside its bound.
+    Prints the step times, the RMSE and the launches a step.  Alone: ``python3 -c 'import chip_smoke; chip_smoke.phase_decoupled()'``."""
+    import torch
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    return dict(orthogonal=_decoupled_run("orthogonal"), batch=_decoupled_run("batch"))
+
+
+def build_sparse_exact(train_x, train_y, device, dtype, kind: str):
+    """Phase 17e's exact GPs on the training data: ConstantMean, a GaussianLikelihood with noise
+    ≥ NOISE_FLOOR (initial 0.1) and, for ``kind`` "sgpr", InducingPointKernel(ScaleKernel(
+    RBFKernel(ard_num_dims=D))) with SPARSE_M inducing points drawn from the training rows with
+    SPARSE_SEED, for "rff" RFFKernel(num_samples=RFF_SAMPLES, ard_num_dims=D) (frequencies from
+    a generator seeded with SPARSE_SEED); lengthscales 0.5; on ``device`` in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    x = torch.as_tensor(train_x, dtype=dtype, device=device)
+    y = torch.as_tensor(train_y, dtype=dtype, device=device)
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+
+    class SparseExact(gt.models.ExactGP):
+        def __init__(self):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMean()
+            if kind == "sgpr":
+                Z = torch.as_tensor(train_x[np.random.default_rng(SPARSE_SEED).choice(len(train_x), SPARSE_M,
+                                                                                     replace=False)])
+                base = gt.kernels.ScaleKernel(gt.kernels.RBFKernel(ard_num_dims=D))
+                self.covar_module = gt.kernels.InducingPointKernel(base, Z, likelihood)
+            else:
+                self.covar_module = gt.kernels.RFFKernel(RFF_SAMPLES, num_dims=D, ard_num_dims=D,
+                                                         generator=torch.Generator().manual_seed(SPARSE_SEED))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    model = SparseExact().to(device=device, dtype=dtype)
+    model.likelihood.noise = 0.1
+    kernel = model.covar_module.base_kernel.base_kernel if kind == "sgpr" else model.covar_module
+    kernel.lengthscale = 0.5
+    return model.train()
+
+
+def _woodbury64(R, R_test, r, noise):
+    """Float64: rᵀ(R Rᵀ + σ²I)⁻¹r and R_test Rᵀ (R Rᵀ + σ²I)⁻¹ r by the Woodbury identity,
+    O(n k²): with C = σ²I + RᵀR, (R Rᵀ + σ²I)⁻¹ r = (r − R C⁻¹ Rᵀ r) / σ²."""
+    import torch
+
+    C = noise * torch.eye(R.shape[-1], dtype=R.dtype, device=R.device) + R.mT @ R
+    Rt_r = R.mT @ r
+    w = torch.linalg.solve(C, Rt_r)
+    inv_quad = (r @ r - Rt_r @ w) / noise
+    return inv_quad.item(), R_test @ w
+
+
+def _sgpr_term64(kernel, x, noise):
+    """SGPR's added loss term −½ Σ_i (k_ii − q_ii) / σ² in float64 from an
+    InducingPointKernel(ScaleKernel(RBF ARD))'s hyperparameters alone: q_ii = |L⁻¹ k_Z(x_i)|²,
+    L the Cholesky factor of K_ZZ + 1e-4·I and psd_safe_cholesky's float64 1e-8·I; with the
+    sum of its terms' magnitudes ½ Σ_i (k_ii + q_ii) / σ²."""
+    import torch
+
+    scaled = kernel.base_kernel
+    os = scaled.outputscale.double().reshape(())
+    ls = scaled.base_kernel.lengthscale.double().reshape(-1)
+    z, xs = kernel.inducing_points.double() / ls, x.double() / ls
+
+    def k(a, b):
+        return os * torch.exp(-0.5 * torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist").square())
+
+    eye = torch.eye(z.shape[0], dtype=torch.float64, device=z.device)
+    L = torch.linalg.cholesky(k(z, z) + (1e-4 + 1e-8) * eye)
+    q = torch.linalg.solve_triangular(L, k(z, xs), upper=False).square().sum(0)
+    return (-0.5 * (os - q) / noise).sum().item(), (0.5 * (os + q) / noise).sum().item()
+
+
+def _sparse_run(kind: str) -> dict:
+    """One model of phase 17e (``build_sparse_exact``)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    tag = kind
+    dev = "cuda"
+    train_x, train_y, test_x, test_y = make_task(N_TRAIN, N_TEST)
+    sx, sy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (test_x, test_y))
+    model = build_sparse_exact(train_x, train_y, dev, torch.float32, kind)
+    z = [p for name, p in model.named_parameters() if name.endswith("inducing_points")]
+    rest = [p for name, p in model.named_parameters() if not name.endswith("inducing_points")]
+    optimizer = torch.optim.Adam([{"params": rest, "lr": SPARSE_LR}] + ([{"params": z, "lr": SVGP_ADAM_LR}] if z else []))
+    generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    state = torch.zeros(N_TRAIN, 1, dtype=torch.float32, device=dev)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    times, iters, losses = [], [], []
+    for step in range(SPARSE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        loss, state = mll_loss(model, generator, state)
+        loss.backward()
+        optimizer.step()
+        ok = finite_step(loss, model)
+        times.append(time.perf_counter() - t0)
+        iters.append(state.num_iters)
+        losses.append(loss.item())
+        check(ok, f"{tag}: non-finite loss or gradient at step {step}")
+    train_launches = tuple(w.launches for w in wrappers)
+    tx, ty = model.train_inputs[0], model.train_targets
+    twin = _float64_copy(model)
+    tx64 = tx.double()
+    r64 = ty.double() - twin.mean_module(tx64).detach()
+    noise64 = twin.likelihood.noise.reshape(-1)[0].item()
+    with torch.no_grad():
+        R = gt.models.LinearPredictionStrategy._root_of(twin.covar_module(tx64))
+        R_test = gt.models.LinearPredictionStrategy._root_of(twin.covar_module(sx.double()))
+        iq64, mean64 = _woodbury64(R, R_test, r64, noise64)
+        mean64 = mean64 + twin.mean_module(sx.double())
+        with gt.settings.max_cholesky_size(0), gt.settings.cg_tolerance(SPARSE_CG_TOL), \
+                gt.settings.max_cg_iterations(1000), gt.settings.max_preconditioner_size(50), \
+                gt.settings.cg_stall_window(50), gt.settings.preconditioner_noise_budget(PC_NOISE_BUDGET):
+            marginal = model.likelihood(model(tx)).lazy_covariance_matrix
+            iq32 = marginal.inv_quad_logdet(inv_quad_rhs=ty - model.mean_module(tx), logdet=False)[0].item()
+        term = None
+        if kind == "sgpr":  # the training-mode terms at the last state, float32 and float64
+            model.covar_module(tx).evaluate_kernel()
+            term = next(iter(model.added_loss_terms())).loss().item()
+            twin.covar_module.train()
+            twin.covar_module(tx64).evaluate_kernel()
+            term64 = next(iter(twin.added_loss_terms())).loss().item()
+            twin.covar_module.eval()
+            closed64, magnitudes = _sgpr_term64(twin.covar_module, tx64, noise64)
+            term_gap = abs(term64 - closed64) / magnitudes
+    iq_gap = abs(iq32 - iq64) / abs(iq64)
+    model.eval()
+    with eval_settings():
+        cg, refresh_s, answers = serve(model, sx, dev, [slice(0, N_TEST)])
+    _, mean, var, request_s = answers[0]
+    strategy = model.prediction_strategy()
+    feature_path = getattr(strategy, "_feat_mean_cache", None) is not None
+    served = f"{type(strategy).__name__} ({'feature-space caches' if feature_path else 'mean cache and LOVE'})"
+    mean_gap = (mean.double() - mean64).abs().max().item() / mean64.abs().max().item()
+    rmse = (mean - sy).pow(2).mean().sqrt().item()
+    nlpd = marginal_nlpd(mean, var, sy, model.likelihood.noise.reshape(-1)[0])
+    serve_launches = tuple(w.launches for w in wrappers)
+    cg_text = "no CG" if cg is None else f"CG {cg.num_iters} iterations"
+    term_text = "" if term is None else (
+        f"; the added loss term in float64 {term64:.9f} against its closed form {closed64:.9f}: {term_gap:.3e} of "
+        f"its terms' magnitudes {magnitudes:.6e} (tol {SGPR_TERM_TOL}), a planted term = 0 "
+        f"{abs(closed64) / magnitudes:.3e}; in float32 {term:.6f}, {abs(term - closed64) / magnitudes:.3e} of "
+        f"them (not gated: float32 cancels k_ii − q_ii as the JAX package does)")
+    print(f"[{tag}] {SPARSE_STEPS} Adam steps under bench.py's training recipe: step {_quartiles_ms(times[1:])}, "
+          f"first step {times[0] * 1e3:.1f} ms; CG iterations per step {iters}; loss {losses[0]:.5f} → {losses[-1]:.5f}"
+          f"{term_text}; rᵀK̂⁻¹r float32 (CG at {SPARSE_CG_TOL}) {iq32:.6f} against float64 Woodbury {iq64:.6f}: "
+          f"{iq_gap:.3e} (tol {SPARSE_IQ_TOL}); {nvidia_smi()}", flush=True)
+    print(f"[{tag}] served by {served}: refresh {refresh_s:.3f} s ({cg_text}), {N_TEST} points in {request_s * 1e3:.2f} "
+          f"ms; mean against float64 Woodbury max |Δ| / max |μ| {mean_gap:.3e} (tol {SPARSE_MEAN_TOL}); rmse "
+          f"{rmse:.4f}, marginal nlpd {nlpd:.4f}; launches training {train_launches}, serving {serve_launches} "
+          f"(predicted none)", flush=True)
+    if kind == "sgpr":
+        check(term_gap <= SGPR_TERM_TOL, f"{tag}: float64 added loss term {term64} against its closed form {closed64}")
+        check(abs(closed64) / magnitudes > SGPR_TERM_TOL, f"{tag}: the term's gate does not see a planted term = 0")
+    check(iq_gap <= SPARSE_IQ_TOL, f"{tag}: inverse quadratic term {iq32} against float64 {iq64}")
+    check(mean_gap <= SPARSE_MEAN_TOL, f"{tag}: predictive mean against float64: {mean_gap:.3e}")
+    check(not any(train_launches) and not any(serve_launches), f"{tag}: kernels launched {train_launches}, "
+                                                                f"{serve_launches}")
+    return dict(step_ms=float(np.median(times[1:])) * 1e3, iters=iters, rmse=rmse, nlpd=nlpd, served=served,
+                iq_gap=iq_gap, mean_gap=mean_gap)
+
+
+def phase_sparse_exact():
+    """Phase 17e: SGPR and random-Fourier-feature exact GPs (``build_sparse_exact``) on
+    make_task's data at N=100k, SPARSE_STEPS Adam steps each under ``train_settings`` (the
+    likelihood's noise makes R Rᵀ + σ²I an ``AddedDiagLinearOperator``: preconditioned mBCG on
+    root products, as in the JAX package), then the N_TEST test points served under
+    ``eval_settings``.  Gates: SGPR's added loss term in float64 against ``_sgpr_term64`` (the
+    float32 term printed); rᵀ(R Rᵀ + σ²I)⁻¹r by CG at SPARSE_CG_TOL and the served mean against
+    a float64 Woodbury evaluation of the same state, O(n m²); no kernel launched.  Prints the
+    step times, the CG iterations, RMSE, NLPD and the strategy that served.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_sparse_exact()'``."""
+    import torch
+
+    if not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    return dict(sgpr=_sparse_run("sgpr"), rff=_sparse_run("rff"))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -6637,6 +7412,11 @@ def main() -> int:
         ovc = phase_ovc()
         dspp = phase_dspp()
         vnngp = phase_vnngp()
+        lmc = phase_lmc()
+        grid = phase_grid_svgp()
+        large_batch = phase_large_batch()
+        decoupled = phase_decoupled()
+        sparse = phase_sparse_exact()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -6651,9 +7431,12 @@ def main() -> int:
                "dirichlet": dirichlet["launches"][0], "batch fantasy": more["batch"]["launches"],
                "fixed-noise fantasy": more["fixed_noise"]["launches"], "multitask fantasy": 0, "structure": 0,
                "ciq": ciq["launches"][0] + ciq["serve_launches"][0], "classification": 0,
-               "online conditioning": ovc["launches"], "dspp": 0, "vnngp": 0}
+               "online conditioning": ovc["launches"], "dspp": 0, "vnngp": 0, "lmc": lmc["launches"],
+               "grid svgp": grid["additive"]["launches"] + grid["grid2d"]["launches"], "large batch": 0,
+               "decoupled": decoupled["orthogonal"]["launches"] + decoupled["batch"]["launches"], "sgpr": 0, "rff": 0}
     print(f"[report] kernel_matvec launches by path: {by_path} (kissgp, wiski, multitask, svgp, deep gp, multitask "
-          f"fantasy, structure, classification, dspp and vnngp: none expected, no TPU kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
+          f"fantasy, structure, classification, dspp, vnngp, lmc, large batch, sgpr and rff: none expected, no TPU "
+          f"kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
           f"N={N_TRAIN}) dirichlet_step_ms {dirichlet['median_ms']:.1f}, CG {sum(dirichlet['iters'])} iterations in "
           f"{DIR_STEPS} steps, each class alone at the refresh {dirichlet['per_class_iters']}, refresh_s "
           f"{dirichlet['refresh_s']:.3f}, request_ms {dirichlet['request_ms']:.2f}, accuracy {dirichlet['accuracy']:.4f} "
@@ -6682,8 +7465,15 @@ def main() -> int:
           f"{ciq['request_ms']:.1f}, peak {ciq['peak'] / 2**20:.1f} MiB; classification cls_step_ms "
           f"{classification['step_ms']:.3f}, accuracy {classification['accuracy']:.4f}; ovc_fantasy_ms "
           f"{ovc['fantasy_ms']:.2f}; dspp_step_ms {dspp['step_ms']:.3f}, rmse {dspp['rmse']:.4f}; vnngp index "
-          f"{vnngp['build_s']:.2f} s, vnngp_step_ms {vnngp['step_ms']:.3f}, rmse {vnngp['rmse']:.4f}; whole script "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{vnngp['build_s']:.2f} s, vnngp_step_ms {vnngp['step_ms']:.3f}, rmse {vnngp['rmse']:.4f}; lmc "
+          f"({LMC_TASKS} tasks, {LMC_LATENTS} latents, m={LMC_M}) lmc_step_ms {lmc['step_ms']:.3f}, rmse per task "
+          f"{[round(r, 4) for r in lmc['rmse']]}; grid svgp additive grid_svgp_step_ms {grid['additive']['step_ms']:.3f}, "
+          f"2d {grid['grid2d']['step_ms']:.3f}, rmse {grid['additive']['rmse']:.4f} and {grid['grid2d']['rmse']:.4f}; "
+          f"large batch step {large_batch['step_ms']:.3f} ms (whitened {large_batch['whitened_step_ms']:.3f} ms); "
+          f"decoupled orthogonal step {decoupled['orthogonal']['step_ms']:.3f} ms, batch "
+          f"{decoupled['batch']['step_ms']:.3f} ms; sgpr step {sparse['sgpr']['step_ms']:.1f} ms, rmse "
+          f"{sparse['sgpr']['rmse']:.4f}; rff step {sparse['rff']['step_ms']:.1f} ms, rmse {sparse['rff']['rmse']:.4f}; "
+          f"whole script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda", "source": f"gpytorch_tpu_torch/csrc/{source}",
@@ -6699,7 +7489,8 @@ def main() -> int:
                "fantasy_shape": fantasy["shapes"][f"matvec_t{FANT_Q}"], "unwhitened_kl_shape": unwhitened["shape"],
                "dirichlet_shape": dirichlet["shape"],
                "ciq_shape": [ciq["shapes"]["matvec_t1"], ciq["shapes"]["matvec_batch"]],
-               "ovc_shape": ovc["shape"]},
+               "ovc_shape": ovc["shape"], "grid_kl_shape": [grid["additive"]["shape"], grid["grid2d"]["shape"]],
+               "decoupled_shape": decoupled["orthogonal"]["shape"]},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
             | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
@@ -6711,10 +7502,13 @@ def main() -> int:
             | {"launches_by_path": {"flagship": bwd_launches, "honest": honest["launches"][1],
                                     "fantasy": fantasy["launches"][2], "love gradient": love_grad["launches"][2],
                                     "batch": batch["launches"][1], "unwhitened kl": unwhitened["bwd_launches"],
-                                    "dirichlet": dirichlet["launches"][1], "ciq": ciq["launches"][1]},
+                                    "dirichlet": dirichlet["launches"][1], "ciq": ciq["launches"][1],
+                                    "grid svgp": grid["additive"]["bwd_launches"] + grid["grid2d"]["bwd_launches"],
+                                    "decoupled": decoupled["orthogonal"]["bwd_launches"]
+                                    + decoupled["batch"]["bwd_launches"]},
                "love_gradient_shape": love_grad["shape"], "unwhitened_kl_shape": unwhitened["bwd_shape"],
-               "ciq_shape": ciq["shapes"]["bwd"],
-               "dirichlet_shape": dirichlet["bwd_shape"],
+               "ciq_shape": ciq["shapes"]["bwd"], "grid_kl_shape": [grid["additive"]["bwd_shape"], grid["grid2d"]["bwd_shape"]],
+               "dirichlet_shape": dirichlet["bwd_shape"], "decoupled_shape": decoupled["orthogonal"]["bwd_shape"],
                "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
                        "bound_ms from bwd_tc_bound",
                "fantasy_shapes": [fantasy["shapes"]["bwd_t1"], fantasy["shapes"][f"bwd_t{FANT_Q}"]]},

@@ -10,8 +10,10 @@ backward, plus the log-densities of the parameters' priors, with NaN targets mas
 filled.  Fantasy models conditioned on new points, and predictions differentiated through
 their caches (``settings.detach_test_caches(False)``).  Batches of independent GPs
 (``batch_shape`` on every kernel, mean and likelihood) and multitask GPs (Kronecker, LCM
-and Hadamard).  Sparse variational GPs (whitened and unwhitened strategies, natural
-gradients) and two-layer deep GPs.  Up to
+and Hadamard).  Sparse variational GPs (whitened, unwhitened, CIQ, large-batch, decoupled,
+grid-interpolation, nearest-neighbour, and independent and LMC multitask strategies, natural
+gradients), two-layer deep GPs and DSPPs, and the sparse exact GPs SGPR and random Fourier
+features.  Up to
 ``settings.max_cholesky_size`` points, each of these takes a dense Cholesky factor.  Every product with
 the kernel matrix, and its gradient, goes through the fused kernel products
 (``ops/fused_kernels.py``): hand-written CUDA kernels on the GPU.

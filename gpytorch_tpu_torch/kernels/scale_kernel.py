@@ -25,6 +25,11 @@ class ScaleKernel(Kernel):
                                 lambda m, v: m._set_constrained("raw_outputscale", v))
 
     @property
+    def returns_lazy_structure(self) -> bool:
+        """The base kernel's: a structured base (an RFF root) is evaluated at every size."""
+        return getattr(self.base_kernel, "returns_lazy_structure", False)
+
+    @property
     def outputscale(self) -> torch.Tensor:
         return self._constrained("raw_outputscale")
 

@@ -6,7 +6,7 @@ from .composition import (BatchRepeatLinearOperator, CatLinearOperator, Constant
 from .block import BlockDiagLinearOperator, BlockInterleavedLinearOperator
 from .dense_ops import hadamard_product
 from .lazy_kernel import LazyEvaluatedKernelOperator, join_rows
-from .root import LowRankRootAddedDiagLinearOperator, RootLinearOperator
+from .root import LowRankRootAddedDiagLinearOperator, LowRankRootLinearOperator, RootLinearOperator
 from .triangular import CholLinearOperator, TriangularLinearOperator
 from .toeplitz import ToeplitzLinearOperator
 from .kronecker import (KroneckerProductAddedDiagLinearOperator, KroneckerProductDiagLinearOperator,
@@ -33,6 +33,7 @@ __all__ = [
     "LazyEvaluatedKernelOperator",
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
+    "LowRankRootLinearOperator",
     "MaskedLinearOperator",
     "MatmulLinearOperator",
     "ProbeSource",

@@ -5,6 +5,7 @@ column concatenation, a batch repeat, and the masked operator of the NaN policy 
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -93,6 +94,17 @@ class ConstantMulLinearOperator(LinearOperator):
     def _matmul(self, rhs):
         return self.constant * self.base._matmul(rhs)
 
+    def _matmul_grad_only(self, rhs):
+        return self.constant * self.base._matmul_grad_only(rhs)
+
+    def _flatten(self):
+        tb, rb = self.base._flatten()
+        if not torch.is_tensor(self.constant):
+            constant = self.constant
+            return tb, lambda ts: ConstantMulLinearOperator(rb(ts), constant)
+        nb = len(tb)
+        return tb + (self.constant,), lambda ts: ConstantMulLinearOperator(rb(ts[:nb]), ts[nb])
+
     def _diagonal(self):
         return self.constant * self.base._diagonal()
 
@@ -178,7 +190,10 @@ class CatLinearOperator(LinearOperator):
 
 
 class BatchRepeatLinearOperator(LinearOperator):
-    """``base`` repeated over the batch shape ``batch_repeat``."""
+    """``base`` repeated over the batch shape ``batch_repeat``.  A product of an unbatched base
+    with a batched right-hand side (…, n, t) is one product with the batch folded into the
+    columns, (n, b·t): for a lazy kernel operator one fused K·V launch (and one fused backward)
+    for the whole batch."""
 
     def __init__(self, base: LinearOperator, batch_repeat: Tuple[int, ...]):
         self.base = base
@@ -198,8 +213,20 @@ class BatchRepeatLinearOperator(LinearOperator):
     def _expand(self, x: torch.Tensor, tail: int) -> torch.Tensor:
         return x.expand(self.batch_shape + x.shape[-tail:])
 
+    def _folded(self, product, rhs: torch.Tensor) -> torch.Tensor:
+        if self.base.batch_shape or rhs.ndim <= 2:
+            return self._expand(product(rhs), 2)
+        batch, (n, t) = rhs.shape[:-2], rhs.shape[-2:]
+        b = math.prod(batch)
+        out = product(rhs.reshape(b, n, t).permute(1, 0, 2).reshape(n, b * t))
+        out = out.reshape(out.shape[-2], b, t).permute(1, 0, 2).reshape(batch + (out.shape[-2], t))
+        return self._expand(out, 2)
+
     def _matmul(self, rhs):
-        return self._expand(self.base._matmul(rhs), 2)
+        return self._folded(self.base._matmul, rhs)
+
+    def _matmul_grad_only(self, rhs):
+        return self._folded(self.base._matmul_grad_only, rhs)
 
     def _flatten(self):
         tb, rb = self.base._flatten()

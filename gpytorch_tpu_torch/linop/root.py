@@ -1,7 +1,15 @@
 """Root operators.  Counterpart of ``gpytorch_tpu/linop/root.py``: ``RootLinearOperator``
-A = R Rᵀ (the LOVE caches, and the posterior covariance that LOVE sampling draws from) and
-``LowRankRootAddedDiagLinearOperator`` R Rᵀ + D (the pivoted-Cholesky preconditioner P,
-from which training draws its probe vectors).
+A = R Rᵀ (the LOVE caches, and the posterior covariance that LOVE sampling draws from),
+``LowRankRootLinearOperator``, the same operator tagged low-rank (SGPR's Nyström kernel
+matrix, ``kernels/inducing_point_kernel.py``), and ``LowRankRootAddedDiagLinearOperator``
+R Rᵀ + D (the pivoted-Cholesky preconditioner P, from which training draws its probe
+vectors).
+
+As in the JAX package, a low-rank root adds no algebra of its own: the likelihood's noise
+makes it an ``AddedDiagLinearOperator``, whose solves and log-determinant take the dense
+Cholesky factor up to ``settings.max_cholesky_size`` and preconditioned mBCG above it, the
+products R(Rᵀv) and the rows R[idx] Rᵀ that the pivoted Cholesky reads going through
+matrix products with the root (never the n × n matrix).
 
 Samples are drawn from Gaussian base samples (``probe_base_samples``), never Rademacher
 ones: the JAX package's ``rademacher_probes`` reaches user sampling through this module,
@@ -11,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .base import LinearOperator, ProbeSource, probe_base_samples
+from .base import LinearOperator, ProbeSource, _take_rows, probe_base_samples
 from .diag import DiagLinearOperator
 
 
@@ -39,8 +47,14 @@ class RootLinearOperator(LinearOperator):
     def _matmul(self, rhs):
         return self.root @ (self.root.mT @ rhs)
 
+    def _flatten(self):
+        return (self.root,), lambda ts: type(self)(ts[0])
+
     def _diagonal(self):
         return (self.root * self.root).sum(-1)
+
+    def _get_rows(self, idx):
+        return _take_rows(self.root, idx) @ self.root.mT
 
     def to_dense(self):
         return self.root @ self.root.mT
@@ -59,6 +73,10 @@ class RootLinearOperator(LinearOperator):
         shape = (num_samples,) + self.batch_shape + (self.root.shape[-1], 1)
         u = probe_base_samples(shape, self.dtype, self.device, base_samples)
         return (self.root @ u)[..., 0]
+
+
+class LowRankRootLinearOperator(RootLinearOperator):
+    """R Rᵀ for a root R (n, k) of rank k ≪ n: the algebra of ``RootLinearOperator``."""
 
 
 class LowRankRootAddedDiagLinearOperator(LinearOperator):

@@ -1,8 +1,11 @@
+from .added_loss_term import (AddedLossTerm, InducingPointKernelAddedLossTerm, KLGaussianAddedLossTerm,
+                              NoiseModelAddedLossTerm)
 from .deep_approximate_mll import DeepApproximateMLL, DeepPredictiveLogLikelihood
 from .exact_marginal_log_likelihood import ExactMarginalLogLikelihood
 from .marginal_log_likelihood import MarginalLogLikelihood
 from .predictive_log_likelihood import PredictiveLogLikelihood
 from .variational_elbo import GammaRobustVariationalELBO, VariationalELBO
 
-__all__ = ["DeepApproximateMLL", "DeepPredictiveLogLikelihood", "ExactMarginalLogLikelihood", "GammaRobustVariationalELBO",
-           "MarginalLogLikelihood", "PredictiveLogLikelihood", "VariationalELBO"]
+__all__ = ["AddedLossTerm", "DeepApproximateMLL", "DeepPredictiveLogLikelihood", "ExactMarginalLogLikelihood", "GammaRobustVariationalELBO",
+           "InducingPointKernelAddedLossTerm", "KLGaussianAddedLossTerm", "MarginalLogLikelihood",
+           "NoiseModelAddedLossTerm", "PredictiveLogLikelihood", "VariationalELBO"]

@@ -1,6 +1,6 @@
 """Exact GP marginal log likelihood.  Counterpart of
 ``gpytorch_tpu/mlls/exact_marginal_log_likelihood.py``, with the three
-``settings.observation_nan_policy`` values and no added loss terms:
+``settings.observation_nan_policy`` values:
 
 * "ignore": the targets are used as they are;
 * "mask": NaN targets are left out, through ``MaskedLinearOperator`` (the covariance with
@@ -11,6 +11,10 @@
 Either way the MLL is divided by the full number of points (n·t for t tasks), as in the
 JAX package.  A batched model gives one value per batch element.  Arguments after the
 target (a Hadamard likelihood's task indices) go to the likelihood.
+
+The model's added loss terms (``Module.added_loss_terms``: SGPR's variance correction,
+which ``InducingPointKernel`` sets on each training call) are added before the division,
+each called with the arguments after the target, as in the JAX package.
 
 The priors' log-densities are added once each, from this module's ``prior_log_prob_sum``
 over the model and the likelihood, as GPyTorch does.  (The JAX package adds the model's
@@ -39,8 +43,9 @@ class ExactMarginalLogLikelihood(MarginalLogLikelihood):
 
     def forward(self, function_dist: MultivariateNormal, target, *params, base_samples=None, solver_state=None,
                 return_state: bool = False):
-        """(log p(target) + Σ log p(prior values)) / N under the prior ``function_dist`` and
-        the likelihood, with NaN targets treated by ``settings.observation_nan_policy``.
+        """(log p(target) + Σ added losses + Σ log p(prior values)) / N under the prior
+        ``function_dist`` and the likelihood, with NaN targets treated by
+        ``settings.observation_nan_policy``.
 
         ``base_samples`` is where the SLQ probes' base samples come from (a
         ``torch.Generator``, or a callable that returns them for a shape); pass fresh ones
@@ -72,6 +77,8 @@ class ExactMarginalLogLikelihood(MarginalLogLikelihood):
                 res = res + 0.5 * (~observed).sum(-1).to(res.dtype) * math.log(2 * math.pi)
             else:
                 res = output.log_prob(filled, base_samples=base_samples)
+        for term in self.model.added_loss_terms():
+            res = res + term.loss(*params)
         prior_sum = self.prior_log_prob_sum()
         if prior_sum is not None:
             res = res + prior_sum

@@ -21,6 +21,10 @@ which serves every test batch.  Its fantasy updates promote it to
 ``WiskiPredictionStrategy``, whose caches depend on the data only through WᵀW and Wᵀr
 (dense m × m: it is meant for grids of a few thousand points).
 
+``LinearPredictionStrategy`` (an ``RFFKernel``'s) holds its caches in feature space, for a
+training covariance Φ Φᵀ + σ²I; ``SGPRPredictionStrategy`` (an ``InducingPointKernel``'s) is
+the default strategy on R Rᵀ + σ²I.
+
 Up to ``settings.max_cholesky_size`` training points both caches come from a dense
 Cholesky factor instead (``LinearOperator.solve``, ``root_inv_decomposition``).
 
@@ -54,13 +58,15 @@ import torch
 from .. import settings
 from ..distributions import MultitaskMultivariateNormal, MultivariateNormal
 from ..linop import (AddedDiagLinearOperator, DenseLinearOperator, DiagLinearOperator, InterpolatedLinearOperator,
-                     LazyEvaluatedKernelOperator, MaskedLinearOperator, RootLinearOperator, to_linear_operator)
+                     LazyEvaluatedKernelOperator, LowRankRootAddedDiagLinearOperator, MaskedLinearOperator,
+                     RootLinearOperator, ZeroLinearOperator, to_linear_operator)
 from ..ops.interp import left_interp, left_t_interp, segment_sum
 from ..solvers.cholesky import psd_safe_cholesky
 
 
 def prediction_strategy(train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init=None):
-    """The kernel's preferred strategy (the default one for every kernel of this port)."""
+    """The kernel's preferred strategy: the default one, KISS-GP's, SGPR's or the feature-space
+    one of random Fourier features."""
     covar = train_prior_dist.lazy_covariance_matrix
     if isinstance(covar, LazyEvaluatedKernelOperator):
         return covar.kernel.prediction_strategy(train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init)
@@ -418,3 +424,77 @@ class WiskiPredictionStrategy(InterpolatedPredictionStrategy):
             noise = strategy.likelihood.noise.reshape(-1)[0]
             return cls(strategy.train_inputs, strategy.train_prior_dist, strategy.train_labels, strategy.likelihood,
                        wtw, wtr, noise, strategy.lanczos_init)
+
+
+class LinearPredictionStrategy(DefaultPredictionStrategy):
+    """Prediction in feature space for K = Φ Φᵀ (an ``RFFKernel``'s root Φ, n × k)
+    (``gpytorch_tpu/models/exact_prediction_strategies.py:431-499``): with σ² the likelihood's
+    first noise value and G = ΦᵀΦ + σ²I (k × k, a Cholesky factor L_G),
+
+      mean cache  w = G⁻¹ Φᵀ(y − μ),             μ* = φ*ᵀ w + μ(x*),
+      covar cache R = σ L_G⁻ᵀ (R Rᵀ = σ² G⁻¹),    Σ* = (φ*ᵀ R)(φ*ᵀ R)ᵀ,
+
+    O(n k²) once and O(k²) a test point, no n × n solve.  Where the training covariance holds
+    no root (a ``ScaleKernel`` around the features scales the operator, as in the JAX
+    package), it serves by the default strategy."""
+
+    def __init__(self, train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init=None):
+        super().__init__(train_inputs, train_prior_dist, train_labels, likelihood, lanczos_init)
+        self._feat_mean_cache = None
+        self._feat_covar_root = None
+
+    def detached(self):
+        new = super().detached()
+        for name in ("_feat_mean_cache", "_feat_covar_root"):
+            value = getattr(self, name)
+            setattr(new, name, None if value is None else value.detach())
+        return new
+
+    @staticmethod
+    def _root_of(covar) -> Optional[torch.Tensor]:
+        """The features Φ of a root operator, also under added noise; None for any other."""
+        covar = covar.evaluate_kernel()
+        if isinstance(covar, AddedDiagLinearOperator):
+            covar = covar.base.evaluate_kernel()
+        if isinstance(covar, LowRankRootAddedDiagLinearOperator):
+            covar = covar.low_rank
+        return covar.root if isinstance(covar, RootLinearOperator) else None
+
+    def build_caches(self) -> None:
+        if self._feature_caches()[0] is None:
+            super().build_caches()
+
+    def _feature_caches(self):
+        if self._feat_mean_cache is None:
+            phi = self._root_of(self.train_prior_dist.lazy_covariance_matrix)
+            if phi is None:
+                return None, None
+            with self._grad_mode():
+                sigma2 = self.likelihood.noise.reshape(-1)[0]
+                eye = torch.eye(phi.shape[-1], dtype=phi.dtype, device=phi.device)
+                L = psd_safe_cholesky(phi.mT @ phi + sigma2 * eye)
+                diff = (self.train_labels - self.likelihood.marginal(self.train_prior_dist).loc).unsqueeze(-1)
+                self._feat_mean_cache = torch.cholesky_solve(phi.mT @ diff, L)
+                self._feat_covar_root = torch.sqrt(sigma2) * torch.linalg.solve_triangular(L.mT, eye, upper=True)
+        return self._feat_mean_cache, self._feat_covar_root
+
+    def exact_prediction(self, joint_mean, joint_covar):
+        phi_joint = self._root_of(joint_covar)
+        w, R = self._feature_caches()
+        if phi_joint is None or w is None:
+            return super().exact_prediction(joint_mean, joint_covar)
+        n = self.num_train
+        phi_test = phi_joint[..., n:, :]
+        pred_mean = (phi_test @ w).squeeze(-1) + joint_mean[..., n:]
+        if settings.skip_posterior_variances.on():
+            m = phi_test.shape[-2]
+            return pred_mean, ZeroLinearOperator(m, m, dtype=phi_test.dtype, device=phi_test.device)
+        return pred_mean, RootLinearOperator(phi_test @ R)
+
+
+class SGPRPredictionStrategy(DefaultPredictionStrategy):
+    """SGPR (``gpytorch_tpu/models/exact_prediction_strategies.py:502``): the default
+    strategy on the training covariance R Rᵀ + σ²I of an ``InducingPointKernel``.  As in the
+    JAX package the low-rank root adds no algebra of its own: the mean cache is CG (or a dense
+    Cholesky factor up to ``max_cholesky_size``), the LOVE cache block Lanczos, each through
+    products R(Rᵀv)."""

@@ -27,12 +27,19 @@ def load_jax_params(module: torch.nn.Module, params: Mapping[str, np.ndarray]) -
 ``<strategy>.nn_xinduce_idx`` (the k nearest preceding inducing points of each, which an
 approximate index builds differently in the two packages).  Every new parameter of the
 variational long tail is a parameter here too (DSPP's ``quad_sites`` and
-``raw_quad_weights``, the non-Gaussian likelihoods' raw parameters).  Clears the module's
-    caches, since they depend on the parameters."""
-    own = dict(module.named_parameters())
+``raw_quad_weights``, the non-Gaussian likelihoods' raw parameters, LMC's
+``lmc_coefficients``, the additive grid strategy's ``mixing_params``, the decoupled
+strategies' nested ``base_variational_strategy.*``, an ``InducingPointKernel``'s
+``inducing_points``).  A grid variational strategy takes ``<strategy>.grid`` as a grid
+kernel does, and an RFF kernel ``<kernel>.randn_weights`` (a buffer, in the value's own
+dtype).  A parameter that the module reaches by two paths (an ``InducingPointKernel``'s
+likelihood, which is also the model's) is given under either; the JAX package holds a copy
+under each.  Clears the module's caches, since they depend on the parameters."""
+    own = dict(module.named_parameters(remove_duplicate=False))
     state = {name: value for name, value in params.items() if name not in own}
     unknown = {name for name in state if name.rsplit(".", 1)[-1] not in _STATE}
-    missing = set(own) - set(params)
+    given = {id(own[name]) for name in params if name in own}
+    missing = {name for name, p in module.named_parameters() if id(p) not in given}
     if unknown or missing:
         raise KeyError(f"parameter names differ: unknown {sorted(unknown)}, missing {sorted(missing)}")
     with torch.no_grad():
@@ -47,6 +54,10 @@ variational long tail is a parameter here too (DSPP's ``quad_sites`` and
         path, attr = name.rsplit(".", 1) if "." in name else ("", name)
         if attr == "variational_params_initialized":
             module.get_submodule(path).variational_params_initialized.fill_(int(np.asarray(value)))
+            continue
+        if attr == "randn_weights":
+            owner = module.get_submodule(path)
+            owner.register_buffer("randn_weights", torch.as_tensor(np.array(value), device=owner.raw_lengthscale.device))
             continue
         if attr == "nn_xinduce_idx":
             owner = module.get_submodule(path)
@@ -65,6 +76,8 @@ variational long tail is a parameter here too (DSPP's ``quad_sites`` and
     return module
 
 
-# the state besides parameters that ``load_jax_params`` carries: a grid kernel's, a
-# variational strategy's flag and a VNNGP strategy's sequential neighbours
-_STATE = ("grid", "grid_bounds", "has_initialized_grid", "variational_params_initialized", "nn_xinduce_idx")
+# the state besides parameters that ``load_jax_params`` carries: a grid kernel's (and a grid
+# variational strategy's grid), a variational strategy's flag, a VNNGP strategy's sequential
+# neighbours and an RFF kernel's frequencies
+_STATE = ("grid", "grid_bounds", "has_initialized_grid", "variational_params_initialized", "nn_xinduce_idx",
+          "randn_weights")

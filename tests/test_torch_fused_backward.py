@@ -264,3 +264,16 @@ def test_bwd_bounds(n, d, t, want_tc, term, want_fp32):
     assert tc_ms == pytest.approx(tensor_ms if term == "tensor" else cuda_ms, rel=1e-12)
     fp32_ms, fp32_by = cs.bwd_bound(n, d, t)
     assert fp32_by == "operations" and fp32_ms == pytest.approx(want_fp32, abs=5e-4)
+
+
+# … and with dv = K·g besides (the orthogonally decoupled KL's backward asks for it): 2t FLOP
+# more a pair on the same k (the score's depth 3t on the tensor cores) and dv written once
+@pytest.mark.parametrize("n,d,t", [(4096, 3, 1), (100_000, 3, 64)])
+def test_bwd_bounds_with_dv(n, d, t):
+    fp32_ms, fp32_by = cs.bwd_bound(n, d, t, dv=True)
+    ops_ms = max(1e3 * (6 * t + 5 * d + 9) * n * n / cs.H100_FP32_FLOPS, cs.exp_floor_ms(n * n))
+    assert fp32_by == "operations" and fp32_ms == pytest.approx(ops_ms, rel=1e-12)
+    assert fp32_ms > cs.bwd_bound(n, d, t)[0]
+    tc_ms, _ = cs.bwd_tc_bound(n, d, t, dv=True)
+    tensor_ms = 1e3 * 3 * 2 * (3 * t) * n * n / cs.H100_TF32_FLOPS
+    assert tc_ms == pytest.approx(max(tensor_ms, 1e3 * (5 * d + 9) * n * n / cs.H100_FP32_FLOPS), rel=1e-12)
