@@ -11,7 +11,8 @@ unwhitened) and a two-layer deep GP, Dirichlet GP classification at N=100k, fant
 batched, fixed-noise and multitask models, the structure kernels (additive and SKIP), and at
 N=100k a CIQ-SVGP at m = 4,096, a probit SVGP classifier, online variational conditioning, a
 two-layer DSPP and VNNGP, an LMC multitask SVGP, grid-interpolation, large-batch and decoupled
-SVGPs, and SGPR and random-Fourier-feature exact GPs.
+SVGPs, and SGPR and random-Fourier-feature exact GPs, a spectral-mixture forecast and a derivative GP,
+and every kernel and mean of the long tail against the CPU.
 
     python3 chip_smoke.py
 
@@ -309,6 +310,27 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               against its float64 closed form, rᵀ(R Rᵀ + σ²I)⁻¹r and the served mean against a float64
               Woodbury evaluation (gated), no kernel launched; step times, CG iterations, RMSE, NLPD
               and the strategy that served.
+
+18. spectral mixture — an exact GP with SpectralMixtureKernel(num_mixtures=4) (initialised from the
+              empirical spectrum), ConstantMean and GaussianLikelihood on the periodic task's daily
+              profile without its weekends, time column alone, in readings: N=16,128 (56 days; the
+              streamed backward keeps every block's graph, so not 100k), 30 steps of bench.py's recipe
+              with CG at 0.01 and the means at a rate of their own, K·V through
+              ``_matmul_chunked`` and the preconditioner's rows through ``_get_rows``; then a refresh
+              and the forecast of the next week (2,048 readings): ms a step, CG iterations, peak
+              memory, refresh_s, request_ms, RMSE (gated below the constant predictor's), NLPD; the
+              float64 loss and gradient at N=2,048 against the CPU (injected probes, pinned pivots);
+              no kernel may launch.
+18b. derivative gp — ConstantMeanGrad, ScaleKernel(RBFKernelGrad) and a MultitaskGaussianLikelihood
+              of 4 tasks without task noise on make_task's function and its analytic gradient at
+              2,048 inputs (8,192 observations: the CG path, the preconditioner from the lazy grad
+              kernel's rows), 30 steps, then 256 test inputs served: ms a step, CG iterations, peak
+              memory, the value and gradient RMSE (each gated below the constant predictor's); no
+              kernel may launch.
+18c. kernel tail — every new kernel and mean (RQ, cosine, linear, polynomial, piecewise polynomial,
+              spectral mixture and delta, constant, the misc kernels, the grad kernels and means, the
+              zero mean) on inputs made on the card, float32 and float64: the 300 × 200 matrix, its
+              diagonal and a product above 512² (``_matmul_chunked``) against the CPU in float64.
 
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
@@ -658,6 +680,42 @@ SPARSE_IQ_TOL = 1e-4        # … rᵀ(R Rᵀ + σ²I)⁻¹r against float64 Woo
                             # 5.2e-09 RFF, the CPU at N=20,000 5.5e-06 and 1.0e-07)
 SPARSE_MEAN_TOL = 1e-2      # … the served mean (eval CG at 1e-3), max |Δ| / max |μ| (an H100 read 1.6e-03 and 7.0e-05)
 
+# The kernel long tail: a spectral-mixture forecast (phase 18), a derivative GP (18b) and every
+# new kernel and mean (18c); no TPU kernel is on these paths
+SM_Q, SM_N, SM_TEST, SM_STEPS = 4, 16_128, 2048, 30  # phase 18: mixtures, training readings (56 days: whole days, so
+                            # that the daily harmonics fall on the periodogram's bins, which the empirical-spectrum
+                            # initialiser draws from; at 16,384 it drew 2.021 cycles a day for 2, and the CPU's analogue
+                            # at 4,096 against 4,032 read 0.979 against 0.560; the chunked backward keeps each block's
+                            # graph, ≈ Q·N²·4 bytes a few times over, so not 100k), the forecast's readings (a week),
+                            # Adam steps
+SM_MEAN_LR = 1e-5           # … Adam's rate for raw_mixture_means (the rest at 0.1 → 0.01), as phase 8's period: a mean
+                            # μ ≈ 0.007 a reading sits where softplus is ≈ exp, so a step moves it by ≈ lr·μ and the
+                            # phase at the far end of 16,128 readings by 113·lr cycles.  At 0.1 on the CPU (N=8,192,
+                            # 30 steps) the means left the spectrum's lines (2.00, 2.99 → 2.76, 3.11 cycles a day)
+                            # and the forecast rmse read 2.23 against the constant predictor's 1.04
+SM_SETTINGS = {"cg_tolerance": 0.01, "fast_precond_grad": False}  # … bench.py's recipe with these replaced.  CG
+                            # at 0.01 (0.3 elsewhere): on the CPU at N=4,032, 30 steps, 6 CG iterations a step either
+                            # way, at 0.3 the scales widened to 0.13 cycles a day and the forecast rmse read 1.085
+                            # against the constant's 1.001; at 0.01 they narrowed to 0.017-0.021, as the exact dense
+                            # gradient narrows them, and it read 0.564.  The preconditioner's gradient through its
+                            # pivoted-Cholesky loop, not the Nyström factor's Cholesky of K[piv, piv]: the float32
+                            # kernel's phase 2π·τ·μ carries ≈ 6e-5 rad of round-off at 168 cycles, and on an H100 that
+                            # factor failed at every jitter psd_safe_cholesky tries (leading minor 46)
+SM_PARITY_N, SM_PARITY_TOL = 2048, 1e-8  # … its float64 loss and gradient at this N, CUDA against the CPU, relative
+DER_N, DER_TEST, DER_STEPS = 2048, 256, 30  # phase 18b: inputs (× (D + 1) observations), test inputs, Adam steps
+TAIL_N, TAIL_M, TAIL_PRODUCT_N, TAIL_COLS = 300, 200, 600, 4  # phase 18c: the matrix's inputs, the streamed
+                            # product's (600² > 512²) and its columns
+TAIL_VOCAB, TAIL_LENGTH, TAIL_SEED = 4, 8, 25  # … one-hot sequences of the Hamming kernel, the parameters' seed
+TAIL_F64_TOL = 1e-10        # … max |Δ| / max |·| against the CPU in float64
+TAIL_F32_TOL = 1e-4         # … and the card's float32 against it, ≈ 840 float32 round-offs (the CPU's float32 read
+                            # ≤ 9.1e-06, the cosine kernel's)
+TAIL_F32_ROOT_TOL = 4e-3    # … for the Wendland function of q = 0, (1 − r)^j, whose slope at r = 0 lifts the
+                            # round-off of a distance near 0 to its square root, ≈ 12 √ε (the CPU's float32 read 5.3e-04
+                            # on the streamed product, whose blocks keep that round-off on their diagonal)
+TAIL_F64_ROOT_TOL = 1e-7    # … and in float64, ≈ 7 √ε (an H100 read 2.6e-08 against the CPU: each side's expansion
+                            # leaves its own ≈ 1e-16 on those distances)
+TAIL_ROOT_KERNELS = ("piecewise_q0",)
+
 
 class SmokeFailure(Exception):
     pass
@@ -773,10 +831,11 @@ def build_periodic_model(train_x, train_y, device, dtype):
     return model.train()
 
 
-def train_settings(budget: float = PC_NOISE_BUDGET, honest: bool = False):
+def train_settings(budget: float = PC_NOISE_BUDGET, honest: bool = False, overrides=None):
     """bench.py's default training recipe (bench.py:103-209, no BENCH_* variable set), or
-    with ``honest`` its honest recipe's CG (tolerance 0.05, stall window 50); a float64 run
-    that is to match a float32 one takes ``budget=PC_NOISE_BUDGET_F64``."""
+    with ``honest`` its honest recipe's CG (tolerance 0.05, stall window 50); ``overrides``
+    ({setting name: value}) replaces some of its settings; a float64 run that is to match a
+    float32 one takes ``budget=PC_NOISE_BUDGET_F64``."""
     from gpytorch_tpu_torch import settings
 
     stack = contextlib.ExitStack()
@@ -798,6 +857,8 @@ def train_settings(budget: float = PC_NOISE_BUDGET, honest: bool = False):
     if honest:
         stack.enter_context(settings.cg_tolerance(HONEST_CG_TOL))
         stack.enter_context(settings.cg_stall_window(HONEST_STALL))
+    for name, value in (overrides or {}).items():
+        stack.enter_context(getattr(settings, name)(value))
     return stack
 
 
@@ -824,23 +885,23 @@ def make_periodic_optimizer(model):
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, cosine)
 
 
-def mll_loss(model, base_samples, state, budget: float = PC_NOISE_BUDGET, honest: bool = False):
+def mll_loss(model, base_samples, state, budget: float = PC_NOISE_BUDGET, honest: bool = False, overrides=None):
     """−MLL per datum (with the priors' log-densities, where the model has priors) by mBCG
     with the rhs-only warm state, under the training recipe; returns (loss, state)."""
     import gpytorch_tpu_torch as gt
 
     tx, ty = model.train_inputs[0], model.train_targets
-    with train_settings(budget, honest):
+    with train_settings(budget, honest, overrides):
         mll = gt.mlls.ExactMarginalLogLikelihood(model.likelihood, model)
         value, state = mll(model(tx), ty, base_samples=base_samples, solver_state=state, return_state=True)
     return -value, state
 
 
 def train_step(model, optimizer, scheduler, base_samples, state, budget: float = PC_NOISE_BUDGET,
-               honest: bool = False):
+               honest: bool = False, overrides=None):
     """One step of −MLL by mBCG with the rhs-only warm state; returns (loss, state)."""
     optimizer.zero_grad()
-    loss, state = mll_loss(model, base_samples, state, budget, honest)
+    loss, state = mll_loss(model, base_samples, state, budget, honest, overrides)
     loss.backward()
     optimizer.step()
     scheduler.step()
@@ -7361,6 +7422,389 @@ def phase_sparse_exact():
     return dict(sgpr=_sparse_run("sgpr"), rff=_sparse_run("rff"))
 
 
+
+def make_spectral_task(n_train: int, n_test: int, seed: int = 0):
+    """``make_periodic_task``'s daily profile without its weekend damping, the time column
+    alone as (n, 1), counted in readings (5 minutes: the spectral initialisers read frequencies
+    per unit of the input spacing, so that the daily cycle lies at 1/288).  Four mixtures cannot
+    represent the weekly amplitude modulation: on the CPU their week-ahead forecast of the
+    damped series read above the constant predictor's, even from the spectrum's exact lines."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_train + n_test) / 288.0
+    h = 24.0 * (t - np.floor(t))
+    f = np.exp(-(((h - 8.0) / 1.5) ** 2)) + 0.8 * np.exp(-(((h - 17.5) / 2.0) ** 2))
+    y = f + 0.1 * f.std() * rng.normal(size=t.shape)
+    y = (y - y.mean()) / y.std()
+    x = 288.0 * t[:, None]
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+
+
+def build_spectral_mixture_model(train_x, train_y, device, dtype):
+    """Phase 18's exact GP: ConstantMean, SpectralMixtureKernel(num_mixtures=SM_Q) initialised by
+    ``initialize_from_data_empspect`` (means drawn from the periodogram; GPyTorch's tutorial's
+    ``initialize_from_data`` puts them uniform up to the Nyquist rate, 144 cycles a day here,
+    where the float32 kernel is indefinite by 3e-3 of its largest eigenvalue and the
+    preconditioner's factor fails at the first step), and a GaussianLikelihood with noise ≥
+    NOISE_FLOOR (initial 0.1), on ``device`` in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    class SpectralMixtureGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMean()
+            self.covar_module = gt.kernels.SpectralMixtureKernel(num_mixtures=SM_Q)
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    tx, ty = (torch.as_tensor(a, dtype=dtype, device=device) for a in (train_x, train_y))
+    likelihood = gt.likelihoods.GaussianLikelihood(noise_constraint=gt.constraints.GreaterThan(NOISE_FLOOR))
+    model = SpectralMixtureGP(tx, ty, likelihood).to(device=device, dtype=dtype)
+    model.covar_module.initialize_from_data_empspect(train_x, train_y)
+    model.likelihood.noise = 0.1
+    return model.train()
+
+
+def make_derivative_task(n_train: int, n_test: int, seed: int = 0):
+    """``make_task``'s function f of d = D inputs with its analytic gradient: each of f and ∂_a f
+    with Gaussian noise of 0.1, all of them standardised by the values' mean and std, as
+    ``make_task`` standardises y; targets (n, D + 1) as [f, ∂₁f, …, ∂_D f]."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n_train + n_test, D))
+    a, b, c = x[:, 0], x[:, 1], x[:, 2]
+    f = np.sin(4 * a) * np.cos(3 * b) + 0.5 * np.sin(7 * c * a) + 0.1 * c
+    grad = np.stack([4 * np.cos(4 * a) * np.cos(3 * b) + 3.5 * c * np.cos(7 * c * a),
+                     -3 * np.sin(4 * a) * np.sin(3 * b), 3.5 * a * np.cos(7 * c * a) + 0.1], -1)
+    y = f + 0.1 * rng.normal(size=n_train + n_test)
+    grad = grad + 0.1 * rng.normal(size=grad.shape)
+    mean, std = y.mean(), y.std()
+    targets = np.concatenate([((y - mean) / std)[:, None], grad / std], -1)
+    return x[:n_train], targets[:n_train], x[n_train:], targets[n_train:]
+
+
+def build_derivative_model(train_x, train_y, device, dtype):
+    """Phase 18b's derivative GP (``tests/test_derivative_and_dspp.py:19-31``): ConstantMeanGrad,
+    ScaleKernel(RBFKernelGrad(ard_num_dims=D)) and MultitaskGaussianLikelihood(num_tasks=D + 1,
+    has_task_noise=False), returning a MultitaskMultivariateNormal, at bench.py's initial noise
+    0.1 and lengthscale 0.5, on ``device`` in train mode."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    class DerivativeGP(gt.models.ExactGP):
+        def __init__(self, x, y, likelihood):
+            super().__init__(x, y, likelihood)
+            self.mean_module = gt.means.ConstantMeanGrad()
+            self.covar_module = gt.kernels.ScaleKernel(gt.kernels.RBFKernelGrad(ard_num_dims=D))
+
+        def forward(self, x):
+            return gt.distributions.MultitaskMultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    tx, ty = (torch.as_tensor(a, dtype=dtype, device=device) for a in (train_x, train_y))
+    likelihood = gt.likelihoods.MultitaskGaussianLikelihood(num_tasks=D + 1, has_task_noise=False)
+    model = DerivativeGP(tx, ty, likelihood).to(device=device, dtype=dtype)
+    model.likelihood.noise = 0.1
+    model.covar_module.base_kernel.lengthscale = 0.5
+    return model.train()
+
+
+def _train_exact(tag, model, steps, dev, slow=(), slow_lr=None, overrides=None):
+    """``steps`` Adam steps (cosine 0.1 → 0.01, the parameters ``slow`` at ``slow_lr`` decayed
+    alike) of −MLL under bench.py's training recipe (``train_step``, with ``overrides`` of its
+    settings), the warm state carried; returns (losses, seconds, CG iterations) per step, each
+    step gated finite."""
+    import torch
+
+    rest = [p for p in model.parameters() if not any(p is q for q in slow)]
+    optimizer = torch.optim.Adam([{"params": rest, "lr": 0.1}] + ([{"params": list(slow), "lr": slow_lr}] if slow else []))
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda step: 0.1 + 0.9 * 0.5 * (1.0 + math.cos(math.pi * min(step, steps) / steps)))
+    generator = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    state = torch.zeros(model.train_targets.numel(), 1, dtype=model.train_targets.dtype, device=dev)
+    losses, times, iters = [], [], []
+    for step in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        loss, state = train_step(model, optimizer, scheduler, generator, state, overrides=overrides)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        iters.append(state.num_iters)
+        check(finite_step(loss, model), f"{tag} step {step}: non-finite loss or gradient")
+    return losses, times, iters
+
+
+def _loss_and_grad64(model, probes, pins, replay: bool):
+    """One float64 −MLL and its gradient in every raw parameter under bench.py's recipe with
+    CG run to 1e-10 (cold, no warm state), the probes injected and the preconditioner's pivots
+    recorded (``replay`` False) or followed."""
+    from gpytorch_tpu_torch import mlls, settings
+
+    model.zero_grad()
+    tx, ty = model.train_inputs[0], model.train_targets
+    with train_settings(PC_NOISE_BUDGET_F64), settings.cg_tolerance(1e-10), settings.max_cg_iterations(1000), \
+            settings.cg_stall_window(1000), settings.max_lanczos_quadrature_iterations(30), \
+            (pins.replay() if replay else pins.record()):
+        loss = -mlls.ExactMarginalLogLikelihood(model.likelihood, model)(model(tx), ty, base_samples=probes)
+    loss.backward()
+    return loss.item(), {name: p.grad.detach().cpu() for name, p in model.named_parameters()}
+
+
+def spectral_mixture_parity(n: int = SM_PARITY_N, device: str = "cuda"):
+    """Phase 18's float64 gate: the loss and gradient of the initialised model at N=``n`` on
+    ``device`` against the same call on the CPU (``_loss_and_grad64``: the same injected probes,
+    the CPU run's pivots), as (|Δloss| / |loss|, max |Δ∇| / max |∇|)."""
+    import torch
+
+    train_x, train_y, _, _ = make_spectral_task(n, 1)
+    pins, out = PinnedPivots(), []
+    for dev, replay in (("cpu", False), (device, True)):
+        model = build_spectral_mixture_model(train_x, train_y, dev, torch.float64)
+        out.append(_loss_and_grad64(model, InjectedProbes(0), pins, replay))
+    (l_ref, g_ref), (loss, grads) = out
+    scale = max(g.abs().max().item() for g in g_ref.values())
+    return abs(loss - l_ref) / abs(l_ref), max((grads[k] - g_ref[k]).abs().max().item() for k in g_ref) / scale
+
+
+def phase_spectral_mixture(n: int = SM_N, n_test: int = SM_TEST, steps: int = SM_STEPS, device: str = "cuda"):
+    """Phase 18: a spectral-mixture forecast (``build_spectral_mixture_model``) on
+    ``make_spectral_task``'s readings: N=``n`` training readings (SM_N, 56 days; the chunked
+    backward keeps every block's graph, ≈ Q × N² × 4 bytes a few times over, so N=100k does not
+    fit), ``steps`` Adam steps of bench.py's recipe (63 probes, the rank-50 preconditioner, cosine
+    Adam; SM_SETTINGS replaced, the mixture means at SM_MEAN_LR), K·V streaming through
+    ``_matmul_chunked`` and the preconditioner through ``_get_rows``;
+    then a refresh (mean cache and LOVE) and the forecast of the next ``n_test`` readings.  Prints
+    ms a step, CG iterations, peak memory, refresh_s, request_ms, RMSE and NLPD.  Gates: finite
+    losses and gradients, the last 5 losses below the first 5, the forecast RMSE below the
+    constant predictor's, no launch of the five kernel wrappers, and (on the card) the float64
+    loss and gradient at SM_PARITY_N against the CPU within SM_PARITY_TOL.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_spectral_mixture()'``."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    train_x, train_y, test_x, test_y = make_spectral_task(n, n_test)
+    constant_rmse = float(np.sqrt(np.mean((test_y - train_y.mean()) ** 2)))
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build_spectral_mixture_model(train_x, train_y, device, torch.float32)
+    losses, times, iters = _train_exact("spectral mixture", model, steps, device,
+                                        slow=[model.covar_module.raw_mixture_means], slow_lr=SM_MEAN_LR,
+                                        overrides=SM_SETTINGS)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    model.eval()
+    sx = torch.as_tensor(test_x, dtype=torch.float32, device=device)
+    with eval_settings():
+        cg, refresh_s, answers = serve(model, sx, device, [slice(0, n_test)])
+    _, mean, var, request_s = answers[0]
+    sy = torch.as_tensor(test_y, dtype=torch.float32, device=device)
+    rmse = (mean - sy).square().mean().sqrt().item()
+    nlpd = marginal_nlpd(mean, var, sy, model.likelihood.noise.reshape(-1)[0])
+    launched = tuple(w.launches for w in wrappers)
+    ms = sorted(1e3 * t_ for t_ in times[1:])
+    median = ms[(len(ms) - 1) // 2]
+    kernel = model.covar_module
+    print(f"[spectral mixture] Q={SM_Q} at N={n} (d=1, in readings), {steps} steps: median {median:.1f} ms/step (range "
+          f"{ms[0]:.1f} to {ms[-1]:.1f}, first {times[0]:.3f} s); CG iterations {iters}; loss {losses[0]:.5f} → "
+          f"{losses[-1]:.5f}; peak device memory {peak / 2**20:.1f} MiB; refresh_s {refresh_s:.3f} (CG "
+          f"{None if cg is None else cg.num_iters}), request_ms {request_s * 1e3:.2f} ({n_test} points); forecast rmse "
+          f"{rmse:.4f} (the constant predictor's {constant_rmse:.4f}), nlpd {nlpd:.4f}; means "
+          f"{[round(288 * v, 4) for v in kernel.mixture_means.reshape(-1).tolist()]} cycles a day, scales "
+          f"{[round(288 * v, 4) for v in kernel.mixture_scales.reshape(-1).tolist()]}, weights "
+          f"{[round(v, 4) for v in kernel.mixture_weights.reshape(-1).tolist()]}; launches {launched} (none expected: "
+          f"no TPU kernel on this path); {nvidia_smi() if device == 'cuda' else device}", flush=True)
+    check(sum(losses[-5:]) < sum(losses[:5]), f"spectral mixture: the loss did not fall: {losses}")
+    check(bool(torch.isfinite(mean).all()) and bool((var > 0).all()), "spectral mixture: predictions not finite")
+    check(rmse < constant_rmse, f"spectral mixture: rmse {rmse:.4f} not below the constant predictor's")
+    check(launched == (0,) * 5, f"spectral mixture launched {launched}")
+    out = dict(median_ms=median, iters=iters, peak=peak, refresh_s=refresh_s, request_ms=request_s * 1e3, rmse=rmse,
+               nlpd=nlpd, launches=launched)
+    del model, mean, var, answers
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        gaps = spectral_mixture_parity()
+        print(f"[spectral mixture] float64 at N={SM_PARITY_N}, CUDA against CPU (injected probes, pinned pivots, CG "
+              f"at 1e-10): loss {gaps[0]:.3e}, gradient {gaps[1]:.3e} (tol {SM_PARITY_TOL})", flush=True)
+        check(max(gaps) <= SM_PARITY_TOL, f"spectral mixture: float64 CUDA against CPU {gaps}")
+        out["parity"] = gaps
+    return out
+
+
+def phase_derivative_gp(n: int = DER_N, n_test: int = DER_TEST, steps: int = DER_STEPS, device: str = "cuda"):
+    """Phase 18b: a derivative GP (``build_derivative_model``) on ``make_derivative_task``'s
+    values and gradients at n inputs (n·(D + 1) observations: DER_N gives 8,192, on the CG path
+    with the preconditioner, whose rows come from ``_get_rows`` of the lazy grad-kernel
+    operator, each product evaluating the kernel's blocks), ``steps`` Adam steps of bench.py's
+    recipe, then the ``n_test`` test inputs served (mean cache and LOVE).  Prints ms a step, CG
+    iterations, peak memory, the value RMSE and the gradient RMSE (the mean over the D partial
+    derivatives).  Gates: finite values, the last 5 losses below the first 5, both RMSEs below
+    the constant predictor's, no launch of the five kernel wrappers.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_derivative_gp()'``."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    train_x, train_y, test_x, test_y = make_derivative_task(n, n_test)
+    constant = np.sqrt(np.mean((test_y - train_y.mean(0)) ** 2, axis=0))
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build_derivative_model(train_x, train_y, device, torch.float32)
+    losses, times, iters = _train_exact("derivative gp", model, steps, device)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    model.eval()
+    sx = torch.as_tensor(test_x, dtype=torch.float32, device=device)
+    with eval_settings():
+        cg, refresh_s, answers = serve(model, sx, device, [slice(0, n_test)])
+    _, mean, var, request_s = answers[0]
+    err = (mean.double().cpu().numpy() - test_y) ** 2
+    rmse = np.sqrt(err.mean(0))
+    value_rmse, grad_rmse = float(rmse[0]), float(rmse[1:].mean())
+    launched = tuple(w.launches for w in wrappers)
+    ms = sorted(1e3 * t_ for t_ in times[1:])
+    median = ms[(len(ms) - 1) // 2]
+    print(f"[derivative gp] n={n}, d={D} ({n * (D + 1)} observations), {steps} steps: median {median:.1f} ms/step (range "
+          f"{ms[0]:.1f} to {ms[-1]:.1f}, first {times[0]:.3f} s); CG iterations {iters}; loss {losses[0]:.5f} → "
+          f"{losses[-1]:.5f}; peak device memory {peak / 2**20:.1f} MiB; refresh_s {refresh_s:.3f} (CG "
+          f"{None if cg is None else cg.num_iters}), request_ms {request_s * 1e3:.2f} ({n_test} points); value rmse "
+          f"{value_rmse:.4f} (constant {constant[0]:.4f}), gradient rmse {grad_rmse:.4f} (constant "
+          f"{constant[1:].mean():.4f}; per dimension {[round(float(r), 4) for r in rmse[1:]]}); launches {launched} (none "
+          f"expected: no TPU kernel on this path); {nvidia_smi() if device == 'cuda' else device}", flush=True)
+    check(sum(losses[-5:]) < sum(losses[:5]), f"derivative gp: the loss did not fall: {losses}")
+    check(bool(torch.isfinite(mean).all()) and bool((var > 0).all()), "derivative gp: predictions not finite")
+    check(value_rmse < constant[0], f"derivative gp: value rmse {value_rmse:.4f} not below the constant predictor's")
+    check(grad_rmse < constant[1:].mean(), f"derivative gp: gradient rmse {grad_rmse:.4f} not below the constant "
+                                           f"predictor's")
+    check(launched == (0,) * 5, f"derivative gp launched {launched}")
+    return dict(median_ms=median, iters=iters, peak=peak, refresh_s=refresh_s, request_ms=request_s * 1e3,
+                value_rmse=value_rmse, grad_rmse=grad_rmse, launches=launched)
+
+
+def _tail_modules():
+    """Phase 18c's kernels and means by name: (a constructor, the kind of inputs)."""
+    import gpytorch_tpu_torch as gt
+
+    k, m = gt.kernels, gt.means
+    return {
+        "rq": (lambda: k.RQKernel(ard_num_dims=D), "cube"),
+        "cosine": (lambda: k.CosineKernel(), "cube"),
+        "linear": (lambda: k.LinearKernel(), "cube"),
+        "polynomial": (lambda: k.PolynomialKernel(power=3), "cube"),
+        **{f"piecewise_q{q}": ((lambda q=q: k.PiecewisePolynomialKernel(q=q, ard_num_dims=D)), "cube") for q in range(4)},
+        "spectral_mixture": (lambda: k.SpectralMixtureKernel(num_mixtures=4, ard_num_dims=D), "cube"),
+        "spectral_delta": (lambda: k.SpectralDeltaKernel(num_dims=D, num_deltas=16), "cube"),
+        "constant": (lambda: k.ConstantKernel(), "cube"),
+        "arc": (lambda: k.ArcKernel(k.RBFKernel(), ard_num_dims=D), "cube"),
+        "cylindrical": (lambda: k.CylindricalKernel(4, k.RBFKernel()), "cube"),
+        "gibbs": (lambda: k.GibbsKernel(), "cube"),
+        "hamming": (lambda: k.HammingIMQKernel(vocab_size=TAIL_VOCAB), "one_hot"),
+        "spherical_linear": (lambda: k.SphericalLinearKernel(), "cube"),
+        "gaussian_kl": (lambda: k.GaussianSymmetrizedKLKernel(), "gaussians"),
+        "rbf_grad": (lambda: k.ScaleKernel(k.RBFKernelGrad(ard_num_dims=D)), "cube"),
+        "rbf_gradgrad": (lambda: k.RBFKernelGradGrad(ard_num_dims=D), "cube"),
+        "matern52_grad": (lambda: k.Matern52KernelGrad(ard_num_dims=D), "cube"),
+        "polynomial_grad": (lambda: k.PolynomialKernelGrad(power=3), "cube"),
+        "zero_mean": (lambda: m.ZeroMean(), "cube"),
+        "constant_mean_grad": (lambda: m.ConstantMeanGrad(), "cube"),
+        "constant_mean_gradgrad": (lambda: m.ConstantMeanGradGrad(), "cube"),
+        "linear_mean_grad": (lambda: m.LinearMeanGrad(D), "cube"),
+        "linear_mean_gradgrad": (lambda: m.LinearMeanGradGrad(D), "cube"),
+    }
+
+
+def _tail_inputs(kind: str, n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "one_hot":
+        return np.eye(TAIL_VOCAB)[rng.integers(TAIL_VOCAB, size=(n, TAIL_LENGTH))].reshape(n, -1)
+    if kind == "gaussians":  # means, then log-variances
+        return np.concatenate([rng.normal(size=(n, D)), 0.5 * rng.normal(size=(n, D))], -1)
+    return rng.uniform(-1, 1, size=(n, D))
+
+
+def _tail_module(build, device, dtype):
+    """A module from ``build`` with its raw parameters moved off zero by a seeded draw (the same
+    on every device and dtype), on ``device`` in ``dtype``."""
+    import torch
+
+    module = build().double()
+    rng = np.random.default_rng(TAIL_SEED)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(torch.as_tensor(0.3 * rng.normal(size=tuple(p.shape))))
+    return module.to(device=device, dtype=dtype)
+
+
+def _tail_readings(name, build, kind, device, dtype):
+    """The kernel's matrix of TAIL_N × TAIL_M inputs, its symmetric diagonal and its product
+    with TAIL_COLS columns on TAIL_PRODUCT_N inputs (above max_eager_kernel_size²: the lazy
+    operator's ``_matmul_chunked``), or a mean's values, as float64 CPU tensors."""
+    import torch
+
+    module = _tail_module(build, device, dtype)
+    x1, x2, xp = (torch.as_tensor(_tail_inputs(kind, n, s), dtype=dtype, device=device)
+                  for n, s in ((TAIL_N, 0), (TAIL_M, 1), (TAIL_PRODUCT_N, 2)))
+    with torch.no_grad():
+        if not hasattr(module, "num_outputs_per_input"):  # a mean
+            return {"values": module(x1).double().cpu()}
+        op = module(xp)
+        check(op._is_big(), f"kernel tail {name}: the product is not above max_eager_kernel_size²")
+        v = torch.as_tensor(np.random.default_rng(3).normal(size=(op.shape[-1], TAIL_COLS)), dtype=dtype,
+                            device=device)
+        return {"dense": module(x1, x2).to_dense().double().cpu(), "diag": module(x1, diag=True).double().cpu(),
+                "product": op.matmul(v).double().cpu()}
+
+
+def phase_kernel_tail(device: str = "cuda"):
+    """Phase 18c: every kernel and mean of the long tail (``_tail_modules``; raw parameters moved
+    off zero by a seeded draw) on inputs made on ``device``, in float32 and float64: the matrix
+    of TAIL_N × TAIL_M inputs, the diagonal, and the symmetric product on TAIL_PRODUCT_N inputs
+    above max_eager_kernel_size² (``_matmul_chunked``; for the linear and spectral-delta kernels
+    their root's products), each against the same module on the CPU in float64, as max |Δ| /
+    max |·|.  Gates: float64 within TAIL_F64_TOL, float32 within TAIL_F32_TOL (TAIL_F64_ROOT_TOL
+    and TAIL_F32_ROOT_TOL for TAIL_ROOT_KERNELS), no launch of the five kernel wrappers.  Alone: ``python3 -c 'import chip_smoke; chip_smoke.phase_kernel_tail()'``."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    rows, failed = [], []
+    for name, (build, kind) in _tail_modules().items():
+        ref = _tail_readings(name, build, kind, "cpu", torch.float64)
+        gaps = []
+        root = name in TAIL_ROOT_KERNELS
+        for dtype, tol in ((torch.float64, TAIL_F64_ROOT_TOL if root else TAIL_F64_TOL),
+                           (torch.float32, TAIL_F32_ROOT_TOL if root else TAIL_F32_TOL)):
+            got = _tail_readings(name, build, kind, device, dtype)
+            gap = max((got[k] - ref[k]).abs().max().item() / max(ref[k].abs().max().item(), 1e-300) for k in ref)
+            gaps.append(gap)
+            if not gap <= tol:
+                failed.append(f"{name} {dtype}: {gap:.3e} (tol {tol})")
+        rows.append((name, *gaps))
+    launched = tuple(w.launches for w in wrappers)
+    print(f"[kernel tail] {len(rows)} modules, max |Δ| / max |·| against the CPU in float64 (float64/float32 on "
+          f"{device}; tol {TAIL_F64_TOL}/{TAIL_F32_TOL}, {TAIL_F64_ROOT_TOL}/{TAIL_F32_ROOT_TOL} for "
+          f"{', '.join(TAIL_ROOT_KERNELS)}): "
+          f"{'; '.join(f'{n} {a:.1e}/{b:.1e}' for n, a, b in rows)}; {time.perf_counter() - t0:.1f} s; launches "
+          f"{launched} (none expected)", flush=True)
+    check(not failed, f"kernel tail: {failed}")
+    check(launched == (0,) * 5, f"kernel tail launched {launched}")
+    plain = [r for r in rows if r[0] not in TAIL_ROOT_KERNELS]
+    return dict(worst64=max(r[1] for r in plain), worst32=max(r[2] for r in plain), launches=launched)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -7417,6 +7861,9 @@ def main() -> int:
         large_batch = phase_large_batch()
         decoupled = phase_decoupled()
         sparse = phase_sparse_exact()
+        spectral = phase_spectral_mixture()
+        derivative = phase_derivative_gp()
+        tail = phase_kernel_tail()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -7433,10 +7880,11 @@ def main() -> int:
                "ciq": ciq["launches"][0] + ciq["serve_launches"][0], "classification": 0,
                "online conditioning": ovc["launches"], "dspp": 0, "vnngp": 0, "lmc": lmc["launches"],
                "grid svgp": grid["additive"]["launches"] + grid["grid2d"]["launches"], "large batch": 0,
-               "decoupled": decoupled["orthogonal"]["launches"] + decoupled["batch"]["launches"], "sgpr": 0, "rff": 0}
+               "decoupled": decoupled["orthogonal"]["launches"] + decoupled["batch"]["launches"], "sgpr": 0, "rff": 0,
+               "spectral mixture": spectral["launches"][0], "derivative gp": derivative["launches"][0]}
     print(f"[report] kernel_matvec launches by path: {by_path} (kissgp, wiski, multitask, svgp, deep gp, multitask "
-          f"fantasy, structure, classification, dspp, vnngp, lmc, large batch, sgpr and rff: none expected, no TPU "
-          f"kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
+          f"fantasy, structure, classification, dspp, vnngp, lmc, large batch, sgpr, rff, spectral mixture and derivative gp: "
+          f"none expected, no TPU kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
           f"N={N_TRAIN}) dirichlet_step_ms {dirichlet['median_ms']:.1f}, CG {sum(dirichlet['iters'])} iterations in "
           f"{DIR_STEPS} steps, each class alone at the refresh {dirichlet['per_class_iters']}, refresh_s "
           f"{dirichlet['refresh_s']:.3f}, request_ms {dirichlet['request_ms']:.2f}, accuracy {dirichlet['accuracy']:.4f} "
@@ -7473,6 +7921,14 @@ def main() -> int:
           f"decoupled orthogonal step {decoupled['orthogonal']['step_ms']:.3f} ms, batch "
           f"{decoupled['batch']['step_ms']:.3f} ms; sgpr step {sparse['sgpr']['step_ms']:.1f} ms, rmse "
           f"{sparse['sgpr']['rmse']:.4f}; rff step {sparse['rff']['step_ms']:.1f} ms, rmse {sparse['rff']['rmse']:.4f}; "
+          f"spectral mixture (Q={SM_Q}, N={SM_N}) {spectral['median_ms']:.1f} ms/step, CG {sum(spectral['iters'])} "
+          f"iterations in {SM_STEPS} steps, peak {spectral['peak'] / 2**20:.1f} MiB, refresh_s {spectral['refresh_s']:.3f}, "
+          f"request_ms {spectral['request_ms']:.2f}, forecast rmse {spectral['rmse']:.4f}, nlpd {spectral['nlpd']:.4f}; "
+          f"derivative gp (n={DER_N}, {DER_N * (D + 1)} observations) {derivative['median_ms']:.1f} ms/step, CG "
+          f"{sum(derivative['iters'])} iterations in {DER_STEPS} steps, peak {derivative['peak'] / 2**20:.1f} MiB, value "
+          f"rmse {derivative['value_rmse']:.4f}, gradient rmse {derivative['grad_rmse']:.4f}; kernel tail worst (q = 0 aside) "
+          f"float64 "
+          f"{tail['worst64']:.2e}, float32 {tail['worst32']:.2e}; "
           f"whole script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):

@@ -1,3 +1,3 @@
-from .constraints import GreaterThan, Interval, Positive
+from .constraints import GreaterThan, Interval, LessThan, Positive
 
-__all__ = ["GreaterThan", "Interval", "Positive"]
+__all__ = ["GreaterThan", "Interval", "LessThan", "Positive"]

@@ -7,6 +7,8 @@ constraint's ``transform``; setting a constrained value goes through ``inverse_t
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -65,3 +67,24 @@ class Interval:
 
     def __repr__(self):
         return f"{type(self).__name__}({self.lower_bound:.3E}, {self.upper_bound:.3E})"
+
+
+class LessThan(Interval):
+    """value = upper − softplus(−raw), unbounded below; the upper bound is the first
+    argument (``gpytorch_tpu/constraints/constraints.py:91``)."""
+
+    def __init__(self, upper_bound: float = math.inf):
+        super().__init__(-math.inf, upper_bound)
+
+    def transform(self, raw: torch.Tensor) -> torch.Tensor:
+        return self.upper_bound - F.softplus(-raw)
+
+    def inverse_transform(self, value: torch.Tensor) -> torch.Tensor:
+        return -inv_softplus(self.upper_bound - value)
+
+    def intersect(self, other) -> Interval:
+        """The tighter bounds of the two: a ``LessThan`` while unbounded below, else an
+        ``Interval`` (``gpytorch_tpu/constraints/constraints.py:97-103``)."""
+        lower = max(self.lower_bound, other.lower_bound)
+        upper = min(self.upper_bound, getattr(other, "upper_bound", math.inf))
+        return LessThan(upper) if lower == -math.inf else Interval(lower, upper)

@@ -1,4 +1,4 @@
-"""ScaleKernel: outputscale · base kernel.
+"""ScaleKernel: outputscale · base kernel; ConstantKernel: k = c.
 
 Counterpart of ``gpytorch_tpu/kernels/scale_kernel.py``.  In the fused matvec the
 outputscale is an operand of its own (``fused_scaled_kernel_matvec``), so that its
@@ -51,5 +51,43 @@ class ScaleKernel(Kernel):
         # the base first: a structured operator (a grid kernel's) takes the product
         return self.base_kernel.evaluate(base, x1, x2, diag=diag, **kwargs) * outputscale
 
+    def num_outputs_per_input(self, x1, x2) -> int:
+        return self.base_kernel.num_outputs_per_input(x1, x2)
+
     def prediction_strategy(self, *args, **kwargs):
         return self.base_kernel.prediction_strategy(*args, **kwargs)
+
+
+class ConstantKernel(Kernel):
+    """k(x, x') = c, with c in ``raw_constant`` of shape batch + (1,)."""
+
+    def __init__(self, constant_prior=None, constant_constraint=None, **kwargs):
+        super().__init__(**kwargs)
+        self.register_parameter("raw_constant", torch.nn.Parameter(torch.zeros(self.batch_shape + (1,))))
+        self.register_constraint("raw_constant", constant_constraint or Positive())
+        if constant_prior is not None:
+            self.register_prior("constant_prior", constant_prior, lambda m: m.constant,
+                                lambda m, v: m._set_constrained("raw_constant", v))
+
+    @property
+    def constant(self) -> torch.Tensor:
+        return self._constrained("raw_constant")
+
+    @constant.setter
+    def constant(self, value) -> None:
+        self._set_constrained("raw_constant", value)
+
+    def hypers(self):
+        return {"constant": self.constant}
+
+    def evaluate(self, hypers, x1, x2, diag: bool = False, last_dim_is_batch: bool = False):
+        """c broadcast to the matrix (its diagonal) of the inputs' and the kernel's batch."""
+        c = hypers["constant"]
+        tail = 1 if diag else 2
+        if last_dim_is_batch:
+            shape = x1.shape[:-2] + (x1.shape[-1], x1.shape[-2]) + (() if diag else (x2.shape[-2],))
+        else:
+            shape = torch.broadcast_shapes(x1.shape[:-2], x2.shape[:-2]) + x1.shape[-2:-1] + (() if diag else
+                                                                                              x2.shape[-2:-1])
+        shape = tuple(torch.broadcast_shapes(self.batch_shape, shape[:len(shape) - tail])) + tuple(shape[-tail:])
+        return c.reshape(c.shape[:-1] + (1,) * (len(shape) - c.ndim + 1)).expand(shape)

@@ -1,10 +1,11 @@
-"""Stationary kernels with (ARD) lengthscales: RBF, Matérn and periodic.
+"""Stationary kernels: RBF, Matérn, periodic, rational quadratic and cosine.
 
-Counterpart of ``RBFKernel``, ``MaternKernel`` and ``PeriodicKernel`` in
-``gpytorch_tpu/kernels/stationary.py``.  Each maps onto its fused kernel product
-(``ops/fused_kernels.py``, ``ops/periodic_kernels.py``) whenever K is too large to evaluate
-densely.  With ``last_dim_is_batch`` each evaluates one matrix per input dimension,
-(…, d, n, m), from the inputs scaled as usual (``_last_dim_batch``).
+Counterpart of ``gpytorch_tpu/kernels/stationary.py``.  RBF, Matérn and periodic map onto
+their fused kernel products (``ops/fused_kernels.py``, ``ops/periodic_kernels.py``)
+whenever K is too large to evaluate densely; RQ and cosine have none, in either package,
+and stream through the lazy operator's blocks of rows (``_matmul_chunked``).  With
+``last_dim_is_batch`` each evaluates one matrix per input dimension, (…, d, n, m), from
+the inputs scaled as usual (``_last_dim_batch``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ..constraints import Positive
 from ..ops.fused_kernels import _kernel_fn, kernel_type_for
+from ..ops.sq_dist import sq_dist
 from .kernel import Kernel
 
 
@@ -23,6 +25,35 @@ def _last_dim_batch(x1, x2, last_dim_is_batch: bool):
     if last_dim_is_batch:
         return x1.mT.unsqueeze(-1), x2.mT.unsqueeze(-1)
     return x1, x2
+
+
+def _dist(x1, x2, diag: bool = False):
+    """Pairwise distances, floored under the square root at 1e-30 as the JAX package's
+    ``covar_dist`` floors them; on one input (``x1 is x2``) the diagonal is exactly 0, as
+    the JAX package's ``dist`` makes it: the expansion's round-off there, ≈ 1e-16 of the
+    squared norms, would be ≈ 1e-8 under the square root."""
+    if diag:
+        return torch.sqrt(torch.clamp_min(((x1 - x2) ** 2).sum(-1), 1e-30))
+    r = torch.sqrt(torch.clamp_min(sq_dist(x1, x2), 1e-30))
+    if x1 is x2:
+        r = r.masked_fill(torch.eye(r.shape[-1], dtype=torch.bool, device=r.device), 0.0)
+    return r
+
+
+def _divided(x1, x2, scale):
+    """(x1 / scale, x2 / scale), one tensor twice where x1 is x2."""
+    a = x1 / scale
+    return a, a if x2 is x1 else x2 / scale
+
+
+def _positive_parameter(module, name: str, shape, prior=None, constraint=None) -> None:
+    """Register the raw parameter ``raw_<name>`` of ``shape`` (zeros) behind ``constraint``
+    (``Positive`` by default), with ``prior`` on its constrained value as ``<name>_prior``."""
+    module.register_parameter(f"raw_{name}", torch.nn.Parameter(torch.zeros(shape)))
+    module.register_constraint(f"raw_{name}", constraint or Positive())
+    if prior is not None:
+        module.register_prior(f"{name}_prior", prior, lambda m: m._constrained(f"raw_{name}"),
+                              lambda m, v: m._set_constrained(f"raw_{name}", v))
 
 
 class RBFKernel(Kernel):
@@ -64,11 +95,8 @@ class PeriodicKernel(Kernel):
     def __init__(self, period_length_prior=None, period_length_constraint=None, **kwargs):
         super().__init__(**kwargs)
         num_dims = 1 if self.ard_num_dims is None else self.ard_num_dims
-        self.register_parameter("raw_period_length", torch.nn.Parameter(torch.zeros(self.batch_shape + (1, num_dims))))
-        self.register_constraint("raw_period_length", period_length_constraint or Positive())
-        if period_length_prior is not None:
-            self.register_prior("period_length_prior", period_length_prior, lambda m: m.period_length,
-                                lambda m, v: m._set_constrained("raw_period_length", v))
+        _positive_parameter(self, "period_length", self.batch_shape + (1, num_dims), period_length_prior,
+                            period_length_constraint)
 
     @property
     def period_length(self) -> torch.Tensor:
@@ -98,3 +126,57 @@ class PeriodicKernel(Kernel):
         inv_l2 = 1.0 / (ls if diag else ls.unsqueeze(-2)) ** 2
         sin2 = torch.sin(math.pi * diff) ** 2
         return torch.exp(-2.0 * (sin2 * inv_l2).sum(-1))
+
+
+class RQKernel(Kernel):
+    """Rational quadratic: k = (1 + ‖(x−x')/ℓ‖² / 2α)^(−α), with α in ``raw_alpha`` of shape
+    batch + (1,)."""
+
+    has_lengthscale = True
+
+    def __init__(self, alpha_constraint=None, **kwargs):
+        super().__init__(**kwargs)
+        _positive_parameter(self, "alpha", self.batch_shape + (1,), constraint=alpha_constraint)
+
+    @property
+    def alpha(self) -> torch.Tensor:
+        return self._constrained("raw_alpha")
+
+    @alpha.setter
+    def alpha(self, value) -> None:
+        self._set_constrained("raw_alpha", value)
+
+    def hypers(self):
+        return {**super().hypers(), "alpha": self.alpha}
+
+    def evaluate(self, hypers, x1, x2, diag: bool = False, last_dim_is_batch: bool = False):
+        ls, alpha = hypers["lengthscale"], hypers["alpha"]
+        x1, x2 = _last_dim_batch(x1 / ls, x2 / ls, last_dim_is_batch)
+        d2 = self.covar_dist(x1, x2, diag=diag)
+        alpha = alpha.reshape(alpha.shape + (1,) * (d2.ndim - len(self.batch_shape) - 1))
+        return torch.pow(1.0 + d2 / (2.0 * alpha), -alpha)
+
+
+class CosineKernel(Kernel):
+    """k = cos(2π ‖x − x'‖ / p), with one period p in ``raw_period_length`` of shape
+    batch + (1, 1)."""
+
+    def __init__(self, period_length_prior=None, period_length_constraint=None, **kwargs):
+        super().__init__(**kwargs)
+        _positive_parameter(self, "period_length", self.batch_shape + (1, 1), period_length_prior,
+                            period_length_constraint)
+
+    @property
+    def period_length(self) -> torch.Tensor:
+        return self._constrained("raw_period_length")
+
+    @period_length.setter
+    def period_length(self, value) -> None:
+        self._set_constrained("raw_period_length", value)
+
+    def hypers(self):
+        return {"period_length": self.period_length}
+
+    def evaluate(self, hypers, x1, x2, diag: bool = False, last_dim_is_batch: bool = False):
+        x1, x2 = _last_dim_batch(*_divided(x1, x2, hypers["period_length"]), last_dim_is_batch)
+        return torch.cos(2.0 * math.pi * _dist(x1, x2, diag))

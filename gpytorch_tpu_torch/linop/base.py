@@ -105,6 +105,13 @@ class LinearOperator:
         forming the matrix."""
         return self.to_dense()[rows, cols]
 
+    def __getitem__(self, index) -> "LinearOperator":
+        """The dense matrix indexed, as a ``DenseLinearOperator``
+        (``gpytorch_tpu/linop/base.py:447-448``); operators that can index their own
+        structure (a lazy kernel's inputs, an interpolation's rows) override it for the
+        indices they take."""
+        return DenseLinearOperator(self.to_dense()[index])
+
     # -- products and arithmetic --------------------------------------------------------
     def matmul(self, rhs: torch.Tensor) -> torch.Tensor:
         if rhs.ndim == 1:
@@ -422,6 +429,13 @@ class DenseLinearOperator(LinearOperator):
 
 def to_linear_operator(obj) -> LinearOperator:
     return obj if isinstance(obj, LinearOperator) else DenseLinearOperator(obj)
+
+
+def two_slices(index) -> bool:
+    """Whether ``index`` is ``[rows, cols]`` or ``[..., rows, cols]`` with two slices: the
+    index that a structured operator takes on its own structure."""
+    return isinstance(index, tuple) and (len(index) == 2 or (len(index) == 3 and index[0] is Ellipsis)) and \
+        isinstance(index[-2], slice) and isinstance(index[-1], slice)
 
 
 def _take_rows(dense: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.interp import dense_t, left_interp, left_t_interp
-from .base import LinearOperator, to_linear_operator
+from .base import LinearOperator, to_linear_operator, two_slices
 
 # rows of W per block of the dense product W (K Wᵀ)
 _ROWS = 2048
@@ -121,12 +121,11 @@ class InterpolatedLinearOperator(LinearOperator):
 
     def __getitem__(self, index):
         """``op[rows, cols]`` or ``op[..., rows, cols]`` with two slices: the interpolation
-        rows, not the base."""
-        if not isinstance(index, tuple) or index[:-2] not in ((), (Ellipsis,)):
-            raise NotImplementedError("only (..., slice, slice) indexing is ported")
+        rows, not the base; any other index from the dense matrix, as the JAX package
+        indexes it (``gpytorch_tpu/linop/interpolated.py:95-105``)."""
+        if not two_slices(index):
+            return super().__getitem__(index)
         row_ix, col_ix = index[-2:]
-        if not (isinstance(row_ix, slice) and isinstance(col_ix, slice)):
-            raise NotImplementedError("only (..., slice, slice) indexing is ported")
         return InterpolatedLinearOperator(self.base, self.left_interp_indices[..., row_ix, :],
                                           self.left_interp_values[..., row_ix, :],
                                           self.right_interp_indices[..., col_ix, :],

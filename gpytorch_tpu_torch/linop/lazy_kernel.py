@@ -35,7 +35,7 @@ from typing import Dict, Optional
 import torch
 
 from .. import settings
-from .base import DenseLinearOperator, LinearOperator, to_linear_operator
+from .base import DenseLinearOperator, LinearOperator, to_linear_operator, two_slices
 
 # rows of x1 per block of the streamed product (``gpytorch_tpu/linop/lazy_kernel.py:24``)
 _CHUNK = 4096
@@ -146,13 +146,26 @@ class LazyEvaluatedKernelOperator(LinearOperator):
 
     def _get_rows(self, idx):
         """Rows K[..., idx, :] from the rows of x1 they stand for: per batch element
-        (``gpytorch_tpu/linop/lazy_kernel.py:268-279``) for idx of shape batch + (m,)."""
+        (``gpytorch_tpu/linop/lazy_kernel.py:268-279``) for idx of shape batch + (m,).
+
+        With t = ``num_outputs_per_input`` > 1 (a derivative kernel's [f, ∂₁f, …] of each
+        input) row i of K is output i mod t of input i // t: the kernel is evaluated on
+        those inputs, t rows each, and row i mod t of each block is kept.  These are the
+        dense matrix's rows, which the JAX package takes from the whole dense matrix
+        (``gpytorch_tpu/linop/lazy_kernel.py:268-271``): each entry of a block depends on
+        its pair of inputs alone."""
         if self._structured() or self.last_dim_is_batch:
             return self.evaluate_kernel()._get_rows(idx)
-        batch = self.batch_shape
+        batch, num = self.batch_shape, self._num_outputs()
+        idx = idx.expand(batch + idx.shape[-1:])
         x1 = self.x1.expand(batch + self.x1.shape[-2:])
-        rows = torch.take_along_dim(x1, idx.expand(batch + idx.shape[-1:]).unsqueeze(-1), dim=-2)
-        return self._evaluate(rows, self.x2)
+        rows = torch.take_along_dim(x1, torch.div(idx, num, rounding_mode="floor").unsqueeze(-1), dim=-2)
+        res = self._evaluate(rows, self.x2)
+        res = res.to_dense() if isinstance(res, LinearOperator) else res
+        if num == 1:
+            return res
+        blocks = res.reshape(res.shape[:-2] + (idx.shape[-1], num, res.shape[-1]))
+        return torch.take_along_dim(blocks, (idx % num)[..., None, None], dim=-2).squeeze(-2)
 
     def _dense_products(self) -> bool:
         return self._structured() or self.last_dim_is_batch or not self._is_big()
@@ -246,7 +259,15 @@ class LazyEvaluatedKernelOperator(LinearOperator):
         """K·rhs streamed by blocks of ``_CHUNK`` rows of x1, each block evaluated densely
         (``gpytorch_tpu/linop/lazy_kernel.py:237-260``): for kernels with no fused product,
         and for a right-hand side whose batch shape is not the operator's.  Differentiable
-        through each block."""
+        through each block.
+
+        A kernel with t = ``num_outputs_per_input`` > 1 streams alike: a block of inputs
+        gives its t rows each, in the matrix's order.  The JAX package means to multiply
+        such a kernel by its dense matrix, but goes through ``evaluate_kernel``, which
+        returns the lazy operator itself above ``max_eager_kernel_size``, so that its
+        product calls itself until Python's recursion limit (``lazy_kernel.py:239-241``,
+        ``:69-70``); here each block is evaluated by the kernel directly and cannot
+        recurse."""
         n = self.x1.shape[-2]
         blocks = [to_linear_operator(self._evaluate(self.x1[..., i:i + _CHUNK, :], self.x2))._matmul(rhs)
                   for i in range(0, n, _CHUNK)]
@@ -255,13 +276,12 @@ class LazyEvaluatedKernelOperator(LinearOperator):
     def __getitem__(self, index):
         """Slice the inputs, not the kernel matrix: ``op[rows, cols]`` or ``op[..., rows,
         cols]`` with two slices.  With ``num_outputs_per_input`` = t > 1, a slice whose
-        bounds are multiples of t slices the inputs by bound / t; any other is taken from
-        the dense matrix."""
-        if not isinstance(index, tuple):
-            index = (index,)
-        row_ix, col_ix = index[-2:] if len(index) >= 2 else (None, None)
-        if index[:-2] not in ((), (Ellipsis,)) or not (isinstance(row_ix, slice) and isinstance(col_ix, slice)):
-            raise NotImplementedError("only (..., slice, slice) indexing is ported")
+        bounds are multiples of t slices the inputs by bound / t.  Any other index (an
+        index tensor, an integer, a batch index) is taken from the dense matrix, as the JAX
+        package takes it (``gpytorch_tpu/linop/lazy_kernel.py:281-293``)."""
+        if not two_slices(index):
+            return super().__getitem__(index)
+        row_ix, col_ix = index[-2:]
         num = self._num_outputs()
         if num != 1:
             spans = [ix.indices(size) for ix, size in zip((row_ix, col_ix), self.shape[-2:])]

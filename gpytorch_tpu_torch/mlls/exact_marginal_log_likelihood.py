@@ -6,7 +6,8 @@
 * "mask": NaN targets are left out, through ``MaskedLinearOperator`` (the covariance with
   those rows and columns replaced by the identity, the target by the prior mean), and
   ½ log 2π is added back for each of them, so that the sum is log p(y_obs);
-* "fill": NaN targets are replaced by the prior mean.
+* "fill": NaN targets are replaced by the prior mean, of a multitask output too (its
+  targets (…, n, t)); "mask" of a multitask output raises, as the JAX package's fails.
 
 Either way the MLL is divided by the full number of points (n·t for t tasks), as in the
 JAX package.  A batched model gives one value per batch element.  Arguments after the
@@ -61,8 +62,10 @@ class ExactMarginalLogLikelihood(MarginalLogLikelihood):
         if return_state and nan_policy != "ignore":
             raise ValueError("warm-started solves support observation_nan_policy='ignore' only")
         output = self.likelihood(function_dist, *params)
-        if nan_policy != "ignore" and isinstance(output, MultitaskMultivariateNormal):
-            raise NotImplementedError("the NaN policies of a multitask model are not ported")
+        if nan_policy == "mask" and isinstance(output, MultitaskMultivariateNormal):
+            # the JAX package's "mask" fails to broadcast a multitask target (n, t) against
+            # its flat mask operator; "fill" runs on either
+            raise NotImplementedError("observation_nan_policy 'mask' of a multitask model is not ported")
         state = None
         if nan_policy == "ignore":
             res = output.log_prob(target, base_samples=base_samples, solver_state=solver_state,

@@ -30,8 +30,11 @@ variational long tail is a parameter here too (DSPP's ``quad_sites`` and
 ``raw_quad_weights``, the non-Gaussian likelihoods' raw parameters, LMC's
 ``lmc_coefficients``, the additive grid strategy's ``mixing_params``, the decoupled
 strategies' nested ``base_variational_strategy.*``, an ``InducingPointKernel``'s
-``inducing_points``).  A grid variational strategy takes ``<strategy>.grid`` as a grid
-kernel does, and an RFF kernel ``<kernel>.randn_weights`` (a buffer, in the value's own
+``inducing_points``), and so is every raw parameter of the kernel long tail (``raw_alpha``,
+``raw_beta``, ``raw_variance``, ``raw_offset``, ``raw_constant``,
+``raw_mixture_{weights,means,scales}``, ``raw_Z``, ``raw_angle``, ``raw_radius``,
+``raw_angular_weights``, the grad means' ``raw_constant``, ``weights`` and ``bias``).  A
+grid variational strategy takes ``<strategy>.grid`` as a grid kernel does, and an RFF kernel ``<kernel>.randn_weights`` (a buffer, in the value's own
 dtype).  A parameter that the module reaches by two paths (an ``InducingPointKernel``'s
 likelihood, which is also the model's) is given under either; the JAX package holds a copy
 under each.  Clears the module's caches, since they depend on the parameters."""
