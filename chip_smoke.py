@@ -12,7 +12,9 @@ batched, fixed-noise and multitask models, the structure kernels (additive and S
 N=100k a CIQ-SVGP at m = 4,096, a probit SVGP classifier, online variational conditioning, a
 two-layer DSPP and VNNGP, an LMC multitask SVGP, grid-interpolation, large-batch and decoupled
 SVGPs, and SGPR and random-Fourier-feature exact GPs, a spectral-mixture forecast and a derivative GP,
-and every kernel and mean of the long tail against the CPU.
+every kernel and mean of the long tail against the CPU, a model list of two outcomes at N=100k,
+the leave-one-out pseudo-likelihood, a Bayesian GPLVM, and the LKJ, Wishart, horseshoe and
+smoothed-box priors and the metrics against the CPU.
 
     python3 chip_smoke.py
 
@@ -332,6 +334,32 @@ Phases, in order; any failed check exits non-zero before the result line is prin
               zero mean) on inputs made on the card, float32 and float64: the 300 × 200 matrix, its
               diagonal and a product above 512² (``_matmul_chunked``) against the CPU in float64.
 
+19. model list — an IndependentModelList of two outcomes of make_task's inputs at N=100,000
+              (``make_list_task``): a copy of phase 7's trained flagship (RBF-ARD) and an exact GP
+              with ScaleKernel(Matérn-5/2 ARD), trained jointly by SumMarginalLogLikelihood for 10
+              Adam steps under bench.py's recipe with no stall exit and a cap of 400 CG iterations
+              (every solve cold), then both outcomes' 2,048 test points through the LikelihoodList,
+              and a fantasy of 16 points an outcome: s a step, each outcome's CG iterations,
+              kernel_matvec and kernel_bwd_fused launches by kernel type (gated on both types), per
+              outcome RMSE, MAE, SMSE, MSLL, the 95 % coverage error, refresh_s and request_ms.
+              Gates: step 0's sum against the two MLLs alone, each rhs solve's true residual, the
+              Matérn outcome's loss falling, RMSE below the constant predictor's, the Matérn
+              outcome's first training product (t=64, the tensor-core tier) and backward on their
+              own operands against float64, and CUDA float32 against CPU float64 at N=2,000.
+              Alone: ``chip_smoke.phase_model_list()``.
+19b. loo    — the flagship's model trained by LeaveOneOutPseudoLikelihood on 16,384 of phase 7's
+              points (8,192 where a step at 16,384 takes over 1.5 s), 20 Adam steps: ms a step, peak
+              memory, LOO-RMSE, the float32 σᵢ² against float64; the float64 value and gradient at
+              N=2,048 against the CPU, μᵢ and σᵢ² against conditioning on the others; no kernel.
+19c. gplvm  — a Bayesian GPLVM at the shape of GPyTorch's GPLVM tutorial (1,000 points, 12
+              observed and latent dimensions, 25 inducing points, minibatches of 100): 300 Adam
+              steps; the latent geometry against the truth, a float64 ELBO and gradient against the
+              CPU, the point and MAP latents; no kernel.
+19d. priors — the LKJ, Wishart, horseshoe and smoothed-box priors' log-densities and gradients in
+              float32 and float64 against the CPU, their samplers against moments, a Hadamard model
+              with BoTorch's LKJ task-covariance prior (against the CPU, then 5 steps), the four new
+              metrics against the CPU; no kernel.
+
 The last three lines are the card's name and power limit, the kernel report and
 {"ok": true, "device": {...}}.
 
@@ -395,6 +423,8 @@ TRAIN_NLPD_DROP = 0.1       # N=100k: marginal NLPD of the trained model at leas
                             # of the initial parameters
 H100_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores, at 700 W
 H100_TF32_FLOPS = 495e12    # H100 SXM, TF32 on the tensor cores, dense, at 700 W
+H100_FP64_TC_FLOPS = 67e12  # H100 SXM, FP64 on the tensor cores, at 700 W (NVIDIA's data sheet)
+H100_FP64_FLOPS = 34e12     # H100 SXM, FP64 outside the tensor cores, at 700 W (NVIDIA's data sheet)
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 H100_EXPS_PER_S = 132 * 16 * 1.98e9  # H100 SXM: 132 SMs × 16 exp2 a clock on the special-function
                             # units (sm_90) × 1.98 GHz, the largest SM clock (nvidia-smi clocks.max.sm)
@@ -715,6 +745,30 @@ TAIL_F32_ROOT_TOL = 4e-3    # … for the Wendland function of q = 0, (1 − r)^
 TAIL_F64_ROOT_TOL = 1e-7    # … and in float64, ≈ 7 √ε (an H100 read 2.6e-08 against the CPU: each side's expansion
                             # leaves its own ≈ 1e-16 on those distances)
 TAIL_ROOT_KERNELS = ("piecewise_q0",)
+# phases 19-19d: model lists, the leave-one-out objective, the Bayesian GPLVM, the new priors and metrics
+LIST_STEPS, LIST_FANT = 10, 16  # phase 19: joint Adam steps of the two-outcome list; fantasy points per outcome
+LIST_LR = (0.01, 0.1)       # … Adam's rates: outcome 0 (phase 7's trained flagship) at the last rate of phase 7's
+                            # schedule (at 0.1 its loss rose from −0.277 to −0.209 in 10 steps and its cold CG grew from
+                            # 21 to 88 iterations on an H100 80GB HBM3 at 700 W), outcome 1 cosine 0.1 → 0.01
+LIST_SEED = 19              # … the second outcome's noise, and the probes of step 0's sum check
+LIST_CG = {"cg_stall_window": 1000, "max_cg_iterations": 400}  # … bench.py's recipe with these replaced.  The sum
+                            # passes no warm state, so every solve starts at zero, where CG keeps x = 0 until |r|
+                            # first drops below |y| (ROADMAP queue 3); without the stall exit each runs to tolerance
+LIST_RES_TOL = 0.6          # … each outcome's rhs solve: ‖K̂x − y‖ / ‖y‖ within twice the CG tolerance 0.3 (x = 0: 1)
+LIST_SUM_TOL = 1e-5         # … step 0: |summed − Σ alone| / max(|Σ alone|, 1) with the same probes (float32 round-off)
+LIST_SLICE_N = 2000         # … CUDA float32 against CPU float64 at this N, gated at SLICE_LOSS_TOL and SLICE_GRAD_TOL
+LOO_N, LOO_PROBE_N, LOO_STEPS = 16_384, 8192, 20  # phase 19b: points, the size read first, Adam steps
+LOO_STEP_LIMIT = 1.5        # … seconds a step at LOO_N above which training runs at LOO_PROBE_N
+LOO_PARITY_N, LOO_F64_TOL = 2048, 1e-10  # … float64 value and gradient, the card against the CPU, relative
+LOO_POINTS, LOO_COND_TOL = 8, 1e-10 # … μᵢ and σᵢ² against conditioning on the other n − 1 points (float64, card)
+GPLVM_N, GPLVM_DIM, GPLVM_M, GPLVM_BATCH = 1000, 12, 25, 100  # phase 19c: GPyTorch's GPLVM tutorial's shape
+GPLVM_STEPS, GPLVM_LR, GPLVM_CORR = 300, 0.01, 0.5  # … Adam steps at the tutorial's rate; the geometry gate
+GPLVM_F64_TOL = 1e-10       # … one float64 ELBO and gradient, the card against the CPU, relative
+GPLVM_POINT_STEPS = 5       # … steps of the point and MAP latents
+PRIOR_TOL = (1e-4, 1e-10)   # phase 19d: float32 and float64 log-densities and gradients on the card against the CPU
+PRIOR_DRAWS = 200_000       # … draws of each sampler, its moment within 5 standard errors
+METRIC_TOL = 1e-10          # … the metrics in float64 on the card against the CPU
+HAD_PRIOR_N, HAD_PRIOR_STEPS = 1024, 5  # … the Hadamard model with an LKJ task-covariance prior: points a task, steps
 
 
 class SmokeFailure(Exception):
@@ -1114,12 +1168,15 @@ def matvec_bound(n: int, m: int, d: int, t: int):
     return bound_ms(n * m * (2 * t + 3 * d), 4 * (n * d + m * d + m * t + n * t), n * m)
 
 
-def tc_bound(pairs: int, t: int, cuda_ops: int, nbytes: int):
+def tc_bound(pairs: int, t: int, cuda_ops: int, nbytes: int, fp64_t: int = 0, fp64_ops: int = 0):
     """A K·V tier on the tensor cores in 3xTF32: the larger of three passes of 2t operations
-    per (i, j) pair over the dense TF32 peak, ``cuda_ops`` operations per pair on the CUDA
-    cores (forming K and its hi/lo split) over the FP32 peak, and ``nbytes`` over the memory
-    rate (one exp per pair besides, which binds neither t ∈ (32, 64] tier)."""
-    times = {"operations": max(3 * 2 * t * pairs / H100_TF32_FLOPS, cuda_ops * pairs / H100_FP32_FLOPS),
+    per (i, j) pair over the dense TF32 peak (plus, for a float64 product of depth ``fp64_t``
+    on the same tensor cores, 2 fp64_t over their FP64 peak), ``cuda_ops`` operations per
+    pair on the CUDA cores (forming K and its hi/lo split) over the FP32 peak, ``fp64_ops``
+    over the FP64 peak, and ``nbytes`` over the memory rate (one exp per pair besides, which
+    binds neither t ∈ (32, 64] tier)."""
+    tensor = 3 * 2 * t * pairs / H100_TF32_FLOPS + 2 * fp64_t * pairs / H100_FP64_TC_FLOPS
+    times = {"operations": max(tensor, cuda_ops * pairs / H100_FP32_FLOPS, fp64_ops * pairs / H100_FP64_FLOPS),
              "bytes": nbytes / H100_BYTES_PER_S}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
@@ -1154,11 +1211,14 @@ def bwd_bound(n: int, d: int, t: int, dv: bool = False):
                     n * n)
 
 
-def bwd_tc_bound(n: int, d: int, t: int, dv: bool = False):
-    """The fused backward's t ∈ (32, 64] tier (dx and dos): ``tc_bound`` with the score
-    [g_i | v_i]·[v_j | g_j] of depth 2t on the tensor cores (3t with ``dv``'s product), the
-    5d + 9 CUDA-core operations per pair of ``bwd_bound``, and its bytes."""
-    return tc_bound(n * n, (3 if dv else 2) * t, 5 * d + 9, 4 * (2 * n * d + (3 if dv else 2) * n * t))
+def bwd_tc_bound(n: int, d: int, t: int, dv: bool = False, dos: bool = True):
+    """The fused backward's t ∈ (32, 64] tier: ``tc_bound`` with the score
+    [g_i | v_i]·[v_j | g_j] of depth 2t on the tensor cores (3t with ``dv``'s product) and
+    the 5d + 9 CUDA-core operations per pair of ``bwd_bound`` for dx, and for ``dos`` the
+    float64 score g_i·v_j of depth t on the FP64 tensor cores with 3d + 4 float64 operations
+    per pair (the distance, k and the sum; one float64 exp besides); and its bytes."""
+    return tc_bound(n * n, (3 if dv else 2) * t, 5 * d + 9, 4 * (2 * n * d + (3 if dv else 2) * n * t),
+                    t if dos else 0, 3 * d + 4 if dos else 0)
 
 
 def periodic_matvec_bound(n: int, m: int, d: int, t: int):
@@ -4646,6 +4706,61 @@ def dos_fold_witness():
         wrapper.dos_fold_dtype = torch.float64
 
 
+def dos_noise_witness():
+    """The rounding noise of dos = Σ_ij k_ij g_i·v_j in float32 at phase 19's first Matérn-5/2
+    training backward (N_TRAIN points, t = 64: the operands that phase 19's gate reads), the
+    same operands under the RBF and Matérn-3/2 kernels beside it: the signed error from
+    float64 of the kernel (its dos in float64, ``kernel_bwd_dos64``), of the plain float32
+    version, of the FP32 FMA tier (two launches of 32 columns), of float64 k times float32
+    g_i·v_j (a float32 product on the card), and of float32 k (the kernel's differences,
+    ``torch.exp``) times float64 g_i·v_j, with |dos| and its diagonal's share Σ_i g_i·v_i;
+    and the backward's time with dos and with dx alone (``kernel_bwd_dos64``'s share) beside
+    the plain version's.  Not part of the run:
+    ``python3 -c 'import chip_smoke; chip_smoke.dos_noise_witness()'``."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    phase_device()
+    phase_build()
+    train_x, targets, _, _ = make_list_task(N_TRAIN, N_TEST)
+    model = build_model_list(train_x, targets, "cuda", torch.float32)
+    ts = [torch.as_tensor(t, dtype=torch.float32, device="cuda") for t in targets]
+    torch.manual_seed(LIST_SEED)
+    with recorded_calls("kernel_bwd_fused_cuda", kt=fk.MATERN25) as seen:
+        list_loss(model, gt.mlls.SumMarginalLogLikelihood(model.likelihood, model), ts).backward()
+    (x, g, v, _), _ = seen["first"]
+    del model
+    xc = x - x.mean(0, keepdim=True)
+    halves = [(g[:, c].contiguous(), v[:, c].contiguous()) for c in (slice(0, 32), slice(32, None))]
+    for kt in (fk.MATERN25, fk.RBF, fk.MATERN15):
+        exact = fk._bwd_fused_reference(x.double(), g.double(), v.double(), kt, need_dv=False, need_dos=True)[2].item()
+        got = {"kernel": fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=False, need_dos=True)[2].item(),
+               "plain float32": fk._bwd_fused_reference(x, g, v, kt, need_dv=False, need_dos=True)[2].item(),
+               "FMA tier": sum(fk.kernel_bwd_fused_cuda(x, a, b, kt, need_dv=False, need_dos=True)[2].item()
+                               for a, b in halves)}
+        k64_gv32 = k32_gv64 = 0.0
+        for i in range(0, N_TRAIN, 2048):
+            rows = slice(i, i + 2048)
+            d2 = torch.zeros((xc[rows].shape[0], N_TRAIN), dtype=torch.float32, device="cuda")
+            for k in range(D):
+                diff = xc[rows, k:k + 1] - xc[:, k][None, :]
+                d2 = torch.addcmul(d2, diff, diff)
+            k32 = fk._kernel_fn_and_prime(d2, kt)[0]
+            k64 = fk._kernel_fn_and_prime(torch.cdist(xc[rows].double(), xc.double()).pow(2), kt)[0]
+            k64_gv32 += (k64 * (g[rows] @ v.mT).double()).sum().item()
+            k32_gv64 += (k32.double() * (g[rows].double() @ v.double().mT)).sum().item()
+        got |= {"float64 k × float32 g·v": k64_gv32, "float32 k × float64 g·v": k32_gv64}
+        ms = {dos: cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=False, need_dos=dos), 5)
+              for dos in (True, False)}
+        plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, kt, need_dv=False, need_dos=True), 2)
+        print(f"[dos noise] kernel type {kt}: dos {exact:.6e}, its diagonal's share {(g.double() * v.double()).sum().item():.6e}; "
+              f"signed error from float64: " + ", ".join(f"{name} {val - exact:+.3e}" for name, val in got.items())
+              + f"; the backward {ms[True]:.3f} ms with dos, {ms[False]:.3f} ms dx alone, plain {plain_ms:.3f} ms; "
+              f"{nvidia_smi()}", flush=True)
+
+
 def pivot_correction_witness(n: int = N_TRAIN, rank: int = 50, device: str = "cuda"):
     """Whether the pivoted Cholesky's correction L·L[p] as a one-column matrix product
     ((n, rank) @ (rank, 1), the form that serves batched and unbatched factors alike)
@@ -4895,10 +5010,11 @@ def make_hadamard_task(n_per_task: int, n_test_per_task: int, seed: int = 0):
     return x, f + 0.1 * rng.normal(size=f.shape), xs, fs
 
 
-def build_hadamard_model(train_x, train_y, device, dtype):
+def build_hadamard_model(train_x, train_y, device, dtype, task_prior=None):
     """A Hadamard multitask GP: K = K_RBF(x) ⊙ K_task(task), an RBF kernel on column 1 times
-    an IndexKernel (2 tasks, rank 1) on column 0, formed densely; the task noise of each
-    point from ``HadamardGaussianLikelihood``, which reads the task from column 0."""
+    an IndexKernel (2 tasks, rank 1, ``task_prior`` on its covariance) on column 0, formed
+    densely; the task noise of each point from ``HadamardGaussianLikelihood``, which reads the
+    task from column 0."""
     import torch
 
     import gpytorch_tpu_torch as gt
@@ -4908,7 +5024,7 @@ def build_hadamard_model(train_x, train_y, device, dtype):
             super().__init__(x, y, likelihood)
             self.mean_module = gt.means.ConstantMean()
             self.data_kernel = gt.kernels.RBFKernel(active_dims=(1,))
-            self.task_kernel = gt.kernels.IndexKernel(num_tasks=2, rank=1, active_dims=(0,))
+            self.task_kernel = gt.kernels.IndexKernel(num_tasks=2, rank=1, active_dims=(0,), prior=task_prior)
 
         def forward(self, x):
             return gt.distributions.MultivariateNormal(self.mean_module(x), self.data_kernel(x) * self.task_kernel(x))
@@ -5293,12 +5409,12 @@ def phase_svgp():
 
 
 @contextlib.contextmanager
-def recorded_calls(name: str, t=None):
+def recorded_calls(name: str, t=None, kt=None):
     """Wraps ``fused_kernels.<name>`` (a kernel's wrapper) for a run: keeps the operands of
-    its first call (of ``t`` columns in the third operand, where ``t`` is given; tensors
-    cloned, a tensor passed twice kept as one) and the shape (rows of the first operand,
-    rows of the second, columns of the third) of every call, in a dict it yields (``first``:
-    (args, kwargs), ``shapes``: [(n, m, t)])."""
+    its first call (of ``t`` columns in the third operand and kernel type ``kt``, where they
+    are given; tensors cloned, a tensor passed twice kept as one) and the shape (rows of the
+    first operand, rows of the second, columns of the third) of every call, in a dict it
+    yields (``first``: (args, kwargs), ``shapes``: [(n, m, t)])."""
     import torch
 
     from gpytorch_tpu_torch.ops import fused_kernels as fk
@@ -5306,7 +5422,7 @@ def recorded_calls(name: str, t=None):
     wrapper, seen = getattr(fk, name), {"first": None, "shapes": []}
 
     def recording(*args, **kwargs):
-        if seen["first"] is None and (t is None or args[2].shape[1] == t):
+        if seen["first"] is None and (t is None or args[2].shape[1] == t) and (kt is None or int(args[3]) == kt):
             copies = {}
             seen["first"] = (tuple(copies.setdefault(id(a), a.clone()) if isinstance(a, torch.Tensor) else a
                                    for a in args), dict(kwargs))
@@ -5320,16 +5436,26 @@ def recorded_calls(name: str, t=None):
         setattr(fk, name, wrapper)
 
 
-def _product_at_path_shape(args, tag: str = "unwhitened", what: str = "the KL's product") -> dict:
+def _product_at_path_shape(args, tag: str = "unwhitened", what: str = "the KL's product",
+                           against_float64: bool = False) -> dict:
     """kernel_matvec on the operands of a path's first product launch (``tag``: the
     unwhitened KL's by default) against its plain version on the same operands, gated at
     KERNEL_REL_TOL, both timed beside the bound (``matvec_tc_bound`` for the tensor-core
-    tier, t in (32, 64], else ``matvec_bound``)."""
+    tier, t in (32, 64], else ``matvec_bound``).  ``against_float64``: both float32 versions
+    also against float64 on the same operands, the kernel gated at twice the plain version's
+    error, as phase 3's training product is."""
     from gpytorch_tpu_torch.ops import fused_kernels as fk
 
     x1, x2, v, kt = args
     got, plain = fk.kernel_matvec_cuda(x1, x2, v, kt), fk._matvec_reference(x1, x2, v, kt)
     rel, err = _rel_err(got, plain, x1, x2, v, kt)
+    if against_float64:
+        exact = fk._matvec_reference(x1.double(), x2.double(), v.double(), kt)
+        rel64, plain64 = _rel_err(got, exact, x1, x2, v, kt)[0], _rel_err(plain, exact, x1, x2, v, kt)[0]
+        del exact
+        print(f"[{tag}] {what} against float64: kernel {rel64:.3e}, plain float32 {plain64:.3e}", flush=True)
+        check(rel64 <= min(2.0 * plain64, KERNEL_REL_TOL), f"{tag}: {what} against float64: {rel64:.3e}, more than "
+              f"twice the plain version's {plain64:.3e} or over {KERNEL_REL_TOL}")
     n, m, d, t = x1.shape[0], x2.shape[0], x1.shape[1], v.shape[1]
     ms = cuda_time_ms(lambda: fk.kernel_matvec_cuda(x1, x2, v, kt), 10)
     plain_ms = cuda_time_ms(lambda: fk._matvec_reference(x1, x2, v, kt), 10)
@@ -5390,7 +5516,7 @@ def _bwd_at_path_shape(args, kwargs, tag: str = "unwhitened", what: str = "the K
     ms = cuda_time_ms(lambda: fk.kernel_bwd_fused_cuda(x, g, v, kt, need_dv=need_dv, need_dos=need_dos), 10)
     plain_ms = cuda_time_ms(lambda: fk._bwd_fused_reference(x, g, v, kt, need_dv=need_dv, need_dos=need_dos), 10)
     tc = 32 < t <= 64
-    bound = bwd_tc_bound(n, d, t, need_dv) if tc else bwd_bound(n, d, t, need_dv)
+    bound = bwd_tc_bound(n, d, t, need_dv, need_dos) if tc else bwd_bound(n, d, t, need_dv)
     tier = "the tensor-core tier" if tc else f"the FMA tier, {-(-t // 32)} column chunks of partials"
     cancel = (f"; |dos| / Σ|k g·v| = {fault / terms['dos']:.3e}, which a planted dos = 0 reads"
               if need_dos and with_terms else "")
@@ -7805,6 +7931,736 @@ def phase_kernel_tail(device: str = "cuda"):
     return dict(worst64=max(r[1] for r in plain), worst32=max(r[2] for r in plain), launches=launched)
 
 
+def make_list_task(n_train: int, n_test: int, seed: int = 0):
+    """Phase 19's two outcomes of ``make_task``'s inputs: the flagship's y, and c(x) =
+    cos(5x₀ + 2x₁)·exp(−x₂) plus Gaussian noise of 0.1, standardised, drawn with numpy from its
+    own seed.  Returns the training inputs, [y, c], the test inputs and [test y, test c]."""
+    train_x, train_y, test_x, test_y = make_task(n_train, n_test, seed)
+    x = np.concatenate([train_x, test_x])
+    c = np.cos(5 * x[:, 0] + 2 * x[:, 1]) * np.exp(-x[:, 2])
+    c = c + 0.1 * np.random.default_rng([seed, LIST_SEED]).normal(size=len(x))
+    c = (c - c.mean()) / c.std()
+    return train_x, [train_y, c[:n_train]], test_x, [test_y, c[n_train:]]
+
+
+def build_model_list(train_x, targets, device, dtype, params0=JAX_PARAMS):
+    """Phase 19's ``IndependentModelList`` in train mode: outcome 0 the flagship's model (RBF-ARD)
+    from the raw parameters ``params0``, outcome 1 ExactGP(ConstantMean, ScaleKernel(Matérn-5/2
+    ARD), GaussianLikelihood) at bench.py's initial values (``build_model(..., nu=2.5)``)."""
+    import gpytorch_tpu_torch as gt
+
+    m0 = build_model(train_x, targets[0], device, dtype, params=params0).train()
+    m1 = build_model(train_x, targets[1], device, dtype, params=None, nu=2.5)
+    return gt.models.IndependentModelList(m0, m1)
+
+
+def list_loss(model, mll, targets, budget: float = PC_NOISE_BUDGET):
+    """−(the summed MLL) of the list on its training inputs under bench.py's recipe with LIST_CG."""
+    tx = model.models[0].train_inputs[0]
+    with train_settings(budget, overrides=LIST_CG):
+        return -mll(model(tx, tx), targets)
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """Wraps the mBCG's CG (``solvers/inv_quad.py::linear_cg``) for a run; yields a list that
+    gets (CG iterations, the operator's product, the rhs column, its solution) of every solve."""
+    from gpytorch_tpu_torch.solvers import inv_quad
+
+    cg, seen = inv_quad.linear_cg, []
+
+    def recording(matmul, rhs, **kwargs):
+        result = cg(matmul, rhs, **kwargs)
+        seen.append((result.num_iters, matmul, rhs[..., :1].detach(), result.solution[..., :1].detach()))
+        return result
+
+    inv_quad.linear_cg = recording
+    try:
+        yield seen
+    finally:
+        inv_quad.linear_cg = cg
+
+
+@contextlib.contextmanager
+def injected_probes():
+    """``InjectedProbes(0)``'s draws (numpy, keyed by shape, the same on any device and dtype)
+    injected into both places that draw probe base samples: the summed MLL passes none."""
+    import torch
+
+    from gpytorch_tpu_torch.linop import base, root
+
+    saved, source = (base.probe_base_samples, root.probe_base_samples), InjectedProbes(0)
+
+    def draw(shape, dtype, device, _=None):
+        return torch.as_tensor(source(tuple(int(s) for s in shape)), dtype=dtype, device=device)
+
+    base.probe_base_samples = root.probe_base_samples = draw
+    try:
+        yield
+    finally:
+        base.probe_base_samples, root.probe_base_samples = saved
+
+
+def _list_slice(params0):
+    """Phase 19's list at N=LIST_SLICE_N: one summed loss and its gradient from the same injected
+    probes, CPU float32 (its pivots recorded), CPU float64 (the float32 runs' τ) and CUDA float32
+    (pivots followed); returns the CUDA run's (loss, gradient) gaps from CPU float64 beside the
+    CPU float32 run's."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    train_x, targets, _, _ = make_list_task(LIST_SLICE_N, 64, seed=1)
+    runs, pins = {}, PinnedPivots()
+    for device, dtype in (("cpu", torch.float32), ("cpu", torch.float64), ("cuda", torch.float32)):
+        model = build_model_list(train_x, targets, device, dtype, params0)
+        ts = [torch.as_tensor(t, dtype=dtype, device=device) for t in targets]
+        budget = PC_NOISE_BUDGET_F64 if dtype == torch.float64 else PC_NOISE_BUDGET
+        with injected_probes(), pins.replay() if runs else pins.record():
+            loss = list_loss(model, gt.mlls.SumMarginalLogLikelihood(model.likelihood, model), ts, budget)
+        loss.backward()
+        runs[(device, dtype)] = (loss.item(), {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()})
+    ref = runs[("cpu", torch.float64)]
+
+    def gaps(run):
+        return abs(run[0] - ref[0]) / max(abs(ref[0]), 1.0), _grad_gap(ref[1], run[1])[0]
+
+    return gaps(runs[("cuda", torch.float32)]), gaps(runs[("cpu", torch.float32)])
+
+
+def phase_model_list(flagship_model=None, n: int = N_TRAIN, n_test: int = N_TEST, steps: int = LIST_STEPS,
+                     device: str = "cuda"):
+    """Phase 19: a model list of two outcomes of ``make_list_task`` at N=``n``: outcome 0 a copy of
+    phase 7's trained flagship (RBF-ARD; alone, at JAX_PARAMS), outcome 1 an exact GP with
+    ScaleKernel(Matérn-5/2 ARD) at bench.py's initial values (``build_model_list``), trained jointly
+    by ``SumMarginalLogLikelihood`` for ``steps`` Adam steps (LIST_LR) under bench.py's
+    recipe with LIST_CG (every solve cold: the sum passes no warm state), then
+    ``model.likelihood(*model(test_x, test_x))`` at the ``n_test`` test points, and a fantasy of the
+    list with LIST_FANT points per outcome and one request from it.  Prints s a step, each
+    outcome's CG iterations and losses, the launches of kernel_matvec and kernel_bwd_fused by
+    kernel type, and per outcome RMSE, MAE, SMSE, MSLL (against the training targets), the 95 %
+    coverage error, refresh_s and request_ms.  Gates: at step 0 the summed loss equals the two
+    ``ExactMarginalLogLikelihood`` values alone with the same probes (LIST_SUM_TOL); both kernels
+    launch on the RBF and the Matérn type (kernel_bwd_fused once per outcome a step), counted
+    by the wrappers' ``launches_by_type``; outcome 1's first Matérn-5/2 training product (t=64)
+    and backward, on their own operands, against float64 (``_product_at_path_shape``,
+    ``_bwd_at_path_shape``); each outcome's rhs solve at the last step within LIST_RES_TOL of
+    its true residual; outcome 1's loss falls; each outcome's RMSE below the constant
+    predictor's; at N=LIST_SLICE_N the CUDA float32 loss and gradient against a CPU float64
+    run.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_model_list()'``."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+    from gpytorch_tpu_torch import settings
+    from gpytorch_tpu_torch.ops import fused_kernels as fk
+
+    if device == "cuda" and not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    params0 = (JAX_PARAMS if flagship_model is None else
+               {k: v.detach().cpu().numpy() for k, v in flagship_model.named_parameters()})
+    train_x, targets, test_x, test_targets = make_list_task(n, n_test)
+    model = build_model_list(train_x, targets, device, torch.float32, params0)
+    ts = [torch.as_tensor(t, dtype=torch.float32, device=device) for t in targets]
+    tx = torch.as_tensor(test_x, dtype=torch.float32, device=device)
+    tys = [torch.as_tensor(t, dtype=torch.float32, device=device) for t in test_targets]
+    mll = gt.mlls.SumMarginalLogLikelihood(model.likelihood, model)
+    parts = [[], []]
+    for i, inner in enumerate(mll.mlls):
+        inner.register_forward_hook(lambda module, args, out, i=i: parts[i].append(-out.item()))
+    optimizer = torch.optim.Adam([{"params": list(m.parameters()), "lr": lr} for m, lr in zip(model.models, LIST_LR)])
+    scheduler = torch.optim.lr_scheduler.CosineAnnealingLR(optimizer, T_max=steps, eta_min=min(LIST_LR))
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    for w in (fk.kernel_matvec_cuda, fk.kernel_bwd_fused_cuda):
+        w.launches_by_type.clear()
+    times, losses, iters, shape, bwd_shape = [], [], [], None, None
+    # outcome 1's first Matérn-5/2 training product (t=64, the tensor-core tier) and backward
+    with recorded_calls("kernel_matvec_cuda", t=64, kt=fk.MATERN25) as seen, \
+            recorded_calls("kernel_bwd_fused_cuda", kt=fk.MATERN25) as seen_bwd:
+        for step in range(steps):
+            sync(device)
+            t0 = time.perf_counter()
+            if step == 0:
+                torch.manual_seed(LIST_SEED)
+            with recorded_solves() as solves:
+                optimizer.zero_grad()
+                loss = list_loss(model, mll, ts)
+                loss.backward()
+                optimizer.step()
+                scheduler.step()
+            check(finite_step(loss, model), f"model list step {step}: non-finite loss or gradient")
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            iters.append([s[0] for s in solves])
+        last_solves = solves
+        model.eval()
+        refresh_s, refresh_iters = [], []
+        with eval_settings(), torch.no_grad():
+            for m in model.models:
+                sync(device)
+                t0 = time.perf_counter()
+                strategy = m.refresh()
+                sync(device)
+                refresh_s.append(time.perf_counter() - t0)
+                refresh_iters.append(strategy.lik_train_train_covar.last_cg_result.num_iters)
+            t0 = time.perf_counter()
+            preds = model.likelihood(*model(tx, tx))
+            moments = [(p.mean, p.variance) for p in preds]
+            sync(device)
+            list_request_s = time.perf_counter() - t0
+            every = slice(0, n_test, n_test // LIST_FANT)
+            t0 = time.perf_counter()
+            with settings.cg_tolerance(FANT_CG_TOL):  # phase 15b's: the 16 solves on observed targets
+                fantasy = model.get_fantasy_model([tx[every], tx[every]], [ty[every] for ty in tys])
+            fantasy_preds = fantasy.likelihood(*fantasy(tx, tx))
+            fantasy_moments = [(p.mean, p.variance) for p in fantasy_preds]
+            sync(device)
+            fantasy_s = time.perf_counter() - t0
+    launched = tuple(w.launches for w in wrappers)
+    by_type = {(name, kt): getattr(fk, name).launches_by_type[kt] for name in ("kernel_matvec_cuda",
+                                                                             "kernel_bwd_fused_cuda")
+               for kt in fk.KERNEL_TYPES}
+    step0_alone = _list_step0_alone(model, params0, train_x, targets, device)
+    with torch.no_grad():
+        residuals = [((matmul(x) - b).norm() / b.norm()).item() for _, matmul, b, x in last_solves]
+        request_ms = []
+        with eval_settings():
+            for i, m in enumerate(model.models):
+                sync(device)
+                t0 = time.perf_counter()
+                model.likelihood_i(i, m(tx)).variance
+                sync(device)
+                request_ms.append((time.perf_counter() - t0) * 1e3)
+    readings = []
+    for i, (pred, ty) in enumerate(zip(preds, tys)):
+        mean, var = moments[i]
+        check(bool(torch.isfinite(mean).all()) and bool((var > 0).all()), f"model list outcome {i}: predictions")
+        fmean, fvar = fantasy_moments[i]
+        check(bool(torch.isfinite(fmean).all()) and bool((fvar > 0).all()), f"model list outcome {i}: fantasy")
+        readings.append(dict(
+            rmse=gt.metrics.mean_squared_error(pred, ty, squared=False).item(),
+            mae=gt.metrics.mean_absolute_error(pred, ty).item(),
+            smse=gt.metrics.standardized_mean_squared_error(pred, ty).item(),
+            msll=gt.metrics.mean_standardized_log_loss(pred, ty, ts[i]).item(),
+            qce=gt.metrics.quantile_coverage_error(pred, ty).item(),
+            constant=(ty - ts[i].mean()).pow(2).mean().sqrt().item(), refresh_s=refresh_s[i],
+            refresh_iters=refresh_iters[i], request_ms=request_ms[i]))
+    per_outcome = [[it[i] for it in iters] for i in range(2)]
+    ms = sorted(times[1:])
+    median = ms[(len(ms) - 1) // 2]
+    counts = {f"{name.split('_cuda')[0]} {'rbf' if kt == fk.RBF else 'matern52' if kt == fk.MATERN25 else kt}": c
+              for (name, kt), c in sorted(by_type.items()) if c}
+    sum_gap = abs(losses[0] - step0_alone) / max(abs(step0_alone), 1.0)
+    print(f"[model list] N={n}, 2 outcomes (RBF-ARD, Matérn-5/2 ARD), {steps} steps: median {median:.3f} s/step (first "
+          f"{times[0]:.3f} s); CG iterations per step (outcome 0, 1) {iters}; summed loss {losses[0]:.5f} → "
+          f"{losses[-1]:.5f}; outcome losses {[round(v, 5) for v in parts[0]]} and {[round(v, 5) for v in parts[1]]}; "
+          f"step 0 summed {losses[0]:.7f} against the two alone {step0_alone:.7f} (gap {sum_gap:.2e}, tol "
+          f"{LIST_SUM_TOL}); rhs true relative residuals at the last step {[f'{r:.3e}' for r in residuals]} (tol "
+          f"{LIST_RES_TOL}); launches {launched}, by kernel type {counts}", flush=True)
+    for i, r in enumerate(readings):
+        print(f"[model list] outcome {i}: rmse {r['rmse']:.4f} (constant {r['constant']:.4f}), mae {r['mae']:.4f}, smse "
+              f"{r['smse']:.4f}, msll {r['msll']:.4f}, 95 % coverage error {r['qce']:.4f}, refresh_s "
+              f"{r['refresh_s']:.3f} (CG {r['refresh_iters']}), request_ms {r['request_ms']:.2f} ({n_test} points)",
+              flush=True)
+    print(f"[model list] the list's request {list_request_s * 1e3:.2f} ms; fantasy ({LIST_FANT} points an outcome) and "
+          f"its request {fantasy_s * 1e3:.2f} ms; {nvidia_smi() if device == 'cuda' else device}", flush=True)
+    check(sum_gap <= LIST_SUM_TOL, f"model list: step 0's sum differs from the models alone by {sum_gap:.3e}")
+    check(all(r <= LIST_RES_TOL for r in residuals), f"model list: rhs residuals {residuals}")
+    check(sum(parts[1][-3:]) / 3 < parts[1][0], f"model list: outcome 1's loss did not fall: {parts[1]}")
+    for i, r in enumerate(readings):
+        check(r["rmse"] < r["constant"], f"model list outcome {i}: rmse {r['rmse']:.4f} not below {r['constant']:.4f}")
+    if device == "cuda":
+        for name, count in (("kernel_matvec_cuda", None), ("kernel_bwd_fused_cuda", steps)):
+            for kt in (fk.RBF, fk.MATERN25):
+                got = by_type[(name, kt)]
+                check(got > 0 if count is None else got == count,
+                      f"model list: {name} launched {got} times on kernel type {kt}")
+        for i, kt in enumerate((fk.RBF, fk.MATERN25)):
+            check(by_type[("kernel_matvec_cuda", kt)] >= sum(per_outcome[i]),
+                  f"model list: fewer kernel_matvec launches than CG iterations on outcome {i}")
+        check(seen["first"] is not None and seen_bwd["first"] is not None,
+              "model list: no Matérn-5/2 training product (t=64) or backward recorded")
+        shape = _product_at_path_shape(seen["first"][0], "model list", "outcome 1's Matérn-5/2 training product",
+                                       against_float64=True)
+        bwd_shape = _bwd_at_path_shape(*seen_bwd["first"], tag="model list",
+                                       what="outcome 1's Matérn-5/2 training backward")
+        del seen, seen_bwd
+        (loss_gap, grad_gap), floor = _list_slice(params0)
+        print(f"[model list] N={LIST_SLICE_N}: CUDA float32 against CPU float64: loss {loss_gap:.3e}, gradient "
+              f"{grad_gap:.3e} (CPU float32: {floor[0]:.3e}, {floor[1]:.3e}; tol {SLICE_LOSS_TOL}, {SLICE_GRAD_TOL})",
+              flush=True)
+        check(loss_gap <= SLICE_LOSS_TOL and grad_gap <= SLICE_GRAD_TOL, "model list: CUDA differs from CPU float64")
+    return dict(launches=launched, by_type=counts, median=median, iters=per_outcome, readings=readings,
+                residuals=residuals, sum_gap=sum_gap, fantasy_ms=fantasy_s * 1e3, model=model,
+                matern_shape=shape, matern_bwd_shape=bwd_shape)
+
+
+def _list_step0_alone(model, params0, train_x, targets, device):
+    """Step 0's loss again, each outcome's ``ExactMarginalLogLikelihood`` alone and summed, from a
+    new list at the same initial values and the same probes (the default generator seeded with
+    LIST_SEED, drawn outcome by outcome)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    fresh = build_model_list(train_x, targets, device, torch.float32, params0)
+    ts = [torch.as_tensor(t, dtype=torch.float32, device=device) for t in targets]
+    torch.manual_seed(LIST_SEED)
+    with train_settings(overrides=LIST_CG), torch.no_grad():
+        values = [-gt.mlls.ExactMarginalLogLikelihood(m.likelihood, m)(m(m.train_inputs[0]), t)
+                  for m, t in zip(fresh.models, ts)]
+    return sum(v.item() for v in values)
+
+
+def _loo_train(train_x, train_y, n, steps, device, limit=None):
+    """The flagship's model at bench.py's initial values on the first ``n`` points, ``steps`` Adam
+    steps (lr 0.1) of −LeaveOneOutPseudoLikelihood, stopped after step 1 where that took over
+    ``limit`` seconds; returns (model, losses, seconds, peak bytes)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    model = build_model(train_x[:n], train_y[:n], device, torch.float32, params=None)
+    x, y = model.train_inputs[0], model.train_targets
+    mll = gt.mlls.LeaveOneOutPseudoLikelihood(model.likelihood, model)
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.1)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(steps):
+        sync(device)
+        t0 = time.perf_counter()
+        optimizer.zero_grad()
+        loss = -mll(model(x), y)
+        loss.backward()
+        optimizer.step()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        check(finite_step(loss, model), f"loo step {step}: non-finite loss or gradient")
+        if step == 1 and limit is not None and times[1] > limit:
+            break
+    return model, losses, times, torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def _loo_value_and_grad(params, x, y, device):
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    model = build_model(x, y, device, torch.float64, params=params).train()
+    value = gt.mlls.LeaveOneOutPseudoLikelihood(model.likelihood, model)(model(model.train_inputs[0]),
+                                                                         model.train_targets)
+    value.backward()
+    return model, value.item(), {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def phase_loo(n: int = LOO_N, probe_n: int = LOO_PROBE_N, steps: int = LOO_STEPS, device: str = "cuda"):
+    """Phase 19b: the flagship's model trained by ``LeaveOneOutPseudoLikelihood`` (dense K̂, its
+    float64 Cholesky factor and L⁻¹) on the first points of phase 7's data: two steps at
+    ``probe_n`` read first (ms a step, peak memory); ``steps`` Adam steps at ``n``, or at
+    ``probe_n`` where the second step at ``n`` took over LOO_STEP_LIMIT s.  Prints ms a step, the peak,
+    the LOO-RMSE and the float32 σᵢ²'s largest relative error from a float64 twin's.  Gates: the
+    loss falls; at N=LOO_PARITY_N the card's float64 value and gradient against the CPU's
+    (LOO_F64_TOL); at LOO_POINTS points μᵢ and σᵢ² against conditioning on the other n − 1
+    points in float64 on the card (LOO_COND_TOL); no launch of the five kernel wrappers.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_loo()'``."""
+    import torch
+
+    from gpytorch_tpu_torch.mlls.leave_one_out_pseudo_likelihood import _loo_moments
+
+    if device == "cuda" and not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    train_x, train_y, _, _ = make_task(N_TRAIN, N_TEST)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    _, _, times, peak = _loo_train(train_x, train_y, probe_n, 2, device)
+    sizing = {probe_n: (times[1], peak)}
+    model, losses, times, peak = _loo_train(train_x, train_y, n, steps, device, limit=LOO_STEP_LIMIT)
+    sizing[n] = (times[1], peak)
+    n_used = n if len(losses) == steps else probe_n
+    if n_used != n:
+        model, losses, times, peak = _loo_train(train_x, train_y, probe_n, steps, device)
+    x, y = model.train_inputs[0], model.train_targets
+    with torch.no_grad():
+        mu, sigma2 = _loo_moments(model.likelihood(model(x)), y)
+        twin = _float64_copy(model).train()
+        _, sigma2_64 = _loo_moments(twin.likelihood(twin(twin.train_inputs[0])), twin.train_targets)
+    loo_rmse = (y - mu).pow(2).mean().sqrt().item()
+    sigma2_err = ((sigma2.double() - sigma2_64).abs() / sigma2_64).max().item()
+    params = {k: v.detach().cpu().numpy() for k, v in model.named_parameters()}
+    px, py = train_x[:LOO_PARITY_N], train_y[:LOO_PARITY_N]
+    card, value_card, grad_card = _loo_value_and_grad(params, px, py, device)
+    _, value_cpu, grad_cpu = _loo_value_and_grad(params, px, py, "cpu")
+    value_gap = abs(value_card - value_cpu) / abs(value_cpu)
+    grad_gap = _grad_gap(grad_cpu, grad_card)[0]
+    with torch.no_grad():
+        cx, cy = card.train_inputs[0], card.train_targets
+        mu_c, sigma2_c = _loo_moments(card.likelihood(card(cx)), cy)
+        prior = card.likelihood(card(cx))
+        K = prior.covariance_matrix + 1e-8 * torch.eye(LOO_PARITY_N, dtype=torch.float64, device=cx.device)
+        m = prior.mean
+        points = np.random.default_rng(LIST_SEED).choice(LOO_PARITY_N, LOO_POINTS, replace=False).tolist()
+        cond = []
+        for i in points:
+            rest = torch.arange(LOO_PARITY_N, device=cx.device) != i
+            w = torch.linalg.solve(K[rest][:, rest], K[rest, i])
+            cond.append((m[i] + w @ (cy[rest] - m[rest]), K[i, i] - K[i, rest] @ w))
+        mu_b, sigma2_b = (torch.stack(v) for v in zip(*cond))
+    cond_gap = max(((mu_b - mu_c[points]).abs().max() / mu_b.abs().max()).item(),
+                   ((sigma2_b - sigma2_c[points]).abs().max() / sigma2_b.abs().max()).item())
+    launched = tuple(w.launches for w in wrappers)
+    ms = sorted(1e3 * t_ for t_ in times[1:])
+    median = ms[(len(ms) - 1) // 2]
+    print(f"[loo] sizing: a step at N={probe_n} {sizing[probe_n][0] * 1e3:.1f} ms (peak {sizing[probe_n][1] / 2**20:.1f} "
+          f"MiB), at N={n} {sizing[n][0] * 1e3:.1f} ms (peak {sizing[n][1] / 2**20:.1f} MiB; limit {LOO_STEP_LIMIT} s): "
+          f"trained at N={n_used}", flush=True)
+    print(f"[loo] N={n_used}, {steps} steps: median {median:.1f} ms/step (range {ms[0]:.1f} to {ms[-1]:.1f}, first "
+          f"{times[0] * 1e3:.1f} ms); loss {losses[0]:.5f} → {losses[-1]:.5f}; peak device memory {peak / 2**20:.1f} MiB; "
+          f"LOO-RMSE {loo_rmse:.4f}; float32 σᵢ² against a float64 twin: max relative error {sigma2_err:.3e}; "
+          f"N={LOO_PARITY_N} float64 card against CPU: value {value_gap:.3e}, gradient {grad_gap:.3e} (tol "
+          f"{LOO_F64_TOL}); μᵢ, σᵢ² at {LOO_POINTS} points against conditioning on the others {cond_gap:.3e} (tol "
+          f"{LOO_COND_TOL}); launches {launched} (none expected); {nvidia_smi() if device == 'cuda' else device}",
+          flush=True)
+    check(sum(losses[-5:]) / 5 < losses[0], f"loo: the loss did not fall: {losses}")
+    check(value_gap <= LOO_F64_TOL and grad_gap <= LOO_F64_TOL, f"loo: float64 card against CPU {value_gap:.3e}, "
+                                                                 f"{grad_gap:.3e}")
+    check(cond_gap <= LOO_COND_TOL, f"loo: the closed form differs from conditioning by {cond_gap:.3e}")
+    check(launched == (0,) * 5, f"loo launched {launched}")
+    return dict(n=n_used, median_ms=median, peak=peak, loo_rmse=loo_rmse, sigma2_err=sigma2_err, launches=launched,
+                sizing=sizing)
+
+
+def make_gplvm_task(n: int, data_dim: int, seed: int = 0):
+    """``examples/10_gplvm_latent_space.py::make_data``'s lift of a 2-d latent into ``data_dim``
+    observed dimensions, drawn with numpy; returns (the true latents, Y, Y's PCA initialisation of
+    ``data_dim`` latent dimensions, each standardised as ``tests/test_gplvm.py::_pca_init`` does)."""
+    rng = np.random.default_rng(seed)
+    X_true = rng.normal(size=(n, 2))
+    lin = X_true @ (0.6 * rng.normal(size=(2, data_dim)))
+    Y = lin + 0.4 * np.sin(2.0 * lin) + 0.05 * rng.normal(size=(n, data_dim))
+    Yc = Y - Y.mean(0)
+    X0 = Yc @ np.linalg.svd(Yc, full_matrices=False)[2].T
+    return X_true, Y, X0 / X0.std(0, keepdims=True)
+
+
+def build_gplvm(X_init, device, dtype, kind: str = "variational"):
+    """Phase 19c's Bayesian GPLVM: a latent variable of ``kind`` (variational with a N(0, I) prior,
+    point, or MAP under N(0, 1)) from ``X_init``, one GP per observed dimension in a batch of
+    GPLVM_DIM (ConstantMean, ScaleKernel(RBF-ARD)), GPLVM_M inducing points a seeded choice of
+    initial latents, a Cholesky q(u); and its batched GaussianLikelihood."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    n, latent_dim = X_init.shape
+    xi = torch.as_tensor(X_init, dtype=dtype)
+    if kind == "variational":
+        prior = gt.priors.NormalPrior(torch.zeros_like(xi), torch.ones_like(xi))
+        latent = gt.models.VariationalLatentVariable(n, GPLVM_DIM, latent_dim, xi, prior,
+                                                     generator=torch.Generator().manual_seed(0))
+    elif kind == "point":
+        latent = gt.models.PointLatentVariable(n, latent_dim, xi)
+    else:
+        latent = gt.models.MAPLatentVariable(n, latent_dim, xi, gt.priors.NormalPrior(0.0, 1.0))
+    Z = xi[np.random.default_rng(3).choice(n, GPLVM_M, replace=False)].expand(GPLVM_DIM, GPLVM_M, latent_dim)
+
+    class GPLVM(gt.models.BayesianGPLVM):
+        def __init__(self):
+            vd = gt.variational.CholeskyVariationalDistribution(GPLVM_M, batch_shape=(GPLVM_DIM,))
+            super().__init__(latent, gt.variational.VariationalStrategy(self, Z, vd, learn_inducing_locations=True))
+            self.mean_module = gt.means.ConstantMean(batch_shape=(GPLVM_DIM,))
+            self.covar_module = gt.kernels.ScaleKernel(
+                gt.kernels.RBFKernel(ard_num_dims=latent_dim, batch_shape=(GPLVM_DIM,)), batch_shape=(GPLVM_DIM,))
+
+        def forward(self, x):
+            return gt.distributions.MultivariateNormal(self.mean_module(x), self.covar_module(x))
+
+    model = GPLVM().to(device=device, dtype=dtype)
+    return model, gt.likelihoods.GaussianLikelihood(batch_shape=(GPLVM_DIM,)).to(device=device, dtype=dtype)
+
+
+def _gplvm_steps(model, likelihood, Y, steps, generator, lr=GPLVM_LR):
+    """``steps`` Adam steps of −Σ ELBO over the batch on minibatches of GPLVM_BATCH rows of the
+    latent draw; returns (losses, seconds)."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    mll = gt.mlls.VariationalELBO(likelihood, model, num_data=Y.shape[0])
+    optimizer = torch.optim.Adam([*model.parameters(), *likelihood.parameters()], lr=lr)
+    losses, times = [], []
+    for _ in range(steps):
+        sync(Y.device)
+        t0 = time.perf_counter()
+        idx = torch.randperm(Y.shape[0], generator=generator, device=Y.device)[:GPLVM_BATCH]
+        optimizer.zero_grad()
+        loss = -mll(model(model.sample_latent_variable(generator=generator)[idx]), Y[idx].T).sum()
+        loss.backward()
+        optimizer.step()
+        sync(Y.device)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return losses, times
+
+
+def _gplvm_elbo64(state, X_init, Y, eps, idx, device):
+    """One float64 −Σ ELBO of the variational GPLVM at ``state`` with the latent draw's ε and the
+    minibatch ``idx`` given, and its gradient in every parameter."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    model, likelihood = build_gplvm(X_init, device, torch.float64)
+    model.load_state_dict(state[0])
+    likelihood.load_state_dict(state[1])
+    y = torch.as_tensor(Y, dtype=torch.float64, device=device)
+    x = model.sample_latent_variable(eps=torch.as_tensor(eps, device=device))[idx]
+    loss = -gt.mlls.VariationalELBO(likelihood, model, num_data=Y.shape[0])(model(x), y[idx].T).sum()
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in [*model.named_parameters(), *likelihood.named_parameters()]}
+    return loss.item(), grads
+
+
+def _distance_correlation(A, B) -> float:
+    """The correlation of the two point sets' pairwise distances (``tests/test_gplvm.py``)."""
+    dA = np.linalg.norm(A[:, None] - A[None], axis=-1).ravel()
+    dB = np.linalg.norm(B[:, None] - B[None], axis=-1).ravel()
+    return float(np.corrcoef(dA, dB)[0, 1])
+
+
+def phase_gplvm(steps: int = GPLVM_STEPS, device: str = "cuda"):
+    """Phase 19c: the Bayesian GPLVM at the shape of GPyTorch's GPLVM tutorial (the oil-flow set:
+    GPLVM_N points, GPLVM_DIM observed dimensions, latent_dim = data_dim, GPLVM_M inducing
+    points) on ``make_gplvm_task``'s synthetic data: a ``VariationalLatentVariable`` with a N(0, I)
+    prior from the PCA initialisation, ``VariationalELBO(num_data=GPLVM_N)``, ``steps`` Adam steps at
+    GPLVM_LR on minibatches of GPLVM_BATCH rows of the latent draw.  Prints ms a step, the loss, the
+    distance correlation of q_mu with the true latents (the PCA initialisation's beside it).
+    Gates: the correlation above GPLVM_CORR and above the PCA initialisation's; one float64
+    ELBO and gradient on the card, with the same ε and minibatch, against the CPU's
+    (GPLVM_F64_TOL); the point and MAP latents train GPLVM_POINT_STEPS steps to finite values;
+    no launch of the five kernel wrappers.  Alone:
+    ``python3 -c 'import chip_smoke; chip_smoke.phase_gplvm()'``."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    X_true, Y, X_init = make_gplvm_task(GPLVM_N, GPLVM_DIM)
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    model, likelihood = build_gplvm(X_init, device, torch.float32)
+    y = torch.as_tensor(Y, dtype=torch.float32, device=device)
+    generator = torch.Generator(device=device).manual_seed(LIST_SEED)
+    losses, times = _gplvm_steps(model, likelihood, y, steps, generator)
+    check(bool(np.isfinite(losses).all()), "gplvm: a non-finite loss")
+    corr = _distance_correlation(model.X.q_mu.detach().cpu().numpy(), X_true)
+    corr0 = _distance_correlation(X_init, X_true)
+    rng = np.random.default_rng(LIST_SEED)
+    eps, idx = rng.normal(size=X_init.shape), np.sort(rng.choice(GPLVM_N, GPLVM_BATCH, replace=False))
+    state = (model.state_dict(), likelihood.state_dict())
+    value_card, grad_card = _gplvm_elbo64(state, X_init, Y, eps, idx, device)
+    value_cpu, grad_cpu = _gplvm_elbo64(state, X_init, Y, eps, idx, "cpu")
+    value_gap, grad_gap = abs(value_card - value_cpu) / abs(value_cpu), _grad_gap(grad_cpu, grad_card)[0]
+    others = {}
+    for kind in ("point", "map"):
+        m, lik = build_gplvm(X_init, device, torch.float32, kind)
+        kind_losses, _ = _gplvm_steps(m, lik, y, GPLVM_POINT_STEPS, generator)
+        finite = bool(np.isfinite(kind_losses).all()) and all(bool(torch.isfinite(p).all()) for p in m.parameters())
+        check(finite, f"gplvm {kind} latents: non-finite values")
+        others[kind] = kind_losses
+    launched = tuple(w.launches for w in wrappers)
+    ms = sorted(1e3 * t_ for t_ in times[1:])
+    median = ms[(len(ms) - 1) // 2]
+    print(f"[gplvm] n={GPLVM_N}, {GPLVM_DIM} observed and latent dimensions, m={GPLVM_M}, minibatch {GPLVM_BATCH}, "
+          f"{steps} steps at lr {GPLVM_LR}: median {median:.2f} ms/step (range {ms[0]:.2f} to {ms[-1]:.2f}); loss "
+          f"{losses[0]:.3f} → {np.mean(losses[-20:]):.3f} (mean of the last 20); latent geometry: distance correlation "
+          f"with the true latents {corr:.4f} (PCA initialisation {corr0:.4f}; gate > {GPLVM_CORR} and > the PCA's); "
+          f"float64 card against CPU: value {value_gap:.3e}, gradient {grad_gap:.3e} (tol {GPLVM_F64_TOL}); point and "
+          f"MAP latents {GPLVM_POINT_STEPS} steps: {[round(v, 3) for v in others['point']]}, {[round(v, 3) for v in others['map']]}; "
+          f"launches {launched} (none expected); {nvidia_smi() if device == 'cuda' else device}", flush=True)
+    check(corr > max(GPLVM_CORR, corr0), f"gplvm: latent geometry correlation {corr:.4f}, not above "
+                                          f"{GPLVM_CORR} and the PCA initialisation's {corr0:.4f}")
+    check(value_gap <= GPLVM_F64_TOL and grad_gap <= GPLVM_F64_TOL, f"gplvm: float64 card against CPU {value_gap:.3e}, "
+                                                                     f"{grad_gap:.3e}")
+    check(launched == (0,) * 5, f"gplvm launched {launched}")
+    return dict(median_ms=median, corr=corr, corr0=corr0, launches=launched)
+
+
+def _prior_cases():
+    """Phase 19d's priors, each (name, the prior in float64 on the CPU, its input as numpy)."""
+    import gpytorch_tpu_torch as gt
+
+    rng = np.random.default_rng(LIST_SEED)
+    pr = gt.priors
+    L = np.tril(rng.normal(size=(5, 3, 3)))
+    L[:, range(3), range(3)] = np.abs(L[:, range(3), range(3)]) + 0.3
+    L = L / np.linalg.norm(L, axis=-1, keepdims=True)
+    R = L @ np.swapaxes(L, -1, -2)
+    sd = rng.uniform(0.05, 2.3, size=(5, 3))
+    A = rng.normal(size=(5, 3, 5))
+    X = A @ np.swapaxes(A, -1, -2) / 5 + 0.2 * np.eye(3)
+    K = X[0]
+    box = pr.SmoothedBoxPrior(0.1, 2.0, 0.1)
+    return [("smoothed_box", pr.SmoothedBoxPrior(0.1, 2.0, 0.1), np.array([-0.5, 0.1, 0.7, 1.9, 2.05, 2.6])),
+            ("horseshoe", pr.HorseshoePrior(0.7), np.array([-3.0, -0.4, 0.07, 0.7, 1.4, 3.5])),
+            ("lkj", pr.LKJPrior(3, 2.0), R),
+            ("lkj_cholesky", pr.LKJCholeskyFactorPrior(3, 0.7), L),
+            ("lkj_covariance", pr.LKJCovariancePrior(3, 1.5, box), R * sd[:, :, None] * sd[:, None, :]),
+            ("wishart", pr.WishartPrior(5.5, K), X[1:]),
+            ("inverse_wishart", pr.InverseWishartPrior(5.5, K), X[1:])]
+
+
+def _prior_reading(prior, x, device, dtype):
+    """(log_prob, its gradient in the input) as float64 CPU tensors."""
+    import copy
+
+    import torch
+
+    xt = torch.as_tensor(x, dtype=dtype, device=device).requires_grad_(True)
+    value = copy.deepcopy(prior).to(device=device, dtype=dtype).log_prob(xt)
+    (grad,) = torch.autograd.grad(value.sum(), xt)
+    return value.detach().double().cpu(), grad.double().cpu()
+
+
+def _moment_gaps(device):
+    """Each sampler's draws from a seeded generator on ``device`` in float64 against a moment:
+    {name: (|mean − want| / its standard error, max over entries)}."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    pr = gt.priors
+    K = torch.as_tensor(_prior_cases()[5][2][0], dtype=torch.float64)
+    # P(|θ| < τ) of the horseshoe: E over λ ~ C⁺(0, 1) of 2Φ(1/λ) − 1, λ = tan(πu/2), midpoint rule in u
+    u = (np.arange(200_000) + 0.5) / 200_000
+    inside = float(np.mean([math.erf(v) for v in 1 / (np.tan(np.pi * u / 2) * math.sqrt(2))]))
+
+    def draws(prior, seed):
+        return prior.to(device=device, dtype=torch.float64).sample(
+            (PRIOR_DRAWS,), generator=torch.Generator(device=device).manual_seed(seed))
+
+    def gap(values, want):
+        values = values.double().cpu()
+        se = values.std(0) / math.sqrt(values.shape[0])
+        return ((values.mean(0) - want).abs() / se).max().item()
+
+    lkj = draws(pr.LKJPrior(4, 2.0), 1)
+    lkj_chol = draws(pr.LKJCholeskyFactorPrior(4, 0.7), 2)
+    cov = draws(pr.LKJCovariancePrior(3, 1.5, pr.SmoothedBoxPrior(0.1, 2.0, 0.1)), 3)
+    sd = torch.diagonal(cov, dim1=-2, dim2=-1).sqrt()
+    iu = torch.triu_indices(4, 4, 1)
+    return {"lkj": gap(lkj[:, iu[0], iu[1]] ** 2, 1 / (2 * 2.0 + 3)),
+            "lkj_cholesky": gap((lkj_chol @ lkj_chol.mT)[:, iu[0], iu[1]] ** 2, 1 / (2 * 0.7 + 3)),
+            "lkj_covariance": max(gap(sd, 1.05), gap((cov[:, 0, 1] / (sd[:, 0] * sd[:, 1])) ** 2, 1 / (2 * 1.5 + 2))),
+            "wishart": gap(draws(pr.WishartPrior(6.0, K), 4), 6.0 * K),
+            "inverse_wishart": gap(draws(pr.InverseWishartPrior(9.0, K), 5), K / (9.0 - 3 - 1)),
+            "horseshoe": gap((draws(pr.HorseshoePrior(0.7), 6).abs() < 0.7).double(), inside),
+            "smoothed_box": gap(draws(pr.SmoothedBoxPrior(-1.0, 3.0), 7), 1.0)}
+
+
+def _metric_gap(device) -> float:
+    """The four metrics (MAE, SMSE, MSLL with and without the training targets, the 95 % coverage
+    error) of a MultivariateNormal and an interleaved MultitaskMultivariateNormal made from numpy,
+    on ``device`` in float64 against the CPU: the largest relative difference."""
+    import torch
+
+    import gpytorch_tpu_torch as gt
+
+    rng = np.random.default_rng(LIST_SEED)
+    worst = 0.0
+    for shape in ((256,), (128, 3)):
+        size = int(np.prod(shape))
+        A = rng.normal(size=(size, size))
+        cov, mean = 0.05 * A @ A.T / size + np.diag(rng.uniform(0.05, 0.3, size=size)), rng.normal(size=shape)
+        y, train_y = mean + 0.4 * rng.normal(size=shape), 0.5 + 2.0 * rng.normal(size=shape[0])
+        values = {}
+        for dev in ("cpu", device):
+            t = (lambda a, dev=dev: torch.as_tensor(a, dtype=torch.float64, device=dev))
+            dist = (gt.distributions.MultivariateNormal(t(mean), t(cov)) if len(shape) == 1
+                    else gt.distributions.MultitaskMultivariateNormal(t(mean), t(cov)))
+            ty = t(y)
+            values[dev] = torch.stack([gt.metrics.mean_absolute_error(dist, ty),
+                                       gt.metrics.standardized_mean_squared_error(dist, ty),
+                                       gt.metrics.mean_standardized_log_loss(dist, ty),
+                                       gt.metrics.quantile_coverage_error(dist, ty)]
+                                      + ([gt.metrics.mean_standardized_log_loss(dist, ty, t(train_y))]
+                                         if len(shape) == 1 else [])).cpu()
+        worst = max(worst, ((values[device] - values["cpu"]).abs() / values["cpu"].abs().clamp_min(1e-300)).max().item())
+    return worst
+
+
+def _task_prior():
+    """BoTorch's MultiTaskGP task-covariance prior: LKJ(2, 1.5) with SmoothedBox(e⁻⁶, e^1.25, 0.05)
+    standard deviations."""
+    import gpytorch_tpu_torch as gt
+
+    return gt.priors.LKJCovariancePrior(2, 1.5, gt.priors.SmoothedBoxPrior(math.exp(-6), math.exp(1.25), 0.05))
+
+
+def phase_priors(device: str = "cuda"):
+    """Phase 19d: every new prior (``_prior_cases``) — log_prob and its gradient in the input in
+    float32 and float64 on the card against the CPU in float64, as max |Δ| / max |·|
+    (PRIOR_TOL); each sampler with a seeded generator on the card against a moment, within 5
+    standard errors of PRIOR_DRAWS draws; the phase-13c Hadamard model with an LKJ covariance
+    prior on its IndexKernel (``_task_prior``, BoTorch's MultiTaskGP's), its MLL plus the prior
+    on the card against a CPU float64 run at MT_SLICE_N // 4 points a task (``_mt_slice``), then
+    HAD_PRIOR_STEPS steps at HAD_PRIOR_N points a task and a request (``_mt_train_and_serve``); the
+    four new metrics in float64 on the card against the CPU (METRIC_TOL); no launch of the five
+    kernel wrappers.  Alone: ``python3 -c 'import chip_smoke; chip_smoke.phase_priors()'``."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_initialized():  # called alone
+        phase_device()
+        phase_build()
+    wrappers = _kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    rows, failed = [], []
+    for name, prior, x in _prior_cases():
+        ref = _prior_reading(prior, x, "cpu", torch.float64)
+        gaps = []
+        for dtype, tol in zip((torch.float32, torch.float64), PRIOR_TOL):
+            got = _prior_reading(prior, x, device, dtype)
+            gap = max(((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, ref))
+            gaps.append(gap)
+            if not gap <= tol:
+                failed.append(f"{name} {dtype}: {gap:.3e} (tol {tol})")
+        rows.append((name, *gaps))
+    moments = _moment_gaps(device)
+    metric_gap = _metric_gap(device)
+    hx, hy, htx, _ = make_hadamard_task(HAD_PRIOR_N, 128)
+    sx, sy, stx, _ = make_hadamard_task(MT_SLICE_N // 4, 32, seed=1)
+    build = (lambda *a: build_hadamard_model(*a, task_prior=_task_prior()))
+    gaps = _mt_slice("hadamard prior", build, (sx, sy, stx), extra=True)
+    had = build(hx, hy, device, torch.float32).train()
+    prior_term = had.prior_log_prob_sum().item()
+    before = tuple(w.launches for w in wrappers)  # _mt_train_and_serve counts its own from 0
+    r = _mt_train_and_serve("hadamard prior", had, torch.as_tensor(htx, dtype=torch.float32, device=device),
+                            HAD_PRIOR_STEPS, extra=True)
+    launched = tuple(a + b for a, b in zip(before, r["launches"]))
+    print(f"[priors] log_prob and its gradient, max |Δ| / max |·| against the CPU in float64 (float32/float64 on "
+          f"{device}; tol {PRIOR_TOL}): {'; '.join(f'{n} {a:.1e}/{b:.1e}' for n, a, b in rows)}; samplers, |mean − "
+          f"moment| in standard errors of {PRIOR_DRAWS} draws (limit 5): "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in moments.items())}; metrics float64 against the CPU {metric_gap:.3e} "
+          f"(tol {METRIC_TOL}); hadamard with the LKJ task prior: prior term {prior_term:.4f} → "
+          f"{had.prior_log_prob_sum().item():.4f}, {HAD_PRIOR_STEPS} steps {r['median'] * 1e3:.1f} ms/step; "
+          f"{time.perf_counter() - t0:.1f} s; launches {launched} (none expected)", flush=True)
+    check(not failed, f"priors: {failed}")
+    check(all(v <= 5.0 for v in moments.values()), f"priors: a sampler's moment {moments}")
+    check(metric_gap <= METRIC_TOL, f"priors: metrics on the card differ from the CPU by {metric_gap:.3e}")
+    check(launched == (0,) * 5, f"priors launched {launched}")
+    return dict(worst32=max(r_[1] for r_ in rows), worst64=max(r_[2] for r_ in rows), moments=moments,
+                hadamard_gaps=gaps, launches=launched)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -7864,6 +8720,10 @@ def main() -> int:
         spectral = phase_spectral_mixture()
         derivative = phase_derivative_gp()
         tail = phase_kernel_tail()
+        model_list = phase_model_list(flagship["model"])
+        loo = phase_loo()
+        gplvm = phase_gplvm()
+        priors = phase_priors()
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", flush=True)
         return 1
@@ -7881,10 +8741,12 @@ def main() -> int:
                "online conditioning": ovc["launches"], "dspp": 0, "vnngp": 0, "lmc": lmc["launches"],
                "grid svgp": grid["additive"]["launches"] + grid["grid2d"]["launches"], "large batch": 0,
                "decoupled": decoupled["orthogonal"]["launches"] + decoupled["batch"]["launches"], "sgpr": 0, "rff": 0,
-               "spectral mixture": spectral["launches"][0], "derivative gp": derivative["launches"][0]}
+               "spectral mixture": spectral["launches"][0], "derivative gp": derivative["launches"][0],
+               "model list": model_list["launches"][0], "loo": loo["launches"][0], "gplvm": gplvm["launches"][0],
+               "priors": priors["launches"][0]}
     print(f"[report] kernel_matvec launches by path: {by_path} (kissgp, wiski, multitask, svgp, deep gp, multitask "
-          f"fantasy, structure, classification, dspp, vnngp, lmc, large batch, sgpr, rff, spectral mixture and derivative gp: "
-          f"none expected, no TPU kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
+          f"fantasy, structure, classification, dspp, vnngp, lmc, large batch, sgpr, rff, spectral mixture, derivative gp, "
+          f"loo, gplvm and priors: none expected, no TPU kernel on those paths); dirichlet ({DIR_CLASSES} classes, "
           f"N={N_TRAIN}) dirichlet_step_ms {dirichlet['median_ms']:.1f}, CG {sum(dirichlet['iters'])} iterations in "
           f"{DIR_STEPS} steps, each class alone at the refresh {dirichlet['per_class_iters']}, refresh_s "
           f"{dirichlet['refresh_s']:.3f}, request_ms {dirichlet['request_ms']:.2f}, accuracy {dirichlet['accuracy']:.4f} "
@@ -7928,7 +8790,12 @@ def main() -> int:
           f"{sum(derivative['iters'])} iterations in {DER_STEPS} steps, peak {derivative['peak'] / 2**20:.1f} MiB, value "
           f"rmse {derivative['value_rmse']:.4f}, gradient rmse {derivative['grad_rmse']:.4f}; kernel tail worst (q = 0 aside) "
           f"float64 "
-          f"{tail['worst64']:.2e}, float32 {tail['worst32']:.2e}; "
+          f"{tail['worst64']:.2e}, float32 {tail['worst32']:.2e}; model list (2 outcomes, N={N_TRAIN}) "
+          f"{model_list['median']:.3f} s/step, CG iterations {model_list['iters']}, launches by kernel type "
+          f"{model_list['by_type']}, rmse {[round(r['rmse'], 4) for r in model_list['readings']]}; loo (N={loo['n']}) "
+          f"{loo['median_ms']:.1f} ms/step, peak {loo['peak'] / 2**20:.1f} MiB, LOO-RMSE {loo['loo_rmse']:.4f}; gplvm "
+          f"{gplvm['median_ms']:.2f} ms/step, latent correlation {gplvm['corr']:.4f}; priors worst float32 "
+          f"{priors['worst32']:.2e}, float64 {priors['worst64']:.2e}; "
           f"whole script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
@@ -7946,7 +8813,7 @@ def main() -> int:
                "dirichlet_shape": dirichlet["shape"],
                "ciq_shape": [ciq["shapes"]["matvec_t1"], ciq["shapes"]["matvec_batch"]],
                "ovc_shape": ovc["shape"], "grid_kl_shape": [grid["additive"]["shape"], grid["grid2d"]["shape"]],
-               "decoupled_shape": decoupled["orthogonal"]["shape"]},
+               "decoupled_shape": decoupled["orthogonal"]["shape"], "model_list_matern_shape": model_list["matern_shape"]},
             entry("kernel_grad_x", "kernel_grad_x.cu", 328, gx_launches, gx_err, *gx_timed[(N_TEST, N_TRAIN, 100)],
                   grad_x_tc_bound(N_TEST, N_TRAIN, D, 100))
             | {"tier": "t in (32, 128] and d <= 64 on the tensor cores, 3xTF32 mma.sync m16n8k8; bound_ms from "
@@ -7961,10 +8828,11 @@ def main() -> int:
                                     "dirichlet": dirichlet["launches"][1], "ciq": ciq["launches"][1],
                                     "grid svgp": grid["additive"]["bwd_launches"] + grid["grid2d"]["bwd_launches"],
                                     "decoupled": decoupled["orthogonal"]["bwd_launches"]
-                                    + decoupled["batch"]["bwd_launches"]},
+                                    + decoupled["batch"]["bwd_launches"], "model list": model_list["launches"][1]},
                "love_gradient_shape": love_grad["shape"], "unwhitened_kl_shape": unwhitened["bwd_shape"],
                "ciq_shape": ciq["shapes"]["bwd"], "grid_kl_shape": [grid["additive"]["bwd_shape"], grid["grid2d"]["bwd_shape"]],
                "dirichlet_shape": dirichlet["bwd_shape"], "decoupled_shape": decoupled["orthogonal"]["bwd_shape"],
+               "model_list_matern_shape": model_list["matern_bwd_shape"],
                "tier": "t in (32, 64] and d <= 64 (dx, dos) on the tensor cores, 3xTF32 mma.sync m16n8k8; "
                        "bound_ms from bwd_tc_bound",
                "fantasy_shapes": [fantasy["shapes"]["bwd_t1"], fantasy["shapes"][f"bwd_t{FANT_Q}"]]},

@@ -21,14 +21,17 @@
 // the wrapper folds with torch.sum.  No atomics: the result is deterministic.  Ragged n and
 // t are masked by staging zeros (a zero g and v row adds nothing) and by not storing rows
 // and columns out of range.  Tiers: t in (32, 64] and d <= 64 on the tensor cores
-// (kernel_bwd_tc, the training call); other t on the FP32 FMA tier (kernel_bwd_fused_f32);
-// d > 64 on the wide-d tier (kernel_bwd_fused_wide_f32, csrc/wide_d.cuh).  Input dims: d = 3
-// exact, any other d <= 64 padded to 64.
+// (kernel_bwd_tc, the training call, with dos in float64 by kernel_bwd_dos64); other t
+// on the FP32 FMA tier (kernel_bwd_fused_f32); d > 64 on the wide-d tier
+// (kernel_bwd_fused_wide_f32, csrc/wide_d.cuh).  Input dims: d = 3 exact, any other d <= 64
+// padded to 64.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; loaded with ctypes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_common.cuh"
 #include "wide_d.cuh"
@@ -200,7 +203,7 @@ kernel_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g, c
 
 // ---------------------------------------------------------------------------------------
 // The tensor-core tier, t in (32, 64] and d <= 64: every training step of the flagship
-// (t = 1 + 63 probes; dx and dos).
+// (t = 1 + 63 probes).  It forms dx; dos, where asked for, is kernel_bwd_dos64's (below).
 //
 // The score tile.  Each warp owns one m-tile of 16 rows i; for every staged tile of tc::kTJ
 // rows j it forms GG for its 16 x 32 pairs as one product of depth 128,
@@ -214,15 +217,15 @@ kernel_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g, c
 // (g = lane / 4) with staged row 8 nt + 2 q + e (q = lane % 4).
 //
 // K and k' are never mma operands (dv = K g on the tensor cores would need K in A-fragment
-// order, built a second time), so each pair's k and k' are formed once, at the
+// order, built a second time), so each pair's k' is formed once, at the
 // accumulator's own position, on the CUDA cores, with the FMA tier's arithmetic (the
 // differences, d2 summed over the dims in order, one __expf), and k' is zeroed where the
-// global j is i.  dos = 1/2 sum_ij k GG and dx_i = 2 sum_j k' GG (x_i - x_j), since K is
-// symmetric: both are sums of one score a pair.  Each lane sums k GG and k' GG (x_i - x_j)
-// per dim over its 8 pairs of each of its two rows, the quad (the four lanes of a row)
-// adds its sums with two shuffles, and its first lane adds them to the row's sums in
-// shared memory.  The next tile's rows are loaded into registers before the current
-// tile's mma, as in kernel_matvec.cu's kernel_matvec_tc.
+// global j is i.  dx_i = 2 sum_j k' GG (x_i - x_j), since K is symmetric: a sum of one
+// score a pair.  Each lane sums k' GG (x_i - x_j) per dim over its 8 pairs of each of its
+// two rows, the quad (the four lanes of a row) adds its sums with two shuffles, and its
+// first lane adds them to the row's sums in shared memory.  The next tile's rows are
+// loaded into registers before the current tile's mma, as in kernel_matvec.cu's
+// kernel_matvec_tc.
 //
 // Sums in three levels, as kernel_periodic_bwd_fused.cu's periodic_bwd_tc: each staged
 // tile's (32 rows j), a block sum over kTcBlockTiles tiles (2048 rows j), and the running
@@ -245,8 +248,8 @@ kernel_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g, c
 constexpr int kTcBlockTiles = 64;  // staged tiles per block sum: 2048 rows j
 
 // The tensor-core tier's shared memory: the tile's B fragments; each warp's A fragments;
-// the rows' block and running sums (dx per dim, then dos: DP + 1 floats a row); the staged
-// rows j of x (tc::kTJ rows of kXStride floats); for DP > 4 the block's rows of x.  Rows of
+// the rows' block and running sums (dx per dim, DP + 1 floats a row, the last unused); the
+// staged rows j of x (tc::kTJ rows of kXStride floats); for DP > 4 the block's rows of x.  Rows of
 // x are 16-byte rows, past 4 dims padded by 4 floats, as in kernel_matvec_tc.
 template <int DP, int WARPS>
 struct BwdTcLayout {
@@ -265,7 +268,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int KT, int DP, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32, 2)
 kernel_bwd_tc(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ v,
-              float* __restrict__ dx_part, float* __restrict__ dos_part, int n, int d, int t, bool vec) {
+              float* __restrict__ dx_part, int n, int d, int t, bool vec) {
     using Layout = BwdTcLayout<DP, WARPS>;
     constexpr int kThreads = WARPS * 32;
     constexpr int kBRows = Layout::kRowsB;
@@ -367,9 +370,8 @@ kernel_bwd_tc(const float* __restrict__ x, const float* __restrict__ g, const fl
             }
         }
 
-        // k and k' at each accumulator's pair, from d2 summed over the dims in order, as
-        // the FMA tier does; the tile's sums of each row: dos in slot DP, dx per dim
-        float tdos[2] = {0.0f, 0.0f};
+        // k' at each accumulator's pair, from d2 summed over the dims in order, as the FMA
+        // tier does; the tile's sums of each row, dx per dim
         float tdx[2][kRegX ? DP : 1];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -404,7 +406,6 @@ kernel_bwd_tc(const float* __restrict__ x, const float* __restrict__ g, const fl
                     kernel_fn_and_prime<KT>(d2, kv, kp);
                     if (j0 + jj == row0 + lrow + 8 * h) kp = 0.0f;
                     const float gg = acc[nt][2 * h + e];
-                    tdos[h] = fmaf(kv, gg, tdos[h]);
                     if constexpr (kRegX) {
                         const float w = kp * gg;
 #pragma unroll
@@ -415,8 +416,6 @@ kernel_bwd_tc(const float* __restrict__ x, const float* __restrict__ g, const fl
                 }
             }
         }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) add_tile(h, DP, tdos[h]);
         if constexpr (kRegX) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
@@ -462,8 +461,195 @@ kernel_bwd_tc(const float* __restrict__ x, const float* __restrict__ g, const fl
             if (r >= n) continue;
             const float* sums = &run[(lrow + 8 * h) * SS];
             for (int k = 0; k < d; ++k) dx_part[(int64_t)r * d + k] = 2.0f * sums[k];
-            if (dos_part != nullptr) dos_part[r] = 0.5f * sums[DP];
         }
+    }
+}
+
+// ---------------------------------------------------------------------------------------
+// dos of the tensor-core tier, in float64 (kernel_bwd_dos64).
+//
+// dos = sum_ij k(d2_ij) g_i . v_j is one number, and in the training call it cancels: the
+// rhs's column and the probes' columns pull against each other, and at the first step of
+// a Matern-5/2 model at N = 100k it is about 2e-4 of its diagonal's share.  Every float32
+// evaluation of its 1e10 pairs, the plain version's too, carries rounding noise there of
+// up to about 1e-7 of that share, from each pair's g_i . v_j and k; which evaluation lands
+// nearer float64 is chance (chip_smoke.dos_noise_witness reads them on the card).  So dos
+// is formed in float64 here: g_i . v_j on the FP64 tensor cores (mma.sync m16n8k4: exact
+// products, float64 sums), d2 from the float32 inputs' differences and k(d2) in float64,
+// and each row's sum in float64, rounded to float32 once (the wrapper folds the rows in
+// float64).  kernel_bwd_tc forms dx alone.
+//
+// Each warp owns one m-tile of 16 rows i and keeps their g as A fragments in registers over
+// the whole depth (t <= 64, padded with zeros to kDosSteps k-steps of 4).  A block walks
+// over all rows j in tiles of kDosTJ (four n-tiles of 8), staged in shared memory as
+// float64 rows of v (kDosStride doubles, so that a fragment's eight rows take two
+// wavefronts) and rows of x (float64 for d = 3); the next tile is loaded into registers
+// while the current one is multiplied.  The accumulators acc[h][nt][e] of a lane pair row
+// 8 h + lane / 4 of the m-tile with row 8 nt + 2 (lane % 4) + e of the tile.  Each lane
+// sums k S over its pairs, and the quad (the four lanes of a row) adds its sums at the end:
+// no atomics.  k takes its exp as 2^y from a table of 2^(j/64) and a degree-5 polynomial,
+// and Matern's r its square root from rsqrtf and one Newton step.  What bounds it on the
+// H100: 2t operations a pair on the FP64 tensor cores (19.1 ms at 100k x 100k, t = 64, at
+// their 67 TFLOP/s), besides about 25 float64 operations a pair for d2, k and the sum on
+// the FP64 cores.
+constexpr int kDosTJ = 32;                     // rows j a staged tile
+constexpr int kDosSteps = 16;                  // k-steps of 4: the depth t <= 64 padded to 64
+constexpr int kDosStride = 4 * kDosSteps + 4;  // doubles a staged row of v
+
+// 2^y for y <= 0 in float64, from tab[j] = 2^(j/64): y = m + j/64 + f with |f| <= 1/128,
+// 2^f by Taylor to degree 5 (|f ln 2| <= 0.0055).  Below 2^-1020 it returns 0.
+__device__ __forceinline__ double exp2_neg(double y, const double* tab) {
+    constexpr double kRound = 6755399441055744.0;  // 1.5 * 2^52: adding it rounds to an integer
+    if (y < -1020.0) return 0.0;
+    const double big = fma(y, 64.0, kRound);
+    const int zi = __double2loint(big);            // rint(64 y), from the low bits
+    const double u = (y - (big - kRound) * (1.0 / 64.0)) * 0.6931471805599453;
+    const double p = fma(u, fma(u, fma(u, fma(u, fma(u, 1.0 / 120, 1.0 / 24), 1.0 / 6), 0.5), 1.0), 1.0);
+    const double scale = __longlong_as_double((long long)((zi >> 6) + 1023) << 52);  // 2^floor(z / 64)
+    return tab[zi & 63] * p * scale;
+}
+
+// sqrt(d2) in float64 to about 1e-14: rsqrtf's estimate and one Newton step (sqrt below 1e-30)
+__device__ __forceinline__ double sqrt64(double d2) {
+    if (d2 < 1e-30) return sqrt(d2);
+    const double y = rsqrtf((float)d2);
+    return d2 * y * fma(-0.5 * d2 * y, y, 1.5);
+}
+
+// k(d2) in float64 (kernel_fn_and_prime's kernels)
+template <int KT>
+__device__ __forceinline__ double kernel_fn64(double d2, const double* tab) {
+    constexpr double kLog2e = 1.4426950408889634;
+    if constexpr (KT == kRBF) return exp2_neg(-0.5 * kLog2e * d2, tab);
+    const double r = sqrt64(d2);
+    if constexpr (KT == kMatern05) return exp2_neg(-kLog2e * r, tab);
+    if constexpr (KT == kMatern15) {
+        const double s = 1.7320508075688772 * r;
+        return (1.0 + s) * exp2_neg(-kLog2e * s, tab);
+    }
+    const double s = 2.23606797749979 * r;
+    return fma(s, fma(s, 1.0 / 3.0, 1.0), 1.0) * exp2_neg(-kLog2e * s, tab);
+}
+
+// c0 += a0 b and c1 += a1 b for the m-tile's rows lane / 4 (a0, c0) and 8 + lane / 4 (a1, c1)
+__device__ __forceinline__ void mma_f64(double (&c0)[2], double (&c1)[2], double a0, double a1, double b) {
+    asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+                 : "+d"(c0[0]), "+d"(c0[1]), "+d"(c1[0]), "+d"(c1[1])
+                 : "d"(a0), "d"(a1), "d"(b));
+}
+
+template <int KT, int DP, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+kernel_bwd_dos64(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ v,
+                 float* __restrict__ dos_part, int n, int d, int t) {
+    using XT = std::conditional_t<DP <= 4, double, float>;  // the staged rows of x
+    constexpr int kThreads = WARPS * 32, kRowsB = WARPS * 16;
+    constexpr int kVPer = kDosTJ * 4 * kDosSteps / kThreads;  // values of v a thread stages a tile
+    constexpr int kXPer = (kDosTJ * DP + kThreads - 1) / kThreads;
+    __shared__ double vs[kDosTJ * kDosStride];
+    __shared__ XT xs[kDosTJ * DP];
+    __shared__ XT xis[kRowsB * DP];
+    __shared__ double tab[64];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int grp = lane >> 2, q = lane & 3;
+    const int row0 = blockIdx.x * kRowsB;
+
+    if (threadIdx.x < 64) tab[threadIdx.x] = exp2(threadIdx.x * (1.0 / 64.0));
+    for (int idx = threadIdx.x; idx < kRowsB * DP; idx += kThreads) {
+        const int r = row0 + idx / DP, k = idx % DP;
+        xis[idx] = (r < n && k < d) ? x[(int64_t)r * d + k] : 0.0f;
+    }
+    // this lane's A fragments: g of row 16 warp + 8 h + lane / 4 of the block, column 4 s + lane % 4
+    double a[2][kDosSteps];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * warp + 8 * h + grp;
+#pragma unroll
+        for (int s = 0; s < kDosSteps; ++s) {
+            const int c = 4 * s + q;
+            a[h][s] = (r < n && c < t) ? (double)g[(int64_t)r * t + c] : 0.0;
+        }
+    }
+    double sum[2] = {0.0, 0.0};  // this lane's shares of its rows' (8 h + lane / 4) dos
+
+    // the next tile's rows of v and x, in registers until the tile is stored
+    float pv[kVPer], px[kXPer];
+    auto fetch = [&](int j0) {
+#pragma unroll
+        for (int i = 0; i < kVPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            const int j = j0 + idx / (4 * kDosSteps), c = idx % (4 * kDosSteps);
+            pv[i] = (j < n && c < t) ? v[(int64_t)j * t + c] : 0.0f;
+        }
+#pragma unroll
+        for (int i = 0; i < kXPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            const int j = j0 + idx / DP, k = idx % DP;
+            px[i] = (idx < kDosTJ * DP && j < n && k < d) ? x[(int64_t)j * d + k] : 0.0f;
+        }
+    };
+    fetch(0);
+    for (int j0 = 0; j0 < n; j0 += kDosTJ) {
+        __syncthreads();  // the previous tile is read
+#pragma unroll
+        for (int i = 0; i < kVPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            vs[idx / (4 * kDosSteps) * kDosStride + idx % (4 * kDosSteps)] = pv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < kXPer; ++i) {
+            const int idx = threadIdx.x + i * kThreads;
+            if (idx < kDosTJ * DP) xs[idx] = px[i];
+        }
+        __syncthreads();
+        if (j0 + kDosTJ < n) fetch(j0 + kDosTJ);
+
+        double acc[2][4][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) acc[h][nt][0] = acc[h][nt][1] = 0.0;
+        }
+#pragma unroll
+        for (int s = 0; s < kDosSteps; ++s) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+                mma_f64(acc[0][nt], acc[1][nt], a[0][s], a[1][s], vs[(8 * nt + grp) * kDosStride + 4 * s + q]);
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const XT* xi = &xis[(16 * warp + 8 * h + grp) * DP];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const XT* xj = &xs[(8 * nt + 2 * q + e) * DP];
+                    double d2 = 0.0;
+                    if constexpr (DP <= 4) {
+#pragma unroll
+                        for (int k = 0; k < DP; ++k) {
+                            const double df = xi[k] - xj[k];
+                            d2 = fma(df, df, d2);
+                        }
+                    } else {
+                        for (int k = 0; k < d; ++k) {
+                            const double df = (double)xi[k] - (double)xj[k];
+                            d2 = fma(df, df, d2);
+                        }
+                    }
+                    sum[h] = fma(kernel_fn64<KT>(d2, tab), acc[h][nt][e], sum[h]);
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        double total = sum[h] + __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        total += __shfl_xor_sync(0xffffffffu, total, 2);
+        const int r = row0 + 16 * warp + 8 * h + grp;
+        if (q == 0 && r < n) dos_part[r] = (float)total;
     }
 }
 
@@ -583,7 +769,8 @@ void launch_fma(const Args& a) {
 }
 
 // the tensor-core tier's blocks: 8 warps (128 rows) with the rows of x in registers (DP =
-// 3), 4 warps (64 rows) with them staged (DP = 64), as kernel_matvec_tc's
+// 3), 4 warps (64 rows) with them staged (DP = 64), as kernel_matvec_tc's; then, where dos
+// is asked for, kernel_bwd_dos64
 template <int KT, int DP>
 cudaError_t launch_tc(const Args& a) {
     constexpr int kWarps = DP <= 4 ? 8 : 4;
@@ -594,8 +781,11 @@ cudaError_t launch_tc(const Args& a) {
     // 16-byte loads of g and v rows where every row starts 16-byte aligned
     const bool vec = a.t % 4 == 0 && ((reinterpret_cast<uintptr_t>(a.g) | reinterpret_cast<uintptr_t>(a.v)) & 15) == 0;
     const dim3 grid((a.n + kWarps * 16 - 1) / (kWarps * 16));
-    kernel_bwd_tc<KT, DP, kWarps><<<grid, kWarps * 32, kBytes, a.stream>>>(a.x, a.g, a.v, a.dx_part, a.dos_part,
-                                                                            a.n, a.d, a.t, vec);
+    kernel_bwd_tc<KT, DP, kWarps><<<grid, kWarps * 32, kBytes, a.stream>>>(a.x, a.g, a.v, a.dx_part, a.n, a.d,
+                                                                            a.t, vec);
+    if (a.dos_part != nullptr) {  // dos in float64, on the same blocks of rows
+        kernel_bwd_dos64<KT, DP, kWarps><<<grid, kWarps * 32, 0, a.stream>>>(a.x, a.g, a.v, a.dos_part, a.n, a.d, a.t);
+    }
     return cudaSuccess;
 }
 

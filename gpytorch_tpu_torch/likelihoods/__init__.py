@@ -1,6 +1,6 @@
 from .gaussian_likelihood import (DirichletClassificationLikelihood, FixedNoiseGaussianLikelihood, GaussianLikelihood,
                                   GaussianLikelihoodWithMissingObs, HadamardGaussianLikelihood)
-from .likelihood import Likelihood, _OneDimensionalLikelihood
+from .likelihood import Likelihood, LikelihoodList, _OneDimensionalLikelihood
 from .multitask_gaussian_likelihood import MultitaskGaussianLikelihood
 from .noise_models import (FixedGaussianNoise, HeteroskedasticNoise, HomoskedasticNoise, MultitaskHomoskedasticNoise,
                            Noise)
@@ -10,5 +10,6 @@ from .non_gaussian import (BernoulliLikelihood, BetaLikelihood, LaplaceLikelihoo
 __all__ = ["BernoulliLikelihood", "BetaLikelihood", "DirichletClassificationLikelihood", "FixedGaussianNoise",
            "FixedNoiseGaussianLikelihood", "GaussianLikelihood", "GaussianLikelihoodWithMissingObs",
            "HadamardGaussianLikelihood", "HeteroskedasticNoise", "HomoskedasticNoise", "LaplaceLikelihood",
-           "Likelihood", "MultitaskGaussianLikelihood", "MultitaskHomoskedasticNoise", "NegativeBinomialLikelihood",
-           "Noise", "PoissonLikelihood", "SoftmaxLikelihood", "StudentTLikelihood", "_OneDimensionalLikelihood"]
+           "Likelihood", "LikelihoodList", "MultitaskGaussianLikelihood", "MultitaskHomoskedasticNoise",
+           "NegativeBinomialLikelihood", "Noise", "PoissonLikelihood", "SoftmaxLikelihood", "StudentTLikelihood",
+           "_OneDimensionalLikelihood"]

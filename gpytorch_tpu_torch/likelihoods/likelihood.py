@@ -9,13 +9,14 @@ from ``settings.num_likelihood_samples`` draws of q(f) here; a likelihood with a
 form overrides them.  The draws' base samples come from ``base_samples`` (a
 ``torch.Generator``, or a callable that returns them for a shape), in place of the JAX
 package's key.  ``_OneDimensionalLikelihood`` takes them by Gauss–Hermite quadrature
-instead."""
+instead.  ``LikelihoodList`` holds the likelihoods of a model list."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+from torch import nn
 
 from .. import settings
 from ..core.module import Module
@@ -70,3 +71,18 @@ class _OneDimensionalLikelihood(Likelihood):
     def log_marginal(self, observations, function_dist: MultivariateNormal, *params, **kwargs):
         prob = self.quadrature(lambda f: self.forward(f, *params).log_prob(observations).exp(), function_dist)
         return prob.clamp_min(1e-30).log()
+
+
+class LikelihoodList(Module):
+    """One likelihood per model of an ``IndependentModelList``
+    (``gpytorch_tpu/likelihoods/likelihood.py:85-98``): called with one list of inputs, or
+    with one argument per likelihood, it returns the list of each likelihood's output."""
+
+    def __init__(self, *likelihoods):
+        super().__init__()
+        self.likelihoods = nn.ModuleList(likelihoods)
+
+    def forward(self, *args):
+        if len(args) == 1 and isinstance(args[0], (list, tuple)):
+            args = args[0]
+        return [likelihood(a) for likelihood, a in zip(self.likelihoods, args)]

@@ -3,7 +3,8 @@
 
 * ``InducingPointKernelAddedLossTerm``: SGPR's variance correction −½ Σᵢ (k_ii − q_ii)/σ²ᵢ,
   which ``InducingPointKernel`` sets on each training call and the exact MLL adds;
-* ``KLGaussianAddedLossTerm``: KL(q(x) ‖ p(x)) of a GPLVM's latent inputs, per data point;
+* ``KLGaussianAddedLossTerm``: KL(q(x) ‖ p(x)) of a GPLVM's latent inputs, per data point and
+  observed dimension;
 * ``NoiseModelAddedLossTerm``: the marginal log likelihood of a heteroskedastic noise model.
 
 ``params`` are the arguments after the target of the objective's call (the likelihood's)."""
@@ -35,7 +36,10 @@ class InducingPointKernelAddedLossTerm(AddedLossTerm):
 
 class KLGaussianAddedLossTerm(AddedLossTerm):
     """Σ KL(q(x) ‖ p(x)) over the latent dimensions and points of two diagonal Gaussians,
-    times data_dim / (n · data_dim)."""
+    over n · data_dim: a variational objective adds it to each of a GPLVM's data_dim batch
+    elements, so a loss summed over them counts the KL once per point, as in GPyTorch.  (The
+    JAX package multiplies by data_dim / (n · data_dim), 1/n, and so counts it data_dim
+    times.)"""
 
     def __init__(self, q_x, p_x, n: int, data_dim: int):
         self.q_x = q_x
@@ -47,7 +51,7 @@ class KLGaussianAddedLossTerm(AddedLossTerm):
         var_q, var_p = self.q_x.variance, self.p_x.variance
         kl = 0.5 * (torch.log(var_p / var_q) + (var_q + (self.q_x.mean - self.p_x.mean) ** 2) / var_p - 1.0)
         kl_per_point = kl.sum(-1) if kl.ndim > 1 else kl
-        return kl_per_point.sum() * (self.data_dim / (self.n * max(self.data_dim, 1)))
+        return kl_per_point.sum() / (self.n * max(self.data_dim, 1))
 
 
 class NoiseModelAddedLossTerm(AddedLossTerm):

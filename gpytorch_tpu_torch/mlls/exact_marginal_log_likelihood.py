@@ -42,6 +42,14 @@ class ExactMarginalLogLikelihood(MarginalLogLikelihood):
             raise RuntimeError("Likelihood must be Gaussian for exact inference")
         super().__init__(likelihood, model)
 
+    def _add_other_terms(self, res: torch.Tensor, params) -> torch.Tensor:
+        """``res`` plus the model's added loss terms (each called with ``params``) and the
+        log-densities of the priors of the model and the likelihood, each prior once."""
+        for term in self.model.added_loss_terms():
+            res = res + term.loss(*params)
+        prior_sum = self.prior_log_prob_sum()
+        return res if prior_sum is None else res + prior_sum
+
     def forward(self, function_dist: MultivariateNormal, target, *params, base_samples=None, solver_state=None,
                 return_state: bool = False):
         """(log p(target) + Σ added losses + Σ log p(prior values)) / N under the prior
@@ -80,10 +88,6 @@ class ExactMarginalLogLikelihood(MarginalLogLikelihood):
                 res = res + 0.5 * (~observed).sum(-1).to(res.dtype) * math.log(2 * math.pi)
             else:
                 res = output.log_prob(filled, base_samples=base_samples)
-        for term in self.model.added_loss_terms():
-            res = res + term.loss(*params)
-        prior_sum = self.prior_log_prob_sum()
-        if prior_sum is not None:
-            res = res + prior_sum
+        res = self._add_other_terms(res, params)
         num_data = function_dist.lazy_covariance_matrix.shape[-1]
         return (res / num_data, state) if return_state else res / num_data

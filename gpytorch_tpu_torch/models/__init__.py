@@ -5,6 +5,11 @@ from .exact_gp import ExactGP
 from .exact_prediction_strategies import (DefaultPredictionStrategy, LinearPredictionStrategy, SGPRPredictionStrategy,
                                           prediction_strategy)
 from .gp import GP
+from .gplvm import (BayesianGPLVM, LatentVariable, MAPLatentVariable, PointLatentVariable,
+                    VariationalLatentVariable)
+from .model_list import AbstractModelList, IndependentModelList
 
-__all__ = ["ApproximateGP", "DSPP", "DSPPLayer", "DeepGP", "DeepGPLayer", "DefaultPredictionStrategy", "ExactGP", "GP",
-           "LinearPredictionStrategy", "SGPRPredictionStrategy", "deep_gps", "prediction_strategy"]
+__all__ = ["AbstractModelList", "ApproximateGP", "BayesianGPLVM", "DSPP", "DSPPLayer", "DeepGP", "DeepGPLayer",
+           "DefaultPredictionStrategy", "ExactGP", "GP", "IndependentModelList", "LatentVariable",
+           "LinearPredictionStrategy", "MAPLatentVariable", "PointLatentVariable", "SGPRPredictionStrategy",
+           "VariationalLatentVariable", "deep_gps", "prediction_strategy"]

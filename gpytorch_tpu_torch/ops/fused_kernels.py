@@ -22,6 +22,7 @@ All inputs are pre-scaled: the caller centres x and divides it by the lengthscal
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -347,10 +348,12 @@ class KernelMatvecCUDA:
     """Wrapper of the K·V kernel: checks its inputs, chooses the slab split
     (``product_slabs``), allocates the output (the per-slab partials where there is more
     than one slab, folded with ``torch.sum``), launches on the current stream, counts its
-    launches in ``launches`` and keeps the last launch's slab count in ``last_slabs``."""
+    launches in ``launches`` (and by kernel type in ``launches_by_type``) and keeps the last
+    launch's slab count in ``last_slabs``."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_type = collections.Counter()
         self.last_slabs = 0
 
     def __call__(self, x1: torch.Tensor, x2: torch.Tensor, v: torch.Tensor, kernel_type: int) -> torch.Tensor:
@@ -371,6 +374,7 @@ class KernelMatvecCUDA:
         if rc != 0:
             raise RuntimeError(f"kernel_matvec launch failed: CUDA error {rc}")
         self.launches += 1
+        self.launches_by_type[int(kernel_type)] += 1
         self.last_slabs = slabs
         return out[0] if slabs == 1 else out.sum(0)
 
@@ -428,11 +432,15 @@ class KernelBwdFusedCUDA:
     ``_bwd_fused_reference`` does.  Allocates the per-chunk per-row dx and dos partials (as
     many chunks as the library says), launches on the current stream, folds the partials
     with ``torch.sum`` (dos's in ``dos_fold_dtype``, float64) and counts its launches in
-    ``launches``.  The kernel forms no dv: where it is asked for, dv = K·g is one launch of
-    the product kernel (counted by ``kernel_matvec_cuda``)."""
+    ``launches`` (and by kernel type in ``launches_by_type``).  The kernel forms no dv: where
+    it is asked for, dv = K·g is one launch of the product kernel (counted by
+    ``kernel_matvec_cuda``).  On the tensor-core tier (t in (32, 64], d ≤ 64) the library
+    forms dos in float64 in a second kernel of the same launch (``kernel_bwd_dos64``), whose
+    per-row partials are rounded to float32 once."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_type = collections.Counter()
         self.dos_fold_dtype = torch.float64
 
     def __call__(self, x, g, v, kernel_type: int, need_dv: bool = True, need_dos: bool = False):
@@ -459,6 +467,7 @@ class KernelBwdFusedCUDA:
         if rc != 0:
             raise RuntimeError(f"kernel_bwd_fused launch failed: CUDA error {rc}")
         self.launches += 1
+        self.launches_by_type[int(kernel_type)] += 1
         dv = kernel_matvec_cuda(x, x, g, kernel_type) if need_dv else None
         dx = dx_part[0] if chunks == 1 else dx_part.sum(0)
         # dos's n per-row partials cancel to a small sum: folded in float64, the fold adds

@@ -35,12 +35,16 @@ strategies' nested ``base_variational_strategy.*``, an ``InducingPointKernel``'s
 ``raw_mixture_{weights,means,scales}``, ``raw_Z``, ``raw_angle``, ``raw_radius``,
 ``raw_angular_weights``, the grad means' ``raw_constant``, ``weights`` and ``bias``).  A
 grid variational strategy takes ``<strategy>.grid`` as a grid kernel does, and an RFF kernel ``<kernel>.randn_weights`` (a buffer, in the value's own
-dtype).  A parameter that the module reaches by two paths (an ``InducingPointKernel``'s
-likelihood, which is also the model's) is given under either; the JAX package holds a copy
-under each.  Clears the module's caches, since they depend on the parameters."""
+dtype).  A model list's parameters are ``models.<i>.<name>``, a GPLVM's latent variable's
+``X.X``, ``X.q_mu`` and ``X.q_log_sigma``.  Any other buffer of ``module`` may be given by
+its name (a prior's hyperparameters, e.g. ``X.prior_x.loc`` or an LKJ prior's
+``correlation_prior.eta``), and is copied in its dtype.  A parameter that the module reaches
+by two paths (an ``InducingPointKernel``'s likelihood, which is also the model's) is given
+under either; the JAX package holds a copy under each.  Clears the module's caches, since they depend on the parameters."""
     own = dict(module.named_parameters(remove_duplicate=False))
+    buffers = dict(module.named_buffers(remove_duplicate=False))
     state = {name: value for name, value in params.items() if name not in own}
-    unknown = {name for name in state if name.rsplit(".", 1)[-1] not in _STATE}
+    unknown = {name for name in state if name not in buffers and name.rsplit(".", 1)[-1] not in _STATE}
     given = {id(own[name]) for name in params if name in own}
     missing = {name for name, p in module.named_parameters() if id(p) not in given}
     if unknown or missing:
@@ -55,6 +59,13 @@ under each.  Clears the module's caches, since they depend on the parameters."""
             own[name].copy_(value)
     for name, value in state.items():
         path, attr = name.rsplit(".", 1) if "." in name else ("", name)
+        if name in buffers and attr not in _STATE:
+            value = torch.as_tensor(np.array(value))
+            if tuple(value.shape) != tuple(buffers[name].shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(buffers[name].shape)}")
+            with torch.no_grad():
+                buffers[name].copy_(value)
+            continue
         if attr == "variational_params_initialized":
             module.get_submodule(path).variational_params_initialized.fill_(int(np.asarray(value)))
             continue

@@ -147,6 +147,10 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, ktype, need_dv, n, d, t
     # terms, which bound the float32 summation error (dx of a single point is exactly 0)
     assert (dx.double() - want_dx).abs().max().item() <= 1e-5 * bx.max().item()
     assert abs(dos.double() - want_dos).item() <= 1e-5 * bdos.item()
+    if 32 < t <= 64 and d <= 64:
+        # the tensor-core tier forms dos in float64: only the per-row partials' and the
+        # result's float32 roundings remain
+        assert abs(dos.double() - want_dos).item() <= 2.0**-23 * abs(want_dos.item()) + 1e-8 * bdos.item()
     if need_dv:
         assert (dv.double() - want_dv).abs().max().item() <= 1e-5 * bdv.max().item()
     else:

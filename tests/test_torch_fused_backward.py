@@ -248,20 +248,26 @@ def test_cuda_backward_wrapper_rejects_what_the_kernel_does_not_take(args, error
     assert fk.kernel_bwd_fused_cuda.launches == before
 
 
-# chip_smoke.py's least times of the fused backward: the tensor-core tier's (the score of
-# depth 2t on the tensor cores against 5d + 9 CUDA-core operations a pair) and the FP32
-# cores' for the same work (dx and dos)
+# chip_smoke.py's least times of the fused backward: the tensor-core tier's for dx (the score
+# of depth 2t on the tensor cores against 5d + 9 CUDA-core operations a pair), with dos in
+# float64 besides (its score of depth t on the FP64 tensor cores, 3d + 4 float64 operations
+# a pair), and the FP32 cores' for dx and dos
 @pytest.mark.parametrize(
     "n,d,t,want_tc,term,want_fp32",
     [(100_000, 3, 64, 15.515, "tensor", 41.791),  # the training call: the tensor cores decide
      (100_000, 11, 33, 9.552, "cuda", 29.254)],  # d = 11: 64 CUDA-core operations against 396
 )
 def test_bwd_bounds(n, d, t, want_tc, term, want_fp32):
-    tc_ms, tc_by = cs.bwd_tc_bound(n, d, t)
+    tc_ms, tc_by = cs.bwd_tc_bound(n, d, t, dos=False)
     assert tc_by == "operations" and tc_ms == pytest.approx(want_tc, abs=5e-4)
     tensor_ms = 1e3 * 3 * 2 * (2 * t) * n * n / cs.H100_TF32_FLOPS
     cuda_ms = 1e3 * (5 * d + 9) * n * n / cs.H100_FP32_FLOPS
     assert tc_ms == pytest.approx(tensor_ms if term == "tensor" else cuda_ms, rel=1e-12)
+    dos_ms, dos_by = cs.bwd_tc_bound(n, d, t)
+    fp64_tensor_ms = 1e3 * 2 * t * n * n / cs.H100_FP64_TC_FLOPS
+    fp64_ms = 1e3 * (3 * d + 4) * n * n / cs.H100_FP64_FLOPS
+    assert dos_by == "operations" and dos_ms == pytest.approx(max(tensor_ms + fp64_tensor_ms, cuda_ms, fp64_ms),
+                                                              rel=1e-12)
     fp32_ms, fp32_by = cs.bwd_bound(n, d, t)
     assert fp32_by == "operations" and fp32_ms == pytest.approx(want_fp32, abs=5e-4)
 
@@ -274,6 +280,6 @@ def test_bwd_bounds_with_dv(n, d, t):
     ops_ms = max(1e3 * (6 * t + 5 * d + 9) * n * n / cs.H100_FP32_FLOPS, cs.exp_floor_ms(n * n))
     assert fp32_by == "operations" and fp32_ms == pytest.approx(ops_ms, rel=1e-12)
     assert fp32_ms > cs.bwd_bound(n, d, t)[0]
-    tc_ms, _ = cs.bwd_tc_bound(n, d, t, dv=True)
+    tc_ms, _ = cs.bwd_tc_bound(n, d, t, dv=True, dos=False)
     tensor_ms = 1e3 * 3 * 2 * (3 * t) * n * n / cs.H100_TF32_FLOPS
     assert tc_ms == pytest.approx(max(tensor_ms, 1e3 * (5 * d + 9) * n * n / cs.H100_FP32_FLOPS), rel=1e-12)

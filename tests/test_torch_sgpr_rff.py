@@ -256,7 +256,10 @@ def test_added_loss_terms_match_jax():
                                                            _Diag(jnp.asarray(mp), jnp.asarray(vp)), 10, 3)
     t_kl = gt.mlls.KLGaussianAddedLossTerm(_Diag(torch.from_numpy(mq), torch.from_numpy(vq)),
                                            _Diag(torch.from_numpy(mp), torch.from_numpy(vp)), 10, 3)
-    np.testing.assert_allclose(t_kl.loss().item(), float(j_kl.loss()), rtol=1e-12)
+    # the port divides Σ KL by n · data_dim (GPyTorch's); the JAX package by n, data_dim times more
+    np.testing.assert_allclose(3 * t_kl.loss().item(), float(j_kl.loss()), rtol=1e-12)
+    np.testing.assert_allclose(t_kl.loss().item(), float(np.sum(0.5 * (np.log(vp / vq) + (vq + (mq - mp) ** 2) / vp
+                                                                       - 1.0))) / (10 * 3), rtol=1e-12)
 
     xs, ys = rng.normal(size=5), rng.normal(size=5)
     j_nm = gp.mlls.added_loss_term.NoiseModelAddedLossTerm(lambda x: 2.0 * x, lambda out, t: -(out - t) ** 2)
